@@ -1,0 +1,145 @@
+"""Exact flat-scan index (the port of ``nvdb_tpu.index.flat``).
+
+B queries share one stream of the base. PyTorch runs eagerly, so the JAX
+package's power-of-two batch buckets, which only bound jit recompiles, are
+not needed: a batch runs at its own size.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from nvdb_tpu_torch.formats import vecbin
+from nvdb_tpu_torch.kernels import dispatch, ops
+from nvdb_tpu_torch.store import VectorStore
+from nvdb_tpu_torch.utils import round_up
+
+
+def quantize_queries_i8(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 query quantization (max-abs / 127, round half
+    to even, clamp to ±127), the same f32 arithmetic as ``nvdb_tpu``'s
+    ``FlatIndex`` quantize mode."""
+    amax = queries.abs().amax(dim=1)
+    qs = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q8 = torch.clamp(torch.round(queries / qs[:, None]), -127, 127).to(torch.int8)
+    return q8, qs
+
+
+class FlatIndex:
+    """Exact top-k search over a :class:`VectorStore` by dot product.
+
+    ``quantize_queries`` (int8 stores only): quantize queries to int8 per row
+    and score int8 x int8 with exact int32 sums — query-side quantization
+    noise traded for half the operand bytes (opt-in).
+
+    ``refine_k`` (the exact-i8 mode: int8 x int8 candidates re-scored with
+    the f32 queries) needs the rerank kernel, which is not ported yet."""
+
+    def __init__(self, store: VectorStore, backend: str = "auto",
+                 quantize_queries: bool = False, refine_k: int = 0,
+                 metric: str = "dot"):
+        if metric not in ("dot", "l2"):
+            raise ValueError(f"unknown metric {metric!r}")
+        if backend not in dispatch.BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}")
+        self.store = store
+        self.backend = backend
+        self.metric = metric
+        self.quantize_queries = (quantize_queries and metric == "dot"
+                                 and store.dtype_code == vecbin.DTYPE_I8)
+        if refine_k:
+            raise NotImplementedError(
+                "refine_k needs the exact rerank kernel (the port of "
+                "nvdb_tpu.kernels.rerank.pallas_rerank), which is not ported yet")
+
+    def search_device(self, queries: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """queries [B, Dp] f32, already padded and on the store's device;
+        returns device tensors (scores [B, k] f32, ids [B, k] int32)."""
+        st = self.store
+        if self.quantize_queries:
+            q8, qs = quantize_queries_i8(queries)
+            return dispatch.flat_topk(q8, st.vectors, st.scales, st.n, k,
+                                      backend=self.backend, query_scales=qs)
+        return dispatch.flat_topk(queries, st.vectors, st.scales, st.n, k,
+                                  backend=self.backend, metric=self.metric)
+
+    def search(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """queries [Q, d] f32 on host -> (scores [Q, k] f32, ids [Q, k] int32)
+        on host. Copying the result back waits for the device."""
+        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        qp = torch.from_numpy(self.store.pad_queries(queries)).to(self.store.device)
+        vals, ids = self.search_device(qp, k)
+        return vals.cpu().numpy(), ids.cpu().numpy()
+
+    def warmup(self, batch_sizes=(8,), k: int = 10) -> None:
+        """Run the scan once per batch size: builds and loads the kernel
+        library before any timed call (the reference's warmup loops,
+        nvdb_bench.cpp:317-322)."""
+        for b in batch_sizes:
+            self.search(np.zeros((b, self.store.d), dtype=np.float32), k)
+
+
+def build_ground_truth(
+    store: VectorStore, queries: np.ndarray, k: int, batch: int = 256,
+    backend: str = "auto", metric: str = "dot",
+) -> np.ndarray:
+    """Exact top-k ids for all queries — the nvdb_gt_build core
+    (nvdb_gt_build.cpp:74-127). Returns uint32 ids [Q, k]."""
+    idx = FlatIndex(store, backend=backend, metric=metric)
+    out = []
+    for s in range(0, queries.shape[0], batch):
+        _, ids = idx.search(queries[s: s + batch], k)
+        out.append(ids)
+    return np.concatenate(out, axis=0).astype(np.uint32)
+
+
+def build_ground_truth_chunked(
+    path: str, queries: np.ndarray, k: int, batch: int = 256,
+    row_chunk: int = 1_000_000, verbose: bool = False, metric: str = "dot",
+    *, device,
+) -> np.ndarray:
+    """Exact f32 ground truth for a corpus larger than device memory: stream
+    row chunks (mmap slice -> device), scan each against all query batches
+    with the plain f32 ops (TF32 off), and k-merge the per-chunk winners on
+    the host. Peak device memory is one chunk. ``verbose`` prints per-chunk
+    progress to stderr."""
+    f = vecbin.VecbinFile(path)
+    Q, d = queries.shape
+    dp = round_up(d, 128)
+    qpad = np.zeros((Q, dp), np.float32)
+    qpad[:, :d] = queries
+    qdev = torch.from_numpy(qpad).to(device)
+
+    all_v: list[np.ndarray] = []
+    all_i: list[np.ndarray] = []
+    t0 = time.perf_counter()
+    for c0 in range(0, f.count, row_chunk):
+        c1 = min(c0 + row_chunk, f.count)
+        if verbose:
+            print(f"[gt +{time.perf_counter() - t0:6.1f}s] chunk "
+                  f"{c0}..{c1} of {f.count}", file=sys.stderr, flush=True)
+        n = c1 - c0
+        block = np.zeros((round_up(n, 1024), dp), np.float32)
+        block[:n, :d] = f.rows_f32(c0, c1)
+        dev = torch.from_numpy(block).to(device)
+        del block
+        cv = np.empty((Q, k), np.float32)
+        ci = np.empty((Q, k), np.int64)
+        for s in range(0, Q, batch):
+            v, i = ops.scan_topk(qdev[s:s + batch], dev, None, n, k, metric=metric)
+            i = i.cpu().numpy().astype(np.int64)
+            cv[s:s + batch] = v.cpu().numpy()
+            ci[s:s + batch] = np.where(i >= 0, i + c0, -1)
+        all_v.append(cv)
+        all_i.append(ci)
+        del dev
+    vs = np.concatenate(all_v, axis=1)               # [Q, n_chunks*k]
+    isel = np.concatenate(all_i, axis=1)
+    order = np.argsort(-vs, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(isel, order, axis=1).astype(np.uint32)

@@ -1,0 +1,206 @@
+"""Device-resident embedding store (the port of ``nvdb_tpu.store.store``).
+
+Rows live on one torch device as a single padded dense tensor, dtype-aware
+(f32 / bf16 / int8 + per-row f32 scales). Padding policy as in the reference
+package: rows are padded up to a multiple of ``row_block`` and dims up to a
+multiple of 128. Padding rows and dims are zero; padding rows get scale 1.0
+and are masked out of every scan by ``n`` (the valid-row count).
+
+Residual stores (``attach_residual``, ``norms2``) and sharding arrive with
+the slices that use them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nvdb_tpu_torch.formats import vecbin
+from nvdb_tpu_torch.utils import round_up
+
+# dtype-code -> torch dtype of the device payload
+_TORCH_BY_CODE = {
+    vecbin.DTYPE_F32: torch.float32,
+    vecbin.DTYPE_BF16: torch.bfloat16,
+    vecbin.DTYPE_F16: torch.bfloat16,  # f16 files are re-encoded to bf16
+    vecbin.DTYPE_I8: torch.int8,
+}
+
+DEFAULT_ROW_BLOCK = 4096
+
+# rows per host block when streaming a file to the device
+_UPLOAD_ROWS = 65536
+
+
+def _store_code(code: int) -> int:
+    return vecbin.DTYPE_BF16 if code == vecbin.DTYPE_F16 else code
+
+
+def _encode_host(rows: np.ndarray, store_code: int) -> torch.Tensor:
+    """Host rows in a file encoding -> a CPU tensor in the store encoding
+    (bf16 via round-to-nearest-even bits; bf16 bits pass through)."""
+    if store_code == vecbin.DTYPE_BF16:
+        bits = rows if rows.dtype == np.uint16 else vecbin.to_bf16(rows)
+        return vecbin.bf16_bits_to_torch(bits)
+    if store_code == vecbin.DTYPE_I8:
+        return torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int8))
+    return torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float32))
+
+
+def _scales_tensor(scales: np.ndarray, n: int, np_pad: int, device) -> torch.Tensor:
+    s_host = np.ones((np_pad,), dtype=np.float32)
+    s_host[:n] = scales
+    return torch.from_numpy(s_host).to(device)
+
+
+@dataclasses.dataclass
+class VectorStore:
+    """Device-resident base matrix.
+
+    vectors: [Np, Dp] (padded), dtype float32 | bfloat16 | int8
+    scales:  [Np] float32 per-row scales (int8 only; padding rows get 1.0)
+    n, d:    valid row / dim counts
+    dtype_code: vecbin DTYPE_* describing the *store* encoding
+    src_dtype_code: dtype of the file it came from (for bytes-per-query parity)
+    """
+
+    vectors: torch.Tensor
+    scales: Optional[torch.Tensor]
+    n: int
+    d: int
+    dtype_code: int
+    src_dtype_code: int
+
+    # -- constructors --------------------------------------------------------
+
+    @classmethod
+    def from_numpy(
+        cls,
+        x: np.ndarray,
+        dtype: str = "f32",
+        scales: Optional[np.ndarray] = None,
+        row_block: int = DEFAULT_ROW_BLOCK,
+        src_dtype_code: Optional[int] = None,
+        *,
+        device,
+    ) -> "VectorStore":
+        """Build a store on ``device`` from host rows.
+
+        ``x`` is either raw f32 rows (converted per ``dtype``) or rows already
+        in the target encoding (int8 with ``scales``, or bf16 as ``np.uint16``
+        bits).
+        """
+        code = vecbin.dtype_code(dtype)
+        n, d = x.shape
+        if code == vecbin.DTYPE_I8 and x.dtype != np.int8:
+            x, scales = vecbin.quantize_i8(x)
+        if code == vecbin.DTYPE_I8 and scales is None:
+            raise ValueError("int8 rows need their per-row scales")
+        store_code = _store_code(code)
+
+        np_pad = round_up(max(n, 1), row_block)
+        dp = round_up(d, 128)
+        host_dt = (np.int8 if code == vecbin.DTYPE_I8
+                   else np.uint16 if x.dtype == np.uint16 else np.float32)
+        host = np.zeros((np_pad, dp), dtype=host_dt)
+        host[:n, :d] = x
+        vecs = _encode_host(host, store_code).to(device)
+
+        sc = None
+        if code == vecbin.DTYPE_I8:
+            sc = _scales_tensor(scales, n, np_pad, device)
+        return cls(vecs, sc, n, d, store_code,
+                   src_dtype_code if src_dtype_code is not None else code)
+
+    @classmethod
+    def from_vecbin(
+        cls,
+        path: str,
+        row_block: int = DEFAULT_ROW_BLOCK,
+        *,
+        device,
+    ) -> "VectorStore":
+        """Streamed load: the padded device tensor is filled block by block
+        straight from the mmap'd file, so peak host memory is one block of
+        ``_UPLOAD_ROWS`` rows, not a padded copy of the file."""
+        f = vecbin.VecbinFile(path)
+        code = f.dtype
+        store_code = _store_code(code)
+        n, d = f.count, f.dim
+        np_pad = round_up(max(n, 1), row_block)
+        dp = round_up(d, 128)
+
+        vecs = torch.zeros((np_pad, dp), dtype=_TORCH_BY_CODE[code], device=device)
+        for r0 in range(0, n, _UPLOAD_ROWS):
+            r1 = min(r0 + _UPLOAD_ROWS, n)
+            rows = np.array(f.vectors[r0:r1])  # a writable host copy of the block
+            vecs[r0:r1, :d].copy_(_encode_host(rows, store_code))
+
+        sc = None
+        if store_code == vecbin.DTYPE_I8:
+            sc = _scales_tensor(np.asarray(f.scales), n, np_pad, device)
+        return cls(vecs, sc, n, d, store_code, code)
+
+    @classmethod
+    def from_reference(
+        cls,
+        vectors: np.ndarray,
+        scales: Optional[np.ndarray],
+        n: int,
+        d: int,
+        dtype_code: int,
+        src_dtype_code: int,
+        *,
+        device,
+    ) -> "VectorStore":
+        """Carry a store across from ``nvdb_tpu``: ``vectors`` and ``scales``
+        are ``np.asarray`` of its padded payload and scales (bf16 in any
+        2-byte dtype, read as raw bits). The payload is bit-identical."""
+        if dtype_code == vecbin.DTYPE_BF16:
+            vecs = vecbin.bf16_bits_to_torch(np.asarray(vectors).view(np.uint16))
+        else:
+            vecs = _encode_host(np.array(vectors), dtype_code)
+        sc = None
+        if scales is not None:
+            sc = torch.from_numpy(np.array(scales, dtype=np.float32)).to(device)
+        return cls(vecs.to(device), sc, n, d, dtype_code, src_dtype_code)
+
+    # -- properties -----------------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return self.vectors.device
+
+    @property
+    def n_padded(self) -> int:
+        return self.vectors.shape[0]
+
+    @property
+    def d_padded(self) -> int:
+        return self.vectors.shape[1]
+
+    @property
+    def payload_bytes(self) -> int:
+        """Reference ``bytes_per_query`` semantics: valid payload + aux bytes of
+        the store encoding (nvdb_bench.cpp:414-421)."""
+        return vecbin.payload_and_aux_bytes(self.n, self.d, self.dtype_code)
+
+    @property
+    def hbm_bytes(self) -> int:
+        """Device bytes streamed per full scan (padded shapes)."""
+        b = self.n_padded * self.d_padded * self.vectors.element_size()
+        if self.scales is not None:
+            b += self.n_padded * 4
+        return b
+
+    def pad_queries(self, q: np.ndarray) -> np.ndarray:
+        """Zero-pad query dims to the store's padded dim."""
+        q = np.asarray(q, dtype=np.float32)
+        if q.shape[1] == self.d_padded:
+            return q
+        out = np.zeros((q.shape[0], self.d_padded), dtype=np.float32)
+        out[:, : q.shape[1]] = q[:, : self.d]
+        return out

@@ -1,0 +1,215 @@
+"""Flat-scan parity of the PyTorch port against the JAX package: the port's
+plain ops and dispatch against ``nvdb_tpu.kernels.ops.scan_topk`` and the
+Pallas kernel in interpret mode, per store type, on the same seeded numpy
+inputs; FlatIndex and ground truth against JAX ``FlatIndex(backend="pallas")``.
+
+Tolerances: values to atol 1e-5 / rtol 1e-5 (f32 sums in another order),
+score regret <= 1e-5 against float64 over the effective inputs (the
+bf16-rounded query where the path rounds it, the dequantized store), and ids
+equal at >= 95% of positions (near-ties may swap). The CUDA kernel's own
+tests, which need a card and no JAX, are in test_torch_gpu.py."""
+
+import numpy as np
+import jax.numpy as jnp
+import ml_dtypes
+import pytest
+import torch
+
+from nvdb_tpu.formats import synth as jsynth
+from nvdb_tpu.index.flat import FlatIndex as JFlatIndex
+from nvdb_tpu.index.flat import build_ground_truth as j_build_gt
+from nvdb_tpu.kernels import ops as jops
+from nvdb_tpu.kernels.flat_scan import pallas_flat_topk
+from nvdb_tpu.store import VectorStore as JVectorStore
+from nvdb_tpu_torch.formats import vecbin
+from nvdb_tpu_torch.index.flat import FlatIndex, build_ground_truth
+from nvdb_tpu_torch.kernels import dispatch, flat_scan, ops
+from nvdb_tpu_torch.store import VectorStore
+
+N, NP, D, DP, B = 2000, 2048, 96, 128, 8
+DTYPES = ["f32", "bf16", "i8", "i8xi8"]
+
+
+@pytest.fixture(scope="module")
+def data():
+    base = jsynth.clustered(N, D, n_clusters=8, seed=31)
+    queries, _ = jsynth.sample_queries(base, B, seed=32, perturb=0.05)
+    base_p = np.zeros((NP, DP), np.float32)
+    base_p[:N, :D] = base
+    q_p = np.zeros((B, DP), np.float32)
+    q_p[:, :D] = queries
+    return base_p, q_p
+
+
+def _case(data, dtype):
+    """(numpy inputs for JAX, torch inputs for the port, f64 effective
+    queries and store) for one store type."""
+    base_p, q_p = data
+    if dtype == "f32":
+        jv, tv = base_p, torch.from_numpy(base_p)
+        q_eff, store_eff = q_p, base_p
+        sc = qq = qs = None
+    elif dtype == "bf16":
+        bits = vecbin.to_bf16(base_p)
+        jv, tv = bits.view(ml_dtypes.bfloat16), vecbin.bf16_bits_to_torch(bits)
+        q_eff = vecbin.bf16_to_f32(vecbin.to_bf16(q_p))
+        store_eff = vecbin.bf16_to_f32(bits)
+        sc = qq = qs = None
+    else:
+        codes, sc = vecbin.quantize_i8(base_p)
+        jv, tv = codes, torch.from_numpy(codes)
+        store_eff = codes.astype(np.float64) * sc[:, None]
+        qq = qs = None
+        q_eff = vecbin.bf16_to_f32(vecbin.to_bf16(q_p))
+        if dtype == "i8xi8":
+            qq, qs = vecbin.quantize_i8(q_p)
+            q_eff = qq.astype(np.float64) * qs[:, None]
+    return dict(jv=jv, tv=tv, sc=sc, qq=qq, qs=qs,
+                q_eff=np.asarray(q_eff, np.float64),
+                store_eff=np.asarray(store_eff, np.float64))
+
+
+def _port_args(c, q_p, device="cpu"):
+    t = lambda a: None if a is None else torch.from_numpy(np.asarray(a)).to(device)
+    q = t(c["qq"]) if c["qq"] is not None else t(q_p)
+    return q, c["tv"].to(device), t(c["sc"]), t(c["qs"])
+
+
+def _jax_args(c, q_p):
+    j = lambda a: None if a is None else jnp.asarray(a)
+    q = j(c["qq"]) if c["qq"] is not None else j(q_p)
+    return q, j(c["jv"]), j(c["sc"]), j(c["qs"])
+
+
+def _check_regret(vals, ids, c, n_valid, k):
+    """Chosen ids hold the true top-k scores (float64, effective inputs)."""
+    s64 = c["q_eff"] @ c["store_eff"][:n_valid].T
+    kk = min(k, n_valid)
+    ref = -np.sort(-s64, axis=1)[:, :kk]
+    assert (ids[:, :kk] >= 0).all() and (ids[:, :kk] < n_valid).all()
+    got = np.take_along_axis(s64, ids[:, :kk].astype(np.int64), axis=1)
+    assert np.max(ref - got) <= 1e-5
+    np.testing.assert_allclose(vals[:, :kk], got, atol=1e-5, rtol=1e-5)
+    assert np.all(np.diff(vals[:, :kk], axis=1) <= 0)
+    assert (ids[:, kk:] == -1).all() and np.isneginf(vals[:, kk:]).all()
+    for row in ids[:, :kk]:
+        assert len(set(row.tolist())) == kk
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [1, 10, 128])
+def test_scan_topk_matches_jax(data, dtype, k):
+    """ops.scan_topk and dispatch (torch and auto on the CPU) agree with the
+    JAX oracle and the Pallas kernel in interpret mode, n_valid < Np."""
+    _, q_p = data
+    c = _case(data, dtype)
+    q, v, sc, qs = _port_args(c, q_p)
+    tv_, ti_ = ops.scan_topk(q, v, sc, N, k, row_block=256, query_scales=qs)
+    tv_, ti_ = tv_.numpy(), ti_.numpy()
+    _check_regret(tv_, ti_, c, N, k)
+    for backend in ("torch", "auto"):
+        dv, di = dispatch.flat_topk(q, v, sc, N, k, backend=backend, query_scales=qs)
+        np.testing.assert_array_equal(dv.numpy(), tv_)
+        np.testing.assert_array_equal(di.numpy(), ti_)
+
+    jq, jv, jsc, jqs = _jax_args(c, q_p)
+    ov, oi = jops.scan_topk(jq, jv, jsc, N, k, row_block=256, query_scales=jqs)
+    pv, pi = pallas_flat_topk(jq, jv, jsc, N, k, tile_rows=256, interpret=True,
+                              query_scales=jqs)
+    for ref_v, ref_i in ((ov, oi), (pv, pi)):
+        np.testing.assert_allclose(tv_, np.asarray(ref_v), atol=1e-5, rtol=1e-5)
+        assert np.mean(ti_ == np.asarray(ref_i)) >= 0.95
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k_above_n_valid(data, dtype):
+    """Fewer valid rows than k: the tail is (-inf, -1), as the Pallas kernel
+    gives it (the jnp oracle returns padding ids there, with -inf scores)."""
+    _, q_p = data
+    c = _case(data, dtype)
+    q, v, sc, qs = _port_args(c, q_p)
+    vals, ids = ops.scan_topk(q, v, sc, 5, 10, row_block=256, query_scales=qs)
+    vals, ids = vals.numpy(), ids.numpy()
+    _check_regret(vals, ids, c, 5, 10)
+    jq, jv, jsc, jqs = _jax_args(c, q_p)
+    pv, pi = pallas_flat_topk(jq, jv, jsc, 5, 10, tile_rows=256, interpret=True,
+                              query_scales=jqs)
+    np.testing.assert_array_equal(ids, np.asarray(pi))
+    np.testing.assert_allclose(vals, np.asarray(pv), atol=1e-5, rtol=1e-5)
+
+
+def test_merge_topk_ties_go_to_larger_id():
+    vals = torch.tensor([[1.0, 3.0, 3.0, 2.0]])
+    ids = torch.tensor([[4, 1, 7, 2]], dtype=torch.int32)
+    empty_v = torch.full((1, 3), float("-inf"))
+    empty_i = torch.full((1, 3), -1, dtype=torch.int32)
+    v, i = ops.merge_topk(empty_v, empty_i, vals, ids, 3)
+    assert v.tolist() == [[3.0, 3.0, 2.0]]
+    assert i.tolist() == [[7, 1, 2]]
+
+
+def test_l2_metric_matches_jax(data):
+    base_p, q_p = data
+    scaled = base_p * np.linspace(0.5, 2.0, NP, dtype=np.float32)[:, None]
+    tv_, ti_ = dispatch.flat_topk(torch.from_numpy(q_p), torch.from_numpy(scaled),
+                                  None, N, 10, metric="l2")
+    jv_, ji_ = jops.scan_topk(jnp.asarray(q_p), jnp.asarray(scaled), None, N, 10,
+                              metric="l2")
+    np.testing.assert_allclose(tv_.numpy(), np.asarray(jv_), atol=1e-5, rtol=1e-5)
+    assert np.mean(ti_.numpy() == np.asarray(ji_)) >= 0.95
+
+
+@pytest.mark.parametrize("dtype,qi8", [("f32", False), ("bf16", False),
+                                        ("i8", False), ("i8", True)])
+def test_flat_index_matches_jax_pallas(data, dtype, qi8):
+    base_p, q_p = data
+    base, queries = base_p[:N, :D], q_p[:, :D]
+    j = JFlatIndex(JVectorStore.from_numpy(base, dtype=dtype, row_block=256),
+                   backend="pallas", quantize_queries=qi8)
+    t = FlatIndex(VectorStore.from_numpy(base, dtype=dtype, row_block=256, device="cpu"),
+                  quantize_queries=qi8)
+    jv_, ji_ = j.search(queries, 10)
+    tv_, ti_ = t.search(queries, 10)
+    np.testing.assert_allclose(tv_, jv_, atol=1e-5, rtol=1e-5)
+    assert np.mean(ti_ == ji_) >= 0.95
+
+
+def test_ground_truth_matches_jax(data):
+    base_p, q_p = data
+    base, queries = base_p[:N, :D], q_p[:, :D]
+    jgt = j_build_gt(JVectorStore.from_numpy(base, row_block=256), queries, 10,
+                     batch=4, backend="pallas")
+    tgt = build_ground_truth(VectorStore.from_numpy(base, row_block=256, device="cpu"),
+                             queries, 10, batch=4)
+    assert tgt.dtype == np.uint32
+    assert np.mean(tgt == jgt) >= 0.95
+
+
+def test_ground_truth_chunked_matches_resident(data, tmp_path):
+    from nvdb_tpu_torch.index.flat import build_ground_truth_chunked
+
+    base_p, q_p = data
+    base, queries = base_p[:N, :D], q_p[:, :D]
+    path = str(tmp_path / "b.vecbin")
+    vecbin.write_vecbin(path, base)
+    got = build_ground_truth_chunked(path, queries, 10, row_chunk=700, device="cpu")
+    want = build_ground_truth(VectorStore.from_numpy(base, device="cpu"), queries, 10)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_refine_k_names_missing_kernel(data):
+    base_p, _ = data
+    st = VectorStore.from_numpy(base_p[:N, :D], dtype="i8", device="cpu")
+    with pytest.raises(NotImplementedError, match="pallas_rerank"):
+        FlatIndex(st, quantize_queries=True, refine_k=16)
+
+
+def test_wrapper_cpu_tensor_runs_plain_version(data):
+    base_p, q_p = data
+    q, v = torch.from_numpy(q_p), torch.from_numpy(base_p)
+    before = flat_scan.LAUNCHES
+    got = flat_scan.flat_topk_cuda(q, v, None, N, 10)
+    want = ops.scan_topk(q, v, None, N, 10)
+    assert flat_scan.LAUNCHES == before
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
