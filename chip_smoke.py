@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the CUDA kernel from the sources
-in the checkout, then, one phase per line group:
+Run from the root of a checkout. It builds the CUDA kernels from the
+sources in the checkout (one ``nvcc`` per source, all started together),
+then, one phase per line group:
 
 1. device: the card, ``nvidia-smi``'s name and power limit, torch and CUDA;
 2. build: build seconds and each kernel's ptxas register / spill line;
@@ -17,7 +18,22 @@ in the checkout, then, one phase per line group:
    ``tools.bench`` on a 262,144 x 384 f32 vecbin with float64 ground truth;
 5. times: kernel and plain version in turns at 1M x 768, B = 512, k = 10 per
    store type and at B = 8 for bf16, and the headline line of
-   ``nvdb_tpu_torch.bench``.
+   ``nvdb_tpu_torch.bench``;
+6. ADC kernel vs plain: a random packed index at the flagship's M = 96 and
+   Lcap = 640, B in {1, 8, 64, 256}, P in {1, 7, 64}, kk in {10, 100, 256,
+   1024}, and an index whose lists share ids (replicated rows);
+7. rerank kernel vs plain and a float64 oracle: f32 / bf16 / int8 stores x
+   l2 / dot, B in {1, 8, 256}, R in {10, 100, 256}, k in {1, 10, 100};
+8. the IVF-PQ main path at the flagship's width: a 1M x 768 clustered f32
+   vecbin and 1,024 sampled queries, ground truth by the flat kernel,
+   ``tools.ivf_build --kind ivfpq --nlist 4096 --pq-m 96 --opq``, then
+   ``tools.ivf_eval --chained --nprobe 64 --refine-k 100 --k 10 --batch-q
+   256`` with the kernels (both launch counts reset just before and read
+   just after) and with ``--ivf-backend torch``; recall@10 and QPS of each;
+9. times: the ADC kernel at B = 256, P = 64, M = 96, Lcap = 640, kk = 100 on
+   the built index, and the rerank kernel at B = 256 and B = 8, R = 100,
+   k = 10 on the 1M x 768 bf16 store, each against its plain version in
+   turns.
 
 Every check raises on failure, so the exit code is non-zero if any phase
 fails; nothing falls back to the CPU or to the plain version. Without a CUDA
@@ -45,6 +61,10 @@ REGRET_TOL = 1e-5      # float64 score regret of the kernel's ids
 VALUE_ATOL = 1e-5      # |kernel - plain| per value (f32 sums in another order),
 VALUE_RTOL = 1e-5      # as in the repository's parity tests
 ID_AGREE_MIN = 0.99    # share of positions where kernel and plain ids agree
+ADC_ATOL = 1e-4        # |ADC kernel - plain|: the same bf16 tables summed in the
+                       # same order; the bound leaves room for the compiler
+RECALL_GAP = 0.005     # kernel path's recall@10 against the plain path's
+KERNELS = ("flat_topk", "adc_topk", "rerank_topk")
 
 
 def say(*a):
@@ -257,6 +277,300 @@ def phase_times(torch, dev):
     return out
 
 
+def cuda_ms(torch, fn, iters, warmup=1):
+    """Milliseconds per call of ``fn`` over ``iters`` chained calls (CUDA
+    events, after ``warmup`` calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def in_turns(torch, plain, kern, iters):
+    """plain, kernel, kernel, plain; returns (kernel ms, plain ms, runs)."""
+    runs = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        runs[name].append(cuda_ms(torch, plain if name == "plain" else kern, iters))
+    return sum(runs["kernel"]) / 2, sum(runs["plain"]) / 2, runs
+
+
+def adc_case(torch, dev, b, p, seed, nlist=128, m=96, lcap=640, dup=False):
+    """A random packed index (lists of varied fill, one empty), its tables
+    and probes; ``dup``: lists 1 and 2 hold the same ids."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, (nlist, m, lcap)).astype(np.uint8)
+    slot_ids = np.full((nlist, lcap), -1, np.int32)
+    perm = rng.permutation(nlist * lcap).astype(np.int32)
+    for li in range(nlist):
+        f = int(rng.integers(0, lcap + 1)) if li % 4 else lcap
+        slot_ids[li, :f] = perm[li * lcap:li * lcap + f]
+    slot_ids[3] = -1
+    if dup:
+        slot_ids[2] = slot_ids[1]
+    probes = np.stack([rng.choice(nlist, p, replace=False) for _ in range(b)]).astype(np.int32)
+    if dup:
+        probes[:, :2] = [1, 2]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lut = torch.rand((b, p, m, 256), generator=g, device=dev) * 4.0
+    t = lambda x: torch.from_numpy(x).to(dev)
+    return lut, t(probes), t(codes), t(slot_ids)
+
+
+def check_adc(torch, tag, kv, ki, pv, pi):
+    fin = ki >= 0
+    check(bool((fin == (pi >= 0)).all()), f"{tag}: filler slots differ from plain")
+    err = float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) else 0.0
+    agree = float((ki == pi).float().mean())
+    check(bool(torch.isfinite(kv[ki >= 0]).all()), f"{tag}: non-finite values")
+    check(bool(torch.isneginf(kv[ki < 0]).all()), f"{tag}: filler is not (-inf, -1)")
+    check(bool((kv[:, 1:] <= kv[:, :-1]).all()), f"{tag}: values not sorted")
+    for row in ki.cpu().numpy():
+        live = row[row >= 0]
+        check(len(set(live.tolist())) == len(live), f"{tag}: duplicate ids")
+    check(err <= ADC_ATOL, f"{tag}: values differ from plain by {err}")
+    check(agree >= ID_AGREE_MIN, f"{tag}: id agreement {agree} < {ID_AGREE_MIN}")
+    return err, agree
+
+
+def phase_adc_vs_plain(torch, dev):
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    max_err = 0.0
+    cases = [(b, p, kk, False) for b in (1, 8, 64, 256) for p in (1, 7, 64)
+             for kk in (10, 100, 256, 1024)] + [(8, 7, 100, True), (64, 64, 1024, True)]
+    for b, p, kk, dup in cases:
+        lut, probes, codes, slot_ids = adc_case(torch, dev, b, p, seed=b * 131 + p, dup=dup)
+        kv, ki = adc_scan.adc_topk_cuda(lut, probes, codes, slot_ids, kk)
+        torch.cuda.synchronize(dev)
+        pv, pi = adc_scan.adc_topk_reference(lut, probes, codes, slot_ids, kk)
+        tag = f"B={b} P={p} kk={kk}{' dup' if dup else ''}"
+        err, agree = check_adc(torch, tag, kv, ki, pv, pi)
+        max_err = max(max_err, err)
+        live = float((ki >= 0).float().mean())
+        say(f"  {tag}: max_abs_err={err:.3e} id_agree={agree:.4f} filled={live:.3f}")
+        del lut, probes, codes, slot_ids
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def rerank_regret(s64, cand, ids, k):
+    """float64 regret of the kernel's ids over each row's distinct
+    candidates (s64 [B, R] over cand [B, R], -inf where cand < 0)."""
+    worst = 0.0
+    for b in range(cand.shape[0]):
+        best = {}
+        for c, v in zip(cand[b].tolist(), s64[b].tolist()):
+            if c >= 0:
+                best[c] = v
+        ref = sorted(best.values(), reverse=True)[:k]
+        got = sorted((best[i] for i in ids[b].tolist() if i >= 0), reverse=True)
+        check(len(got) == len(ref), "rerank: too few ids")
+        worst = max(worst, max((r - g for r, g in zip(ref, got)), default=0.0))
+    return worst
+
+
+def phase_rerank_vs_plain(torch, dev):
+    from nvdb_tpu_torch.formats import synth, vecbin
+    from nvdb_tpu_torch.kernels import rerank
+
+    n, dp = 65536, 768
+    base = synth.normalized_gaussian(n, dp, seed=31)
+    q_all = torch.from_numpy(synth.normalized_gaussian(256, dp, seed=32)).to(dev)
+    rng = np.random.default_rng(33)
+    max_err = 0.0
+    for dtype in ("f32", "bf16", "i8"):
+        sc = None
+        if dtype == "f32":
+            store, eff = torch.from_numpy(base).to(dev), torch.from_numpy(base)
+        elif dtype == "bf16":
+            bits = vecbin.to_bf16(base)
+            store = vecbin.bf16_bits_to_torch(bits).to(dev)
+            eff = torch.from_numpy(vecbin.bf16_to_f32(bits))
+        else:
+            codes, scn = vecbin.quantize_i8(base)
+            store, sc = torch.from_numpy(codes).to(dev), torch.from_numpy(scn).to(dev)
+            eff = torch.from_numpy(codes).double() * torch.from_numpy(scn).double()[:, None]
+        eff = eff.double().to(dev)
+        n2 = rerank.store_norms2(store)
+        for metric in ("l2", "dot"):
+            for b in (1, 8, 256):
+                for r in (10, 100, 256):
+                    cand = np.stack([rng.choice(n, r, replace=False) for _ in range(b)])
+                    cand = cand.astype(np.int32)
+                    cand[0, r // 2:] = -1
+                    cand_t = torch.from_numpy(cand).to(dev)
+                    rows = eff[cand_t.clamp(min=0).long()]                # [b, r, dp]
+                    s64 = torch.einsum("bd,brd->br", q_all[:b].double(), rows)
+                    if metric == "l2":
+                        s64 = 2.0 * s64 - (rows * rows).sum(-1)
+                    s64 = torch.where(cand_t >= 0, s64, float("-inf")).cpu().numpy()
+                    for k in (1, 10, 100):
+                        if k > r:
+                            continue
+                        kv, ki = rerank.rerank_topk_cuda(q_all[:b], cand_t, store, sc, k,
+                                                         norms2=n2, metric=metric)
+                        torch.cuda.synchronize(dev)
+                        pv, pi = rerank.rerank_topk_reference(q_all[:b], cand_t, store, sc,
+                                                              k, norms2=n2, metric=metric)
+                        tag = f"{dtype} {metric} B={b} R={r} k={k}"
+                        fin = ki >= 0
+                        err = float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) else 0.0
+                        check(bool((fin == (pi >= 0)).all()), f"{tag}: filler differs")
+                        check(bool(torch.allclose(kv[fin], pv[fin], atol=VALUE_ATOL,
+                                                  rtol=VALUE_RTOL)),
+                              f"{tag}: values differ from plain by {err}")
+                        rg = rerank_regret(s64, cand, ki.cpu().numpy(), k)
+                        check(rg <= REGRET_TOL, f"{tag}: regret {rg} > {REGRET_TOL}")
+                        max_err = max(max_err, err)
+                        if k == 10 or b == 256:
+                            say(f"  {tag}: regret={rg:.3e} max_abs_err={err:.3e}")
+        del store, eff, n2
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def phase_ivf_main_path(torch, dev, n=1_000_000, nlist=4096):
+    d, nq, k = 768, 1024, 10
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    paths = {x: os.path.join(work, f"ivf_{x}") for x in
+             ("base.vecbin", "q.vecbin", "gt.gtbin", "index.npz")}
+    try:
+        return _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
+    from nvdb_tpu_torch.formats import gtbin, synth, vecbin
+    from nvdb_tpu_torch.index.flat import FlatIndex
+    from nvdb_tpu_torch.kernels import adc_scan, rerank
+    from nvdb_tpu_torch.store import VectorStore
+    from nvdb_tpu_torch.tools import ivf_build, ivf_eval
+
+    t0 = time.perf_counter()
+    base = synth.clustered(n, d, n_clusters=16384, spread=0.25, seed=41)
+    queries, _ = synth.sample_queries(base, nq, seed=42, perturb=0.05)
+    vecbin.write_vecbin(paths["base.vecbin"], base)
+    vecbin.write_vecbin(paths["q.vecbin"], queries)
+    del base
+    say(f"  corpus {n} x {d} clustered f32 + {nq} queries written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    store = VectorStore.from_vecbin(paths["base.vecbin"], device=dev)
+    gt = FlatIndex(store).search(queries, k)[1]
+    gtbin.write_gtbin(paths["gt.gtbin"], gt, dim=d, N=n)
+    say(f"  ground truth by the flat kernel (f32 store): {time.perf_counter() - t0:.1f} s")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        idx = ivf_build.main([paths["base.vecbin"], paths["index.npz"], "--kind", "ivfpq",
+                              "--nlist", str(nlist), "--pq-m", "96", "--opq",
+                              "--device", dev.type])
+    say(f"  {buf.getvalue().strip()}")
+    check(idx.lcap > 0 and idx.m == 96 and idx.nlist == nlist, "build: shape")
+
+    eval_args = [paths["index.npz"], paths["base.vecbin"], paths["q.vecbin"], "--gt",
+                 paths["gt.gtbin"], "--chained", "--nprobe", "64", "--refine-k", "100",
+                 "--k", str(k), "--batch-q", "256", "--device", dev.type]
+    out = {}
+    for backend in ("auto", "torch"):
+        buf = io.StringIO()
+        if backend == "auto":
+            adc_scan.LAUNCHES = 0
+            rerank.LAUNCHES = 0
+        with contextlib.redirect_stdout(buf):
+            res = ivf_eval.main(eval_args + ["--ivf-backend", backend])[0]
+        if backend == "auto":
+            out["launches"] = {"adc_topk": adc_scan.LAUNCHES, "rerank_topk": rerank.LAUNCHES}
+        for line in buf.getvalue().splitlines():
+            if line.startswith(("kind=", "RESULT")):
+                say(f"  {line}")
+        say(f"  ivf_eval --ivf-backend {backend}: recall@10={res['recall']:.4f} "
+            f"QPS={res['qps']:.1f}")
+        out[backend] = res
+    say(f"  launches in the auto run: {out['launches']}")
+    for name, count in out["launches"].items():
+        check(count > 0, f"the IVF-PQ main path did not launch {name}")
+    gap = abs(out["auto"]["recall"] - out["torch"]["recall"])
+    check(gap <= RECALL_GAP, f"kernel recall {out['auto']['recall']} vs plain "
+                             f"{out['torch']['recall']}: gap {gap} > {RECALL_GAP}")
+    check(out["auto"]["recall"] >= 0.5, f"recall@10 {out['auto']['recall']} < 0.5")
+    return idx, store, queries, out
+
+
+def phase_ivf_times(torch, dev, idx, store, queries):
+    from nvdb_tpu_torch.index.ivf_flat import _coarse_probes
+    from nvdb_tpu_torch.kernels import adc_scan, ops, pq, rerank
+
+    out = {}
+    b, nprobe, kk = 256, min(64, idx.nlist), 100
+    q = torch.zeros((b, idx.centroids.shape[1]), device=dev)
+    q[:, :idx.d] = torch.from_numpy(queries[:b]).to(dev)
+
+    def tables():
+        """The plain stages before the ADC kernel: rotation, coarse probes,
+        f32 ADC tables, their bf16 copy."""
+        ops.no_tf32()
+        q_rot = q @ idx.rotation
+        probes = _coarse_probes(q_rot, idx.centroids, idx.slot_ids, nprobe)
+        res = q_rot[:, None, :] - idx.centroids[probes]
+        lut = pq.adc_lut(res.reshape(b * nprobe, -1), idx.codebooks, idx.m)
+        return probes, lut.reshape(b, nprobe, idx.m, 256).to(torch.bfloat16)
+
+    probes, lut = tables()
+    fills = idx.fills()
+    tables_ms = cuda_ms(torch, tables, iters=5)
+    whole_ms = cuda_ms(torch, lambda: idx.search_device(q, 10, nprobe, refine_k=kk,
+                                                        refine_store=store), iters=5)
+    say(f"  stages at B={b}: rotation + coarse probes + tables {tables_ms:.4f} ms; "
+        f"whole search_device (kernels) {whole_ms:.4f} ms")
+    args = (lut, probes, idx.codes, idx.slot_ids, kk)
+    kern, plain, runs = in_turns(
+        torch, lambda: adc_scan.adc_topk_reference(*args),
+        lambda: adc_scan.adc_topk_cuda(*args, fills=fills), iters=5)
+    live = float((idx.slot_ids[probes] >= 0).float().mean())
+    say(f"  ADC B={b} P={nprobe} M={idx.m} Lcap={idx.lcap} kk={kk} (live share of "
+        f"probed slots {live:.3f}): kernel {kern:.4f} ms {runs['kernel']} | plain "
+        f"{plain:.4f} ms {runs['plain']}")
+    out["adc_topk"] = (kern, plain)
+    cand = adc_scan.adc_topk_cuda(*args, fills=fills)[1].contiguous()
+    del lut
+
+    st16 = store.vectors.to(torch.bfloat16)
+    n2 = rerank.store_norms2(st16)
+    for bb in (256, 8):
+        qb, cb = q[:bb].contiguous(), cand[:bb].contiguous()
+        kern, plain, runs = in_turns(
+            torch, lambda: rerank.rerank_topk_reference(qb, cb, st16, None, 10, norms2=n2),
+            lambda: rerank.rerank_topk_cuda(qb, cb, st16, None, 10, norms2=n2), iters=20)
+        say(f"  rerank bf16 1M x 768 B={bb} R={kk} k=10 l2: kernel {kern:.4f} ms "
+            f"{runs['kernel']} | plain {plain:.4f} ms {runs['plain']}")
+        out[f"rerank_topk B={bb}"] = (kern, plain)
+    del st16, n2
+    torch.cuda.empty_cache()
+    return out
+
+
+def build_all(torch):
+    """Build every kernel library, one nvcc per source, all started
+    together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nvdb_tpu_torch.kernels import _build
+
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
+        return dict(zip(KERNELS, ex.map(_build.build, KERNELS)))
+
+
 def main() -> int:
     import torch
 
@@ -264,7 +578,6 @@ def main() -> int:
         print("error: no CUDA device; chip_smoke.py runs on a GPU only", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from nvdb_tpu_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -272,11 +585,14 @@ def main() -> int:
     say(f"[1 device] {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
         f"nvidia-smi: {smi} | torch {torch.__version__} CUDA {torch.version.cuda}")
 
-    info = _build.build("flat_topk")
-    say(f"[2 build] flat_topk.cu: {info['seconds']:.2f} s (cached={info['cached']})")
-    for line in info["log"].splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            say(f"  {line.strip()}")
+    t0 = time.perf_counter()
+    infos = build_all(torch)
+    say(f"[2 build] {len(infos)} libraries in {time.perf_counter() - t0:.2f} s wall")
+    for name, info in infos.items():
+        say(f"  {name}.cu: {info['seconds']:.2f} s (cached={info['cached']})")
+        for line in info["log"].splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                say(f"    {line.strip()}")
 
     say("[3 kernel vs plain] 65,536 x 768, n_valid 65,000 "
         f"(regret <= {REGRET_TOL}, |kernel - plain| <= {VALUE_ATOL} + {VALUE_RTOL} rel, "
@@ -289,19 +605,41 @@ def main() -> int:
 
     say("[5 times] 1M x 768, CUDA events over chained scans, plain/kernel/kernel/plain")
     times = phase_times(torch, dev)
-    kern_ms, plain_ms = times["bf16 B=512 k=10"]
+
+    say("[6 ADC kernel vs plain] M = 96, Lcap = 640 "
+        f"(|kernel - plain| <= {ADC_ATOL}, id agreement >= {ID_AGREE_MIN}, no duplicate ids)")
+    adc_err = phase_adc_vs_plain(torch, dev)
+
+    say("[7 rerank kernel vs plain] 65,536 x 768 "
+        f"(regret <= {REGRET_TOL}, |kernel - plain| <= {VALUE_ATOL} + {VALUE_RTOL} rel)")
+    rerank_err = phase_rerank_vs_plain(torch, dev)
+
+    say("[8 IVF-PQ main path] 1M x 768, nlist 4096, m 96, OPQ; nprobe 64, refine 100")
+    idx, store, queries, ivf = phase_ivf_main_path(torch, dev)
+
+    say("[9 IVF-PQ times] CUDA events over chained calls, plain/kernel/kernel/plain")
+    ivf_times = phase_ivf_times(torch, dev, idx, store, queries)
+    del idx, store
 
     say(smi)
+    rows = [
+        ("flat_topk", "nvdb_tpu/kernels/flat_scan.py:417", launches, max_err,
+         times["bf16 B=512 k=10"]),
+        ("adc_topk", "nvdb_tpu/kernels/adc_scan.py:558", ivf["launches"]["adc_topk"],
+         adc_err, ivf_times["adc_topk"]),
+        ("rerank_topk", "nvdb_tpu/kernels/rerank.py:187", ivf["launches"]["rerank_topk"],
+         rerank_err, ivf_times["rerank_topk B=256"]),
+    ]
     say(json.dumps({"kernels": [{
-        "name": "flat_topk",
+        "name": name,
         "route": "cuda",
-        "source": "nvdb_tpu_torch/kernels/csrc/flat_topk.cu",
-        "replaces": "nvdb_tpu/kernels/flat_scan.py:417",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kern_ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": f"nvdb_tpu_torch/kernels/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": n_launch,
+        "max_abs_err": err,
+        "ms": ms[0],
+        "plain_ms": ms[1],
+    } for name, replaces, n_launch, err, ms in rows]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,19 +1,22 @@
 """nvdb_tpu_torch — the PyTorch + CUDA port of nvdb_tpu for NVIDIA Hopper.
 
 The layout mirrors ``nvdb_tpu`` module for module, so each counterpart sits
-at the same path. This slice carries the exact flat-scan path:
+at the same path. Two paths are ported: the exact flat scan, and IVF-OPQ-PQ
+with exact refine (build, ADC candidates, rerank):
 
 - ``formats``  — vecbin64 / raw12 / gtbin, bit-compatible with ``nvdb_tpu``'s
                  files (bf16 payloads are ``np.uint16`` bits on the host),
                  plus seeded synthetic data.
 - ``store``    — padded dtype-aware (f32 / bf16 / int8 + scales) store on an
                  explicit torch device.
-- ``kernels``  — plain PyTorch scan / top-k ops (the CPU path and the oracle)
-                 and the hand-written CUDA flat top-k kernel for sm_90a,
-                 built with nvcc at first use.
-- ``index``    — ``FlatIndex`` and exact ground truth.
+- ``kernels``  — plain PyTorch ops (the CPU path and the oracles), k-means
+                 and PQ training, and the hand-written CUDA kernels for
+                 sm_90a (flat top-k, IVF-PQ ADC top-k, exact rerank), built
+                 with nvcc at first use.
+- ``index``    — ``FlatIndex`` (with the exact-i8 refine mode), exact ground
+                 truth, ``IVFPQIndex`` and the IVF helpers it uses.
 - ``eval``     — stats, recall and the benchmark harness (numpy only).
-- ``tools``    — the ``bench`` CLI.
+- ``tools``    — the ``bench``, ``ivf_build`` and ``ivf_eval`` CLIs.
 
 Importing the package loads no kernel library and imports neither jax nor
 ml_dtypes.

@@ -1,7 +1,9 @@
 """Environment-driven evaluation settings, honoring the reference's variable
 names (``WARMUP``, ``EVAL_MODE``, ``GT_PATH``, ``GT_MODE``, ``EXACT_METRIC``)
-so run scripts translate 1:1. The scan, IVF, PQ and partition configs of
-``nvdb_tpu.config`` arrive with the slices that use them."""
+so run scripts translate 1:1, with the IVF (``IVF_NLIST``, ``IVF_NPROBE``,
+``IVF_TRAIN``) and PQ (``PQ_M``, ``USE_OPQ``, ``OPQ_NITER``, ``REFINE_K``)
+knobs. The scan and partition configs of ``nvdb_tpu.config`` arrive with the
+slices that use them."""
 
 from __future__ import annotations
 
@@ -11,6 +13,42 @@ import os
 
 def _env_int(name: str, default: int) -> int:
     return int(os.environ.get(name, default))
+
+
+def _env_flag(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    return default if v is None else v not in ("0", "", "false", "False")
+
+
+@dataclasses.dataclass
+class IVFConfig:
+    nlist: int = 1024              # IVF_NLIST
+    nprobe: int = 32               # IVF_NPROBE
+    train_size: int = 50_000       # IVF_TRAIN
+    n_iters: int = 10
+    pad_factor: float = 1.5
+    dtype: str = "f32"
+
+    @classmethod
+    def from_env(cls) -> "IVFConfig":
+        return cls(nlist=_env_int("IVF_NLIST", 1024),
+                   nprobe=_env_int("IVF_NPROBE", 32),
+                   train_size=_env_int("IVF_TRAIN", 50_000))
+
+
+@dataclasses.dataclass
+class PQConfig:
+    m: int = 48                    # PQ_M (PQ_BITS fixed at 8)
+    use_opq: bool = True           # USE_OPQ
+    opq_iters: int = 4             # OPQ_NITER
+    refine_k: int = 0              # REFINE_K
+
+    @classmethod
+    def from_env(cls) -> "PQConfig":
+        return cls(m=_env_int("PQ_M", 48),
+                   use_opq=_env_flag("USE_OPQ", True),
+                   opq_iters=_env_int("OPQ_NITER", 4),
+                   refine_k=_env_int("REFINE_K", 0))
 
 
 @dataclasses.dataclass

@@ -17,3 +17,14 @@ def recall_at_k(pred_ids: np.ndarray, gt_ids: np.ndarray, k: int | None = None) 
     for p_row, g_row in zip(pred_ids[:, :k], gt_ids[:, :k]):
         hits += len(set(p_row.tolist()) & set(g_row.tolist()))
     return hits / (gt_ids.shape[0] * k)
+
+
+def candidate_recall(cand_ids: np.ndarray, gt_ids: np.ndarray, k: int) -> float:
+    """Fraction of the true top-k present anywhere in the candidate set
+    [Q, R >= k]: the ceiling an exact refine stage can reach."""
+    cand_ids = np.asarray(cand_ids)
+    gt_ids = np.asarray(gt_ids)[:, :k]
+    hits = 0
+    for c_row, g_row in zip(cand_ids, gt_ids):
+        hits += len(set(c_row.tolist()) & set(g_row.tolist()))
+    return hits / gt_ids.size

@@ -37,8 +37,11 @@ class FlatIndex:
     and score int8 x int8 with exact int32 sums — query-side quantization
     noise traded for half the operand bytes (opt-in).
 
-    ``refine_k`` (the exact-i8 mode: int8 x int8 candidates re-scored with
-    the f32 queries) needs the rerank kernel, which is not ported yet."""
+    ``refine_k`` (with ``quantize_queries``): the exact-i8 mode. The int8 x
+    int8 scan returns its top ``max(refine_k, k)``, then the exact rerank
+    (``dispatch.exact_refine``, metric dot) re-scores those candidates with
+    the original f32 queries, restoring the f32-query ranking. Ignored
+    unless the index is in quantize mode, as in ``nvdb_tpu``."""
 
     def __init__(self, store: VectorStore, backend: str = "auto",
                  quantize_queries: bool = False, refine_k: int = 0,
@@ -52,10 +55,7 @@ class FlatIndex:
         self.metric = metric
         self.quantize_queries = (quantize_queries and metric == "dot"
                                  and store.dtype_code == vecbin.DTYPE_I8)
-        if refine_k:
-            raise NotImplementedError(
-                "refine_k needs the exact rerank kernel (the port of "
-                "nvdb_tpu.kernels.rerank.pallas_rerank), which is not ported yet")
+        self.refine_k = refine_k if self.quantize_queries else 0
 
     def search_device(self, queries: torch.Tensor, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -64,8 +64,13 @@ class FlatIndex:
         st = self.store
         if self.quantize_queries:
             q8, qs = quantize_queries_i8(queries)
-            return dispatch.flat_topk(q8, st.vectors, st.scales, st.n, k,
+            kk = max(self.refine_k, k) if self.refine_k else k
+            v, i = dispatch.flat_topk(q8, st.vectors, st.scales, st.n, kk,
                                       backend=self.backend, query_scales=qs)
+            if self.refine_k:
+                v, i = dispatch.exact_refine(queries, i, st.vectors, st.scales, k,
+                                             metric="dot", backend=self.backend)
+            return v, i
         return dispatch.flat_topk(queries, st.vectors, st.scales, st.n, k,
                                   backend=self.backend, metric=self.metric)
 

@@ -1,0 +1,395 @@
+"""IVF-PQ / IVF-OPQ-PQ index with exact refine (the port of
+``nvdb_tpu.index.ivf_pq``).
+
+Layout as in the JAX package: fixed-capacity packed lists, PQ codes
+``[nlist, M, Lcap]`` uint8 (list-major, subspace rows, slot lanes), slot
+ids ``[nlist, Lcap]`` int32 (-1 padding). All geometry lives in the OPQ-
+rotated space; queries are rotated once at search time. Codes encode the
+rotated residual against the list each row is packed in.
+
+Search is coarse probe -> ADC candidate top-kk (the ``adc_topk`` kernel) ->
+exact refine against the flat store (the ``rerank_topk`` kernel), all on
+one device. ``.npz`` files are plain numpy and byte-compatible with the JAX
+package's, so an index built by either package loads in the other.
+
+Not ported yet (``ROADMAP.md``): ``repack`` and replicated builds (a
+replicated index built by ``nvdb_tpu`` loads and searches), corpus-scale
+k-means refinement, residual-int8 refine stores, and the ADC ``key`` /
+``gather`` id modes: the port always runs the exact ``dma`` semantics.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from nvdb_tpu_torch.index.ivf_flat import _coarse_probes, _pack_lists, _topS_centroids
+from nvdb_tpu_torch.kernels import adc_scan, dispatch, kmeans, ops, pq
+from nvdb_tpu_torch.utils import round_up
+
+
+def _ivfpq_search_block(
+    q_rot: torch.Tensor,       # [B, Dp] rotated queries
+    centroids: torch.Tensor,   # [nlist, Dp]
+    codebooks: torch.Tensor,   # [M, 256, dsub]
+    codes: torch.Tensor,       # [nlist, M, Lcap] uint8
+    slot_ids: torch.Tensor,    # [nlist, Lcap] int32
+    k: int,
+    nprobe: int,
+    m: int,
+    backend: str = "auto",
+    dedup: int = 0,            # replica count of the index (<= 1: ids unique)
+    fills: Optional[torch.Tensor] = None,  # [nlist] int32 (kernel path)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coarse probes, ADC tables and the ADC candidate top-k of one batch."""
+    B = q_rot.shape[0]
+    probes = _coarse_probes(q_rot, centroids, slot_ids, nprobe)     # [B, P]
+    residuals = q_rot[:, None, :] - centroids[probes]                # [B, P, Dp]
+    lut = pq.adc_lut(residuals.reshape(B * nprobe, -1), codebooks, m)
+    lut = lut.reshape(B, nprobe, m, pq.KSUB)                         # [B, P, M, 256]
+    path = dispatch.refine_backend(backend, codes)
+    if path == "cuda":
+        return adc_scan.adc_topk_cuda(lut, probes, codes, slot_ids, k, fills=fills)
+    if path == "torch":
+        return adc_scan.adc_topk_reference(lut, probes, codes, slot_ids, k)
+    # the JAX package's jnp path: f32 tables, gathered code slabs
+    code_slab = codes[probes].transpose(-1, -2)                      # [B, P, L, M]
+    sids = slot_ids[probes]                                          # [B, P, L]
+    scores = torch.where(sids >= 0, pq.adc_scores(lut, code_slab), ops.NEG_INF)
+    if dedup > 1:
+        return ops.dedup_topk(scores.reshape(B, -1), sids.reshape(B, -1), k)
+    return ops.topk_sorted(scores.reshape(B, -1), sids.reshape(B, -1), k)
+
+
+@dataclasses.dataclass
+class IVFPQIndex:
+    rotation: Optional[torch.Tensor]  # [Dp, Dp] f32 (OPQ) or None
+    centroids: torch.Tensor           # [nlist, Dp] f32 (rotated space)
+    codebooks: torch.Tensor           # [M, 256, dsub] f32
+    codes: torch.Tensor               # [nlist, M, Lcap] uint8
+    slot_ids: torch.Tensor            # [nlist, Lcap] int32
+    n: int
+    d: int
+    m: int
+    n_spilled: int = 0
+    replicas: int = 1                 # > 1: each row encoded in its top-R lists
+    _fills: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _ids_mode: Optional[str] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def nlist(self) -> int:
+        return self.centroids.shape[0]
+
+    @property
+    def lcap(self) -> int:
+        return self.codes.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+    def fills(self) -> torch.Tensor:
+        """[nlist] live-slot counts (1 + last live slot), cached: the ADC
+        kernel reads no lane past them."""
+        if self._fills is None:
+            self._fills = adc_scan.list_fills(self.slot_ids)
+        return self._fills
+
+    def ids_mode(self) -> str:
+        """The id strategy the JAX package would pick for this index: 'key'
+        when the lists are prefix-packed and replicas == 1, else 'dma'. The
+        port runs the 'dma' semantics either way; checked once, cached."""
+        if self._ids_mode is None:
+            ok = self.replicas <= 1 and adc_scan.is_prefix_packed(self.slot_ids)
+            self._ids_mode = "key" if ok else "dma"
+        return self._ids_mode
+
+    @property
+    def index_bytes(self) -> int:
+        b = self.codes.numel() + self.slot_ids.numel() * 4
+        b += self.centroids.numel() * 4 + self.codebooks.numel() * 4
+        if self.rotation is not None:
+            b += self.rotation.numel() * 4
+        return b
+
+    # -- build -----------------------------------------------------------------
+
+    @classmethod
+    def build(
+        cls,
+        rows_f32: np.ndarray,
+        nlist: int,
+        m: int = 64,                   # PQ_M analogue (must divide Dp)
+        use_opq: bool = True,          # USE_OPQ
+        train_size: int = 50_000,      # IVF_TRAIN
+        n_iters: int = 10,
+        opq_iters: int = 4,            # OPQ_NITER
+        pad_factor: float = 2.5,
+        spill_candidates: int = 4,
+        seed: int = 0,
+        cb_train_size: Optional[int] = None,   # None -> min(n, 262144)
+        cb_iters: int = 12,
+        corpus_refine_iters: int = 0,
+        *,
+        device,
+    ) -> "IVFPQIndex":
+        """Train and pack an index on ``device``, the stages of
+        ``nvdb_tpu.index.ivf_pq.IVFPQIndex.build``: OPQ rotation, coarse
+        k-means in rotated space, top-S coarse assignment, list packing,
+        PQ codebooks on the residuals, encoding. Random draws come from
+        ``torch.Generator``s seeded from ``seed`` (not the JAX package's
+        numbers)."""
+        if corpus_refine_iters > 0:
+            raise NotImplementedError(
+                "corpus_refine_iters > 0 (kmeans.corpus_refine) is not ported "
+                "yet (ROADMAP.md, build side)")
+        device = torch.device(device)
+        n, d = rows_f32.shape
+        dp = round_up(d, 128)
+        if dp % m != 0:
+            raise ValueError(f"m={m} must divide the padded dim {dp}")
+        gen = torch.Generator(device=device).manual_seed(seed)
+        stage = _stage_logger(n)
+
+        stage("pad corpus")
+        data_p = np.zeros((n, dp), np.float32)
+        data_p[:, :d] = rows_f32
+        t = min(train_size, n)
+
+        rot = None
+        if use_opq:
+            # rotation quality saturates far below coarse-quantizer train sizes
+            t_opq = min(t, 131072)
+            stage(f"train OPQ rotation (t={t_opq})")
+            rot_np, _ = pq.train_opq(gen, data_p[:t_opq], m, n_opq_iters=opq_iters,
+                                     device=device)
+            rot = torch.from_numpy(rot_np).to(device)
+            stage("apply rotation")
+            if n >= _HOST_BUILD_ROWS:
+                data_rot = _rotate_inplace_host(data_p, rot_np)
+            else:
+                data_rot = _host_chunked(lambda x: _matmul(x, rot), data_p, device)
+                del data_p
+        else:
+            data_rot = data_p
+
+        stage(f"k-means coarse quantizer (t={t}, nlist={nlist})")
+        cents, _ = kmeans.kmeans_fit(gen, torch.from_numpy(data_rot[:t]).to(device),
+                                     nlist, n_iters=n_iters)
+
+        stage("coarse assignment (top-S centroids, device-chunked)")
+        S = min(spill_candidates, nlist)
+        alts = _host_chunked(lambda x: _topS_centroids(x, cents, S), data_rot, device)
+        # Lcap is the lane dim of the transposed code layout
+        lcap = round_up(int(np.ceil(n / nlist * pad_factor)), 128)
+
+        # pack row ids first (codes depend on the packed list's centroid)
+        stage(f"pack lists (lcap={lcap})")
+        dummy = np.zeros((n, 1), np.float32)
+        _, slot_ids, _, spilled = _pack_lists(dummy, None, alts[:, 0], None, alts,
+                                              nlist, lcap, 1)
+
+        # residuals against the packed list's centroid, in place
+        cents_np = cents.cpu().numpy()
+        list_of = np.zeros(n, np.int64)  # spilled rows: centroid 0, unused
+        li, si = np.nonzero(slot_ids >= 0)
+        list_of[slot_ids[li, si]] = li
+        stage("residual subtraction")
+        for s in range(0, n, 1_000_000):
+            data_rot[s:s + 1_000_000] -= cents_np[list_of[s:s + 1_000_000]]
+        residuals = data_rot
+
+        tcb = min(n, cb_train_size or 262144)
+        stage(f"train PQ codebooks (t={tcb})")
+        cb = pq.train_codebooks(gen, torch.from_numpy(residuals[:tcb]).to(device), m,
+                                n_iters=cb_iters)
+
+        stage("PQ encode")
+        if n >= _HOST_BUILD_ROWS:
+            codes_rows = _encode_host(residuals, cb.cpu().numpy(), m)
+        else:
+            codes_rows = _host_chunked(lambda x: pq.encode(x, cb, m), residuals, device)
+        stage("scatter codes into list slabs")
+        codes = np.zeros((nlist, m, lcap), np.uint8)
+        codes[li, :, si] = codes_rows[slot_ids[li, si]]
+
+        stage("upload index arrays")
+        return cls(rotation=rot, centroids=cents, codebooks=cb,
+                   codes=torch.from_numpy(codes).to(device),
+                   slot_ids=torch.from_numpy(slot_ids).to(device),
+                   n=n, d=d, m=m, n_spilled=spilled)
+
+    @classmethod
+    def from_reference(cls, rotation, centroids, codebooks, codes, slot_ids, n: int,
+                       d: int, m: int, n_spilled: int = 0, replicas: int = 1, *,
+                       device) -> "IVFPQIndex":
+        """Carry an index across from ``nvdb_tpu``: each array is ``np.asarray``
+        of the JAX index's field (``rotation`` may be None)."""
+        t = lambda a, dt: torch.from_numpy(np.array(a, dtype=dt)).to(device)
+        return cls(rotation=None if rotation is None else t(rotation, np.float32),
+                   centroids=t(centroids, np.float32),
+                   codebooks=t(codebooks, np.float32), codes=t(codes, np.uint8),
+                   slot_ids=t(slot_ids, np.int32), n=int(n), d=int(d), m=int(m),
+                   n_spilled=int(n_spilled), replicas=int(replicas))
+
+    # -- search ----------------------------------------------------------------
+
+    def search_device(self, queries: torch.Tensor, k: int, nprobe: int,
+                      refine_k: int = 0, refine_store=None, backend: str = "auto",
+                      refine_metric: str = "l2", ids_mode: Optional[str] = None,
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Padded on-device queries [B, Dp] in, device tensors out: coarse ->
+        ADC -> optional exact refine against ``refine_store`` (a
+        ``VectorStore`` of the original rows).
+
+        ``backend``: ``auto`` takes the CUDA kernels on a CUDA index and the
+        JAX package's jnp path on the CPU; ``cuda`` the kernels (raising on
+        the CPU); ``torch`` the kernels' plain versions. ``refine_metric``:
+        "l2" (2 q.r - ||r||^2) or "dot". The JAX package's ``for_refine``
+        only chose the ``key`` id mode, which is not ported."""
+        if ids_mode in ("key", "gather"):
+            raise NotImplementedError(
+                f"ids_mode={ids_mode!r} is not ported (ROADMAP.md: the ADC key "
+                f"mode comes only after the exact modes, and only if it wins on "
+                f"the H100); the port runs ids_mode='dma'")
+        if ids_mode not in (None, "dma"):
+            raise ValueError(f"unknown ids_mode {ids_mode!r}")
+        nprobe = min(nprobe, self.nlist)
+        if refine_k > 0:
+            # refining fewer than k candidates cannot give k results
+            refine_k = max(refine_k, k)
+        kk = max(k, refine_k)
+        q_rot = _matmul(queries, self.rotation) if self.rotation is not None else queries
+        path = dispatch.refine_backend(backend, self.codes)
+        v, i = _ivfpq_search_block(q_rot, self.centroids, self.codebooks, self.codes,
+                                   self.slot_ids, kk, nprobe, self.m, backend=backend,
+                                   dedup=self.replicas,
+                                   fills=self.fills() if path == "cuda" else None)
+        if refine_k > 0:
+            if refine_store is None:
+                raise ValueError("refine_k > 0 requires refine_store")
+            v, i = dispatch.exact_refine(
+                queries, i[:, :refine_k], refine_store.vectors, refine_store.scales, k,
+                metric=refine_metric, backend=backend,
+                norms2=(refine_store.norms2()
+                        if refine_metric == "l2" and path != "oracle" else None))
+        return v[:, :k], i[:, :k]
+
+    def search(self, queries: np.ndarray, k: int, nprobe: int, refine_k: int = 0,
+               refine_store=None, q_chunk: int = 256, backend: str = "auto",
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Host path: numpy queries [Q, d] in, (scores [Q, k] f32, ids [Q, k]
+        int64) out, one ``search_device`` per ``q_chunk`` queries."""
+        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        qn = queries.shape[0]
+        dp = self.centroids.shape[1]
+        qp = np.zeros((qn, dp), np.float32)
+        qp[:, :self.d] = queries[:, :self.d]
+        vals_out = np.empty((qn, k), np.float32)
+        ids_out = np.empty((qn, k), np.int64)
+        for s in range(0, qn, q_chunk):
+            e = min(s + q_chunk, qn)
+            v, i = self.search_device(torch.from_numpy(qp[s:e]).to(self.device), k,
+                                      nprobe, refine_k=refine_k,
+                                      refine_store=refine_store, backend=backend)
+            vals_out[s:e] = v.cpu().numpy()
+            ids_out[s:e] = i.cpu().numpy()
+        return vals_out, ids_out
+
+    # -- persistence -----------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """The JAX package's ``.npz`` layout, byte for byte."""
+        np.savez(
+            path,
+            rotation=(self.rotation.cpu().numpy() if self.rotation is not None
+                      else np.zeros(0, np.float32)),
+            centroids=self.centroids.cpu().numpy(),
+            codebooks=self.codebooks.cpu().numpy(),
+            codes=self.codes.cpu().numpy(),
+            slot_ids=self.slot_ids.cpu().numpy(),
+            # 5th field = codes-layout version: 2 -> [nlist, M, Lcap];
+            # 6th = replicas (absent on v1 files -> 1)
+            meta=np.array([self.n, self.d, self.m, self.n_spilled, 2, self.replicas],
+                          np.int64),
+        )
+
+    @classmethod
+    def load(cls, path: str, *, device) -> "IVFPQIndex":
+        z = np.load(path if path.endswith(".npz") else path + ".npz")
+        rot = z["rotation"]
+        meta = [int(x) for x in z["meta"]]
+        n, d, m, spilled = meta[:4]
+        codes = z["codes"]
+        if len(meta) < 5 or meta[4] < 2:
+            codes = np.ascontiguousarray(codes.transpose(0, 2, 1))  # v1 layout
+        return cls.from_reference(rot if rot.size else None, z["centroids"],
+                                  z["codebooks"], codes, z["slot_ids"], n, d, m,
+                                  n_spilled=spilled,
+                                  replicas=meta[5] if len(meta) > 5 else 1,
+                                  device=device)
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    ops.no_tf32()
+    return x @ w
+
+
+def _stage_logger(n: int):
+    """Stage timestamps on stderr for corpus-scale builds (n >= 1M rows);
+    small builds stay silent."""
+    if n < 1_000_000:
+        return lambda msg: None
+    t0 = time.perf_counter()
+
+    def log(msg):
+        print(f"[build +{time.perf_counter() - t0:7.1f}s] {msg}", file=sys.stderr,
+              flush=True)
+    return log
+
+
+def _host_chunked(fn, rows_np: np.ndarray, device, chunk: int = 1_000_000) -> np.ndarray:
+    """Apply a device function over host rows in chunks and reassemble on
+    the host: one chunk (<= ~3 GB at 768 dims) is on the device at a time."""
+    outs = []
+    for s in range(0, rows_np.shape[0], chunk):
+        outs.append(fn(torch.from_numpy(rows_np[s:s + chunk]).to(device)).cpu().numpy())
+    return np.concatenate(outs, axis=0)
+
+
+# Above this row count the build stages whose output is corpus-sized (the
+# rotation, the encoding) run on the host, as in the JAX package.
+_HOST_BUILD_ROWS = 2_000_000
+
+
+def _rotate_inplace_host(data_p: np.ndarray, rot_np: np.ndarray,
+                         chunk: int = 1_000_000) -> np.ndarray:
+    """data_p @ rot, chunked in place on the host (BLAS)."""
+    rot_np = np.asarray(rot_np, np.float32)
+    for s in range(0, data_p.shape[0], chunk):
+        data_p[s:s + chunk] = data_p[s:s + chunk] @ rot_np
+    return data_p
+
+
+def _encode_host(residuals: np.ndarray, cb_np: np.ndarray, m: int,
+                 chunk: int = 262_144) -> np.ndarray:
+    """Host PQ encode: per-subspace argmax of x.c - ||c||^2 / 2 (argmin L2,
+    first index on ties), as ``pq.encode``; [N, M] uint8 on the host."""
+    cb_np = np.asarray(cb_np, np.float32)          # [M, 256, dsub]
+    dsub = cb_np.shape[2]
+    half_norms = 0.5 * np.sum(cb_np * cb_np, axis=2)
+    out = np.empty((residuals.shape[0], m), np.uint8)
+    for s in range(0, residuals.shape[0], chunk):
+        x = residuals[s:s + chunk]
+        for j in range(m):
+            xj = x[:, j * dsub:(j + 1) * dsub]
+            out[s:s + chunk, j] = np.argmax(xj @ cb_np[j].T - half_norms[j],
+                                            axis=1).astype(np.uint8)
+    return out

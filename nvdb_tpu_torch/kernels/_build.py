@@ -3,8 +3,8 @@
 The library has a plain C interface, so ``nvcc`` compiles it in seconds
 without PyTorch's headers, and ``ctypes`` binds it. It is built at first use
 into ``build/nvdb_tpu_torch/`` at the repository root, keyed by a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one is
-loaded as it is. Nothing here runs at import time.
+sources, shared headers and flags, so a changed source or header rebuilds
+and an unchanged one is loaded as it is. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -36,6 +36,18 @@ def _nvcc() -> str:
                        "kernels are built from source and need the CUDA toolkit")
 
 
+def source_digest(name: str, csrc: Path = CSRC) -> str:
+    """Cache key of ``csrc/<name>.cu``: the flags, the source and every other
+    file under ``csrc`` (the headers a source may include), by name and
+    content, so an edited header rebuilds every library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(name.encode())
+    for f in sorted(p for p in csrc.iterdir() if p.is_file()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
 @functools.cache
 def build(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` unless a library of the same sources and
@@ -44,10 +56,7 @@ def build(name: str) -> dict:
     and spills of each kernel). Raises with the compiler's output on
     failure."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(src.read_bytes())
-    digest = h.hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
+    lib = BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
     log_path = lib.with_suffix(".log")
     if lib.is_file():
         log = log_path.read_text() if log_path.is_file() else ""

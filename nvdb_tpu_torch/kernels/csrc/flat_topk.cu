@@ -46,79 +46,24 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "topk_common.cuh"
+
 namespace {
+
+using nvdb::warp_offer;
 
 constexpr int QB = 64;        // queries per CTA
 constexpr int TR = 64;        // rows per tile
 constexpr int DK = 64;        // dims per staged chunk
 constexpr int LD = QB + 4;    // shared-memory row stride (floats), 16-byte aligned
 constexpr int NT = 256;       // threads per pass-1 CTA
-constexpr int MAX_K = 128;
+constexpr int MAX_K = nvdb::WARP_LIST_MAX_K;
 constexpr int MERGE_WARPS = 4;
-constexpr unsigned FULL = 0xffffffffu;
 
 static_assert(QB == TR, "the 16 x 16 thread grid covers a QB x TR tile");
 static_assert(QB <= DK, "the [QB][LD] score tile reuses the [DK][LD] query chunk");
 
 enum Mode { kF32 = 0, kBF16 = 1, kI8 = 2, kI8Q8 = 3 };
-
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai > bi);
-}
-
-// One warp inserts (v, id) into the sorted (descending) list lv/li of length
-// k in shared memory. The caller guarantees (v, id) beats the last entry.
-__device__ __forceinline__ void warp_insert(float* lv, int* li, int k, float v,
-                                            int id, int lane) {
-  int cnt = 0;
-  for (int j = lane; j < k; j += 32) cnt += better(lv[j], li[j], v, id) ? 1 : 0;
-  const int pos = __reduce_add_sync(FULL, cnt);
-  float tv[MAX_K / 32];
-  int ti[MAX_K / 32];
-#pragma unroll
-  for (int r = 0; r < MAX_K / 32; ++r) {
-    const int j = lane + 32 * r;
-    if (j >= pos && j < k - 1) {
-      tv[r] = lv[j];
-      ti[r] = li[j];
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < MAX_K / 32; ++r) {
-    const int j = lane + 32 * r;
-    if (j >= pos && j < k - 1) {
-      lv[j + 1] = tv[r];
-      li[j + 1] = ti[r];
-    }
-  }
-  if (lane == 0) {
-    lv[pos] = v;
-    li[pos] = id;
-  }
-  __syncwarp();
-}
-
-// Offers each lane's candidate (s, id) where ok. Returns whether any lane's
-// candidate beat the list's k-th entry when the call began.
-__device__ __forceinline__ bool warp_offer(float* lv, int* li, int k, float s,
-                                           int id, bool ok, int lane) {
-  float thv = lv[k - 1];
-  int thi = li[k - 1];
-  unsigned m = __ballot_sync(FULL, ok && better(s, id, thv, thi));
-  const bool any = m != 0;
-  while (m) {
-    const int src = __ffs(m) - 1;
-    const float v = __shfl_sync(FULL, s, src);
-    const int vid = __shfl_sync(FULL, id, src);
-    warp_insert(lv, li, k, v, vid, lane);
-    thv = lv[k - 1];
-    thi = li[k - 1];
-    m &= m - 1;
-    m &= __ballot_sync(FULL, ok && better(s, id, thv, thi));
-  }
-  return any;
-}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));

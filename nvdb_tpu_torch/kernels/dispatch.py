@@ -1,12 +1,14 @@
-"""Backend dispatch for the flat-scan top-k (the port of
-``nvdb_tpu.kernels.dispatch.flat_topk``).
+"""Backend dispatch for the flat-scan top-k and the exact refine (the port
+of ``nvdb_tpu.kernels.dispatch``).
 
 ``backend="auto"`` sends CUDA tensors to the CUDA kernel and CPU tensors to
 the plain PyTorch ops; ``"torch"`` forces the plain ops on any device (the
 A/B switch, as ``NVDB_FORCE_JNP`` is for the JAX package); ``"cuda"`` calls
 the kernel's wrapper, which launches the kernel on a CUDA tensor or raises.
 The kernel takes any batch size, so the TPU-tuned 512-query split of the JAX
-dispatch is not carried over."""
+dispatch is not carried over, nor is the refine crossover ``B*R <= 3200``,
+which is about TPU block DMAs: on a CUDA tensor the refine takes its kernel
+at every size."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from nvdb_tpu_torch.kernels import flat_scan, ops
+from nvdb_tpu_torch.kernels import flat_scan, ops, rerank
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -45,3 +47,43 @@ def flat_topk(
         raise ValueError(f"unknown metric {metric!r}")
     return flat_scan.flat_topk_cuda(queries, vectors, scales, n_valid, k,
                                     query_scales=query_scales)
+
+
+def refine_backend(backend: str, tensor: torch.Tensor) -> str:
+    """The path a backend resolves to for ``tensor``, for the refine and the
+    IVF-PQ ADC alike: ``"cuda"`` (the kernel), ``"torch"`` (the kernel's
+    plain version) or ``"oracle"`` (the JAX package's jnp path, which
+    ``auto`` runs on the CPU: for the refine, gathered rows and
+    ``ops.exact_rerank``)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "auto":
+        return "cuda" if tensor.is_cuda else "oracle"
+    return backend
+
+
+def exact_refine(
+    queries: torch.Tensor,            # [B, Dp] f32
+    cand_ids: torch.Tensor,           # [B, R] int32 (-1 padded)
+    vectors: torch.Tensor,            # [Np, Dp] store payload
+    scales: Optional[torch.Tensor],   # [Np] f32 | None
+    k: int,
+    metric: str = "dot",
+    norms2: Optional[torch.Tensor] = None,
+    backend: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact rerank of candidate ids against the full store: the one seam of
+    every refine call (the exact-i8 flat mode, the IVF-PQ refine)."""
+    rb = refine_backend(backend, vectors)
+    cand_ids = cand_ids.to(torch.int32).contiguous()
+    if rb == "cuda":
+        return rerank.rerank_topk_cuda(queries.contiguous(), cand_ids, vectors, scales,
+                                       k, norms2=norms2, metric=metric)
+    if rb == "torch":
+        return rerank.rerank_topk_reference(queries, cand_ids, vectors, scales, k,
+                                            norms2=norms2, metric=metric)
+    safe = torch.clamp(cand_ids, min=0).long()
+    rows = vectors[safe].to(torch.float32)
+    if scales is not None:
+        rows = rows * scales[safe][:, :, None]
+    return ops.exact_rerank(queries, rows, cand_ids, k, metric=metric)

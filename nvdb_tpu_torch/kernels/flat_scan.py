@@ -2,8 +2,9 @@
 (the port of ``nvdb_tpu.kernels.flat_scan.pallas_flat_topk``) and its plain
 PyTorch version.
 
-On a CUDA tensor ``flat_topk_cuda`` launches the kernel or raises; on a CPU
-tensor it runs the plain version, because there is no kernel there.
+``flat_topk_cuda`` launches the kernel on a CUDA tensor and raises on any
+other: the plain version runs only where ``dispatch`` picks it (``auto`` on a
+CPU tensor, or ``torch``).
 """
 
 from __future__ import annotations
@@ -60,7 +61,16 @@ def _lib():
     return fn
 
 
-def _check(t: torch.Tensor, name: str, device: torch.device, dtypes, shape) -> None:
+def require_cuda(t: torch.Tensor, kernel: str) -> None:
+    """A kernel wrapper's first check: the kernel runs on a card only, and
+    a wrapper never falls back to the plain version by itself."""
+    if not t.is_cuda:
+        raise ValueError(f"the {kernel} kernel takes CUDA tensors, got one on "
+                         f"{t.device}; use dispatch with backend 'auto' or "
+                         f"'torch' for the plain version")
+
+
+def check_tensor(t: torch.Tensor, name: str, device: torch.device, dtypes, shape) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the store on {device}")
     if t.dtype not in dtypes:
@@ -93,9 +103,7 @@ def flat_topk_cuda(
     Returns (vals [B, k] f32, ids [B, k] int32), sorted descending, ties to
     the larger id, (-inf, -1) where fewer than k rows are valid."""
     global LAUNCHES
-    if not vectors.is_cuda:
-        return flat_topk_reference(queries, vectors, scales, n_valid, k,
-                                   query_scales=query_scales)
+    require_cuda(vectors, "flat_topk")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
     if vectors.dim() != 2 or queries.dim() != 2:
@@ -105,22 +113,22 @@ def flat_topk_cuda(
     B = queries.shape[0]
     if Dp % _DK != 0:
         raise ValueError(f"padded dim {Dp} is not a multiple of {_DK}")
-    _check(vectors, "vectors", dev, tuple(_MODES), (Np, Dp))
+    check_tensor(vectors, "vectors", dev, tuple(_MODES), (Np, Dp))
     mode = _MODES[vectors.dtype]
     if vectors.dtype == torch.int8:
         if scales is None:
             raise ValueError("an int8 store needs its per-row scales")
-        _check(scales, "scales", dev, (torch.float32,), (Np,))
+        check_tensor(scales, "scales", dev, (torch.float32,), (Np,))
     elif scales is not None:
         raise ValueError("per-row scales belong to int8 stores only")
     if query_scales is not None:
         if vectors.dtype != torch.int8:
             raise ValueError("int8 queries need an int8 store")
-        _check(queries, "queries", dev, (torch.int8,), (B, Dp))
-        _check(query_scales, "query_scales", dev, (torch.float32,), (B,))
+        check_tensor(queries, "queries", dev, (torch.int8,), (B, Dp))
+        check_tensor(query_scales, "query_scales", dev, (torch.float32,), (B,))
         mode = _MODE_I8Q8
     else:
-        _check(queries, "queries", dev, (torch.float32,), (B, Dp))
+        check_tensor(queries, "queries", dev, (torch.float32,), (B, Dp))
 
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)

@@ -44,7 +44,7 @@ def _pick_chunk(n_padded: int, row_block: int, target: int) -> int:
     return best * row_block
 
 
-def _no_tf32() -> None:
+def no_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -69,7 +69,7 @@ def score_chunk(
         if q_scales is not None:
             s = s * q_scales[:, None]
         return s
-    _no_tf32()
+    no_tf32()
     if cdt == torch.float32:
         s = q.to(torch.float32) @ chunk.T
     elif cdt == torch.bfloat16:
@@ -150,3 +150,63 @@ def scan_topk(
         gids = torch.where(valid, gids, -1)
         vals, ids = merge_topk(vals, ids, scores, gids.expand(B, -1), k)
     return vals, ids
+
+
+def topk_sorted(vals: torch.Tensor, ids: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k best of a [B, W] candidate set by (score desc, id desc), padded
+    with (-inf, -1) when W < k."""
+    B = vals.shape[0]
+    empty_v = torch.full((B, 0), NEG_INF, dtype=torch.float32, device=vals.device)
+    empty_i = torch.full((B, 0), -1, dtype=torch.int32, device=vals.device)
+    v, i = merge_topk(empty_v, empty_i, vals, ids.to(torch.int32), k)
+    if v.shape[1] < k:
+        pad = k - v.shape[1]
+        v = torch.cat([v, torch.full((B, pad), NEG_INF, device=v.device)], dim=1)
+        i = torch.cat([i, torch.full((B, pad), -1, dtype=torch.int32, device=i.device)],
+                      dim=1)
+    return v, i
+
+
+def exact_rerank(
+    queries: torch.Tensor,        # [B, Dp] f32
+    cand_vectors: torch.Tensor,   # [B, R, Dp] f32 (already gathered + dequantized)
+    cand_ids: torch.Tensor,       # [B, R] int32 (may contain -1 padding)
+    k: int,
+    metric: str = "l2",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact re-rank of gathered candidates (the port of
+    ``nvdb_tpu.kernels.ops.exact_rerank``). ``metric="l2"`` ranks by
+    2 q.c - ||c||^2 (negated squared L2 up to ||q||^2), ``"dot"`` by q.c;
+    products in full f32 (TF32 off). Returns (scores [B, k], ids [B, k])
+    by (score desc, id desc); -1 candidates never rank."""
+    no_tf32()
+    dots = torch.einsum("bd,brd->br", queries.to(torch.float32),
+                        cand_vectors.to(torch.float32))
+    if metric == "l2":
+        scores = 2.0 * dots - torch.sum(cand_vectors.to(torch.float32) ** 2, dim=-1)
+    elif metric == "dot":
+        scores = dots
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
+    valid = cand_ids >= 0
+    scores = torch.where(valid, scores, NEG_INF)
+    return topk_sorted(scores, torch.where(valid, cand_ids, -1), k)
+
+
+def dedup_topk(vals: torch.Tensor, ids: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Collapse duplicate ids in a [B, W] candidate set, keeping each id's
+    best score, then take the top k (the port of
+    ``nvdb_tpu.kernels.ops.dedup_topk``, for replicated indexes)."""
+    # stable sorts: by score desc, then by id, so each id group starts at
+    # its best score
+    order = torch.argsort(vals, dim=1, descending=True, stable=True)
+    sv, si = torch.gather(vals, 1, order), torch.gather(ids, 1, order)
+    order = torch.argsort(si, dim=1, stable=True)
+    sv, si = torch.gather(sv, 1, order), torch.gather(si, 1, order)
+    dup = torch.zeros_like(si, dtype=torch.bool)
+    dup[:, 1:] = si[:, 1:] == si[:, :-1]
+    sv = torch.where(dup, NEG_INF, sv)
+    si = torch.where(dup, -1, si)
+    return topk_sorted(sv, si, k)

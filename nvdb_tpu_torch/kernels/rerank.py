@@ -1,0 +1,159 @@
+"""Exact rerank top-k: the wrapper of the CUDA kernel ``csrc/rerank_topk.cu``
+(the port of ``nvdb_tpu.kernels.rerank.pallas_rerank``) and its plain
+PyTorch version.
+
+Both fold the metric, the int8 row scale and the cached row norms into two
+per-candidate coefficients, score = amul * dot(q, raw_row) - boff
+(``fold_coefficients``, the fold of ``rerank.py:245-281``), so the kernel
+is metric- and dtype-oblivious. Residual-int8 stores fold into the same
+form and need no kernel change; they arrive with a later slice.
+
+``rerank_topk_cuda`` launches the kernel on a CUDA tensor and raises on any
+other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from nvdb_tpu_torch.kernels import ops
+from nvdb_tpu_torch.kernels.flat_scan import check_tensor, require_cuda
+
+MAX_K = 128
+# the kernel keeps the query, the R scores and ids and the top-k list in
+# shared memory; this bounds R at the store widths the repo uses
+_SMEM_LIMIT = 200 * 1024
+
+_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# Launches of the kernel since the last reset. Only rerank_topk_cuda's
+# launch adds to it.
+LAUNCHES = 0
+
+
+def store_norms2(vectors: torch.Tensor) -> torch.Tensor:
+    """[Np] f32 squared row norms of the raw store payload (int8: norms of
+    the integer codes; the row scale enters at score time as s^2 ||r||^2).
+    Cache it per store (``VectorStore.norms2``)."""
+    v = vectors.to(torch.float32)
+    return torch.sum(v * v, dim=1)
+
+
+def fold_coefficients(
+    cand_ids: torch.Tensor,           # [B, R] int32 (-1 padded)
+    scales: Optional[torch.Tensor],   # [Np] f32 (int8 stores)
+    norms2: Optional[torch.Tensor],   # [Np] f32 (metric l2)
+    metric: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-candidate (amul, boff), [B, R] f32, with score = amul * dot - boff:
+    dot: amul = s, boff = 0; l2 (2 q.row - ||row||^2): amul = 2 s,
+    boff = s^2 ||codes||^2 (s = 1 for f32 / bf16 stores)."""
+    safe = torch.clamp(cand_ids, min=0).long()
+    sc = scales[safe] if scales is not None else None
+    if metric == "dot":
+        amul = sc if sc is not None else torch.ones(cand_ids.shape, device=cand_ids.device)
+        return amul.contiguous(), torch.zeros(cand_ids.shape, device=cand_ids.device)
+    if metric != "l2":
+        raise ValueError(f"unknown metric {metric!r}")
+    if norms2 is None:
+        raise ValueError("metric='l2' needs the store's norms2")
+    n2 = norms2[safe]
+    if sc is not None:
+        return (2.0 * sc).contiguous(), (sc * sc * n2).contiguous()
+    return torch.full(cand_ids.shape, 2.0, device=cand_ids.device), n2.contiguous()
+
+
+def rerank_topk_reference(
+    queries: torch.Tensor,            # [B, Dp] f32
+    cand_ids: torch.Tensor,           # [B, R] int32 (-1 padded)
+    vectors: torch.Tensor,            # [Np, Dp] f32 | bf16 | int8
+    scales: Optional[torch.Tensor],   # [Np] f32 (int8 stores)
+    k: int,
+    norms2: Optional[torch.Tensor] = None,
+    metric: str = "l2",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the kernel: the same fold, the rows
+    gathered and widened to f32, full-f32 dots (TF32 off), ids outside
+    [0, Np) never ranked, a repeated id taken once, (score desc, id desc)."""
+    if metric == "l2" and norms2 is None:
+        norms2 = store_norms2(vectors)
+    amul, boff = fold_coefficients(cand_ids, scales, norms2, metric)
+    valid = (cand_ids >= 0) & (cand_ids < vectors.shape[0])
+    safe = torch.where(valid, cand_ids, 0).long()
+    ops.no_tf32()
+    rows = vectors[safe].to(torch.float32)                          # [B, R, Dp]
+    dots = torch.einsum("bd,brd->br", queries.to(torch.float32), rows)
+    scores = torch.where(valid, amul * dots - boff, ops.NEG_INF)
+    return ops.dedup_topk(scores, torch.where(valid, cand_ids, -1).to(torch.int32), k)
+
+
+@functools.cache
+def _lib():
+    """The kernel's C entry point, built with nvcc at first call."""
+    from nvdb_tpu_torch.kernels import _build
+
+    fn = _build.load("rerank_topk").nvdb_rerank_topk
+    # 7 pointers, B, R, Dp, n_rows, k, mode, stream
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rerank_topk_cuda(
+    queries: torch.Tensor,            # [B, Dp] f32
+    cand_ids: torch.Tensor,           # [B, R] int32 (-1 padded)
+    vectors: torch.Tensor,            # [Np, Dp] f32 | bf16 | int8
+    scales: Optional[torch.Tensor],   # [Np] f32 (int8 stores)
+    k: int,
+    norms2: Optional[torch.Tensor] = None,  # [Np] f32 (VectorStore.norms2)
+    metric: str = "l2",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over each query's candidate rows; the contract of
+    ``rerank_topk_reference``. Returns (vals [B, k] f32, ids [B, k] int32).
+    Pass ``norms2`` in serving loops: without it, metric l2 reads the whole
+    store once per call."""
+    global LAUNCHES
+    require_cuda(vectors, "rerank_topk")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    if vectors.dim() != 2 or queries.dim() != 2 or cand_ids.dim() != 2:
+        raise ValueError("queries, cand_ids and vectors must be 2-D")
+    dev = vectors.device
+    Np, Dp = vectors.shape
+    B, R = cand_ids.shape
+    if Dp % 16 != 0:
+        raise ValueError(f"padded dim {Dp} is not a multiple of 16 (16-byte loads)")
+    check_tensor(vectors, "vectors", dev, tuple(_MODES), (Np, Dp))
+    check_tensor(queries, "queries", dev, (torch.float32,), (B, Dp))
+    check_tensor(cand_ids, "cand_ids", dev, (torch.int32,), (B, R))
+    if (vectors.dtype == torch.int8) != (scales is not None):
+        raise ValueError("per-row scales go with int8 stores, and only with them")
+    if scales is not None:
+        check_tensor(scales, "scales", dev, (torch.float32,), (Np,))
+    if R < 1:
+        raise ValueError("no candidates")
+    if Dp * 4 + R * 8 + k * 8 > _SMEM_LIMIT:
+        raise ValueError(f"R={R} candidates of dim {Dp} exceed the kernel's "
+                         f"shared memory")
+    if metric == "l2" and norms2 is None:
+        norms2 = store_norms2(vectors)
+    amul, boff = fold_coefficients(cand_ids, scales, norms2, metric)
+
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0:
+        return vals, ids
+    fn = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(queries.data_ptr(), cand_ids.data_ptr(), vectors.data_ptr(),
+                amul.data_ptr(), boff.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+                B, R, Dp, Np, k, _MODES[vectors.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"rerank_topk kernel launch failed: cudaError_t {rc}")
+    LAUNCHES += 1
+    return vals, ids

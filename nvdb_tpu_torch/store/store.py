@@ -6,8 +6,9 @@ package: rows are padded up to a multiple of ``row_block`` and dims up to a
 multiple of 128. Padding rows and dims are zero; padding rows get scale 1.0
 and are masked out of every scan by ``n`` (the valid-row count).
 
-Residual stores (``attach_residual``, ``norms2``) and sharding arrive with
-the slices that use them.
+``norms2`` caches the squared row norms the l2 rerank folds in. Residual
+stores (``attach_residual``) and sharding arrive with the slices that use
+them.
 """
 
 from __future__ import annotations
@@ -73,6 +74,8 @@ class VectorStore:
     d: int
     dtype_code: int
     src_dtype_code: int
+    _norms2: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     # -- constructors --------------------------------------------------------
 
@@ -195,6 +198,15 @@ class VectorStore:
         if self.scales is not None:
             b += self.n_padded * 4
         return b
+
+    def norms2(self) -> torch.Tensor:
+        """[Np] f32 squared norms of the raw rows (int8: of the codes),
+        computed once on the store's device and cached."""
+        if self._norms2 is None:
+            from nvdb_tpu_torch.kernels.rerank import store_norms2
+
+            self._norms2 = store_norms2(self.vectors)
+        return self._norms2
 
     def pad_queries(self, q: np.ndarray) -> np.ndarray:
         """Zero-pad query dims to the store's padded dim."""

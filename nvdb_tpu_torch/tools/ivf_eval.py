@@ -1,0 +1,250 @@
+"""IVF-PQ + refine eval harness, the nvdb_ivf_eval analogue (the port of
+``nvdb_tpu.tools.ivf_eval``, one device).
+
+    python -m nvdb_tpu_torch.tools.ivf_eval index.npz base.vecbin q.vecbin \\
+        --gt gt.gtbin --nprobe 64 --refine-k 100 --k 10 --batch-q 256 \\
+        [--chained [--wave W]] [--ivf-backend auto|cuda|torch] [--device cuda|cpu]
+
+Two ways to run each (nprobe, refine_k) grid point, as in the JAX package:
+
+- staged (default; PIPELINE=staged): stage A times ANN candidate
+  generation batch by batch and keeps the candidate ids; stage B times the
+  exact refine over the stored candidates. The per-query total is ANN plus
+  the amortized refine. Also reports ``cand_recall``, the share of the true
+  top-k anywhere in the candidate set.
+- ``--chained``: the fused coarse + ADC + refine ``search_device`` over all
+  query batches staged on the device, one fetch at the end; ``--wave W``
+  also fetches every W-th batch for wave latency percentiles.
+
+Each grid point prints a ``RESULT key=value ...`` line with the device
+name; ``main`` returns those records as dicts. Every timed batch ends in a
+copy to the host, so times include the device work. ``--shards``,
+``--force-sharded``, ``--residual-refine``, ``--ids-mode key|gather`` and
+IVF-Flat indexes are not ported yet and exit non-zero.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+
+import numpy as np
+
+from nvdb_tpu_torch import config
+from nvdb_tpu_torch.eval.recall import candidate_recall, recall_at_k
+from nvdb_tpu_torch.eval.stats import compute_stats, result_line
+from nvdb_tpu_torch.formats import gtbin, vecbin
+from nvdb_tpu_torch.tools._common import fail, make_parser, setup_device
+
+
+def main(argv=None):
+    ivf_env = config.IVFConfig.from_env()
+    pq_env = config.PQConfig.from_env()
+    eval_env = config.EvalConfig.from_env()
+
+    p = make_parser(__doc__)
+    p.add_argument("index", help="index .npz from ivf_build (either package)")
+    p.add_argument("base", help="base vecbin (refine store + GT dims)")
+    p.add_argument("query")
+    p.add_argument("--k", type=int, default=10)
+    p.add_argument("--nprobe", type=int, nargs="+", default=[ivf_env.nprobe])
+    p.add_argument("--refine-k", type=int, nargs="+", default=[pq_env.refine_k],
+                   help="0 disables refine; sweeps the grid with --nprobe")
+    p.add_argument("--gt", default=eval_env.gt_path, help="cached gtbin (GT_PATH)")
+    p.add_argument("--warmup", type=int, default=eval_env.warmup)
+    p.add_argument("--batch-q", type=int, default=8)
+    p.add_argument("--ann-only", action="store_true", default=eval_env.ann_only,
+                   help="skip the refine stage (EVAL_MODE=ann_only)")
+    p.add_argument("--ivf-backend", default="auto", choices=["auto", "cuda", "torch"],
+                   help="ADC / refine path: auto = the CUDA kernels on a card, the "
+                        "JAX package's jnp path on the CPU; torch = the kernels' "
+                        "plain versions (the A/B switch)")
+    p.add_argument("--ids-mode", default=None, choices=["dma", "key", "gather"])
+    p.add_argument("--exact-metric", default=eval_env.exact_metric,
+                   choices=["l2", "dot"], help="refine ranking metric (EXACT_METRIC)")
+    p.add_argument("--residual-refine", action="store_true")
+    p.add_argument("--shards", type=int, default=1)
+    p.add_argument("--force-sharded", action="store_true")
+    p.add_argument("--device-queries", action="store_true",
+                   help="stage query blocks (and stage-B candidates) on the "
+                        "device before the timed loops")
+    p.add_argument("--chained", action="store_true",
+                   help="steady-state throughput of the fused search_device over "
+                        "all staged batches, one trailing fetch")
+    p.add_argument("--wave", type=int, default=0,
+                   help="with --chained: also fetch every WAVE-th batch for wave "
+                        "latency percentiles; 0 disables")
+    args = p.parse_args(argv)
+    if args.shards > 1 or args.force_sharded:
+        fail("--shards / --force-sharded are not ported yet (ROADMAP.md queue 6)")
+    if args.residual_refine:
+        fail("--residual-refine is not ported yet (ROADMAP.md)")
+    if args.ids_mode in ("key", "gather"):
+        fail(f"--ids-mode {args.ids_mode} is not ported (ROADMAP.md); the port "
+             f"runs the dma semantics")
+    device = setup_device(args)
+
+    import torch
+
+    from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+    from nvdb_tpu_torch.store import VectorStore
+
+    z = np.load(args.index if args.index.endswith(".npz") else args.index + ".npz")
+    if "codebooks" not in z.files:
+        fail("IVF-Flat indexes are not ported yet (ROADMAP.md queue 3)")
+    idx = IVFPQIndex.load(args.index, device=device)
+    dev_name = (torch.cuda.get_device_name(device).replace(" ", "_")
+                if device.type == "cuda" else "cpu")
+
+    qf = vecbin.VecbinFile(args.query)
+    queries = qf.rows_f32()
+    Q = queries.shape[0]
+
+    gt_ids = None
+    if args.gt:
+        info, g = gtbin.read_gtbin(args.gt)
+        if info.Q != Q or info.k < args.k or info.N != idx.n:
+            fail(f"GT mismatch: gt(Q={info.Q},k={info.k},N={info.N}) vs "
+                 f"eval(Q={Q},k={args.k},N={idx.n})")
+        gt_ids = np.asarray(g)
+
+    refine_ks = [0] if args.ann_only else list(args.refine_k)
+    refine_store = None
+    if max(refine_ks) > 0:
+        refine_store = VectorStore.from_vecbin(args.base, device=device)
+
+    print(f"kind=ivfpq nlist={idx.nlist} lcap={idx.lcap} N={idx.n} d={idx.d} Q={Q} "
+          f"k={args.k} index_MB={idx.index_bytes / 1e6:.1f} device={dev_name}")
+
+    b = max(args.batch_q, 1)
+    dp = idx.centroids.shape[1]
+    n_batches = (Q + b - 1) // b
+    qpad = np.zeros((n_batches * b, dp), np.float32)
+    qpad[:Q, :queries.shape[1]] = queries
+    host_blocks = [qpad[s * b:(s + 1) * b] for s in range(n_batches)]
+    staged = args.device_queries or args.chained
+
+    results = []
+
+    def to_dev(x):
+        return torch.from_numpy(x).to(device)
+
+    def emit(**kv):
+        print(result_line(**kv))
+        results.append(kv)
+
+    for nprobe, refine_k in itertools.product(args.nprobe, refine_ks):
+        do_refine = refine_k > 0
+        kk = max(refine_k, args.k) if do_refine else args.k
+        blocks = [to_dev(x) for x in host_blocks] if staged else host_blocks
+        common = dict(kind="ivfpq", refine_k=refine_k, nprobe=nprobe, Q=Q, k=args.k,
+                      batch_q=b, backend=args.ivf_backend, device=dev_name)
+
+        if args.chained:
+            def fused(block):
+                return idx.search_device(block, args.k, nprobe, refine_k=refine_k,
+                                         refine_store=refine_store,
+                                         backend=args.ivf_backend,
+                                         refine_metric=args.exact_metric)
+
+            fused(blocks[0])[1].cpu()  # load the kernels, warm up
+            for w in range(min(args.warmup, n_batches)):
+                fused(blocks[w])[1].cpu()
+            t0 = time.perf_counter()
+            outs = []
+            wave_ts = [t0]
+            for s, x in enumerate(blocks):
+                outs.append(fused(x))
+                if args.wave > 0 and (s + 1) % args.wave == 0:
+                    outs[-1][1].cpu()  # its completion closes the wave
+                    wave_ts.append(time.perf_counter())
+            outs[-1][1].cpu()          # one trailing fetch
+            dt = time.perf_counter() - t0
+            final_ids = np.concatenate([i.cpu().numpy()[:, :args.k] for _, i in outs])[:Q]
+            recall = recall_at_k(final_ids, gt_ids, k=args.k) if gt_ids is not None else -1.0
+            ms_q = dt * 1000.0 / (n_batches * b)
+            extra = {}
+            if args.wave > 0 and len(wave_ts) > 2:
+                wl = np.diff(np.asarray(wave_ts))[1:] * 1000.0  # wave 0 absorbs the ramp
+                ws = compute_stats(list(wl), n_queries=len(wl), batch_q=1)
+                extra = dict(wave=args.wave, wave_p50_ms=ws.p50_ms, wave_p95_ms=ws.p95_ms,
+                             wave_p99_ms=ws.p99_ms, p99_ms_per_q=ws.p99_ms / (args.wave * b))
+            emit(**common, chained=1, refine_enabled=int(do_refine), total_avg_ms=ms_q,
+                 qps=1000.0 / ms_q if ms_q > 0 else 0.0, recall=recall,
+                 index_mb=idx.index_bytes / 1e6, **extra)
+            continue
+
+        def ann_step(block, nprobe=nprobe, kk=kk):
+            q = block if torch.is_tensor(block) else to_dev(block)
+            _, i = idx.search_device(q, kk, nprobe, backend=args.ivf_backend)
+            return i.cpu().numpy()
+
+        # ---- stage A: ANN candidate generation, timed per batch ----------
+        for w in range(min(args.warmup, n_batches)):
+            ann_step(blocks[w])
+        cand = np.empty((n_batches * b, kk), np.int64)
+        ann_lat = []
+        for s in range(n_batches):
+            t0 = time.perf_counter()
+            cand[s * b:(s + 1) * b] = ann_step(blocks[s])
+            ann_lat.append((time.perf_counter() - t0) * 1e3)
+        ann_stats = compute_stats(ann_lat, n_queries=Q, batch_q=b)
+
+        # ---- stage B: exact refine over the stored candidates ------------
+        ref_stats = None
+        final_ids = cand[:Q, :args.k]
+        if do_refine:
+            from nvdb_tpu_torch.kernels import dispatch
+
+            cblocks = [np.ascontiguousarray(cand[s * b:(s + 1) * b, :refine_k],
+                                            dtype=np.int32) for s in range(n_batches)]
+            if staged:
+                cblocks = [to_dev(c) for c in cblocks]
+            norms2 = refine_store.norms2() if args.exact_metric == "l2" else None
+
+            def refine_step(block, cblock):
+                q = block if torch.is_tensor(block) else to_dev(block)
+                c = cblock if torch.is_tensor(cblock) else to_dev(cblock)
+                _, i = dispatch.exact_refine(q, c, refine_store.vectors,
+                                             refine_store.scales, args.k,
+                                             metric=args.exact_metric, norms2=norms2,
+                                             backend=args.ivf_backend)
+                return i.cpu().numpy()
+
+            for w in range(min(args.warmup, n_batches)):
+                refine_step(blocks[w], cblocks[w])
+            out = np.empty((n_batches * b, args.k), np.int64)
+            ref_lat = []
+            for s in range(n_batches):
+                t0 = time.perf_counter()
+                out[s * b:(s + 1) * b] = refine_step(blocks[s], cblocks[s])
+                ref_lat.append((time.perf_counter() - t0) * 1e3)
+            ref_stats = compute_stats(ref_lat, n_queries=Q, batch_q=b)
+            final_ids = out[:Q]
+
+        recall = recall_at_k(final_ids, gt_ids, k=args.k) if gt_ids is not None else -1.0
+        cand_recall = (candidate_recall(cand[:Q], gt_ids, k=args.k)
+                       if (gt_ids is not None and do_refine) else recall)
+        print(f"\n--- nprobe={nprobe} refine_k={refine_k} ---")
+        print("ANN-only (stage A):")
+        print(ann_stats.render())
+        refine_ms_per_q = 0.0
+        if ref_stats is not None:
+            print("Refine (stage B):")
+            print(ref_stats.render())
+            refine_ms_per_q = ref_stats.avg_ms
+        if recall >= 0:
+            print(f"recall@{args.k}={recall:.4f} cand_recall={cand_recall:.4f}")
+        total = ann_stats.avg_ms + refine_ms_per_q
+        # total = per-query ANN + amortized refine (nvdb_ivf_eval.cpp:659-662)
+        emit(**common, device_queries=int(args.device_queries),
+             refine_enabled=int(do_refine), ann_avg_ms=ann_stats.avg_ms,
+             ann_p99_ms=ann_stats.p99_ms, refine_ms_per_q=refine_ms_per_q,
+             total_avg_ms=total, total_p99_ms=ann_stats.p99_ms + refine_ms_per_q,
+             qps=1000.0 / total if total > 0 else 0.0, recall=recall,
+             cand_recall=cand_recall, index_mb=idx.index_bytes / 1e6)
+    return results
+
+
+if __name__ == "__main__":
+    main()

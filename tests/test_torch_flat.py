@@ -197,19 +197,57 @@ def test_ground_truth_chunked_matches_resident(data, tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
-def test_refine_k_names_missing_kernel(data):
-    base_p, _ = data
-    st = VectorStore.from_numpy(base_p[:N, :D], dtype="i8", device="cpu")
-    with pytest.raises(NotImplementedError, match="pallas_rerank"):
-        FlatIndex(st, quantize_queries=True, refine_k=16)
+@pytest.mark.parametrize("refine_k", [16, 4])
+def test_exact_i8_mode_matches_jax(data, refine_k):
+    """FlatIndex(quantize_queries, refine_k): the int8 x int8 candidates of
+    depth max(refine_k, k) re-scored with the f32 queries (metric dot)
+    agree with JAX's exact-i8 mode, and reach the f32-query ranking over
+    the dequantized store (float64 regret)."""
+    base_p, q_p = data
+    base, queries = base_p[:N, :D], q_p[:, :D]
+    j = JFlatIndex(JVectorStore.from_numpy(base, dtype="i8", row_block=256),
+                   backend="jnp", quantize_queries=True, refine_k=refine_k)
+    t = FlatIndex(VectorStore.from_numpy(base, dtype="i8", row_block=256, device="cpu"),
+                  quantize_queries=True, refine_k=refine_k)
+    assert t.refine_k == refine_k
+    jv_, ji_ = j.search(queries, 10)
+    tv_, ti_ = t.search(queries, 10)
+    np.testing.assert_allclose(tv_, jv_, atol=1e-5, rtol=1e-5)
+    assert np.mean(ti_ == ji_) >= 0.95
+    codes, sc = vecbin.quantize_i8(base_p)
+    eff = codes.astype(np.float64)[:N] * sc[:N, None]
+    s64 = q_p.astype(np.float64) @ eff.T
+    got = np.take_along_axis(s64, ti_.astype(np.int64), axis=1)
+    if refine_k >= 10:
+        ref = -np.sort(-s64, axis=1)[:, :10]
+        assert np.max(ref - got) <= 1e-5
+    np.testing.assert_allclose(tv_, got, atol=1e-5, rtol=1e-5)
+
+
+def test_refine_k_ignored_outside_quantize_mode(data):
+    """As in nvdb_tpu: refine_k only acts with quantized queries."""
+    base_p, q_p = data
+    st = VectorStore.from_numpy(base_p[:N, :D], dtype="f32", device="cpu")
+    t = FlatIndex(st, refine_k=16)
+    assert t.refine_k == 0
+    plain = FlatIndex(st)
+    for a, b in zip(t.search(q_p[:, :D], 10), plain.search(q_p[:, :D], 10)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_wrapper_cpu_tensor_runs_plain_version(data):
+    """The kernel's wrapper never falls back to the plain version: on a CPU
+    tensor it raises, directly and through dispatch(backend="cuda"); only
+    backend="auto" sends CPU tensors to the plain ops."""
     base_p, q_p = data
     q, v = torch.from_numpy(q_p), torch.from_numpy(base_p)
     before = flat_scan.LAUNCHES
-    got = flat_scan.flat_topk_cuda(q, v, None, N, 10)
-    want = ops.scan_topk(q, v, None, N, 10)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flat_scan.flat_topk_cuda(q, v, None, N, 10)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dispatch.flat_topk(q, v, None, N, 10, backend="cuda")
     assert flat_scan.LAUNCHES == before
+    got = dispatch.flat_topk(q, v, None, N, 10, backend="auto")
+    want = ops.scan_topk(q, v, None, N, 10)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -148,6 +148,8 @@ def test_port_never_imports_jax_or_ml_dtypes():
 def test_port_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['ml_dtypes'] = None; "
             "import nvdb_tpu_torch, nvdb_tpu_torch.bench, nvdb_tpu_torch.tools.bench, "
-            "nvdb_tpu_torch.kernels.flat_scan; "
+            "nvdb_tpu_torch.kernels.flat_scan, nvdb_tpu_torch.tools.ivf_build, "
+            "nvdb_tpu_torch.tools.ivf_eval, nvdb_tpu_torch.index.ivf_pq, "
+            "nvdb_tpu_torch.kernels.adc_scan, nvdb_tpu_torch.kernels.rerank; "
             "assert not any(m.startswith('nvdb_tpu.') or m == 'nvdb_tpu' for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

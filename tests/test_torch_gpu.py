@@ -131,3 +131,117 @@ def test_wrapper_rejects_bad_input(cuda_device):
         flat_scan.flat_topk_cuda(q[:, :64], v, None, 1024, 10)
     with pytest.raises(ValueError):
         flat_scan.flat_topk_cuda(q, v, torch.ones(1024, device=cuda_device), 1024, 10)
+
+
+# -- the rerank kernel ---------------------------------------------------------
+
+def _rerank_case(dtype, b, r, seed, n=4096, dp=256):
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal((n, dp)).astype(np.float32)
+    cand = np.stack([rng.choice(n, r, replace=False) for _ in range(b)]).astype(np.int32)
+    cand[0, r // 2:] = -1                      # padding
+    if b > 1 and r > 3:
+        cand[1, 1] = cand[1, 0]                # a repeated id
+    sc = None
+    if dtype == "f32":
+        store = torch.from_numpy(base)
+    elif dtype == "bf16":
+        store = vecbin.bf16_bits_to_torch(vecbin.to_bf16(base))
+    else:
+        codes, sc = vecbin.quantize_i8(base)
+        store = torch.from_numpy(codes)
+    q = rng.standard_normal((b, dp)).astype(np.float32)
+    return q, cand, store, sc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "i8"])
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+@pytest.mark.parametrize("b,r,k", [(1, 10, 1), (37, 100, 10), (8, 256, 100)])
+def test_rerank_kernel_matches_plain(cuda_device, dtype, metric, b, r, k):
+    from nvdb_tpu_torch.kernels import rerank
+
+    q, cand, store, sc = _rerank_case(dtype, b, r, seed=b + r)
+    q, cand = torch.from_numpy(q).to(cuda_device), torch.from_numpy(cand).to(cuda_device)
+    store = store.to(cuda_device)
+    sc = torch.from_numpy(sc).to(cuda_device) if sc is not None else None
+    n2 = rerank.store_norms2(store)
+    before = rerank.LAUNCHES
+    kv, ki = rerank.rerank_topk_cuda(q, cand, store, sc, k, norms2=n2, metric=metric)
+    torch.cuda.synchronize()
+    assert rerank.LAUNCHES == before + 1
+    pv, pi = rerank.rerank_topk_reference(q, cand, store, sc, k, norms2=n2, metric=metric)
+    kv, ki, pv, pi = (x.cpu().numpy() for x in (kv, ki, pv, pi))
+    np.testing.assert_allclose(kv, pv, atol=1e-5, rtol=1e-5)
+    assert np.mean(ki == pi) >= 0.95
+    for row, vals in zip(ki, kv):
+        live = row[row >= 0]
+        assert len(set(live.tolist())) == len(live)
+        assert np.all(np.diff(vals[np.isfinite(vals)]) <= 0)
+        assert np.isneginf(vals[row < 0]).all()
+
+
+@pytest.mark.gpu
+def test_rerank_kernel_rejects_bad_input(cuda_device):
+    from nvdb_tpu_torch.kernels import rerank
+
+    q, cand, store, _ = _rerank_case("f32", 4, 20, seed=1)
+    q, cand = torch.from_numpy(q).to(cuda_device), torch.from_numpy(cand).to(cuda_device)
+    store = store.to(cuda_device)
+    with pytest.raises(ValueError):
+        rerank.rerank_topk_cuda(q, cand, store, None, 129, metric="dot")
+    with pytest.raises(TypeError):
+        rerank.rerank_topk_cuda(q, cand.long(), store, None, 10, metric="dot")
+    with pytest.raises(ValueError):
+        rerank.rerank_topk_cuda(q, cand, store, torch.ones(4096, device=cuda_device), 10,
+                                metric="dot")
+
+
+# -- the ADC kernel ------------------------------------------------------------
+
+def _adc_case(b, p, seed, nlist=40, m=16, lcap=256, dup=False):
+    """A random packed index with lists of varied fill (empty, partial,
+    full), the tables and probe ids; ``dup``: lists 1 and 2 hold the same
+    ids (a replicated index)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, (nlist, m, lcap)).astype(np.uint8)
+    slot_ids = np.full((nlist, lcap), -1, np.int32)
+    perm = rng.permutation(nlist * lcap).astype(np.int32)
+    for li in range(nlist):
+        f = int(rng.integers(0, lcap + 1)) if li % 5 else lcap
+        slot_ids[li, :f] = perm[li * lcap:li * lcap + f]
+    slot_ids[3, :] = -1                                   # an empty list
+    if dup:
+        slot_ids[2] = slot_ids[1]
+    lut = rng.standard_normal((b, p, m, 256)).astype(np.float32)
+    probes = np.stack([rng.choice(nlist, p, replace=False) for _ in range(b)]).astype(np.int32)
+    if dup:
+        probes[:, :2] = [1, 2]
+    return lut, probes, codes, slot_ids
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,p", [(1, 1), (8, 7), (64, 32)])
+@pytest.mark.parametrize("kk", [10, 100, 256, 1024])
+@pytest.mark.parametrize("dup", [False, True])
+def test_adc_kernel_matches_plain(cuda_device, b, p, kk, dup):
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    if dup and p < 2:
+        pytest.skip("a duplicated list needs two probes")
+    lut, probes, codes, slot_ids = (torch.from_numpy(x).to(cuda_device)
+                                    for x in _adc_case(b, p, seed=b * p + kk, dup=dup))
+    before = adc_scan.LAUNCHES
+    kv, ki = adc_scan.adc_topk_cuda(lut, probes, codes, slot_ids, kk)
+    torch.cuda.synchronize()
+    assert adc_scan.LAUNCHES == before + 1
+    pv, pi = adc_scan.adc_topk_reference(lut, probes, codes, slot_ids, kk)
+    kv, ki, pv, pi = (x.cpu().numpy() for x in (kv, ki, pv, pi))
+    # the kernel sums the bf16 tables in the plain version's order
+    np.testing.assert_allclose(kv, pv, atol=1e-4, rtol=0)
+    assert np.mean(ki == pi) >= 0.99
+    for row, vals in zip(ki, kv):
+        live = row[row >= 0]
+        assert len(set(live.tolist())) == len(live)
+        assert np.all(np.diff(vals[np.isfinite(vals)]) <= 0)
+        assert np.isneginf(vals[row < 0]).all()

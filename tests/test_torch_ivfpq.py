@@ -1,0 +1,258 @@
+"""IVF-PQ parity of the PyTorch port against ``nvdb_tpu.index.ivf_pq`` at the
+sizes of test_adc_scan.py (6000 x 128, nlist 16, m 16, B 8): an index built
+by JAX, saved and loaded by the port (and back); the plain version of the
+ADC kernel against ``pallas_adc_topk(ids_mode="dma")`` in interpret mode;
+``search_device`` with refine; a replicated index; the port's own build;
+the deterministic helpers bit for bit.
+
+Tolerances. ADC: the kernel and its plain version round the tables to bf16
+and sum in f32 in another order than the Pallas kernel, so candidate sets
+overlap at >= 0.9 k per row and values agree to atol 1e-3. After the exact
+refine: ids equal at >= 0.99 of positions, values to atol 1e-5. Builds draw
+other random numbers than JAX: recall@10 within 0.02 of the JAX-built
+index's."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nvdb_tpu.formats import synth as jsynth
+from nvdb_tpu.index import ivf_flat as jivf_flat
+from nvdb_tpu.index.ivf_pq import IVFPQIndex as JIVFPQIndex
+from nvdb_tpu.kernels import adc_scan as jadc
+from nvdb_tpu.kernels import pq as jpq
+from nvdb_tpu_torch.index import ivf_flat
+from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+from nvdb_tpu_torch.kernels import adc_scan
+from nvdb_tpu_torch.store import VectorStore
+
+N, D, NLIST, M, B = 6000, 128, 16, 16, 8
+
+
+class _JStore:
+    """The refine store as the JAX index reads it (vectors + scales)."""
+
+    def __init__(self, base):
+        self.vectors = jnp.asarray(base)
+        self.scales = None
+
+
+@pytest.fixture(scope="module")
+def world():
+    base = jsynth.low_rank(N, D, intrinsic=16, n_clusters=64, seed=3)
+    j = JIVFPQIndex.build(base, nlist=NLIST, m=M, use_opq=True, train_size=4000, seed=0)
+    queries, _ = jsynth.sample_queries(base, B, seed=5, perturb=0.02)
+    s64 = queries.astype(np.float64) @ base.astype(np.float64).T
+    gt = np.argsort(-s64, axis=1, kind="stable")[:, :10]
+    return dict(base=base, j=j, q=queries, gt=gt,
+                store=VectorStore.from_numpy(base, device="cpu"))
+
+
+def _port_of(j):
+    return IVFPQIndex.from_reference(
+        None if j.rotation is None else np.asarray(j.rotation), np.asarray(j.centroids),
+        np.asarray(j.codebooks), np.asarray(j.codes), np.asarray(j.slot_ids),
+        j.n, j.d, j.m, n_spilled=j.n_spilled, replicas=j.replicas, device="cpu")
+
+
+def _recall(ids, gt):
+    return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / gt.shape[1]
+                          for a, b in zip(ids, gt)]))
+
+
+def _assert_overlap(a, b, frac):
+    for x, y in zip(a, b):
+        assert len(set(x.tolist()) & set(y.tolist())) >= int(frac * len(x))
+
+
+def _probes_and_lut(j, q, nprobe):
+    """Coarse probes and f32 ADC tables of the JAX index (shared inputs)."""
+    qp = jnp.asarray(q)
+    q_rot = qp @ j.rotation
+    probes = jivf_flat._coarse_probes(q_rot, j.centroids, j.slot_ids, nprobe)
+    res = q_rot[:, None, :] - jnp.take(j.centroids, probes, axis=0)
+    lut = jpq.adc_lut(res.reshape(q.shape[0] * nprobe, -1), j.codebooks, j.m)
+    return np.array(probes), np.array(lut).reshape(q.shape[0], nprobe, j.m, 256)
+
+
+def test_load_jax_index(world, tmp_path):
+    j = world["j"]
+    path = str(tmp_path / "j.npz")
+    j.save(path)
+    t = IVFPQIndex.load(path, device="cpu")
+    for name in ("rotation", "centroids", "codebooks", "codes", "slot_ids"):
+        np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(j, name)))
+    assert (t.n, t.d, t.m, t.n_spilled, t.replicas) == (j.n, j.d, j.m, j.n_spilled, j.replicas)
+    assert (t.nlist, t.lcap, t.index_bytes) == (j.nlist, j.lcap, j.index_bytes)
+    np.testing.assert_array_equal(t.fills().numpy(), np.asarray(j.fills()))
+    assert t.ids_mode() == j.ids_mode()
+
+
+def test_save_round_trip_loads_in_jax(world, tmp_path):
+    t = _port_of(world["j"])
+    path = str(tmp_path / "t.npz")
+    t.save(path)
+    back = JIVFPQIndex.load(path)
+    for name in ("rotation", "centroids", "codebooks", "codes", "slot_ids"):
+        np.testing.assert_array_equal(np.asarray(getattr(back, name)),
+                                      getattr(t, name).numpy())
+    assert (back.n, back.d, back.m, back.replicas) == (t.n, t.d, t.m, t.replicas)
+    jv, ji = world["j"].search(world["q"], 10, 4)
+    bv, bi = back.search(world["q"], 10, 4)
+    np.testing.assert_array_equal(np.asarray(bi), np.asarray(ji))
+
+
+@pytest.mark.parametrize("nprobe,kk", [(4, 10), (8, 200)])
+def test_adc_reference_matches_pallas_dma(world, nprobe, kk):
+    j = world["j"]
+    probes, lut = _probes_and_lut(j, world["q"], nprobe)
+    tv, ti = adc_scan.adc_topk_reference(torch.from_numpy(lut), torch.from_numpy(probes),
+                                         torch.from_numpy(np.array(j.codes)),
+                                         torch.from_numpy(np.array(j.slot_ids)), kk)
+    pv, pi = jadc.pallas_adc_topk(jnp.asarray(lut).reshape(B, nprobe, M, 16, 16),
+                                  jnp.asarray(probes), j.codes, j.slot_ids, kk,
+                                  ids_mode="dma", interpret=True)
+    tv, ti, pv, pi = tv.numpy(), ti.numpy(), np.asarray(pv), np.asarray(pi)
+    for r in range(B):
+        live = ti[r][ti[r] >= 0]
+        assert len(set(live.tolist())) == len(live)            # no duplicate ids
+        assert np.all(np.diff(tv[r][np.isfinite(tv[r])]) <= 0)  # sorted
+        inter = len(set(live.tolist()) & set(pi[r][pi[r] >= 0].tolist()))
+        assert inter >= int(0.9 * min(kk, len(live)))
+    fin = np.isfinite(pv) & np.isfinite(tv)
+    np.testing.assert_allclose(tv[fin], pv[fin], atol=1e-3, rtol=0)
+
+
+def test_adc_reference_collapses_duplicate_ids():
+    """A replicated index holds a row in two lists: one slot, best score."""
+    rng = np.random.default_rng(0)
+    m, lcap, nlist, k = 4, 16, 3, 6
+    codes = rng.integers(0, 256, (nlist, m, lcap)).astype(np.uint8)
+    slot_ids = np.full((nlist, lcap), -1, np.int32)
+    slot_ids[0, :5] = [0, 1, 2, 3, 4]
+    slot_ids[1, :5] = [3, 4, 5, 6, 7]
+    slot_ids[2, :2] = [0, 8]
+    lut = rng.standard_normal((1, nlist, m, 256)).astype(np.float32)
+    probes = np.arange(nlist, dtype=np.int32)[None, :]
+    v, i = adc_scan.adc_topk_reference(torch.from_numpy(lut), torch.from_numpy(probes),
+                                       torch.from_numpy(codes), torch.from_numpy(slot_ids),
+                                       k)
+    v, i = v.numpy()[0], i.numpy()[0]
+    assert (i >= 0).all() and len(set(i.tolist())) == k
+    lutb = torch.from_numpy(lut).to(torch.bfloat16).float().numpy()[0]
+    best = {}
+    for li in range(nlist):
+        for lane in range(lcap):
+            sid = int(slot_ids[li, lane])
+            if sid >= 0:
+                s = np.float32(0)
+                for mm in range(m):
+                    s = np.float32(s + lutb[li, mm, codes[li, mm, lane]])
+                best[sid] = max(best.get(sid, -np.inf), -s)
+    want = sorted(best.items(), key=lambda kv: (-kv[1], -kv[0]))[:k]
+    assert i.tolist() == [sid for sid, _ in want]
+    np.testing.assert_array_equal(v, np.array([s for _, s in want], np.float32))
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch"])
+def test_search_device_with_refine_matches_jax(world, backend):
+    j = world["j"]
+    t = _port_of(j)
+    jv, ji = j.search(world["q"], 10, 8, refine_k=40, refine_store=_JStore(world["base"]))
+    tv, ti = t.search(world["q"], 10, 8, refine_k=40, refine_store=world["store"],
+                      backend=backend)
+    assert np.mean(ti == np.asarray(ji)) >= 0.99
+    np.testing.assert_allclose(tv, np.asarray(jv), atol=1e-5, rtol=0)
+
+
+def test_search_device_adc_only_matches_jax(world):
+    """Without refine, auto on the CPU is the JAX package's f32-table path."""
+    j = world["j"]
+    t = _port_of(j)
+    jv, ji = j.search(world["q"], 10, 4)
+    tv, ti = t.search(world["q"], 10, 4)
+    assert np.mean(ti == np.asarray(ji)) >= 0.99
+    np.testing.assert_allclose(tv, np.asarray(jv), atol=1e-4, rtol=0)
+
+
+def test_replicated_index_from_jax(world):
+    base = jsynth.low_rank(4000, 64, intrinsic=8, n_clusters=32, seed=9)
+    one = JIVFPQIndex.build(base, nlist=16, m=8, use_opq=False, n_iters=4, seed=7,
+                            train_size=4000)
+    rep = JIVFPQIndex.repack(one, base, pad_factor=2.0, replicas=2)
+    queries, _ = jsynth.sample_queries(base, 8, seed=10, perturb=0.02)
+    t = _port_of(rep)
+    assert t.replicas == 2 and t.ids_mode() == "dma"
+    jv, ji = rep.search(queries, 10, 8)
+    for backend in ("auto", "torch"):
+        tv, ti = t.search(queries, 10, 8, backend=backend)
+        for row in ti:
+            live = row[row >= 0]
+            assert len(live) == 10 and len(set(live.tolist())) == 10
+        if backend == "auto":
+            # rows with equal codes tie; ties order differently (module doc)
+            np.testing.assert_allclose(tv, np.asarray(jv), atol=1e-4, rtol=0)
+            _assert_overlap(ti, np.asarray(ji), 0.9)
+    store = VectorStore.from_numpy(base, device="cpu")
+    jv, ji = rep.search(queries, 10, 8, refine_k=30, refine_store=_JStore(
+        np.pad(base, ((0, 0), (0, 64)))))
+    tv, ti = t.search(queries, 10, 8, refine_k=30, refine_store=store)
+    np.testing.assert_allclose(tv, np.asarray(jv), atol=1e-5, rtol=0)
+    _assert_overlap(ti, np.asarray(ji), 0.9)
+
+
+def test_port_build_recall_near_jax(world):
+    t = IVFPQIndex.build(world["base"], nlist=NLIST, m=M, use_opq=True, train_size=4000,
+                         seed=0, device="cpu")
+    assert (t.nlist, t.lcap, t.m) == (world["j"].nlist, world["j"].lcap, M)
+    live = t.slot_ids.numpy()
+    assert sorted(live[live >= 0].tolist()) == list(range(N))   # every row packed once
+    _, ti = t.search(world["q"], 10, 8, refine_k=40, refine_store=world["store"])
+    _, ji = world["j"].search(world["q"], 10, 8, refine_k=40,
+                              refine_store=_JStore(world["base"]))
+    assert _recall(ti, world["gt"]) >= _recall(np.asarray(ji), world["gt"]) - 0.02
+
+
+def test_deterministic_helpers_bit_for_bit(world):
+    j = world["j"]
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((B, 128)).astype(np.float32)
+    cents, sids = np.array(j.centroids), np.array(j.slot_ids)
+    sids[3] = -1                                                  # an empty list
+    got = ivf_flat._coarse_probes(torch.from_numpy(q), torch.from_numpy(cents),
+                                  torch.from_numpy(sids), 6).numpy()
+    want = np.asarray(jivf_flat._coarse_probes(jnp.asarray(q), jnp.asarray(cents),
+                                               jnp.asarray(sids), 6))
+    np.testing.assert_array_equal(got, want)
+    assert not (got == 3).any()
+    x = rng.standard_normal((1000, 128)).astype(np.float32)
+    np.testing.assert_array_equal(
+        ivf_flat._topS_centroids(torch.from_numpy(x), torch.from_numpy(cents), 4).numpy(),
+        np.asarray(jivf_flat._topS_centroids(jnp.asarray(x), jnp.asarray(cents), 4)))
+    alts = rng.integers(0, 16, (3000, 4))
+    got = ivf_flat._pack_lists(np.zeros((3000, 1), np.float32), None, alts[:, 0], None,
+                               alts, 16, 256, 1)
+    want = jivf_flat._pack_lists(np.zeros((3000, 1), np.float32), None, alts[:, 0], None,
+                                 alts, 16, 256, 1)
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[3] == want[3]
+    holes = np.array([[0, -1, 2, -1], [3, -1, -1, -1], [-1, -1, -1, -1]], np.int32)
+    np.testing.assert_array_equal(adc_scan.list_fills(torch.from_numpy(holes)).numpy(),
+                                  np.asarray(jadc.list_fills(jnp.asarray(holes))))
+    assert not adc_scan.is_prefix_packed(torch.from_numpy(holes))
+    assert adc_scan.is_prefix_packed(torch.from_numpy(np.array(j.slot_ids)))
+
+
+def test_unported_modes_raise(world):
+    t = _port_of(world["j"])
+    qp = torch.zeros((2, 128))
+    for mode in ("key", "gather"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t.search_device(qp, 10, 4, ids_mode=mode)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        IVFPQIndex.build(world["base"][:500], nlist=4, m=16, corpus_refine_iters=1,
+                         device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        adc_scan.adc_topk_cuda(torch.zeros((1, 1, M, 256)), torch.zeros((1, 1)),
+                               t.codes, t.slot_ids, 10)
