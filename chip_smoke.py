@@ -33,13 +33,32 @@ then, one phase per line group:
 9. times: the ADC kernel at B = 256, P = 64, M = 96, Lcap = 640, kk = 100 on
    the built index, and the rerank kernel at B = 256 and B = 8, R = 100,
    k = 10 on the 1M x 768 bf16 store, each against its plain version in
-   turns.
+   turns;
+10. IVF probe kernel vs plain and a float64 oracle: random packed indexes
+   of f32 / bf16 / int8 payloads at Lcap 384 and 992 (lists full, with
+   holes, filled below k, dead), B in {1, 8, 64, 256}, P in {1, 7, 32, 64},
+   k in {1, 10, 50, 128};
+11. the partition main path at its published width: the 1M x 768 "hard"
+   corpus of ``tools.synth --hard 48 --seed 1`` and 1,000 sampled queries,
+   ground truth by the flat kernel, ``tools.pr_eval --chained --nprobe 16
+   32 --rerank-k 50 --batch-q 64 --wave 4`` with the kernels (probe and
+   rerank launch counts reset just before and read just after) and with
+   ``--backend torch``; ``tools.pr_build`` -> ``tools.pr_search``; then
+   ``tools.ivf_build --kind ivfflat --nlist 4096 --dtype bf16`` ->
+   ``tools.ivf_eval --chained --nprobe 64 --batch-q 256`` on both paths;
+12. times: the probe kernel against its plain version in turns on the
+   partition index (B = 64, P = 32, Lcap 992, k = 50) and the IVF-Flat
+   index (B = 256, P = 64, k = 10), and the partition batch by stage;
+13. ``tools.hbm_probe`` (the stream and ring kernels against ``torch.amax``
+   over 1M x 768 bf16: the card's HBM ceiling, which phase 12's rates are
+   read against) and ``tools.gpu_sanity`` (the add1 kernel).
 
-Every check raises on failure, so the exit code is non-zero if any phase
-fails; nothing falls back to the CPU or to the plain version. Without a CUDA
-device it exits 1 before printing any result. The last three lines are
-``nvidia-smi``'s name and power limit, the kernels' JSON record, and
-``{"ok": true, "device": {...}}``.
+Files go to ``build/chip_smoke``, which is removed at the end. Each phase
+prints its wall time. Every check raises on failure, so the exit code is
+non-zero if any phase fails; nothing falls back to the CPU or to the plain
+version. Without a CUDA device it exits 1 before printing any result. The
+last three lines are ``nvidia-smi``'s name and power limit, the kernels'
+JSON record, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -64,7 +83,8 @@ ID_AGREE_MIN = 0.99    # share of positions where kernel and plain ids agree
 ADC_ATOL = 1e-4        # |ADC kernel - plain|: the same bf16 tables summed in the
                        # same order; the bound leaves room for the compiler
 RECALL_GAP = 0.005     # kernel path's recall@10 against the plain path's
-KERNELS = ("flat_topk", "adc_topk", "rerank_topk")
+PR_RECALL_MIN = 0.9    # partition recall@10 at nprobe 32 (published: .9947)
+KERNELS = ("flat_topk", "adc_topk", "rerank_topk", "ivf_probe_topk", "hbm_stream", "add1")
 
 
 def say(*a):
@@ -85,6 +105,18 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def run_tool(main, argv, keep=("RESULT",)):
+    """Run a tool's ``main`` with its stdout captured; echo the lines that
+    start with ``keep``; return what ``main`` returns."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    for line in buf.getvalue().splitlines():
+        if line.startswith(keep):
+            say(f"  {line}")
+    return out
 
 
 def effective_f64(torch, dtype, q_f32, base_f32_t, store, scales, qq, qs):
@@ -205,43 +237,44 @@ def phase_main_path(torch, dev):
     return launches
 
 
-def phase_tools_bench(torch, dev):
+def work_paths(work, prefix, names):
+    return {x: os.path.join(work, f"{prefix}_{x}") for x in names}
+
+
+def remove_files(paths):
+    for p in paths.values():
+        if os.path.exists(p):
+            os.remove(p)
+
+
+def phase_tools_bench(torch, dev, work):
     from nvdb_tpu_torch.formats import gtbin, synth, vecbin
     from nvdb_tpu_torch.index.flat import FlatIndex
     from nvdb_tpu_torch.store import VectorStore
     from nvdb_tpu_torch.tools import bench as bench_tool
 
     n, d, nq, k = 262_144, 384, 64, 10
-    work = os.path.join(ROOT, "build", "chip_smoke")
-    os.makedirs(work, exist_ok=True)
-    try:
-        base = synth.normalized_gaussian(n, d, seed=21)
-        queries, _ = synth.sample_queries(base, nq, seed=22, perturb=0.05)
-        s64 = queries.astype(np.float64) @ base.astype(np.float64).T
-        gt = np.argsort(-s64, axis=1, kind="stable")[:, :k]
-        paths = {x: os.path.join(work, f"{x}.{'gtbin' if x == 'gt' else 'vecbin'}")
-                 for x in ("base", "q", "gt")}
-        vecbin.write_vecbin(paths["base"], base)
-        vecbin.write_vecbin(paths["q"], queries)
-        gtbin.write_gtbin(paths["gt"], gt, dim=d, N=n)
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            recall = bench_tool.main([paths["base"], paths["q"], str(k), "--batch-q", "16",
-                                      "--gt", paths["gt"]])
-        for line in buf.getvalue().splitlines():
-            if line.startswith(("N=", "recall@", "RESULT")):
-                say(f"  {line}")
-        if recall < 1.0:
-            # near-ties may swap ids between f32 and float64: judge by regret
-            idx = FlatIndex(VectorStore.from_vecbin(paths["base"], device=dev))
-            _, ids = idx.search(queries, k)
-            got = np.sort(np.take_along_axis(s64, ids.astype(np.int64), axis=1), axis=1)
-            ref = np.sort(np.take_along_axis(s64, gt, axis=1), axis=1)
-            r = float(np.max(ref - got))
-            say(f"  recall {recall:.4f} < 1: regret {r:.3e}")
-            check(r <= REGRET_TOL, f"tools.bench: regret {r}")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    paths = work_paths(work, "bench", ("base.vecbin", "q.vecbin", "gt.gtbin"))
+    base = synth.normalized_gaussian(n, d, seed=21)
+    queries, _ = synth.sample_queries(base, nq, seed=22, perturb=0.05)
+    s64 = queries.astype(np.float64) @ base.astype(np.float64).T
+    gt = np.argsort(-s64, axis=1, kind="stable")[:, :k]
+    vecbin.write_vecbin(paths["base.vecbin"], base)
+    vecbin.write_vecbin(paths["q.vecbin"], queries)
+    gtbin.write_gtbin(paths["gt.gtbin"], gt, dim=d, N=n)
+    recall = run_tool(bench_tool.main, [paths["base.vecbin"], paths["q.vecbin"], str(k),
+                                        "--batch-q", "16", "--gt", paths["gt.gtbin"]],
+                      keep=("N=", "recall@", "RESULT"))
+    if recall < 1.0:
+        # near-ties may swap ids between f32 and float64: judge by regret
+        idx = FlatIndex(VectorStore.from_vecbin(paths["base.vecbin"], device=dev))
+        _, ids = idx.search(queries, k)
+        got = np.sort(np.take_along_axis(s64, ids.astype(np.int64), axis=1), axis=1)
+        ref = np.sort(np.take_along_axis(s64, gt, axis=1), axis=1)
+        r = float(np.max(ref - got))
+        say(f"  recall {recall:.4f} < 1: regret {r:.3e}")
+        check(r <= REGRET_TOL, f"tools.bench: regret {r}")
+    remove_files(paths)
 
 
 def phase_times(torch, dev):
@@ -436,16 +469,13 @@ def phase_rerank_vs_plain(torch, dev):
     return max_err
 
 
-def phase_ivf_main_path(torch, dev, n=1_000_000, nlist=4096):
+def phase_ivf_main_path(torch, dev, work, n=1_000_000, nlist=4096):
     d, nq, k = 768, 1024, 10
-    work = os.path.join(ROOT, "build", "chip_smoke")
-    os.makedirs(work, exist_ok=True)
-    paths = {x: os.path.join(work, f"ivf_{x}") for x in
-             ("base.vecbin", "q.vecbin", "gt.gtbin", "index.npz")}
+    paths = work_paths(work, "ivf", ("base.vecbin", "q.vecbin", "gt.gtbin", "index.npz"))
     try:
         return _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths)
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        remove_files(paths)
 
 
 def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
@@ -470,12 +500,9 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
     gtbin.write_gtbin(paths["gt.gtbin"], gt, dim=d, N=n)
     say(f"  ground truth by the flat kernel (f32 store): {time.perf_counter() - t0:.1f} s")
 
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        idx = ivf_build.main([paths["base.vecbin"], paths["index.npz"], "--kind", "ivfpq",
-                              "--nlist", str(nlist), "--pq-m", "96", "--opq",
-                              "--device", dev.type])
-    say(f"  {buf.getvalue().strip()}")
+    idx = run_tool(ivf_build.main, [paths["base.vecbin"], paths["index.npz"], "--kind",
+                                    "ivfpq", "--nlist", str(nlist), "--pq-m", "96", "--opq",
+                                    "--device", dev.type], keep=("built",))
     check(idx.lcap > 0 and idx.m == 96 and idx.nlist == nlist, "build: shape")
 
     eval_args = [paths["index.npz"], paths["base.vecbin"], paths["q.vecbin"], "--gt",
@@ -483,17 +510,13 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
                  "--k", str(k), "--batch-q", "256", "--device", dev.type]
     out = {}
     for backend in ("auto", "torch"):
-        buf = io.StringIO()
         if backend == "auto":
             adc_scan.LAUNCHES = 0
             rerank.LAUNCHES = 0
-        with contextlib.redirect_stdout(buf):
-            res = ivf_eval.main(eval_args + ["--ivf-backend", backend])[0]
+        res = run_tool(ivf_eval.main, eval_args + ["--ivf-backend", backend],
+                       keep=("kind=", "RESULT"))[0]
         if backend == "auto":
             out["launches"] = {"adc_topk": adc_scan.LAUNCHES, "rerank_topk": rerank.LAUNCHES}
-        for line in buf.getvalue().splitlines():
-            if line.startswith(("kind=", "RESULT")):
-                say(f"  {line}")
         say(f"  ivf_eval --ivf-backend {backend}: recall@10={res['recall']:.4f} "
             f"QPS={res['qps']:.1f}")
         out[backend] = res
@@ -560,6 +583,334 @@ def phase_ivf_times(torch, dev, idx, store, queries):
     return out
 
 
+PROBE_LISTS = 80      # lists of phase 10's random packed indexes
+
+
+def probe_index(torch, dev, dtype, lcap, seed, nlist=PROBE_LISTS, dp=768):
+    """A random packed IVF index on the card: unit-norm rows (padding slots
+    too, so a missed mask shows), lists full, partly filled or filled below
+    k; list 0 dead (every slot -1), list 1 three live slots, list 2 a hole
+    every 7th slot."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randn((nlist, lcap, dp), generator=g, device=dev)
+    rows /= rows.norm(dim=-1, keepdim=True)
+    rng = np.random.default_rng(seed)
+    slot_ids = np.full((nlist, lcap), -1, np.int32)
+    perm = rng.permutation(nlist * lcap).astype(np.int32)
+    for li in range(nlist):
+        f = lcap if li % 4 == 3 else int(rng.integers(0, lcap + 1))
+        slot_ids[li, :f] = perm[li * lcap:li * lcap + f]
+    slot_ids[0] = -1
+    slot_ids[1, 3:] = -1
+    slot_ids[2, ::7] = -1
+    scales = None
+    if dtype == "f32":
+        packed = rows
+    elif dtype == "bf16":
+        packed = rows.to(torch.bfloat16)
+    else:
+        scales = (rows.abs().amax(dim=-1) / 127.0).contiguous()
+        packed = torch.round(rows / scales[..., None]).clamp(-127, 127).to(torch.int8)
+    return packed.contiguous(), torch.from_numpy(slot_ids).to(dev), scales
+
+
+def probe_table(rng, b, p, nlist=PROBE_LISTS):
+    """[b, p] int64 distinct probes per query, as the coarse ranking gives;
+    with p >= 2 every query probes the dead list 0 and the short list 1."""
+    fixed = [0, 1] if p >= 2 else []
+    return np.stack([np.r_[fixed, rng.choice(np.arange(2, nlist), p - len(fixed),
+                                             replace=False)] for _ in range(b)]).astype(np.int64)
+
+
+def probe_regret(torch, q, probes, packed, slot_ids, scales, ids, k):
+    """Worst float64 score regret of ``ids`` against the exact top-k over
+    each query's live probed slots, with the inputs as the kernel's path
+    sees them (the bf16-rounded query where it rounds, dequantized int8)."""
+    nlist, lcap, dp = packed.shape
+    b, p = probes.shape
+    q64 = q.double() if packed.dtype == torch.float32 else q.to(torch.bfloat16).double()
+    worst = 0.0
+    c = max(1, (512 << 20) // (p * lcap * dp * 8))
+    for s in range(0, b, c):
+        pr = probes[s:s + c].long()
+        slabs = packed[pr].double()
+        if scales is not None:
+            slabs *= scales[pr].double()[..., None]
+        s64 = torch.einsum("cd,cpld->cpl", q64[s:s + c], slabs).reshape(pr.shape[0], -1)
+        sids = slot_ids[pr].reshape(pr.shape[0], -1)
+        s64 = torch.where(sids >= 0, s64, float("-inf"))
+        ref = torch.topk(s64, k, dim=1).values
+        got_ids = ids[s:s + c].long()
+        match = sids[:, None, :].long() == got_ids[:, :, None]
+        got = torch.where(match & (got_ids[:, :, None] >= 0), s64[:, None, :],
+                          float("-inf")).amax(-1)
+        got = torch.sort(got, dim=1, descending=True).values
+        fin = torch.isfinite(ref)
+        check(bool((fin == torch.isfinite(got)).all()), "probe: id count differs from oracle")
+        if bool(fin.any()):
+            worst = max(worst, float((ref[fin] - got[fin]).max()))
+    return worst
+
+
+PROBE_SHAPES = [(1, 1, 1), (1, 32, 128), (8, 7, 10), (8, 64, 50), (64, 32, 50), (64, 7, 128),
+                (256, 64, 10), (256, 1, 128)]     # (B, P, k)
+
+
+def phase_probe_vs_plain(torch, dev, dp=768, lcaps=(384, 992), shapes=PROBE_SHAPES):
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    rng = np.random.default_rng(51)
+    g = torch.Generator(device=dev).manual_seed(52)
+    qall = torch.randn((max(b for b, _, _ in shapes), dp), generator=g, device=dev)
+    qall /= qall.norm(dim=1, keepdim=True)
+    max_err = 0.0
+    for dtype in ("f32", "bf16", "i8"):
+        for lcap in lcaps:
+            packed, slot_ids, scales = probe_index(torch, dev, dtype, lcap,
+                                                   seed=lcap + len(dtype), dp=dp)
+            for b, p, k in shapes:
+                probes = torch.from_numpy(probe_table(rng, b, p)).to(dev)
+                q = qall[:b].contiguous()
+                kv, ki = ivf_scan.ivf_probe_topk_cuda(q, probes, packed, slot_ids, scales, k)
+                torch.cuda.synchronize(dev)
+                pv, pi = ivf_scan.ivf_probe_topk_reference(q, probes, packed, slot_ids,
+                                                           scales, k)
+                tag = f"{dtype} Lcap={lcap} B={b} P={p} k={k}"
+                fin = ki >= 0
+                check(tuple(ki.shape) == (b, k), f"{tag}: shape")
+                check(bool((fin == (pi >= 0)).all()), f"{tag}: filler slots differ from plain")
+                check(bool(torch.isfinite(kv[fin]).all()), f"{tag}: non-finite values")
+                check(bool(torch.isneginf(kv[~fin]).all()), f"{tag}: filler is not (-inf, -1)")
+                check(bool((kv[:, 1:] <= kv[:, :-1]).all()), f"{tag}: values not sorted")
+                for row in ki.cpu().numpy():
+                    live = row[row >= 0]
+                    check(len(set(live.tolist())) == len(live), f"{tag}: duplicate ids")
+                err = float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) else 0.0
+                check(bool(torch.allclose(kv[fin], pv[fin], atol=VALUE_ATOL, rtol=VALUE_RTOL)),
+                      f"{tag}: values differ from plain by {err}")
+                agree = float((ki == pi).float().mean())
+                check(agree >= ID_AGREE_MIN, f"{tag}: id agreement {agree} < {ID_AGREE_MIN}")
+                r = probe_regret(torch, q, probes, packed, slot_ids, scales, ki, k)
+                check(r <= REGRET_TOL, f"{tag}: regret {r} > {REGRET_TOL}")
+                max_err = max(max_err, err)
+                say(f"  {tag}: regret={r:.3e} max_abs_err={err:.3e} id_agree={agree:.4f} "
+                    f"filled={float(fin.float().mean()):.3f}")
+            del packed, slot_ids, scales
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def phase_partition_main_path(torch, dev, work, n=1_000_000, d=768, nq=1000, flat_nlist=4096):
+    from nvdb_tpu_torch.formats import gtbin, synth, vecbin
+    from nvdb_tpu_torch.index.flat import FlatIndex
+    from nvdb_tpu_torch.index.partition import auto_nlist
+    from nvdb_tpu_torch.kernels import ivf_scan, rerank
+    from nvdb_tpu_torch.store import VectorStore
+    from nvdb_tpu_torch.tools import ivf_build, ivf_eval, pr_build, pr_eval, pr_search
+    from nvdb_tpu_torch.utils import round_up
+
+    k = 10
+    paths = work_paths(work, "hard", ("base.vecbin", "q.vecbin", "q8.vecbin", "gt.gtbin",
+                                      "pr.npz", "flat.npz"))
+    t0 = time.perf_counter()
+    base = synth.hard_chunked(n, d, intrinsic=48, seed=1)
+    queries, qrows = synth.sample_queries(base, nq, seed=777)   # tools.make_query's seed
+    vecbin.write_vecbin(paths["base.vecbin"], base)
+    vecbin.write_vecbin(paths["q.vecbin"], queries)
+    vecbin.write_vecbin(paths["q8.vecbin"], queries[:8])
+    say(f"  hard corpus {n} x {d} (tools.synth --hard 48 --seed 1) + {nq} queries written "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    store = VectorStore.from_vecbin(paths["base.vecbin"], device=dev)
+    gt = FlatIndex(store).search(queries, k)[1]
+    gtbin.write_gtbin(paths["gt.gtbin"], gt, dim=d, N=n)
+    del store
+    torch.cuda.empty_cache()
+    say(f"  ground truth by the flat kernel (f32 store): {time.perf_counter() - t0:.1f} s")
+
+    out = {"launches": {}}
+    pr_args = [paths["base.vecbin"], paths["q.vecbin"], "--gt", paths["gt.gtbin"],
+               "--chained", "--nprobe", "16", "32", "--rerank-k", "50", "--k", str(k),
+               "--batch-q", "64", "--wave", "4", "--device", dev.type]
+    for backend in ("auto", "torch"):
+        if backend == "auto":
+            ivf_scan.LAUNCHES = 0
+            rerank.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = run_tool(pr_eval.main, pr_args + ["--backend", backend],
+                       keep=("partitions=", "RESULT"))
+        if backend == "auto":
+            out["launches"]["pr"] = {"ivf_probe_topk": ivf_scan.LAUNCHES,
+                                     "rerank_topk": rerank.LAUNCHES}
+        out[f"pr_{backend}"] = {r["nprobe"]: r for r in res}
+        say(f"  pr_eval --backend {backend} ({time.perf_counter() - t0:.1f} s): " + "; ".join(
+            f"nprobe {r['nprobe']} recall@10={r['recall']:.4f} QPS={r['qps']:.1f} "
+            f"wave p99 {r.get('wave_p99_ms', float('nan')):.4f} ms" for r in res))
+    say(f"  launches in the auto run: {out['launches']['pr']}")
+    for name, count in out["launches"]["pr"].items():
+        check(count > 0, f"the partition main path did not launch {name}")
+    for np_ in (16, 32):
+        ra, rt = out["pr_auto"][np_]["recall"], out["pr_torch"][np_]["recall"]
+        check(abs(ra - rt) <= RECALL_GAP,
+              f"nprobe {np_}: kernel recall {ra} vs plain {rt}: gap > {RECALL_GAP}")
+    r32 = out["pr_auto"][32]["recall"]
+    say(f"  recall@10 at nprobe 32: {r32:.4f} with the kernels, "
+        f"{out['pr_torch'][32]['recall']:.4f} plain; the JAX package's build of the same "
+        f"configuration: .9947 (BENCHMARKS.md:819)")
+    check(r32 >= PR_RECALL_MIN, f"partition recall@10 {r32} < {PR_RECALL_MIN}")
+
+    pidx = run_tool(pr_build.main, [paths["base.vecbin"], paths["pr.npz"],
+                                    "--device", dev.type], keep=("built",))
+    check(pidx.ivf.nlist == auto_nlist(n),
+          f"pr_build: nlist {pidx.ivf.nlist}, not the sqrt-auto {auto_nlist(n)}")
+    vals, ids = run_tool(pr_search.main, [paths["pr.npz"], paths["q8.vecbin"], "--k", str(k),
+                                          "--nprobe", "32", "--base", paths["base.vecbin"],
+                                          "--rerank-k", "50", "--device", dev.type],
+                         keep=("query 0:",))
+    check(np.isfinite(vals).all() and ((ids >= 0) & (ids < n)).all(), "pr_search: output")
+    self_hits = int(np.sum(ids[:, 0] == qrows[:8]))
+    say(f"  pr_search: {self_hits} of 8 queries (base rows) find their own row first")
+    check(self_hits >= 6, f"pr_search: only {self_hits} of 8 queries find their own row")
+
+    fidx = run_tool(ivf_build.main, [paths["base.vecbin"], paths["flat.npz"], "--kind",
+                                     "ivfflat", "--nlist", str(flat_nlist), "--dtype",
+                                     "bf16", "--device", dev.type], keep=("built",))
+    lcap = round_up(int(np.ceil(n / flat_nlist * 1.5)), 32)
+    check(fidx.nlist == flat_nlist and fidx.lcap == lcap, f"ivf_build: lcap {fidx.lcap}")
+    ev_args = [paths["flat.npz"], paths["base.vecbin"], paths["q.vecbin"], "--gt",
+               paths["gt.gtbin"], "--chained", "--nprobe", "64", "--refine-k", "0", "--k",
+               str(k), "--batch-q", "256", "--device", dev.type]
+    for backend in ("auto", "torch"):
+        if backend == "auto":
+            ivf_scan.LAUNCHES = 0
+        res = run_tool(ivf_eval.main, ev_args + ["--ivf-backend", backend])[0]
+        if backend == "auto":
+            out["launches"]["ivfflat"] = {"ivf_probe_topk": ivf_scan.LAUNCHES}
+        out[f"flat_{backend}"] = res
+        say(f"  ivf_eval ivfflat --ivf-backend {backend}: recall@10={res['recall']:.4f} "
+            f"QPS={res['qps']:.1f}")
+    say(f"  launches in the auto run: {out['launches']['ivfflat']}")
+    check(out["launches"]["ivfflat"]["ivf_probe_topk"] > 0,
+          "the IVF-Flat main path did not launch ivf_probe_topk")
+    ra, rt = out["flat_auto"]["recall"], out["flat_torch"]["recall"]
+    check(abs(ra - rt) <= RECALL_GAP, f"ivfflat: kernel recall {ra} vs plain {rt}")
+    return pidx, fidx, base, queries, out
+
+
+def phase_probe_times(torch, dev, pidx, fidx, base, queries):
+    from nvdb_tpu_torch.index.ivf_flat import _coarse_probes
+    from nvdb_tpu_torch.index.partition import PartitionRerankIndex
+    from nvdb_tpu_torch.kernels import dispatch, ivf_scan
+    from nvdb_tpu_torch.store import VectorStore
+
+    out = {}
+    for name, ivf, b, nprobe, k in (("partition", pidx.ivf, 64, 32, 50),
+                                    ("ivfflat", fidx, 256, 64, 10)):
+        q = torch.zeros((b, ivf.centroids.shape[1]), device=dev)
+        q[:, :ivf.d] = torch.from_numpy(queries[:b]).to(dev)
+        probes = _coarse_probes(q, ivf.centroids, ivf.slot_ids, nprobe)
+        fills = ivf.fills()
+        args = (q, probes, ivf.packed, ivf.slot_ids, ivf.slot_scales, k)
+        kern, plain, runs = in_turns(
+            torch, lambda: ivf_scan.ivf_probe_topk_reference(*args),
+            lambda: ivf_scan.ivf_probe_topk_cuda(*args, fills=fills), iters=10)
+        row_bytes = ivf.packed.shape[2] * ivf.packed.element_size()
+        live = int(fills[probes].sum()) * row_bytes
+        slabs = b * nprobe * ivf.lcap * row_bytes
+        say(f"  probe {name} B={b} P={nprobe} Lcap={ivf.lcap} k={k}: kernel {kern:.4f} ms "
+            f"{runs['kernel']} | plain {plain:.4f} ms {runs['plain']} | live rows "
+            f"{live / 1e9:.4f} GB of {slabs / 1e9:.4f} GB of slabs: kernel "
+            f"{live / kern / 1e6:.1f} GB/s")
+        out[name] = dict(ms=kern, plain_ms=plain, bytes=live)
+
+    # the partition batch by stage (B = 64, nprobe 32, rerank 50 over f32)
+    ivf = pidx.ivf
+    store = VectorStore.from_numpy(base, "f32", device=dev)
+    pr = PartitionRerankIndex(ivf=ivf, refine_store=store)
+    q = torch.zeros((64, ivf.centroids.shape[1]), device=dev)
+    q[:, :ivf.d] = torch.from_numpy(queries[:64]).to(dev)
+    probes = _coarse_probes(q, ivf.centroids, ivf.slot_ids, 32)
+    fills = ivf.fills()
+    cid = ivf_scan.ivf_probe_topk_cuda(q, probes, ivf.packed, ivf.slot_ids, None, 50,
+                                       fills=fills)[1]
+    stages = {
+        "coarse probes (plain torch)": lambda: _coarse_probes(q, ivf.centroids, ivf.slot_ids,
+                                                              32),
+        "probe kernel (k 50)": lambda: ivf_scan.ivf_probe_topk_cuda(
+            q, probes, ivf.packed, ivf.slot_ids, None, 50, fills=fills),
+        "rerank kernel (R 50, f32)": lambda: dispatch.exact_refine(
+            q, cid, store.vectors, None, 10, metric="dot"),
+        "whole search_device": lambda: pr.search_device(q, 10, 32, rerank_k=50),
+    }
+    for stage, fn in stages.items():
+        ms = cuda_ms(torch, fn, iters=20)
+        say(f"  partition B=64 stage {stage}: {ms:.4f} ms")
+        out[f"stage {stage}"] = ms
+    del store, pr
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hbm_and_sanity(torch, dev):
+    from nvdb_tpu_torch.kernels import add1, hbm_stream
+    from nvdb_tpu_torch.tools import gpu_sanity, hbm_probe
+
+    out = {"stream_err": 0.0}
+    # the stream kernels on odd sizes first: the maximum is exact
+    g = torch.Generator(device=dev).manual_seed(61)
+    for rows in (8, 70001):
+        x = torch.randn((rows, 128), generator=g, device=dev).to(torch.bfloat16)
+        want = hbm_stream.stream_max_reference(x)
+        for fn in (hbm_stream.stream_max_cuda, hbm_stream.ring_max_cuda):
+            got = fn(x)
+            torch.cuda.synchronize(dev)
+            err = float((got - want).abs())
+            say(f"  {fn.__name__} rows={rows}: max {float(got)} vs torch.amax {float(want)}")
+            check(err == 0.0, f"{fn.__name__} rows={rows}: {float(got)} != "
+                              f"torch.amax {float(want)}")
+            out["stream_err"] = max(out["stream_err"], err)
+    hbm_stream.LAUNCHES = {"stream": 0, "ring": 0}
+    res = {r["probe"]: r for r in run_tool(hbm_probe.main, ["--iters", "20"])}
+    out["stream_launches"] = dict(hbm_stream.LAUNCHES)
+    say(f"  launches in hbm_probe: {out['stream_launches']}")
+    for name, count in out["stream_launches"].items():
+        check(count > 0, f"hbm_probe did not launch the {name} kernel")
+    out["hbm"] = res
+    out["ceiling_gbps"] = max(r["gbps"] for r in res.values())
+
+    add1.LAUNCHES = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            gpu_sanity.main([])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    for line in buf.getvalue().splitlines():
+        say(f"  {line}")
+    out["add1_launches"] = add1.LAUNCHES
+    check(code == 0, f"gpu_sanity exited {code}")
+    check(add1.LAUNCHES > 0, "gpu_sanity did not launch the add1 kernel")
+    x = torch.linspace(-3.0, 3.0, 8 * 128, device=dev).reshape(8, 128)
+    out["add1_err"] = float((add1.add1_cuda(x) - add1.add1_reference(x)).abs().max())
+    check(out["add1_err"] == 0.0, f"add1 differs from x + 1 by {out['add1_err']}")
+    kern, plain, runs = in_turns(torch, lambda: add1.add1_reference(x),
+                                 lambda: add1.add1_cuda(x), iters=100)
+    say(f"  add1 [8, 128]: kernel {kern:.4f} ms {runs['kernel']} | x + 1 {plain:.4f} ms "
+        f"{runs['plain']}")
+    out["add1_ms"] = (kern, plain)
+    return out
+
+
+@contextlib.contextmanager
+def phase(title):
+    say(title)
+    t0 = time.perf_counter()
+    yield
+    say(f"  ({time.perf_counter() - t0:.1f} s)")
+
+
 def build_all(torch):
     """Build every kernel library, one nvcc per source, all started
     together."""
@@ -594,41 +945,88 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 say(f"    {line.strip()}")
 
-    say("[3 kernel vs plain] 65,536 x 768, n_valid 65,000 "
-        f"(regret <= {REGRET_TOL}, |kernel - plain| <= {VALUE_ATOL} + {VALUE_RTOL} rel, "
-        f"id agreement >= {ID_AGREE_MIN})")
-    max_err = phase_kernel_vs_plain(torch, dev)
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        with phase("[3 kernel vs plain] 65,536 x 768, n_valid 65,000 "
+                   f"(regret <= {REGRET_TOL}, |kernel - plain| <= {VALUE_ATOL} + {VALUE_RTOL} "
+                   f"rel, id agreement >= {ID_AGREE_MIN})"):
+            max_err = phase_kernel_vs_plain(torch, dev)
 
-    say("[4 main path] 1M x 768 bf16 store, FlatIndex.search, then tools.bench")
-    launches = phase_main_path(torch, dev)
-    phase_tools_bench(torch, dev)
+        with phase("[4 main path] 1M x 768 bf16 store, FlatIndex.search, then tools.bench"):
+            launches = phase_main_path(torch, dev)
+            phase_tools_bench(torch, dev, work)
 
-    say("[5 times] 1M x 768, CUDA events over chained scans, plain/kernel/kernel/plain")
-    times = phase_times(torch, dev)
+        with phase("[5 times] 1M x 768, CUDA events over chained scans, "
+                   "plain/kernel/kernel/plain"):
+            times = phase_times(torch, dev)
 
-    say("[6 ADC kernel vs plain] M = 96, Lcap = 640 "
-        f"(|kernel - plain| <= {ADC_ATOL}, id agreement >= {ID_AGREE_MIN}, no duplicate ids)")
-    adc_err = phase_adc_vs_plain(torch, dev)
+        with phase("[6 ADC kernel vs plain] M = 96, Lcap = 640 "
+                   f"(|kernel - plain| <= {ADC_ATOL}, id agreement >= {ID_AGREE_MIN}, "
+                   "no duplicate ids)"):
+            adc_err = phase_adc_vs_plain(torch, dev)
 
-    say("[7 rerank kernel vs plain] 65,536 x 768 "
-        f"(regret <= {REGRET_TOL}, |kernel - plain| <= {VALUE_ATOL} + {VALUE_RTOL} rel)")
-    rerank_err = phase_rerank_vs_plain(torch, dev)
+        with phase("[7 rerank kernel vs plain] 65,536 x 768 "
+                   f"(regret <= {REGRET_TOL}, |kernel - plain| <= {VALUE_ATOL} + "
+                   f"{VALUE_RTOL} rel)"):
+            rerank_err = phase_rerank_vs_plain(torch, dev)
 
-    say("[8 IVF-PQ main path] 1M x 768, nlist 4096, m 96, OPQ; nprobe 64, refine 100")
-    idx, store, queries, ivf = phase_ivf_main_path(torch, dev)
+        with phase("[8 IVF-PQ main path] 1M x 768, nlist 4096, m 96, OPQ; nprobe 64, "
+                   "refine 100"):
+            idx, store, queries, ivf = phase_ivf_main_path(torch, dev, work)
 
-    say("[9 IVF-PQ times] CUDA events over chained calls, plain/kernel/kernel/plain")
-    ivf_times = phase_ivf_times(torch, dev, idx, store, queries)
-    del idx, store
+        with phase("[9 IVF-PQ times] CUDA events over chained calls, "
+                   "plain/kernel/kernel/plain"):
+            ivf_times = phase_ivf_times(torch, dev, idx, store, queries)
+            del idx, store, queries
+            torch.cuda.empty_cache()
+
+        with phase("[10 IVF probe kernel vs plain] Dp 768, Lcap 384 / 992 "
+                   f"(regret <= {REGRET_TOL}, |kernel - plain| <= {VALUE_ATOL} + {VALUE_RTOL} "
+                   f"rel, id agreement >= {ID_AGREE_MIN}, no duplicate ids)"):
+            probe_err = phase_probe_vs_plain(torch, dev)
+
+        with phase("[11 partition main path] 1M x 768 hard corpus, nlist 2048 (sqrt-auto), "
+                   "bf16 pad 2.0 S 8, f32 rerank 50; then IVF-Flat nlist 4096 bf16"):
+            pidx, fidx, base, queries, part = phase_partition_main_path(torch, dev, work)
+
+        with phase("[12 probe times] CUDA events over chained calls, "
+                   "plain/kernel/kernel/plain"):
+            probe_times = phase_probe_times(torch, dev, pidx, fidx, base, queries)
+            del pidx, fidx, base, queries
+            torch.cuda.empty_cache()
+
+        with phase("[13 hbm_probe and gpu_sanity] 1M x 768 bf16 (1.54 GB), 20 launches "
+                   "per probe"):
+            hbm = phase_hbm_and_sanity(torch, dev)
+            ceiling = hbm["ceiling_gbps"]
+            say(f"  HBM ceiling (best probe): {ceiling:.1f} GB/s")
+            for name in ("partition", "ivfflat"):
+                t = probe_times[name]
+                gbps = t["bytes"] / t["ms"] / 1e6
+                say(f"  probe {name}: {gbps:.1f} GB/s = {gbps / ceiling:.3f} of the ceiling")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     say(smi)
+    pl = part["launches"]
     rows = [
         ("flat_topk", "nvdb_tpu/kernels/flat_scan.py:417", launches, max_err,
          times["bf16 B=512 k=10"]),
         ("adc_topk", "nvdb_tpu/kernels/adc_scan.py:558", ivf["launches"]["adc_topk"],
          adc_err, ivf_times["adc_topk"]),
-        ("rerank_topk", "nvdb_tpu/kernels/rerank.py:187", ivf["launches"]["rerank_topk"],
-         rerank_err, ivf_times["rerank_topk B=256"]),
+        ("rerank_topk", "nvdb_tpu/kernels/rerank.py:187",
+         ivf["launches"]["rerank_topk"] + pl["pr"]["rerank_topk"], rerank_err,
+         ivf_times["rerank_topk B=256"]),
+        ("ivf_probe_topk", "nvdb_tpu/kernels/ivf_scan.py:111",
+         pl["pr"]["ivf_probe_topk"] + pl["ivfflat"]["ivf_probe_topk"], probe_err,
+         (probe_times["partition"]["ms"], probe_times["partition"]["plain_ms"])),
+        ("hbm_stream", "scripts/hbm_probe.py:62", sum(hbm["stream_launches"].values()),
+         hbm["stream_err"],
+         (hbm["hbm"]["stream"]["ms"], hbm["hbm"]["torch_amax"]["ms"])),
+        ("add1", "nvdb_tpu/tools/tpu_sanity.py:28", hbm["add1_launches"], hbm["add1_err"],
+         hbm["add1_ms"]),
     ]
     say(json.dumps({"kernels": [{
         "name": name,

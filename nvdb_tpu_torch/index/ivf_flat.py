@@ -1,17 +1,34 @@
-"""The IVF helpers the IVF-PQ index uses (the port of the helpers of
-``nvdb_tpu.index.ivf_flat``): list packing, the coarse probe ranking and
-the top-S centroid assignment. ``IVFFlatIndex`` itself arrives with the
-``pallas_ivf_probe_topk`` slice.
+"""IVF-Flat index (the port of ``nvdb_tpu.index.ivf_flat``) and the IVF
+helpers the IVF-PQ index shares: list packing, the coarse probe ranking and
+the top-S centroid assignment.
+
+Layout as in the JAX package: fixed-capacity packed lists ``[nlist, Lcap,
+Dp]`` (f32, bf16, or int8 with per-slot scales), rows assigned to their
+nearest centroid with spill to the next-nearest list with room, padding
+slots id -1 and zero. Probing is the coarse ranking (one full-f32 product
+with the centroids, empty lists masked) and then the exact top-k over the
+probed slabs: the ``ivf_probe_topk`` kernel on a CUDA index
+(``dispatch.ivf_probe_topk``). ``.npz`` files are plain numpy and
+byte-compatible with the JAX package's (a bf16 pack is stored as its uint8
+view), so an index built by either package loads in the other.
+
+Not ported yet (``ROADMAP.md``): ``repack`` and the corpus-scale k-means
+refinement of the build; both raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import sys
+import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from nvdb_tpu_torch.kernels import ops
+from nvdb_tpu_torch.formats import vecbin
+from nvdb_tpu_torch.kernels import adc_scan, dispatch, kmeans, ops
+from nvdb_tpu_torch.utils import round_up
 
 
 def _pack_lists(
@@ -111,3 +128,254 @@ def _topS_centroids(data: torch.Tensor, cents: torch.Tensor, s: int,
     c2 = torch.sum(cents * cents, dim=1)[None, :]
     return torch.cat([torch.topk(2.0 * (data[r:r + chunk] @ cents.T) - c2, s, dim=1).indices
                       for r in range(0, data.shape[0], chunk)])
+
+
+def _stage_logger(n: int):
+    """Stage timestamps on stderr for corpus-scale builds (n >= 1M rows);
+    small builds stay silent."""
+    if n < 1_000_000:
+        return lambda msg: None
+    t0 = time.perf_counter()
+
+    def log(msg):
+        print(f"[build +{time.perf_counter() - t0:7.1f}s] {msg}", file=sys.stderr,
+              flush=True)
+    return log
+
+
+def _host_chunked(fn, rows_np: np.ndarray, device, chunk: int = 1_000_000) -> np.ndarray:
+    """Apply a device function over host rows in chunks and reassemble on
+    the host: one chunk (<= ~3 GB at 768 dims) is on the device at a time."""
+    outs = []
+    for s in range(0, rows_np.shape[0], chunk):
+        outs.append(fn(torch.from_numpy(rows_np[s:s + chunk]).to(device)).cpu().numpy())
+    return np.concatenate(outs, axis=0)
+
+
+def _ivf_search_block(
+    queries: torch.Tensor,                # [B, Dp] f32
+    centroids: torch.Tensor,              # [nlist, Dp] f32
+    packed: torch.Tensor,                 # [nlist, Lcap, Dp]
+    slot_ids: torch.Tensor,               # [nlist, Lcap] int32
+    slot_scales: Optional[torch.Tensor],  # [nlist, Lcap] f32 | None
+    k: int,
+    nprobe: int,
+    backend: str = "auto",
+    fills: Optional[torch.Tensor] = None,  # [nlist] int32 (kernel path)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coarse probes, then the exact top-k over the probed slabs."""
+    probes = _coarse_probes(queries, centroids, slot_ids, nprobe)  # [B, P]
+    return dispatch.ivf_probe_topk(queries, probes, packed, slot_ids, slot_scales, k,
+                                   backend=backend, fills=fills)
+
+
+def _payload_tensor(enc: np.ndarray, code: int) -> torch.Tensor:
+    """A host payload in its file encoding (bf16 as raw 2-byte bits) -> a
+    CPU tensor of the index dtype."""
+    if code == vecbin.DTYPE_BF16:
+        return vecbin.bf16_bits_to_torch(np.asarray(enc).view(np.uint16))
+    dt = np.int8 if code == vecbin.DTYPE_I8 else np.float32
+    return torch.from_numpy(np.array(enc, dtype=dt))
+
+
+@dataclasses.dataclass
+class IVFFlatIndex:
+    centroids: torch.Tensor               # [nlist, Dp] f32
+    packed: torch.Tensor                  # [nlist, Lcap, Dp] f32 | bf16 | int8
+    slot_ids: torch.Tensor                # [nlist, Lcap] int32
+    slot_scales: Optional[torch.Tensor]   # [nlist, Lcap] f32 (int8 payloads)
+    n: int
+    d: int
+    dtype_code: int
+    n_spilled: int = 0
+    _fills: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def nlist(self) -> int:
+        return self.centroids.shape[0]
+
+    @property
+    def lcap(self) -> int:
+        return self.packed.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    @property
+    def index_bytes(self) -> int:
+        b = self.packed.numel() * self.packed.element_size()
+        b += self.slot_ids.numel() * 4 + self.centroids.numel() * 4
+        if self.slot_scales is not None:
+            b += self.slot_scales.numel() * 4
+        return b
+
+    def fills(self) -> torch.Tensor:
+        """[nlist] live-slot counts (1 + last live slot), cached: the probe
+        kernel reads no row past them."""
+        if self._fills is None:
+            self._fills = adc_scan.list_fills(self.slot_ids)
+        return self._fills
+
+    # -- build -----------------------------------------------------------------
+
+    @classmethod
+    def build(
+        cls,
+        rows_f32: np.ndarray,
+        nlist: int,
+        dtype: str = "f32",
+        train_size: int = 50_000,      # IVF_TRAIN analogue
+        n_iters: int = 10,
+        pad_factor: float = 1.5,
+        spill_candidates: int = 4,
+        seed: int = 0,
+        corpus_refine_iters: int = 0,
+        *,
+        device,
+    ) -> "IVFFlatIndex":
+        """Train and pack an index on ``device``, the stages of
+        ``nvdb_tpu.index.ivf_flat.IVFFlatIndex.build``: k-means on the
+        first ``train_size`` rows, top-S coarse assignment, list packing
+        with spill, payload encoding. Random draws come from a
+        ``torch.Generator`` seeded from ``seed`` (not the JAX package's
+        numbers); the steps after k-means are deterministic."""
+        if corpus_refine_iters > 0:
+            raise NotImplementedError(
+                "corpus_refine_iters > 0 (kmeans.corpus_refine) is not ported "
+                "yet (ROADMAP.md queue 7)")
+        device = torch.device(device)
+        n, d = rows_f32.shape
+        dp = round_up(d, 128)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        stage = _stage_logger(n)
+
+        rows_f32 = np.ascontiguousarray(rows_f32, dtype=np.float32)
+        if d == dp:
+            data_p = rows_f32
+        else:
+            data_p = np.zeros((n, dp), np.float32)
+            data_p[:, :d] = rows_f32
+        t = min(train_size, n)
+        stage(f"k-means coarse quantizer (t={t}, nlist={nlist})")
+        cents, _ = kmeans.kmeans_fit(gen, torch.from_numpy(data_p[:t]).to(device), nlist,
+                                     n_iters=n_iters)
+
+        stage("coarse assignment (top-S centroids, device-chunked)")
+        S = min(spill_candidates, nlist)
+        alts = _host_chunked(lambda x: _topS_centroids(x, cents, S), data_p, device)
+        del data_p
+        # 32 = the strictest sublane tile of the JAX layout, kept for equal shapes
+        lcap = round_up(int(np.ceil(n / nlist * pad_factor)), 32)
+
+        stage("encode payload")
+        code = vecbin.dtype_code(dtype)
+        scales = None
+        if code == vecbin.DTYPE_I8:
+            enc, scales = vecbin.quantize_i8(rows_f32)
+        elif code == vecbin.DTYPE_BF16:
+            enc = vecbin.to_bf16(rows_f32)
+        else:
+            enc = rows_f32
+
+        stage(f"pack lists (lcap={lcap})")
+        packed, slot_ids, slot_scales, spilled = _pack_lists(
+            enc, scales, alts[:, 0], None, alts, nlist, lcap, dp)
+        del enc
+        stage("upload index arrays")
+        return cls(
+            centroids=cents,
+            packed=_payload_tensor(packed, code).to(device),
+            slot_ids=torch.from_numpy(slot_ids).to(device),
+            slot_scales=(torch.from_numpy(slot_scales).to(device)
+                         if slot_scales is not None else None),
+            n=n, d=d, dtype_code=code, n_spilled=spilled)
+
+    @classmethod
+    def repack(cls, *args, **kwargs) -> "IVFFlatIndex":
+        raise NotImplementedError(
+            "IVFFlatIndex.repack is not ported yet (ROADMAP.md queue 7)")
+
+    @classmethod
+    def from_reference(cls, centroids, packed, slot_ids, slot_scales, n: int, d: int,
+                       dtype_code: int, n_spilled: int = 0, *, device) -> "IVFFlatIndex":
+        """Carry an index across from ``nvdb_tpu``: each array is
+        ``np.asarray`` of the JAX index's field (a bf16 pack in any 2-byte
+        dtype, read as raw bits; ``slot_scales`` may be None)."""
+        code = int(dtype_code)
+        return cls(
+            centroids=torch.from_numpy(np.array(centroids, dtype=np.float32)).to(device),
+            packed=_payload_tensor(packed, code).to(device),
+            slot_ids=torch.from_numpy(np.array(slot_ids, dtype=np.int32)).to(device),
+            slot_scales=(None if slot_scales is None else
+                         torch.from_numpy(np.array(slot_scales, dtype=np.float32)).to(device)),
+            n=int(n), d=int(d), dtype_code=code, n_spilled=int(n_spilled))
+
+    # -- search ----------------------------------------------------------------
+
+    def search_device(self, queries: torch.Tensor, k: int, nprobe: int,
+                      backend: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+        """Padded on-device queries [B, Dp] in, device tensors out (scores
+        [B, k] f32, ids [B, k] int32).
+
+        ``backend``: ``auto`` takes the probe kernel on a CUDA index and the
+        JAX package's jnp path on the CPU; ``cuda`` the kernel (raising on
+        the CPU); ``torch`` the kernel's plain version."""
+        nprobe = min(nprobe, self.nlist)
+        return _ivf_search_block(queries, self.centroids, self.packed, self.slot_ids,
+                                 self.slot_scales, k, nprobe, backend=backend,
+                                 fills=self.fills())
+
+    def search(self, queries: np.ndarray, k: int, nprobe: int, q_chunk: int = 32,
+               backend: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
+        """Host path: numpy queries [Q, d] in, (scores [Q, k] f32, ids [Q, k]
+        int64) out, one ``search_device`` per ``q_chunk`` queries."""
+        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        qn = queries.shape[0]
+        dp = self.packed.shape[2]
+        qp = np.zeros((qn, dp), np.float32)
+        qp[:, :self.d] = queries[:, :self.d]
+        vals_out = np.empty((qn, k), np.float32)
+        ids_out = np.empty((qn, k), np.int64)
+        for s in range(0, qn, q_chunk):
+            e = min(s + q_chunk, qn)
+            v, i = self.search_device(torch.from_numpy(qp[s:e]).to(self.device), k, nprobe,
+                                      backend=backend)
+            vals_out[s:e] = v.cpu().numpy()
+            ids_out[s:e] = i.cpu().numpy()
+        return vals_out, ids_out
+
+    # -- persistence -----------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """The JAX package's ``.npz`` layout, byte for byte (a bf16 pack as
+        its uint8 view)."""
+        packed = self.packed.cpu()
+        if packed.dtype == torch.bfloat16:
+            packed = packed.view(torch.int16).numpy().view(np.uint8)
+        else:
+            packed = packed.numpy()
+        np.savez(
+            path,
+            centroids=self.centroids.cpu().numpy(),
+            packed=packed,
+            packed_dtype=np.array(self.dtype_code),
+            slot_ids=self.slot_ids.cpu().numpy(),
+            slot_scales=(self.slot_scales.cpu().numpy() if self.slot_scales is not None
+                         else np.zeros(0, np.float32)),
+            meta=np.array([self.n, self.d, self.n_spilled], dtype=np.int64),
+        )
+
+    @classmethod
+    def load(cls, path: str, *, device) -> "IVFFlatIndex":
+        z = np.load(path if path.endswith(".npz") else path + ".npz")
+        code = int(z["packed_dtype"])
+        packed = z["packed"]
+        if code == vecbin.DTYPE_BF16:
+            packed = np.ascontiguousarray(packed).view(np.uint16)
+        n, d, spilled = (int(x) for x in z["meta"])
+        sc = z["slot_scales"]
+        return cls.from_reference(z["centroids"], packed, z["slot_ids"],
+                                  sc if sc.size else None, n, d, code, n_spilled=spilled,
+                                  device=device)

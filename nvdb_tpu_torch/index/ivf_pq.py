@@ -21,14 +21,13 @@ k-means refinement, residual-int8 refine stores, and the ADC ``key`` /
 from __future__ import annotations
 
 import dataclasses
-import sys
-import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from nvdb_tpu_torch.index.ivf_flat import _coarse_probes, _pack_lists, _topS_centroids
+from nvdb_tpu_torch.index.ivf_flat import (_coarse_probes, _host_chunked, _pack_lists,
+                                           _stage_logger, _topS_centroids)
 from nvdb_tpu_torch.kernels import adc_scan, dispatch, kmeans, ops, pq
 from nvdb_tpu_torch.utils import round_up
 
@@ -340,28 +339,6 @@ class IVFPQIndex:
 def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ops.no_tf32()
     return x @ w
-
-
-def _stage_logger(n: int):
-    """Stage timestamps on stderr for corpus-scale builds (n >= 1M rows);
-    small builds stay silent."""
-    if n < 1_000_000:
-        return lambda msg: None
-    t0 = time.perf_counter()
-
-    def log(msg):
-        print(f"[build +{time.perf_counter() - t0:7.1f}s] {msg}", file=sys.stderr,
-              flush=True)
-    return log
-
-
-def _host_chunked(fn, rows_np: np.ndarray, device, chunk: int = 1_000_000) -> np.ndarray:
-    """Apply a device function over host rows in chunks and reassemble on
-    the host: one chunk (<= ~3 GB at 768 dims) is on the device at a time."""
-    outs = []
-    for s in range(0, rows_np.shape[0], chunk):
-        outs.append(fn(torch.from_numpy(rows_np[s:s + chunk]).to(device)).cpu().numpy())
-    return np.concatenate(outs, axis=0)
 
 
 # Above this row count the build stages whose output is corpus-sized (the

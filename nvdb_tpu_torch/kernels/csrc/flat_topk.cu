@@ -36,9 +36,9 @@
 //     the query's current k-th entry first; only the rare improvers are
 //     inserted into the sorted per-query list in shared memory, so
 //     insertion is not paid per row. Each CTA writes its [B, S, k] partial.
-//   pass 2 (merge_kernel): one warp per query folds the S sorted partial
-//     lists into the final sorted top-k, stopping early in each list at the
-//     first entry that no longer beats the k-th.
+//   pass 2 (nvdb::merge_kernel, topk_common.cuh): one warp per query folds
+//     the S sorted partial lists into the final sorted top-k, stopping early
+//     in each list at the first entry that no longer beats the k-th.
 // The wrapper picks S so there are at least two CTAs per SM at any batch.
 
 #include <cuda_bf16.h>
@@ -58,7 +58,6 @@ constexpr int DK = 64;        // dims per staged chunk
 constexpr int LD = QB + 4;    // shared-memory row stride (floats), 16-byte aligned
 constexpr int NT = 256;       // threads per pass-1 CTA
 constexpr int MAX_K = nvdb::WARP_LIST_MAX_K;
-constexpr int MERGE_WARPS = 4;
 
 static_assert(QB == TR, "the 16 x 16 thread grid covers a QB x TR tile");
 static_assert(QB <= DK, "the [QB][LD] score tile reuses the [DK][LD] query chunk");
@@ -299,38 +298,6 @@ scan_partial_kernel(const void* __restrict__ qptr, const void* __restrict__ vptr
   }
 }
 
-__global__ void __launch_bounds__(MERGE_WARPS * 32)
-merge_kernel(const float* __restrict__ part_vals, const int* __restrict__ part_ids,
-             float* __restrict__ out_vals, int* __restrict__ out_ids, int B, int S,
-             int k) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * MERGE_WARPS + warp;
-  if (b >= B) return;  // whole warp; no block-wide barrier follows
-  float* lv = reinterpret_cast<float*>(smem) + warp * k;
-  int* li = reinterpret_cast<int*>(reinterpret_cast<float*>(smem) + MERGE_WARPS * k) + warp * k;
-  for (int j = lane; j < k; j += 32) {
-    lv[j] = -INFINITY;
-    li[j] = -1;
-  }
-  __syncwarp();
-  for (int s = 0; s < S; ++s) {
-    const size_t base = ((size_t)b * S + s) * k;
-    for (int j0 = 0; j0 < k; j0 += 32) {
-      const int j = j0 + lane;
-      const bool ok = j < k;
-      const float v = ok ? part_vals[base + j] : -INFINITY;
-      const int id = ok ? part_ids[base + j] : -1;
-      // each partial list is sorted: once a chunk has no improver, none follow
-      if (!warp_offer(lv, li, k, v, id, ok, lane)) break;
-    }
-  }
-  for (int j = lane; j < k; j += 32) {
-    out_vals[(size_t)b * k + j] = lv[j];
-    out_ids[(size_t)b * k + j] = li[j];
-  }
-}
-
 template <int MODE>
 cudaError_t launch_scan(const void* q, const void* v, const float* scales,
                         const float* qscales, float* part_vals, int* part_ids,
@@ -387,8 +354,6 @@ extern "C" int nvdb_flat_topk(const void* q, const void* v, const void* scales,
       return (int)cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return (int)e;
-  const size_t smem2 = (size_t)MERGE_WARPS * k * 8;
-  merge_kernel<<<(B + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, smem2, st>>>(
-      pv, pi, static_cast<float*>(out_vals), static_cast<int*>(out_ids), B, S, k);
-  return (int)cudaGetLastError();
+  return (int)nvdb::launch_merge(pv, pi, static_cast<float*>(out_vals),
+                                 static_cast<int*>(out_ids), B, S, k, st);
 }

@@ -1,11 +1,13 @@
-// The top-k order and the warp-cooperative sorted insert shared by the
-// port's top-k kernels (flat_topk.cu, rerank_topk.cu, adc_topk.cu).
+// The top-k order, the warp-cooperative sorted insert and the merge pass
+// shared by the port's k <= 128 top-k kernels (flat_topk.cu,
+// rerank_topk.cu, ivf_probe_topk.cu).
 //
 // One strict total order ranks every candidate: score descending, ties to
 // the larger id. Empty slots hold (-inf, -1), which every real candidate
 // beats. A sorted list of k entries lives in shared memory; a warp inserts
 // into it only what beats the k-th entry, so a scan pays for its improvers,
-// not for every row.
+// not for every row. A scan split over S CTAs per query writes S sorted
+// partial lists, which merge_kernel folds into one.
 
 #pragma once
 
@@ -74,6 +76,51 @@ __device__ __forceinline__ bool warp_offer(float* lv, int* li, int k, float s,
     m &= __ballot_sync(FULL_MASK, ok && better(s, id, thv, thi));
   }
   return any;
+}
+
+constexpr int MERGE_WARPS = 4;  // queries per merge CTA, one warp each
+
+// Pass 2 of a split top-k: one warp per query folds the S sorted partial
+// lists part_*[b, s, 0:k] into the final sorted list out_*[b, 0:k].
+__global__ void __launch_bounds__(MERGE_WARPS * 32)
+merge_kernel(const float* __restrict__ part_vals, const int* __restrict__ part_ids,
+             float* __restrict__ out_vals, int* __restrict__ out_ids, int B, int S,
+             int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * MERGE_WARPS + warp;
+  if (b >= B) return;  // whole warp; no block-wide barrier follows
+  float* lv = reinterpret_cast<float*>(smem) + warp * k;
+  int* li = reinterpret_cast<int*>(reinterpret_cast<float*>(smem) + MERGE_WARPS * k) + warp * k;
+  for (int j = lane; j < k; j += 32) {
+    lv[j] = -INFINITY;
+    li[j] = -1;
+  }
+  __syncwarp();
+  for (int s = 0; s < S; ++s) {
+    const size_t base = ((size_t)b * S + s) * k;
+    for (int j0 = 0; j0 < k; j0 += 32) {
+      const int j = j0 + lane;
+      const bool ok = j < k;
+      const float v = ok ? part_vals[base + j] : -INFINITY;
+      const int id = ok ? part_ids[base + j] : -1;
+      // each partial list is sorted: once a chunk has no improver, none follow
+      if (!warp_offer(lv, li, k, v, id, ok, lane)) break;
+    }
+  }
+  for (int j = lane; j < k; j += 32) {
+    out_vals[(size_t)b * k + j] = lv[j];
+    out_ids[(size_t)b * k + j] = li[j];
+  }
+}
+
+inline cudaError_t launch_merge(const float* part_vals, const int* part_ids,
+                                float* out_vals, int* out_ids, int B, int S, int k,
+                                cudaStream_t stream) {
+  const size_t smem = (size_t)MERGE_WARPS * k * 8;
+  merge_kernel<<<(B + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, smem, stream>>>(
+      part_vals, part_ids, out_vals, out_ids, B, S, k);
+  return cudaGetLastError();
 }
 
 }  // namespace nvdb

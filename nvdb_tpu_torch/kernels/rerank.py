@@ -5,8 +5,10 @@ PyTorch version.
 Both fold the metric, the int8 row scale and the cached row norms into two
 per-candidate coefficients, score = amul * dot(q, raw_row) - boff
 (``fold_coefficients``, the fold of ``rerank.py:245-281``), so the kernel
-is metric- and dtype-oblivious. Residual-int8 stores fold into the same
-form and need no kernel change; they arrive with a later slice.
+is metric- and dtype-oblivious. Residual-int8 stores (row = cent + s *
+codes, ``VectorStore.attach_residual``) fold into the same form through
+q.cent, one [B, nlist] product gathered per candidate
+(``residual_qcent``), and need no kernel change.
 
 ``rerank_topk_cuda`` launches the kernel on a CUDA tensor and raises on any
 other.
@@ -43,28 +45,66 @@ def store_norms2(vectors: torch.Tensor) -> torch.Tensor:
     return torch.sum(v * v, dim=1)
 
 
+def residual_qcent(
+    queries: torch.Tensor,            # [B, Dp] f32
+    cand_ids: torch.Tensor,           # [B, R] int32 (-1 padded)
+    res_cents: torch.Tensor,          # [nlist, Dp] f32
+    res_ids: torch.Tensor,            # [Np] int32 list of each row
+) -> torch.Tensor:
+    """[B, R] f32 q.cent of each candidate's centroid (full f32, TF32 off)."""
+    ops.no_tf32()
+    qc = queries.to(torch.float32) @ res_cents.T                    # [B, nlist]
+    rid = res_ids[torch.clamp(cand_ids, min=0).long()].long()       # [B, R]
+    return torch.gather(qc, 1, rid)
+
+
 def fold_coefficients(
     cand_ids: torch.Tensor,           # [B, R] int32 (-1 padded)
     scales: Optional[torch.Tensor],   # [Np] f32 (int8 stores)
     norms2: Optional[torch.Tensor],   # [Np] f32 (metric l2)
     metric: str,
+    qcent: Optional[torch.Tensor] = None,  # [B, R] f32 (residual stores)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-candidate (amul, boff), [B, R] f32, with score = amul * dot - boff:
     dot: amul = s, boff = 0; l2 (2 q.row - ||row||^2): amul = 2 s,
-    boff = s^2 ||codes||^2 (s = 1 for f32 / bf16 stores)."""
+    boff = s^2 ||codes||^2 (s = 1 for f32 / bf16 stores). Residual stores
+    (row = cent + s codes, ``norms2`` the dequantized norms): dot: amul = s,
+    boff = -q.cent; l2: amul = 2 s, boff = ||row||^2 - 2 q.cent."""
     safe = torch.clamp(cand_ids, min=0).long()
     sc = scales[safe] if scales is not None else None
     if metric == "dot":
         amul = sc if sc is not None else torch.ones(cand_ids.shape, device=cand_ids.device)
+        if qcent is not None:
+            return amul.contiguous(), (-qcent).contiguous()
         return amul.contiguous(), torch.zeros(cand_ids.shape, device=cand_ids.device)
     if metric != "l2":
         raise ValueError(f"unknown metric {metric!r}")
     if norms2 is None:
         raise ValueError("metric='l2' needs the store's norms2")
     n2 = norms2[safe]
+    if qcent is not None:
+        return (2.0 * sc).contiguous(), (n2 - 2.0 * qcent).contiguous()
     if sc is not None:
         return (2.0 * sc).contiguous(), (sc * sc * n2).contiguous()
     return torch.full(cand_ids.shape, 2.0, device=cand_ids.device), n2.contiguous()
+
+
+def _coefficients(queries, cand_ids, vectors, scales, norms2, metric, res_cents,
+                  res_ids) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fold both versions share, with the residual checks of
+    ``pallas_rerank`` (``rerank.py:237-243``)."""
+    if metric not in ("l2", "dot"):
+        raise ValueError(f"unknown metric {metric!r}")
+    if res_cents is not None and (scales is None or res_ids is None):
+        raise ValueError("residual stores need scales and res_ids")
+    if metric == "l2" and norms2 is None:
+        if res_cents is not None:
+            raise ValueError("residual + metric='l2' requires the store's "
+                             "DEQUANTIZED norms2 (VectorStore.norms2())")
+        norms2 = store_norms2(vectors)
+    qcent = (residual_qcent(queries, cand_ids, res_cents, res_ids)
+             if res_cents is not None else None)
+    return fold_coefficients(cand_ids, scales, norms2, metric, qcent)
 
 
 def rerank_topk_reference(
@@ -75,13 +115,14 @@ def rerank_topk_reference(
     k: int,
     norms2: Optional[torch.Tensor] = None,
     metric: str = "l2",
+    res_cents: Optional[torch.Tensor] = None,  # [nlist, Dp] f32 (residual stores)
+    res_ids: Optional[torch.Tensor] = None,    # [Np] int32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the kernel: the same fold, the rows
     gathered and widened to f32, full-f32 dots (TF32 off), ids outside
     [0, Np) never ranked, a repeated id taken once, (score desc, id desc)."""
-    if metric == "l2" and norms2 is None:
-        norms2 = store_norms2(vectors)
-    amul, boff = fold_coefficients(cand_ids, scales, norms2, metric)
+    amul, boff = _coefficients(queries, cand_ids, vectors, scales, norms2, metric,
+                               res_cents, res_ids)
     valid = (cand_ids >= 0) & (cand_ids < vectors.shape[0])
     safe = torch.where(valid, cand_ids, 0).long()
     ops.no_tf32()
@@ -111,6 +152,8 @@ def rerank_topk_cuda(
     k: int,
     norms2: Optional[torch.Tensor] = None,  # [Np] f32 (VectorStore.norms2)
     metric: str = "l2",
+    res_cents: Optional[torch.Tensor] = None,  # [nlist, Dp] f32 (residual stores)
+    res_ids: Optional[torch.Tensor] = None,    # [Np] int32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over each query's candidate rows; the contract of
     ``rerank_topk_reference``. Returns (vals [B, k] f32, ids [B, k] int32).
@@ -139,9 +182,8 @@ def rerank_topk_cuda(
     if Dp * 4 + R * 8 + k * 8 > _SMEM_LIMIT:
         raise ValueError(f"R={R} candidates of dim {Dp} exceed the kernel's "
                          f"shared memory")
-    if metric == "l2" and norms2 is None:
-        norms2 = store_norms2(vectors)
-    amul, boff = fold_coefficients(cand_ids, scales, norms2, metric)
+    amul, boff = _coefficients(queries, cand_ids, vectors, scales, norms2, metric,
+                               res_cents, res_ids)
 
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)

@@ -6,9 +6,10 @@ package: rows are padded up to a multiple of ``row_block`` and dims up to a
 multiple of 128. Padding rows and dims are zero; padding rows get scale 1.0
 and are masked out of every scan by ``n`` (the valid-row count).
 
-``norms2`` caches the squared row norms the l2 rerank folds in. Residual
-stores (``attach_residual``) and sharding arrive with the slices that use
-them.
+``norms2`` caches the squared row norms the l2 rerank folds in. A
+residual-int8 store (``attach_residual``) holds int8 codes of each row's
+residual against a coarse centroid: row i = res_cents[res_ids[i]] +
+scales[i] * vectors[i]. Sharding arrives with the slice that uses it.
 """
 
 from __future__ import annotations
@@ -57,6 +58,18 @@ def _scales_tensor(scales: np.ndarray, n: int, np_pad: int, device) -> torch.Ten
     return torch.from_numpy(s_host).to(device)
 
 
+def _residual_norms2(vectors: torch.Tensor, scales: torch.Tensor, res_cents: torch.Tensor,
+                     res_ids: torch.Tensor, chunk: int = 65536) -> torch.Tensor:
+    """[Np] f32 squared norms of the dequantized residual rows, chunked so
+    the f32 dequantized slab stays bounded."""
+    out = []
+    for s in range(0, vectors.shape[0], chunk):
+        row = (res_cents[res_ids[s:s + chunk].long()]
+               + vectors[s:s + chunk].to(torch.float32) * scales[s:s + chunk, None])
+        out.append(torch.sum(row * row, dim=1))
+    return torch.cat(out)
+
+
 @dataclasses.dataclass
 class VectorStore:
     """Device-resident base matrix.
@@ -76,6 +89,34 @@ class VectorStore:
     src_dtype_code: int
     _norms2: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # residual-int8 stores: the centroids [nlist, Dp] f32 (in the space of
+    # the quantizer they came from; queries scoring the store live there
+    # too) and each row's centroid id [Np] int32
+    res_cents: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    res_ids: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def is_residual(self) -> bool:
+        return self.res_cents is not None
+
+    def attach_residual(self, cents: np.ndarray, list_of: np.ndarray) -> "VectorStore":
+        """Mark an int8 store as residual codes against ``cents`` (host
+        arrays: the coarse centroids [nlist, >= d] and each row's list id
+        [n]). Padding rows map to centroid 0 with scale 1; candidate ids are
+        always valid rows, so they are never gathered."""
+        if self.dtype_code != vecbin.DTYPE_I8:
+            raise ValueError("residual stores are int8")
+        dp = self.d_padded
+        c = np.zeros((cents.shape[0], dp), np.float32)
+        c[:, :min(cents.shape[1], dp)] = cents[:, :dp]
+        ids = np.zeros((self.n_padded,), np.int32)
+        ids[:self.n] = list_of[:self.n]
+        self.res_cents = torch.from_numpy(c).to(self.device)
+        self.res_ids = torch.from_numpy(ids).to(self.device)
+        self._norms2 = None
+        return self
 
     # -- constructors --------------------------------------------------------
 
@@ -200,12 +241,17 @@ class VectorStore:
         return b
 
     def norms2(self) -> torch.Tensor:
-        """[Np] f32 squared norms of the raw rows (int8: of the codes),
-        computed once on the store's device and cached."""
+        """[Np] f32 squared norms of the raw rows (int8: of the codes; a
+        residual store: of the dequantized rows cent + s * codes, which the
+        l2 rerank needs), computed once on the store's device and cached."""
         if self._norms2 is None:
             from nvdb_tpu_torch.kernels.rerank import store_norms2
 
-            self._norms2 = store_norms2(self.vectors)
+            if self.is_residual:
+                self._norms2 = _residual_norms2(self.vectors, self.scales,
+                                                self.res_cents, self.res_ids)
+            else:
+                self._norms2 = store_norms2(self.vectors)
         return self._norms2
 
     def pad_queries(self, q: np.ndarray) -> np.ndarray:

@@ -1,14 +1,18 @@
-"""Build an IVF-(O)PQ index from a vecbin base, the nvdb_ivfpq_build
-analogue (the port of ``nvdb_tpu.tools.ivf_build``, ``--kind ivfpq``).
+"""Build an IVF-Flat or IVF-(O)PQ index from a vecbin base, the
+nvdb_ivf_build / nvdb_ivfpq_build analogue (the port of
+``nvdb_tpu.tools.ivf_build``).
 
-    python -m nvdb_tpu_torch.tools.ivf_build base.vecbin index.npz --kind ivfpq \\
-        --nlist 4096 --pq-m 96 --opq [--train 50000] [--pad-factor 2.5] \\
+    python -m nvdb_tpu_torch.tools.ivf_build base.vecbin index.npz --kind ivfflat \\
+        --nlist 4096 --dtype bf16 [--pad-factor 1.5] [--spill-candidates 4] \\
         [--device cuda|cpu]
+    python -m nvdb_tpu_torch.tools.ivf_build base.vecbin index.npz --kind ivfpq \\
+        --nlist 4096 --pq-m 96 --opq [--train 50000] [--pad-factor 2.5]
 
 Flag defaults honor the reference's env vars (IVF_NLIST, IVF_TRAIN, PQ_M,
-USE_OPQ, OPQ_NITER). The ``.npz`` it writes loads in ``nvdb_tpu`` too.
-``--kind ivfflat``, ``--repack-from``, ``--replicas`` and
-``--corpus-refine`` are not ported yet and exit non-zero.
+USE_OPQ, OPQ_NITER); ``--pad-factor`` defaults to 1.5 for ivfflat and 2.5
+for ivfpq. The ``.npz`` it writes loads in ``nvdb_tpu`` too.
+``--repack-from``, ``--replicas`` and ``--corpus-refine`` are not ported yet
+and exit non-zero.
 """
 
 from __future__ import annotations
@@ -26,16 +30,19 @@ def main(argv=None):
     p.add_argument("out", help="output index path (.npz)")
     ivf_env = config.IVFConfig.from_env()
     pq_env = config.PQConfig.from_env()
-    p.add_argument("--kind", default="ivfpq", choices=["ivfflat", "ivfpq"])
+    p.add_argument("--kind", default="ivfflat", choices=["ivfflat", "ivfpq"])
     p.add_argument("--nlist", type=int, default=ivf_env.nlist)
     p.add_argument("--train", type=int, default=ivf_env.train_size)
     p.add_argument("--iters", type=int, default=ivf_env.n_iters)
+    p.add_argument("--dtype", default="f32", choices=["f32", "bf16", "i8"],
+                   help="packed payload dtype (ivfflat only)")
     p.add_argument("--pq-m", type=int, default=pq_env.m)
     p.add_argument("--opq", dest="opq", action="store_true", default=pq_env.use_opq)
     p.add_argument("--no-opq", dest="opq", action="store_false")
     p.add_argument("--opq-iters", type=int, default=pq_env.opq_iters)
-    p.add_argument("--pad-factor", type=float, default=2.5,
-                   help="list capacity = pad_factor * N/nlist")
+    p.add_argument("--pad-factor", type=float, default=None,
+                   help="list capacity = pad_factor * N/nlist (default: 1.5 "
+                        "ivfflat, 2.5 ivfpq)")
     p.add_argument("--spill-candidates", type=int, default=4,
                    help="overflow rows try their S nearest lists before the "
                         "last-resort pour into any free list")
@@ -44,30 +51,39 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--corpus-refine", type=int, default=0, metavar="ITERS")
     args = p.parse_args(argv)
-    if args.kind != "ivfpq":
-        fail("--kind ivfflat is not ported yet (ROADMAP.md queue 3)")
     if args.repack_from or args.replicas != 1:
-        fail("--repack-from / --replicas are not ported yet (ROADMAP.md)")
+        fail("--repack-from / --replicas are not ported yet (ROADMAP.md queue 7)")
     if args.corpus_refine > 0:
-        fail("--corpus-refine is not ported yet (ROADMAP.md)")
+        fail("--corpus-refine is not ported yet (ROADMAP.md queue 7)")
+    if args.pad_factor is None:
+        args.pad_factor = 1.5 if args.kind == "ivfflat" else 2.5
     device = setup_device(args)
 
+    from nvdb_tpu_torch.index.ivf_flat import IVFFlatIndex
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
 
     f = vecbin.VecbinFile(args.base)
     rows = f.rows_f32()
     t0 = time.perf_counter()
-    idx = IVFPQIndex.build(
-        rows, nlist=args.nlist, m=args.pq_m, use_opq=args.opq, train_size=args.train,
-        n_iters=args.iters, opq_iters=args.opq_iters, pad_factor=args.pad_factor,
-        spill_candidates=args.spill_candidates, seed=args.seed, device=device)
+    if args.kind == "ivfflat":
+        idx = IVFFlatIndex.build(
+            rows, nlist=args.nlist, dtype=args.dtype, train_size=args.train,
+            n_iters=args.iters, pad_factor=args.pad_factor,
+            spill_candidates=args.spill_candidates, seed=args.seed, device=device)
+        shape = f"dtype={args.dtype}"
+    else:
+        idx = IVFPQIndex.build(
+            rows, nlist=args.nlist, m=args.pq_m, use_opq=args.opq, train_size=args.train,
+            n_iters=args.iters, opq_iters=args.opq_iters, pad_factor=args.pad_factor,
+            spill_candidates=args.spill_candidates, seed=args.seed, device=device)
+        shape = f"m={idx.m}"
     if device.type == "cuda":
         import torch
 
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     idx.save(args.out)
-    print(f"built ivfpq nlist={idx.nlist} lcap={idx.lcap} m={idx.m} over N={f.count} "
+    print(f"built {args.kind} nlist={idx.nlist} lcap={idx.lcap} {shape} over N={f.count} "
           f"in {dt:.2f}s on {device}; index_bytes={idx.index_bytes} "
           f"({idx.index_bytes / 1e6:.1f} MB) spilled={idx.n_spilled} -> {args.out}")
     return idx

@@ -1,5 +1,5 @@
-"""IVF-PQ + refine eval harness, the nvdb_ivf_eval analogue (the port of
-``nvdb_tpu.tools.ivf_eval``, one device).
+"""IVF-Flat / IVF-PQ + refine eval harness, the nvdb_ivf_eval analogue (the
+port of ``nvdb_tpu.tools.ivf_eval``, one device).
 
     python -m nvdb_tpu_torch.tools.ivf_eval index.npz base.vecbin q.vecbin \\
         --gt gt.gtbin --nprobe 64 --refine-k 100 --k 10 --batch-q 256 \\
@@ -18,9 +18,11 @@ Two ways to run each (nprobe, refine_k) grid point, as in the JAX package:
 
 Each grid point prints a ``RESULT key=value ...`` line with the device
 name; ``main`` returns those records as dicts. Every timed batch ends in a
-copy to the host, so times include the device work. ``--shards``,
-``--force-sharded``, ``--residual-refine``, ``--ids-mode key|gather`` and
-IVF-Flat indexes are not ported yet and exit non-zero.
+copy to the host, so times include the device work. The index kind is read
+from the ``.npz``; an IVF-Flat payload is already exact, so its grid points
+with ``refine_k > 0`` are skipped, as in the JAX package. ``--shards``,
+``--force-sharded``, ``--residual-refine`` and ``--ids-mode key|gather`` are
+not ported yet and exit non-zero.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ def main(argv=None):
     p.add_argument("--ann-only", action="store_true", default=eval_env.ann_only,
                    help="skip the refine stage (EVAL_MODE=ann_only)")
     p.add_argument("--ivf-backend", default="auto", choices=["auto", "cuda", "torch"],
-                   help="ADC / refine path: auto = the CUDA kernels on a card, the "
+                   help="probe / ADC / refine path: auto = the CUDA kernels on a card, the "
                         "JAX package's jnp path on the CPU; torch = the kernels' "
                         "plain versions (the A/B switch)")
     p.add_argument("--ids-mode", default=None, choices=["dma", "key", "gather"])
@@ -78,7 +80,7 @@ def main(argv=None):
     if args.shards > 1 or args.force_sharded:
         fail("--shards / --force-sharded are not ported yet (ROADMAP.md queue 6)")
     if args.residual_refine:
-        fail("--residual-refine is not ported yet (ROADMAP.md)")
+        fail("--residual-refine is not ported yet (ROADMAP.md queue 1)")
     if args.ids_mode in ("key", "gather"):
         fail(f"--ids-mode {args.ids_mode} is not ported (ROADMAP.md); the port "
              f"runs the dma semantics")
@@ -86,13 +88,14 @@ def main(argv=None):
 
     import torch
 
+    from nvdb_tpu_torch.index.ivf_flat import IVFFlatIndex
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
     from nvdb_tpu_torch.store import VectorStore
 
     z = np.load(args.index if args.index.endswith(".npz") else args.index + ".npz")
-    if "codebooks" not in z.files:
-        fail("IVF-Flat indexes are not ported yet (ROADMAP.md queue 3)")
-    idx = IVFPQIndex.load(args.index, device=device)
+    is_pq = "codebooks" in z.files
+    kind = "ivfpq" if is_pq else "ivfflat"
+    idx = (IVFPQIndex if is_pq else IVFFlatIndex).load(args.index, device=device)
     dev_name = (torch.cuda.get_device_name(device).replace(" ", "_")
                 if device.type == "cuda" else "cpu")
 
@@ -110,10 +113,10 @@ def main(argv=None):
 
     refine_ks = [0] if args.ann_only else list(args.refine_k)
     refine_store = None
-    if max(refine_ks) > 0:
+    if max(refine_ks) > 0 and is_pq:
         refine_store = VectorStore.from_vecbin(args.base, device=device)
 
-    print(f"kind=ivfpq nlist={idx.nlist} lcap={idx.lcap} N={idx.n} d={idx.d} Q={Q} "
+    print(f"kind={kind} nlist={idx.nlist} lcap={idx.lcap} N={idx.n} d={idx.d} Q={Q} "
           f"k={args.k} index_MB={idx.index_bytes / 1e6:.1f} device={dev_name}")
 
     b = max(args.batch_q, 1)
@@ -134,14 +137,18 @@ def main(argv=None):
         results.append(kv)
 
     for nprobe, refine_k in itertools.product(args.nprobe, refine_ks):
+        if not is_pq and refine_k > 0:
+            continue  # the flat payload is exact: a refine would be a no-op
         do_refine = refine_k > 0
         kk = max(refine_k, args.k) if do_refine else args.k
         blocks = [to_dev(x) for x in host_blocks] if staged else host_blocks
-        common = dict(kind="ivfpq", refine_k=refine_k, nprobe=nprobe, Q=Q, k=args.k,
+        common = dict(kind=kind, refine_k=refine_k, nprobe=nprobe, Q=Q, k=args.k,
                       batch_q=b, backend=args.ivf_backend, device=dev_name)
 
         if args.chained:
             def fused(block):
+                if not is_pq:
+                    return idx.search_device(block, args.k, nprobe, backend=args.ivf_backend)
                 return idx.search_device(block, args.k, nprobe, refine_k=refine_k,
                                          refine_store=refine_store,
                                          backend=args.ivf_backend,

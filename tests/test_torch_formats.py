@@ -132,6 +132,32 @@ def test_synth_and_quantize_match_jax():
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("chunk_seed", [None, 0, 262144])
+def test_low_rank_and_hard_match_jax(chunk_seed):
+    kw = dict(seed=5, chunk_seed=chunk_seed)
+    np.testing.assert_array_equal(
+        synth.low_rank(300, 48, intrinsic=8, n_clusters=6, spread=0.7, **kw),
+        jsynth.low_rank(300, 48, intrinsic=8, n_clusters=6, spread=0.7, **kw))
+    np.testing.assert_array_equal(synth.hard(400, 40, intrinsic=12, topics=9, **kw),
+                                  jsynth.hard(400, 40, intrinsic=12, topics=9, **kw))
+
+
+def test_hard_chunked_matches_jax_synth_tool(tmp_path):
+    """``hard_chunked`` gives the rows ``nvdb_tpu.tools.synth --hard``
+    writes, chunk seeds included (a small chunk stands in for 262,144)."""
+    from nvdb_tpu.tools import synth as jsynth_tool
+
+    path = str(tmp_path / "hard.vecbin")
+    jsynth_tool.main([path, "--count", "700", "--dim", "32", "--hard", "6", "--seed", "1",
+                      "--cpu"])
+    want = vecbin.VecbinFile(path).rows_f32()
+    np.testing.assert_array_equal(synth.hard_chunked(700, 32, intrinsic=6, seed=1), want)
+    chunks = [jsynth.hard(n, 32, intrinsic=6, topics=256, seed=1, chunk_seed=s)
+              for s, n in ((0, 300), (300, 300), (600, 100))]
+    np.testing.assert_array_equal(synth.hard_chunked(700, 32, intrinsic=6, seed=1, chunk=300),
+                                  np.concatenate(chunks))
+
+
 def test_port_never_imports_jax_or_ml_dtypes():
     pat = re.compile(r"^\s*(import|from)\s+(jax|ml_dtypes)\b", re.M)
     offenders = []
@@ -150,6 +176,11 @@ def test_port_imports_with_jax_blocked():
             "import nvdb_tpu_torch, nvdb_tpu_torch.bench, nvdb_tpu_torch.tools.bench, "
             "nvdb_tpu_torch.kernels.flat_scan, nvdb_tpu_torch.tools.ivf_build, "
             "nvdb_tpu_torch.tools.ivf_eval, nvdb_tpu_torch.index.ivf_pq, "
-            "nvdb_tpu_torch.kernels.adc_scan, nvdb_tpu_torch.kernels.rerank; "
+            "nvdb_tpu_torch.kernels.adc_scan, nvdb_tpu_torch.kernels.rerank, "
+            "nvdb_tpu_torch.kernels.ivf_scan, nvdb_tpu_torch.kernels.hbm_stream, "
+            "nvdb_tpu_torch.kernels.add1, nvdb_tpu_torch.index.partition, "
+            "nvdb_tpu_torch.tools.pr_build, nvdb_tpu_torch.tools.pr_search, "
+            "nvdb_tpu_torch.tools.pr_eval, nvdb_tpu_torch.tools.hbm_probe, "
+            "nvdb_tpu_torch.tools.gpu_sanity; "
             "assert not any(m.startswith('nvdb_tpu.') or m == 'nvdb_tpu' for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -245,3 +245,159 @@ def test_adc_kernel_matches_plain(cuda_device, b, p, kk, dup):
         assert len(set(live.tolist())) == len(live)
         assert np.all(np.diff(vals[np.isfinite(vals)]) <= 0)
         assert np.isneginf(vals[row < 0]).all()
+
+
+# -- the IVF probe kernel ------------------------------------------------------
+
+def _probe_case(dtype, b, p, seed, nlist=24, lcap=160, dp=128):
+    """A random packed IVF index with lists of varied fill (empty, partial
+    with holes, full, one filled below k), its queries and probe ids; list 3
+    is dead (every slot -1) and every query probes it."""
+    rng = np.random.default_rng(seed)
+    rows = rng.standard_normal((nlist, lcap, dp)).astype(np.float32)
+    slot_ids = np.full((nlist, lcap), -1, np.int32)
+    perm = rng.permutation(nlist * lcap).astype(np.int32)
+    for li in range(nlist):
+        f = int(rng.integers(0, lcap + 1)) if li % 5 else lcap
+        slot_ids[li, :f] = perm[li * lcap:li * lcap + f]
+    slot_ids[3] = -1
+    slot_ids[4, 3:] = -1                              # three live slots
+    slot_ids[5, ::7] = -1                             # holes
+    sc = None
+    if dtype == "f32":
+        packed = torch.from_numpy(rows)
+    elif dtype == "bf16":
+        packed = vecbin.bf16_bits_to_torch(vecbin.to_bf16(rows))
+    else:
+        codes, s = vecbin.quantize_i8(rows.reshape(-1, dp))
+        packed = torch.from_numpy(codes.reshape(nlist, lcap, dp))
+        sc = torch.from_numpy(s.reshape(nlist, lcap))
+    # distinct probes per query, as the coarse ranking gives: lists 3 and 4
+    # first, then others
+    fixed = [3, 4][:p]
+    others = np.setdiff1d(np.arange(nlist), fixed)
+    probes = np.stack([np.r_[fixed, rng.choice(others, p - len(fixed), replace=False)]
+                       for _ in range(b)]).astype(np.int32)
+    q = rng.standard_normal((b, dp)).astype(np.float32)
+    return torch.from_numpy(q), torch.from_numpy(probes), packed, torch.from_numpy(slot_ids), sc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "i8"])
+@pytest.mark.parametrize("b,p,k", [(1, 1, 1), (8, 7, 10), (37, 12, 128), (130, 3, 50)])
+def test_probe_kernel_matches_plain(cuda_device, dtype, b, p, k):
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    args = [x.to(cuda_device) if x is not None else None
+            for x in _probe_case(dtype, b, p, seed=b * 7 + p + k)]
+    before = ivf_scan.LAUNCHES
+    kv, ki = ivf_scan.ivf_probe_topk_cuda(*args, k)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES == before + 1
+    pv, pi = ivf_scan.ivf_probe_topk_reference(*args, k)
+    kv, ki, pv, pi = (x.cpu().numpy() for x in (kv, ki, pv, pi))
+    assert ((ki >= 0) == (pi >= 0)).all()
+    np.testing.assert_allclose(kv, pv, atol=1e-5, rtol=1e-5)
+    assert np.mean(ki == pi) >= 0.95
+    for row, vals in zip(ki, kv):
+        live = row[row >= 0]
+        assert len(set(live.tolist())) == len(live)
+        assert np.all(np.diff(vals[np.isfinite(vals)]) <= 0)
+        assert np.isneginf(vals[row < 0]).all()
+
+
+@pytest.mark.gpu
+def test_probe_kernel_out_of_range_probe_is_empty(cuda_device):
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    q, probes, packed, sids, _ = _probe_case("f32", 4, 3, seed=9)
+    q, probes, packed, sids = (x.to(cuda_device) for x in (q, probes, packed, sids))
+    probes[:, 2] = -1
+    probes[0, 1] = 10 ** 6
+    kv, ki = ivf_scan.ivf_probe_topk_cuda(q, probes, packed, sids, None, 20)
+    pv, pi = ivf_scan.ivf_probe_topk_reference(q, probes, packed, sids, None, 20)
+    np.testing.assert_allclose(kv.cpu().numpy(), pv.cpu().numpy(), atol=1e-5, rtol=1e-5)
+    assert ((ki >= 0) == (pi >= 0)).all()
+
+
+@pytest.mark.gpu
+def test_probe_kernel_rejects_bad_input(cuda_device):
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    q, probes, packed, sids, sc = _probe_case("i8", 4, 3, seed=2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ivf_scan.ivf_probe_topk_cuda(q, probes, packed, sids, sc, 10)
+    q, probes, packed, sids, sc = (x.to(cuda_device) for x in (q, probes, packed, sids, sc))
+    with pytest.raises(ValueError):
+        ivf_scan.ivf_probe_topk_cuda(q, probes, packed, sids, sc, 129)
+    with pytest.raises(ValueError):
+        ivf_scan.ivf_probe_topk_cuda(q, probes, packed, sids, None, 10)   # int8 needs scales
+    with pytest.raises(TypeError):
+        ivf_scan.ivf_probe_topk_cuda(q.double(), probes, packed, sids, sc, 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_rerank_kernel_residual_fold(cuda_device, metric):
+    """A residual-int8 store (row = cent + s * codes) through the kernel,
+    against the plain version and a float64 oracle over the dequantized
+    rows."""
+    from nvdb_tpu_torch.kernels import rerank
+    from nvdb_tpu_torch.store import VectorStore
+
+    rng = np.random.default_rng(17)
+    n, dp, nlist, b, r, k = 3000, 128, 16, 12, 60, 10
+    cents = rng.standard_normal((nlist, dp)).astype(np.float32)
+    list_of = rng.integers(0, nlist, n).astype(np.int32)
+    rows = cents[list_of] + 0.3 * rng.standard_normal((n, dp)).astype(np.float32)
+    codes, sc = vecbin.quantize_i8(rows - cents[list_of])
+    store = VectorStore.from_numpy(codes, "i8", scales=sc, device=cuda_device)
+    store.attach_residual(cents, list_of)
+    q = torch.from_numpy(rng.standard_normal((b, dp)).astype(np.float32)).to(cuda_device)
+    cand = torch.from_numpy(np.stack([rng.choice(n, r, replace=False) for _ in range(b)])
+                            .astype(np.int32)).to(cuda_device)
+    kw = dict(norms2=store.norms2() if metric == "l2" else None, metric=metric,
+              res_cents=store.res_cents, res_ids=store.res_ids)
+    kv, ki = rerank.rerank_topk_cuda(q, cand, store.vectors, store.scales, k, **kw)
+    pv, pi = rerank.rerank_topk_reference(q, cand, store.vectors, store.scales, k, **kw)
+    kv, ki, pv, pi = (x.cpu().numpy() for x in (kv, ki, pv, pi))
+    np.testing.assert_allclose(kv, pv, atol=1e-4, rtol=1e-5)
+    deq = cents[list_of].astype(np.float64) + codes.astype(np.float64) * sc[:, None]
+    c = cand.cpu().numpy()
+    s64 = np.einsum("bd,brd->br", q.cpu().numpy().astype(np.float64), deq[c])
+    if metric == "l2":
+        s64 = 2.0 * s64 - (deq[c] ** 2).sum(-1)
+    best = -np.sort(-s64, axis=1)[:, :k]
+    pos = [{int(cid): ri for ri, cid in enumerate(row)} for row in c]
+    got = np.array([[s64[bi, pos[bi][int(i)]] for i in ki[bi]] for bi in range(b)])
+    assert np.max(best - -np.sort(-got, axis=1)) <= 1e-4
+
+
+# -- the HBM stream and add1 kernels -------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 4097, 70001])
+def test_stream_kernels_match_amax(cuda_device, rows):
+    from nvdb_tpu_torch.kernels import hbm_stream
+
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = torch.randn((rows, 128), generator=g, device=cuda_device).to(torch.bfloat16)
+    want = hbm_stream.stream_max_reference(x)
+    before = dict(hbm_stream.LAUNCHES)
+    assert torch.equal(hbm_stream.stream_max_cuda(x), want)
+    assert torch.equal(hbm_stream.ring_max_cuda(x), want)
+    assert hbm_stream.LAUNCHES == {"stream": before["stream"] + 1, "ring": before["ring"] + 1}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hbm_stream.stream_max_cuda(x.cpu())
+
+
+@pytest.mark.gpu
+def test_add1_kernel(cuda_device):
+    from nvdb_tpu_torch.kernels import add1
+
+    x = torch.linspace(-3, 3, 8 * 128, device=cuda_device).reshape(8, 128)
+    before = add1.LAUNCHES
+    assert torch.equal(add1.add1_cuda(x), x + 1.0)
+    assert add1.LAUNCHES == before + 1
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        add1.add1_cuda(x.cpu())

@@ -1,6 +1,8 @@
 """The port's CLIs against the JAX package's on the same files (``bench``,
-``ivf_build`` + ``ivf_eval``), and the no-fallback rule: without a card the
-port's measurement entry points fail unless the CPU is asked for."""
+``ivf_build`` + ``ivf_eval`` for IVF-PQ and IVF-Flat, ``pr_build`` /
+``pr_search`` / ``pr_eval``), and the no-fallback rule: without a card the
+port's measurement entry points fail unless the CPU is asked for, and the
+card-only tools (``hbm_probe``, ``gpu_sanity``) always fail."""
 
 import re
 
@@ -13,7 +15,8 @@ from nvdb_tpu.formats import synth as jsynth
 from nvdb_tpu.formats import vecbin as jvecbin
 from nvdb_tpu.tools import bench as jbench
 from nvdb_tpu_torch import bench as headline
-from nvdb_tpu_torch.tools import bench, ivf_build, ivf_eval
+from nvdb_tpu_torch.tools import (bench, gpu_sanity, hbm_probe, ivf_build, ivf_eval,
+                                  pr_build, pr_eval, pr_search)
 
 
 @pytest.fixture(scope="module")
@@ -147,7 +150,7 @@ def test_ivf_eval_unported_flags_exit(ivf_files, capsys, argv):
     assert "not ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [["--kind", "ivfflat"], ["--replicas", "2"],
+@pytest.mark.parametrize("argv", [["--repack-from", "x.npz"], ["--replicas", "2"],
                                   ["--corpus-refine", "1"]])
 def test_ivf_build_unported_flags_exit(ivf_files, tmp_path, capsys, argv):
     with pytest.raises(SystemExit) as e:
@@ -155,3 +158,130 @@ def test_ivf_build_unported_flags_exit(ivf_files, tmp_path, capsys, argv):
                         *argv])
     assert e.value.code != 0
     assert "not ported" in capsys.readouterr().err
+
+
+# -- IVF-Flat and the partition index --------------------------------------------
+
+@pytest.fixture(scope="module")
+def flat_files(tmp_path_factory, ivf_files):
+    """An IVF-Flat index of ivf_files' base, built by the port's tool."""
+    d = tmp_path_factory.mktemp("torch_ivfflat_tools")
+    paths = dict(ivf_files, idx=str(d / "flat.npz"))
+    ivf_build.main([paths["base"], paths["idx"], "--kind", "ivfflat", "--nlist", "16",
+                    "--dtype", "bf16", "--spill-candidates", "3", "--device", "cpu"])
+    return paths
+
+
+def test_ivf_build_ivfflat_writes_an_index_jax_loads(flat_files):
+    from nvdb_tpu.index.ivf_flat import IVFFlatIndex as JIVFFlatIndex
+
+    idx = JIVFFlatIndex.load(flat_files["idx"])
+    assert (idx.n, idx.d, idx.nlist, idx.dtype_code) == (3000, 64, 16, jvecbin.DTYPE_BF16)
+    assert idx.lcap == 288                       # round_up(ceil(3000 / 16 * 1.5), 32)
+    live = np.asarray(idx.slot_ids)
+    assert sorted(live[live >= 0].tolist()) == list(range(3000))
+
+
+@pytest.mark.parametrize("mode", [[], ["--chained", "--wave", "1"]])
+def test_ivf_eval_ivfflat_recall_matches_jax(flat_files, capsys, mode):
+    """An IVF-Flat index through both packages' ivf_eval: the same recall@10,
+    and the refine_k > 0 grid point skipped by both."""
+    from nvdb_tpu.tools import ivf_eval as jivf_eval
+
+    args = [flat_files["idx"], flat_files["base"], flat_files["q"], "--gt", flat_files["gt"],
+            "--nprobe", "2", "6", "--refine-k", "0", "40", "--k", "10", "--batch-q", "4",
+            "--warmup", "1", *mode]
+    got = ivf_eval.main(args + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.count("RESULT kind=ivfflat") == 2 and "refine_k=40" not in out
+    jivf_eval.main(args + ["--cpu", "--ivf-backend", "jnp"])
+    jout = capsys.readouterr().out
+    want = [float(x) for x in re.findall(r"^RESULT .* recall=([0-9.]+) ", jout, re.M)]
+    assert [round(r["recall"], 6) for r in got] == want
+    assert got[1]["recall"] >= got[0]["recall"] and got[1]["recall"] > 0.8
+
+
+def test_ivf_eval_ivfflat_torch_backend_on_cpu(flat_files):
+    got = ivf_eval.main([flat_files["idx"], flat_files["base"], flat_files["q"], "--gt",
+                         flat_files["gt"], "--nprobe", "6", "--batch-q", "4", "--chained",
+                         "--device", "cpu", "--ivf-backend", "torch"])
+    assert got[0]["recall"] > 0.8
+
+
+def test_pr_build_and_search_match_jax(ivf_files, tmp_path, capsys):
+    """pr_build's file loads in both packages, and pr_search on it prints the
+    same ids as the JAX package's pr_search (exact rerank on both)."""
+    from nvdb_tpu.tools import pr_search as jpr_search
+
+    path = str(tmp_path / "pr.npz")
+    idx = pr_build.main([ivf_files["base"], path, "--nlist", "16", "--iters", "4",
+                         "--device", "cpu"])
+    assert "built partitions=16" in capsys.readouterr().out
+    assert idx.ivf.dtype_code == jvecbin.DTYPE_BF16
+    args = [path, ivf_files["q"], "--k", "5", "--nprobe", "4", "--base", ivf_files["base"],
+            "--rerank-k", "20"]
+    _, ids = pr_search.main(args + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    jpr_search.main(args + ["--cpu"])
+    jout = capsys.readouterr().out
+    assert out.count("query ") == 12
+    got = [re.findall(r"(\d+)\(", line) for line in out.splitlines()]
+    want = [re.findall(r"(\d+)\(", line) for line in jout.splitlines()]
+    agree = np.mean([a == b for ga, wa in zip(got, want) for a, b in zip(ga, wa)])
+    assert agree >= 0.99 and ids.shape == (12, 5)
+
+
+@pytest.mark.parametrize("mode", [[], ["--chained", "--wave", "1"]])
+@pytest.mark.parametrize("refine", ["f32", "res_i8"])
+def test_pr_eval_on_cpu(ivf_files, capsys, mode, refine):
+    got = pr_eval.main([ivf_files["base"], ivf_files["q"], "--gt", ivf_files["gt"],
+                        "--nlist", "16", "--nprobe", "2", "8", "--rerank-k", "40",
+                        "--batch-q", "4", "--warmup", "1", "--refine-dtype", refine,
+                        "--tune", "0.9", "--device", "cpu", *mode])
+    out = capsys.readouterr().out
+    assert out.count("RESULT kind=partition-rerank") == 2 and "tuned nprobe" in out
+    assert got[1]["recall"] >= got[0]["recall"] and got[1]["recall"] > 0.8
+    if mode:
+        assert got[1]["chained"] == 1 and got[1]["wave_p99_ms"] > 0
+
+
+def test_pr_eval_torch_backend_matches_auto(ivf_files, capsys):
+    args = [ivf_files["base"], ivf_files["q"], "--gt", ivf_files["gt"], "--nlist", "16",
+            "--nprobe", "4", "--rerank-k", "40", "--batch-q", "6", "--chained",
+            "--device", "cpu"]
+    a = pr_eval.main(args)
+    t = pr_eval.main(args + ["--backend", "torch"])
+    assert a[0]["recall"] == t[0]["recall"]
+
+
+def test_pr_eval_shards_not_ported(ivf_files, capsys):
+    with pytest.raises(SystemExit) as e:
+        pr_eval.main([ivf_files["base"], ivf_files["q"], "--shards", "2", "--device", "cpu"])
+    assert e.value.code != 0
+    assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("tool", [hbm_probe, gpu_sanity])
+def test_card_only_tools_fail_without_card(tool, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tool runs")
+    with pytest.raises(SystemExit) as e:
+        tool.main([])
+    assert e.value.code == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_ivf_build_defaults_match_jax(ivf_files, tmp_path, capsys):
+    """Without ``--kind`` both packages' ivf_build write an f32 IVF-Flat index
+    at pad 1.5 (the port's default was ivfpq while IVF-Flat was unported)."""
+    from nvdb_tpu.index.ivf_flat import IVFFlatIndex as JIVFFlatIndex
+    from nvdb_tpu.tools import ivf_build as jivf_build
+
+    ours, theirs = str(tmp_path / "t.npz"), str(tmp_path / "j.npz")
+    ivf_build.main([ivf_files["base"], ours, "--nlist", "8", "--device", "cpu"])
+    jivf_build.main([ivf_files["base"], theirs, "--nlist", "8", "--cpu"])
+    capsys.readouterr()
+    t, j = JIVFFlatIndex.load(ours), JIVFFlatIndex.load(theirs)
+    assert "codebooks" not in np.load(ours).files
+    assert (t.dtype_code, t.lcap, t.nlist) == (j.dtype_code, j.lcap, j.nlist)
+    assert t.dtype_code == jvecbin.DTYPE_F32 and t.lcap == 576   # round_up(3000 / 8 * 1.5, 32)
