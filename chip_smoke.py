@@ -10,15 +10,20 @@ then, one phase per line group:
 1. device: the card, ``nvidia-smi``'s name and power limit, torch and CUDA;
 2. build: build seconds and each kernel's ptxas register / spill line;
 3. kernel vs plain: the kernel against its plain PyTorch version and a
-   float64 oracle on a 65,536 x 768 store (n_valid 65,000), every store
-   type, B in {1, 8, 37, 512}, k in {1, 10, 128};
+   float64 oracle on a 65,536 x 768 store (n_valid 65,000, which ends
+   inside a row tile), every store type (f32 through the SIMT kernel, the
+   others through the tensor-core kernel), B in {1, 8, 37, 200, 512, 600},
+   k in {1, 10, 128}; int8 x int8 must equal the plain version bit for bit;
 4. main path: ``FlatIndex.search`` of 512 queries, k = 10, over a 1M x 768
    bf16 store synthesized on the card, through ``dispatch.flat_topk``; the
    kernel's launch count is reset just before and must have risen; then
    ``tools.bench`` on a 262,144 x 384 f32 vecbin with float64 ground truth;
 5. times: kernel and plain version in turns at 1M x 768, B = 512, k = 10 per
-   store type and at B = 8 for bf16, and the headline line of
-   ``nvdb_tpu_torch.bench``;
+   store type and at B = 8 for bf16, each beside its bound (the least time
+   the card could take: bytes over the HBM rate or operations over the peak
+   rate of their type, whichever is larger) and time / bound; one
+   ``torch.matmul`` of the bf16 B = 512 product as the library's time for
+   the scoring part alone; the headline line of ``nvdb_tpu_torch.bench``;
 6. ADC kernel vs plain: a random packed index at the flagship's M = 96 and
    Lcap = 640, B in {1, 8, 64, 256}, P in {1, 7, 64}, kk in {10, 100, 256,
    1024}, and an index whose lists share ids (replicated rows);
@@ -51,14 +56,18 @@ then, one phase per line group:
    index (B = 256, P = 64, k = 10), and the partition batch by stage;
 13. ``tools.hbm_probe`` (the stream and ring kernels against ``torch.amax``
    over 1M x 768 bf16: the card's HBM ceiling, which phase 12's rates are
-   read against) and ``tools.gpu_sanity`` (the add1 kernel).
+   read against) and ``tools.gpu_sanity`` (the add1 kernel); add1 and
+   ``x + 1`` are timed as 100 launches captured in one CUDA graph, so the
+   figure is the device's and not the Python wrapper's.
 
 Files go to ``build/chip_smoke``, which is removed at the end. Each phase
 prints its wall time. Every check raises on failure, so the exit code is
 non-zero if any phase fails; nothing falls back to the CPU or to the plain
 version. Without a CUDA device it exits 1 before printing any result. The
 last three lines are ``nvidia-smi``'s name and power limit, the kernels'
-JSON record, and ``{"ok": true, "device": {...}}``.
+JSON record (launches on the main paths, error, ms, plain ms, bound ms and
+what sets it, the library call's ms where there is one), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -84,6 +93,9 @@ ADC_ATOL = 1e-4        # |ADC kernel - plain|: the same bf16 tables summed in th
                        # same order; the bound leaves room for the compiler
 RECALL_GAP = 0.005     # kernel path's recall@10 against the plain path's
 PR_RECALL_MIN = 0.9    # partition recall@10 at nprobe 32 (published: .9947)
+# NVIDIA H100 SXM data sheet, dense rates: what a kernel's bound is reckoned from
+HBM_GBPS = 3350.0
+PEAK_TOPS = {"bf16": 989.0, "int8": 1979.0, "f32": 67.0}   # f32: outside the tensor cores
 KERNELS = ("flat_topk", "adc_topk", "rerank_topk", "ivf_probe_topk", "hbm_stream", "add1")
 
 
@@ -98,6 +110,15 @@ class SmokeFailure(AssertionError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def bound_ms(nbytes, ops, kind):
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the HBM rate, or ``ops`` operations at
+    the peak rate of their ``kind``, whichever is larger. Returns (ms, which)."""
+    t_bytes = nbytes / (HBM_GBPS * 1e9) * 1e3
+    t_ops = ops / (PEAK_TOPS[kind] * 1e12) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def nvidia_smi_line() -> str:
@@ -147,7 +168,7 @@ def phase_kernel_vs_plain(torch, dev):
 
     n_pad, n_valid, dp = 65536, 65000, 768
     base = torch.from_numpy(synth.normalized_gaussian(n_pad, dp, seed=11)).to(dev)
-    qall = torch.from_numpy(synth.normalized_gaussian(512, dp, seed=12)).to(dev)
+    qall = torch.from_numpy(synth.normalized_gaussian(600, dp, seed=12)).to(dev)
     max_err = 0.0
     for dtype in ("f32", "bf16", "i8", "i8xi8"):
         scales = qq = qs = None
@@ -163,7 +184,7 @@ def phase_kernel_vs_plain(torch, dev):
             qq, qs = quantize_queries_i8(qall)
         q64, s64_store = effective_f64(torch, dtype, qall, base, store, scales, qq, qs)
         s64_all = q64 @ s64_store[:n_valid].T
-        for b in (1, 8, 37, 512):
+        for b in (1, 8, 37, 200, 512, 600):
             q = qq[:b] if qq is not None else qall[:b]
             qsb = qs[:b] if qs is not None else None
             for k in (1, 10, 128):
@@ -184,6 +205,8 @@ def phase_kernel_vs_plain(torch, dev):
                 check(bool(torch.allclose(kv, pv, atol=VALUE_ATOL, rtol=VALUE_RTOL)),
                       f"{tag}: values differ from plain by {err}")
                 check(agree >= ID_AGREE_MIN, f"{tag}: id agreement {agree} < {ID_AGREE_MIN}")
+                if dtype == "i8xi8":   # int32 sums are exact in any order
+                    check(bool(torch.equal(kv, pv)), f"{tag}: not bit-equal to plain")
                 max_err = max(max_err, err)
                 say(f"  {tag}: regret={r:.3e} max_abs_err={err:.3e} id_agree={agree:.4f}")
         del store, scales, s64_all, s64_store, q64
@@ -250,6 +273,7 @@ def remove_files(paths):
 def phase_tools_bench(torch, dev, work):
     from nvdb_tpu_torch.formats import gtbin, synth, vecbin
     from nvdb_tpu_torch.index.flat import FlatIndex
+    from nvdb_tpu_torch.kernels import flat_scan
     from nvdb_tpu_torch.store import VectorStore
     from nvdb_tpu_torch.tools import bench as bench_tool
 
@@ -262,9 +286,13 @@ def phase_tools_bench(torch, dev, work):
     vecbin.write_vecbin(paths["base.vecbin"], base)
     vecbin.write_vecbin(paths["q.vecbin"], queries)
     gtbin.write_gtbin(paths["gt.gtbin"], gt, dim=d, N=n)
+    flat_scan.LAUNCHES = 0
     recall = run_tool(bench_tool.main, [paths["base.vecbin"], paths["q.vecbin"], str(k),
                                         "--batch-q", "16", "--gt", paths["gt.gtbin"]],
                       keep=("N=", "recall@", "RESULT"))
+    launches = flat_scan.LAUNCHES
+    say(f"  tools.bench: {launches} launches of the flat kernel")
+    check(launches > 0, "tools.bench did not launch the kernel")
     if recall < 1.0:
         # near-ties may swap ids between f32 and float64: judge by regret
         idx = FlatIndex(VectorStore.from_vecbin(paths["base.vecbin"], device=dev))
@@ -275,6 +303,7 @@ def phase_tools_bench(torch, dev, work):
         say(f"  recall {recall:.4f} < 1: regret {r:.3e}")
         check(r <= REGRET_TOL, f"tools.bench: regret {r}")
     remove_files(paths)
+    return launches
 
 
 def phase_times(torch, dev):
@@ -296,11 +325,25 @@ def phase_times(torch, dev):
         kern = sum(runs["auto"]) / 2
         plain = sum(runs["torch"]) / 2
         name = f"{'i8xi8' if qi8 else dtype} B={b} k={k}"
-        gb = store.hbm_bytes / 1e9
-        say(f"  {name}: kernel {kern:.4f} ms ({runs['auto']}) {b / kern * 1e3:.1f} QPS "
-            f"{gb / kern * 1e3:.1f} GB/s | plain {plain:.4f} ms ({runs['torch']}) "
-            f"{b / plain * 1e3:.1f} QPS {gb / plain * 1e3:.1f} GB/s")
-        out[name] = (kern, plain)
+        # bytes: the valid rows (and their scales), the queries, the result
+        esize = store.vectors.element_size()
+        nbytes = (n * store.d_padded * esize + (n * 4 if store.scales is not None else 0)
+                  + b * store.d_padded * (1 if qi8 else 4) + (b * 4 if qi8 else 0) + b * k * 8)
+        kind = "f32" if dtype == "f32" else ("int8" if qi8 else "bf16")
+        bnd, by = bound_ms(nbytes, 2.0 * b * n * store.d_padded, kind)
+        lib = None
+        if dtype == "bf16" and b == 512:
+            # the scoring part alone, as one library call (never on the port's path)
+            q16 = qpool[0].to(torch.bfloat16)
+            scores = torch.empty((b, store.vectors.shape[0]), dtype=torch.bfloat16, device=dev)
+            lib = cuda_ms(torch, lambda: torch.matmul(q16, store.vectors.T, out=scores), iters)
+            del q16, scores
+        say(f"  {name}: kernel {kern:.4f} ms ({runs['auto']}) {b / kern * 1e3:.1f} QPS | plain "
+            f"{plain:.4f} ms ({runs['torch']}) {b / plain * 1e3:.1f} QPS | bound {bnd:.4f} ms "
+            f"({by}: {nbytes / 1e9:.4f} GB, {2.0 * b * n * store.d_padded / 1e9:.1f} G{kind} "
+            f"ops) time / bound {kern / bnd:.2f}"
+            + (f" | torch.matmul of the scores alone {lib:.4f} ms" if lib is not None else ""))
+        out[name] = dict(ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib)
         del store, qall, qpool
         torch.cuda.empty_cache()
     buf = io.StringIO()
@@ -332,6 +375,24 @@ def in_turns(torch, plain, kern, iters):
     for name in ("plain", "kernel", "kernel", "plain"):
         runs[name].append(cuda_ms(torch, plain if name == "plain" else kern, iters))
     return sum(runs["kernel"]) / 2, sum(runs["plain"]) / 2, runs
+
+
+def graph_ms(torch, fn, launches=100, replays=20):
+    """Milliseconds per call of ``fn`` with ``launches`` calls captured in
+    one CUDA graph and the graph replayed ``replays`` times between two
+    events: the device's time per launch, without the host time of the
+    Python wrapper."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(torch, graph.replay, replays) / launches
 
 
 def adc_case(torch, dev, b, p, seed, nlist=128, m=96, lcap=640, dup=False):
@@ -481,7 +542,7 @@ def phase_ivf_main_path(torch, dev, work, n=1_000_000, nlist=4096):
 def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
     from nvdb_tpu_torch.formats import gtbin, synth, vecbin
     from nvdb_tpu_torch.index.flat import FlatIndex
-    from nvdb_tpu_torch.kernels import adc_scan, rerank
+    from nvdb_tpu_torch.kernels import adc_scan, flat_scan, rerank
     from nvdb_tpu_torch.store import VectorStore
     from nvdb_tpu_torch.tools import ivf_build, ivf_eval
 
@@ -496,9 +557,12 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
 
     t0 = time.perf_counter()
     store = VectorStore.from_vecbin(paths["base.vecbin"], device=dev)
+    flat_scan.LAUNCHES = 0
     gt = FlatIndex(store).search(queries, k)[1]
+    gt_launches = flat_scan.LAUNCHES
     gtbin.write_gtbin(paths["gt.gtbin"], gt, dim=d, N=n)
-    say(f"  ground truth by the flat kernel (f32 store): {time.perf_counter() - t0:.1f} s")
+    say(f"  ground truth by the flat kernel (f32 store, {gt_launches} launches): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     idx = run_tool(ivf_build.main, [paths["base.vecbin"], paths["index.npz"], "--kind",
                                     "ivfpq", "--nlist", str(nlist), "--pq-m", "96", "--opq",
@@ -516,7 +580,8 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
         res = run_tool(ivf_eval.main, eval_args + ["--ivf-backend", backend],
                        keep=("kind=", "RESULT"))[0]
         if backend == "auto":
-            out["launches"] = {"adc_topk": adc_scan.LAUNCHES, "rerank_topk": rerank.LAUNCHES}
+            out["launches"] = {"adc_topk": adc_scan.LAUNCHES, "rerank_topk": rerank.LAUNCHES,
+                               "flat_topk": gt_launches}
         say(f"  ivf_eval --ivf-backend {backend}: recall@10={res['recall']:.4f} "
             f"QPS={res['qps']:.1f}")
         out[backend] = res
@@ -564,7 +629,13 @@ def phase_ivf_times(torch, dev, idx, store, queries):
     say(f"  ADC B={b} P={nprobe} M={idx.m} Lcap={idx.lcap} kk={kk} (live share of "
         f"probed slots {live:.3f}): kernel {kern:.4f} ms {runs['kernel']} | plain "
         f"{plain:.4f} ms {runs['plain']}")
-    out["adc_topk"] = (kern, plain)
+    # bytes: the live slots' codes and ids, the bf16 tables, the probes, the result
+    slots = int(fills[probes.long()].sum())
+    nbytes = slots * (idx.m + 4) + lut.numel() * 2 + probes.numel() * 4 + b * kk * 8
+    bnd, by = bound_ms(nbytes, float(slots) * idx.m, "f32")
+    say(f"    bound {bnd:.4f} ms ({by}: {nbytes / 1e9:.4f} GB, {slots} live slots) "
+        f"time / bound {kern / bnd:.2f}")
+    out["adc_topk"] = dict(ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by)
     cand = adc_scan.adc_topk_cuda(*args, fills=fills)[1].contiguous()
     del lut
 
@@ -577,7 +648,13 @@ def phase_ivf_times(torch, dev, idx, store, queries):
             lambda: rerank.rerank_topk_cuda(qb, cb, st16, None, 10, norms2=n2), iters=20)
         say(f"  rerank bf16 1M x 768 B={bb} R={kk} k=10 l2: kernel {kern:.4f} ms "
             f"{runs['kernel']} | plain {plain:.4f} ms {runs['plain']}")
-        out[f"rerank_topk B={bb}"] = (kern, plain)
+        # bytes: each candidate's row, id and norm, the queries, the result
+        n_cand = int((cb >= 0).sum())
+        dp = st16.shape[1]
+        nbytes = n_cand * (dp * 2 + 8) + bb * dp * 4 + bb * 10 * 8
+        bnd, by = bound_ms(nbytes, 2.0 * n_cand * dp, "f32")
+        say(f"    bound {bnd:.4f} ms ({by}: {nbytes / 1e6:.3f} MB) time / bound {kern / bnd:.2f}")
+        out[f"rerank_topk B={bb}"] = dict(ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by)
     del st16, n2
     torch.cuda.empty_cache()
     return out
@@ -704,7 +781,7 @@ def phase_partition_main_path(torch, dev, work, n=1_000_000, d=768, nq=1000, fla
     from nvdb_tpu_torch.formats import gtbin, synth, vecbin
     from nvdb_tpu_torch.index.flat import FlatIndex
     from nvdb_tpu_torch.index.partition import auto_nlist
-    from nvdb_tpu_torch.kernels import ivf_scan, rerank
+    from nvdb_tpu_torch.kernels import flat_scan, ivf_scan, rerank
     from nvdb_tpu_torch.store import VectorStore
     from nvdb_tpu_torch.tools import ivf_build, ivf_eval, pr_build, pr_eval, pr_search
     from nvdb_tpu_torch.utils import round_up
@@ -723,13 +800,16 @@ def phase_partition_main_path(torch, dev, work, n=1_000_000, d=768, nq=1000, fla
 
     t0 = time.perf_counter()
     store = VectorStore.from_vecbin(paths["base.vecbin"], device=dev)
+    flat_scan.LAUNCHES = 0
     gt = FlatIndex(store).search(queries, k)[1]
+    out = {"launches": {"flat_topk": flat_scan.LAUNCHES}}
     gtbin.write_gtbin(paths["gt.gtbin"], gt, dim=d, N=n)
     del store
     torch.cuda.empty_cache()
-    say(f"  ground truth by the flat kernel (f32 store): {time.perf_counter() - t0:.1f} s")
+    say(f"  ground truth by the flat kernel (f32 store, {out['launches']['flat_topk']} "
+        f"launches): {time.perf_counter() - t0:.1f} s")
+    check(out["launches"]["flat_topk"] > 0, "the ground truth did not launch flat_topk")
 
-    out = {"launches": {}}
     pr_args = [paths["base.vecbin"], paths["q.vecbin"], "--gt", paths["gt.gtbin"],
                "--chained", "--nprobe", "16", "32", "--rerank-k", "50", "--k", str(k),
                "--batch-q", "64", "--wave", "4", "--device", dev.type]
@@ -822,7 +902,12 @@ def phase_probe_times(torch, dev, pidx, fidx, base, queries):
             f"{runs['kernel']} | plain {plain:.4f} ms {runs['plain']} | live rows "
             f"{live / 1e9:.4f} GB of {slabs / 1e9:.4f} GB of slabs: kernel "
             f"{live / kern / 1e6:.1f} GB/s")
-        out[name] = dict(ms=kern, plain_ms=plain, bytes=live)
+        # bytes: the live rows and their ids, the queries, the probes, the result
+        live_rows = live // row_bytes
+        nbytes = live + live_rows * 4 + q.numel() * 4 + probes.numel() * 8 + b * k * 8
+        bnd, by = bound_ms(nbytes, 2.0 * live_rows * ivf.packed.shape[2], "f32")
+        say(f"    bound {bnd:.4f} ms ({by}: {nbytes / 1e9:.4f} GB) time / bound {kern / bnd:.2f}")
+        out[name] = dict(ms=kern, plain_ms=plain, bytes=live, bound_ms=bnd, bound_by=by)
 
     # the partition batch by stage (B = 64, nprobe 32, rerank 50 over f32)
     ivf = pidx.ivf
@@ -895,11 +980,24 @@ def phase_hbm_and_sanity(torch, dev):
     x = torch.linspace(-3.0, 3.0, 8 * 128, device=dev).reshape(8, 128)
     out["add1_err"] = float((add1.add1_cuda(x) - add1.add1_reference(x)).abs().max())
     check(out["add1_err"] == 0.0, f"add1 differs from x + 1 by {out['add1_err']}")
-    kern, plain, runs = in_turns(torch, lambda: add1.add1_reference(x),
-                                 lambda: add1.add1_cuda(x), iters=100)
-    say(f"  add1 [8, 128]: kernel {kern:.4f} ms {runs['kernel']} | x + 1 {plain:.4f} ms "
-        f"{runs['plain']}")
-    out["add1_ms"] = (kern, plain)
+    # 100 launches captured in one CUDA graph: the device's time per launch,
+    # not the Python wrapper's (ctypes call, torch.empty, checks)
+    runs = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = add1.add1_reference if name == "plain" else add1.add1_cuda
+        runs[name].append(graph_ms(torch, lambda: fn(x)))
+    kern, plain = sum(runs["kernel"]) / 2, sum(runs["plain"]) / 2
+    bnd, by = bound_ms(2 * x.numel() * 4, x.numel(), "f32")
+    say(f"  add1 [8, 128], 100 launches in a CUDA graph: kernel {kern:.5f} ms {runs['kernel']} "
+        f"| x + 1 {plain:.5f} ms {runs['plain']} | bound {bnd:.2e} ms ({by})")
+    out["add1"] = dict(ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=plain)
+    stream = out["hbm"]["stream"]
+    bnd, by = bound_ms(stream["ms"] * stream["gbps"] * 1e6, 0.0, "f32")
+    out["hbm_stream"] = dict(ms=stream["ms"], plain_ms=out["hbm"]["torch_amax"]["ms"],
+                             bound_ms=bnd, bound_by=by,
+                             library_ms=out["hbm"]["torch_amax"]["ms"])
+    say(f"  stream kernel {stream['ms']:.4f} ms | torch.amax {out['hbm_stream']['plain_ms']:.4f} "
+        f"ms | bound {bnd:.4f} ms ({by}) time / bound {stream['ms'] / bnd:.2f}")
     return out
 
 
@@ -956,7 +1054,7 @@ def main() -> int:
 
         with phase("[4 main path] 1M x 768 bf16 store, FlatIndex.search, then tools.bench"):
             launches = phase_main_path(torch, dev)
-            phase_tools_bench(torch, dev, work)
+            launches += phase_tools_bench(torch, dev, work)
 
         with phase("[5 times] 1M x 768, CUDA events over chained scans, "
                    "plain/kernel/kernel/plain"):
@@ -1012,7 +1110,8 @@ def main() -> int:
     say(smi)
     pl = part["launches"]
     rows = [
-        ("flat_topk", "nvdb_tpu/kernels/flat_scan.py:417", launches, max_err,
+        ("flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
+         launches + ivf["launches"]["flat_topk"] + pl["flat_topk"], max_err,
          times["bf16 B=512 k=10"]),
         ("adc_topk", "nvdb_tpu/kernels/adc_scan.py:558", ivf["launches"]["adc_topk"],
          adc_err, ivf_times["adc_topk"]),
@@ -1021,12 +1120,11 @@ def main() -> int:
          ivf_times["rerank_topk B=256"]),
         ("ivf_probe_topk", "nvdb_tpu/kernels/ivf_scan.py:111",
          pl["pr"]["ivf_probe_topk"] + pl["ivfflat"]["ivf_probe_topk"], probe_err,
-         (probe_times["partition"]["ms"], probe_times["partition"]["plain_ms"])),
+         probe_times["partition"]),
         ("hbm_stream", "scripts/hbm_probe.py:62", sum(hbm["stream_launches"].values()),
-         hbm["stream_err"],
-         (hbm["hbm"]["stream"]["ms"], hbm["hbm"]["torch_amax"]["ms"])),
+         hbm["stream_err"], hbm["hbm_stream"]),
         ("add1", "nvdb_tpu/tools/tpu_sanity.py:28", hbm["add1_launches"], hbm["add1_err"],
-         hbm["add1_ms"]),
+         hbm["add1"]),
     ]
     say(json.dumps({"kernels": [{
         "name": name,
@@ -1035,9 +1133,12 @@ def main() -> int:
         "replaces": replaces,
         "launches": n_launch,
         "max_abs_err": err,
-        "ms": ms[0],
-        "plain_ms": ms[1],
-    } for name, replaces, n_launch, err, ms in rows]}))
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t.get("library_ms"),
+    } for name, replaces, n_launch, err, t in rows]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -36,11 +36,11 @@ def _nvcc() -> str:
                        "kernels are built from source and need the CUDA toolkit")
 
 
-def source_digest(name: str, csrc: Path = CSRC) -> str:
-    """Cache key of ``csrc/<name>.cu``: the flags, the source and every other
-    file under ``csrc`` (the headers a source may include), by name and
-    content, so an edited header rebuilds every library."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def source_digest(name: str, csrc: Path = CSRC, defines: tuple = ()) -> str:
+    """Cache key of ``csrc/<name>.cu``: the flags and defines, the source and
+    every other file under ``csrc`` (the headers a source may include), by
+    name and content, so an edited header rebuilds every library."""
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *defines]).encode())
     h.update(name.encode())
     for f in sorted(p for p in csrc.iterdir() if p.is_file()):
         h.update(f.name.encode())
@@ -49,14 +49,15 @@ def source_digest(name: str, csrc: Path = CSRC) -> str:
 
 
 @functools.cache
-def build(name: str) -> dict:
+def build(name: str, defines: tuple = ()) -> dict:
     """Compile ``csrc/<name>.cu`` unless a library of the same sources and
-    flags exists. Returns ``{"path", "seconds", "log", "cached"}``; ``log``
-    holds the compiler's output (``-Xptxas -v``: registers, shared memory
-    and spills of each kernel). Raises with the compiler's output on
-    failure."""
+    flags exists. ``defines``: preprocessor definitions (``"NAME=VALUE"``)
+    of a measurement build; the port's own libraries take none. Returns
+    ``{"path", "seconds", "log", "cached"}``; ``log`` holds the compiler's
+    output (``-Xptxas -v``: registers, shared memory and spills of each
+    kernel). Raises with the compiler's output on failure."""
     src = CSRC / f"{name}.cu"
-    lib = BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
+    lib = BUILD_DIR / f"lib{name}_{source_digest(name, defines=defines)}.so"
     log_path = lib.with_suffix(".log")
     if lib.is_file():
         log = log_path.read_text() if log_path.is_file() else ""
@@ -64,7 +65,7 @@ def build(name: str) -> dict:
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -78,6 +79,6 @@ def build(name: str) -> dict:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
-    return ctypes.CDLL(build(name)["path"])
+    return ctypes.CDLL(build(name, defines)["path"])

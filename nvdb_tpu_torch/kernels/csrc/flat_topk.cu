@@ -6,114 +6,164 @@
 // _merge_topk_sorted :76-95). Same contract:
 //   * score = dot(q, row), one code path per store type:
 //       f32 store     full f32 FMA (no TF32 or tensor-core shortcut);
-//       bf16 store    query rounded to bf16 first, f32 products and sums;
+//       bf16 store    query rounded to bf16 first, exact products, f32 sums;
 //       int8 store    query rounded to bf16, codes widened exactly, f32 sum,
 //                     times the row's scale;
-//       int8 x int8   exact int32 sum (__dp4a), times row scale, times
-//                     query scale (in that order, as the reference does);
+//       int8 x int8   exact int32 sum, times row scale, times query scale
+//                     (in that order, as the reference does);
 //   * rows with id >= n_valid are never returned (n_valid is a runtime int);
 //   * output sorted by score descending, ties to the larger id; slots that
 //     no valid row fills hold (-inf, -1); k <= 128.
 //
-// What bounds it on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s SIMT f32, NVIDIA
-// data sheet): at batch B the bf16 scan does about B multiply-adds per byte
-// streamed, against a SIMT ridge of ~20 op/byte. So this kernel is
-// compute-bound (SIMT FMA) at B = 512 and bandwidth-bound only at B <= ~8;
-// with tensor cores (ridge ~295 op/byte) the scan would stay
-// bandwidth-bound up to B ~ 295, which is the later wgmma rewrite.
-// Measured on an H100 80GB HBM3 at its 700 W power limit (1M x 768 bf16,
-// k = 10): 30.7 ms per scan at B = 512, 38% of the SIMT f32 peak, and
-// 3.86 ms at B = 8, where the 64-query tile computes 8x the needed products.
+// What bounds it on an H100 SXM (NVIDIA data sheet: 3.35 TB/s HBM, 989
+// TFLOP/s dense bf16 and 1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s
+// SIMT f32). A scan of N rows of Dp dims at batch B is 2 B N Dp operations
+// over the store's bytes, B multiply-adds per element read. On the tensor
+// cores the ridge is ~295 op/byte, so the bf16 scan is bound by bytes up to
+// B ~ 295 and by the tensor cores above: 1M x 768 at B = 512 is 786 GFLOP,
+// 0.80 ms, against 0.46 ms for its 1.54 GB. The SIMT kernel that this one
+// replaces for bf16 and int8 stores was bound by the SIMT rate (30.6 ms at
+// that shape). Measured on an NVIDIA H100 80GB HBM3, 700.00 W (1M x 768,
+// k = 10; chip_smoke.py phase 5 and tools.flat_breakdown; more in PERF.md):
+// bf16 1.56 ms at B = 512 and 0.71 ms at B = 8; int8 x int8 1.22 ms; int8
+// store with f32 queries 2.24 ms. With the filter compiled out the same
+// ring runs bf16 B = 512 in 1.00 ms: what remains above that is the
+// handling of candidates at each tile's end, while the tensor cores wait.
 //
-// Design. The Pallas kernel is one sequential grid over row tiles carrying
-// the top-k in VMEM; copied as is it would fill one SM of 132. Here:
-//   pass 1 (scan_partial_kernel): grid = S row slices x query blocks of QB.
-//     Each CTA walks its slice in TR-row tiles. A tile is scored as a small
-//     SIMT GEMM: query and row chunks of DK dims are staged in shared memory
-//     (16-byte global loads, neighbouring threads on neighbouring addresses)
-//     and each thread keeps a 4 x 4 register tile of sums. The scores of the
-//     tile go to shared memory, and one warp per query tests them against
-//     the query's current k-th entry first; only the rare improvers are
-//     inserted into the sorted per-query list in shared memory, so
-//     insertion is not paid per row. Each CTA writes its [B, S, k] partial.
+// Design of the tensor-core path (scan_wgmma_kernel; bf16, int8 and
+// int8 x int8 stores):
+//   * Orientation: queries are M, store rows are N. A CTA holds TQ = 128
+//     queries, 64 per consumer warpgroup, and walks its row slice in tiles
+//     of TN = 256 rows; one tile is 4 x (Dp / 64) wgmma m64n256k16 per
+//     warpgroup (k32 for int8 x int8), both operands K-major as they lie in
+//     memory. In the accumulator a thread then holds 64 rows' scores for
+//     each of two queries, so "does this score beat the query's k-th" is a
+//     compare against a value the thread keeps in a register: no score goes
+//     through shared memory, only the candidates do. The other orientation
+//     (rows as M) would put a different query in every accumulator column
+//     and the thresholds in shared memory.
+//   * The filter. Sixteen scores at a time are held against the thread's
+//     two thresholds, and a warp vote skips a group with no candidate. In
+//     a group with one, the lanes mark which of their sixteen pass, the
+//     warp walks the few marked in any lane, and a lane with a candidate
+//     pushes (score, row, query) into its warp's queue in shared memory
+//     (one atomic add for the slot); at the end of the tile the warp drains
+//     the queue into the sorted lists of its own sixteen queries (a warp
+//     owns exactly the queries whose scores it holds, so the lists need no
+//     barrier) and reloads the thresholds. For
+//     k <= 32 the lanes insert side by side, one lane per query with a
+//     serial shift; longer lists take the warp-wide insert of
+//     topk_common.cuh. A queue that overflows (the first tiles of a slice,
+//     while the thresholds are low) is dropped and the tile scanned again in
+//     order, in rounds of at most 128 candidates with a drain after each.
+//     Every insert compares (score, id) pairs with the list, so the result
+//     does not depend on the order in which candidates arrive.
+//   * A ring of up to four stages fed by TMA. One producer thread starts,
+//     per 128-byte-wide chunk of the dims, a [128 queries x 128 B] and a
+//     [256 rows x 128 B] box (SWIZZLE_128B, the layout the wgmma descriptor
+//     reads) into a stage and arms its mbarrier with the byte count; the
+//     consumers wait on it, start their wgmma, and release the stage of the
+//     chunk before once its products are done, so the loads of the next
+//     chunks overlap the products and the filter of this tile. Queries are
+//     streamed with the rows (they hit in L2): 48 KB a stage, and the lists
+//     (TQ x k x 8 bytes) take what is left of the 227 KB, so the ring of a
+//     bf16 store has 4 stages up to k = 25, 3 up to 73, 2 up to 121 and 1
+//     above (with one stage the loads no longer overlap the products). The
+//     producer warpgroup gives its registers to the consumers (setmaxnreg).
+//   * The query is rounded to bf16 once, by a small prologue kernel.
+//   * int8 store with f32 queries: the int8 chunk is staged as it is
+//     (64 B a row), the consumer threads widen it (exactly) into one of two
+//     swizzled bf16 tiles in shared memory, and the bf16 wgmma reads that;
+//     the widening of chunk c overlaps the products of chunk c - 1. Two
+//     named barriers a chunk keep the warpgroups in step around the tiles.
+//   * int8 x int8: wgmma s8 x s8 -> s32, exact in any order, so the result
+//     equals the plain version bit for bit.
+//   * int8 stores: each thread asks for two of the tile's 256 row scales
+//     before the tile's products and puts them into its warpgroup's copy in
+//     shared memory after them, so the filter reads the scales from there
+//     and never waits for memory.
+//   * The ragged edge: TMA fills rows past the store and queries past B
+//     with zeros. Rows at or past n_valid are masked by id in the filter;
+//     the lists of queries past B start full of (+inf, INT_MAX), so nothing
+//     enters them, and they are not written out.
+//   * Reading the store fewer times: the grid is ordered query block
+//     fastest, so the B / 128 CTAs that share a row slice run side by side
+//     and walk it together: at B = 512 a row is read by 4 CTAs, from memory
+//     once where L2 still holds it, and at B <= 128 by one. The wrapper
+//     picks the slice count so that the whole grid is one wave of one CTA
+//     per SM. Clusters of those CTAs with one multicast load per row tile
+//     were tried and measured slower: the slowest warp of the cluster then
+//     holds every stage.
+//   * Small batches: with fewer than 65 queries in a block the second
+//     warpgroup exits, and the kernel is bound by the ring's load rate.
 //   pass 2 (nvdb::merge_kernel, topk_common.cuh): one warp per query folds
-//     the S sorted partial lists into the final sorted top-k, stopping early
-//     in each list at the first entry that no longer beats the k-th.
-// The wrapper picks S so there are at least two CTAs per SM at any batch.
+//     the S sorted partial lists into the final sorted top-k.
+//
+// f32 stores keep the SIMT kernel (scan_f32_kernel): f32 means exact, and a
+// tensor-core f32 needs a three-way bf16 split of both operands whose error
+// has to be shown first. It scores a 64 x 64 tile with 4 x 4 register tiles
+// of fmaf over chunks staged in shared memory.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "topk_common.cuh"
 
 namespace {
 
+using nvdb::better;
+using nvdb::FULL_MASK;
+using nvdb::warp_insert;
 using nvdb::warp_offer;
+
+constexpr int MAX_K = nvdb::WARP_LIST_MAX_K;
+
+// Measurement builds of tools.flat_breakdown, whose results are wrong by
+// design; the library that the port loads is built without the definition.
+//   1  no filter: the ring and the products alone;
+//   2  compares only: every score is held against thresholds that never
+//      rise, and the candidates are dropped.
+#ifndef NVDB_FLAT_ABLATE
+#define NVDB_FLAT_ABLATE 0
+#endif
+
+enum Mode { kF32 = 0, kBF16 = 1, kI8 = 2, kI8Q8 = 3 };
+
+// ---------------------------------------------------------------------------
+// The SIMT path: f32 stores.
+// ---------------------------------------------------------------------------
 
 constexpr int QB = 64;        // queries per CTA
 constexpr int TR = 64;        // rows per tile
 constexpr int DK = 64;        // dims per staged chunk
 constexpr int LD = QB + 4;    // shared-memory row stride (floats), 16-byte aligned
-constexpr int NT = 256;       // threads per pass-1 CTA
-constexpr int MAX_K = nvdb::WARP_LIST_MAX_K;
+constexpr int NT = 256;       // threads per CTA
 
 static_assert(QB == TR, "the 16 x 16 thread grid covers a QB x TR tile");
 static_assert(QB <= DK, "the [QB][LD] score tile reuses the [DK][LD] query chunk");
 
-enum Mode { kF32 = 0, kBF16 = 1, kI8 = 2, kI8Q8 = 3 };
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ void unpack_bf16x8(const uint4& w, float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(h[e]);
-    out[2 * e] = f.x;
-    out[2 * e + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void unpack_i8x16(const uint4& w, float* out) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&w);
-#pragma unroll
-  for (int e = 0; e < 16; ++e) out[e] = static_cast<float>(b[e]);
-}
-
-// Staging. A [64 x DK] block (rows r0.., dims d0..) is read in 16-byte
+// Staging. A [64 x DK] f32 block (rows r0.., dims d0..) is read in 16-byte
 // pieces: piece f is half (f & 1) of 32-byte sector (f >> 7) of row
 // (f >> 1) & 63, so two neighbouring threads read one whole sector and a
 // warp reads sixteen rows. The block is stored transposed, dst[d * LD + r]:
 // with LD = 68 the two halves of a sector land 16 banks apart, so a warp's
-// stores hit 32 distinct banks (f32 and packed int8; 2-way for bf16 and
-// int8 widened to f32). Rows at or past r_lim are zero.
-__device__ __forceinline__ int piece_row(int f) { return (f >> 1) & 63; }
-template <int ELEMS>  // elements per 16-byte piece
-__device__ __forceinline__ int piece_col(int f) {
-  return (f >> 7) * 2 * ELEMS + (f & 1) * ELEMS;
-}
-
-// round: bf16-round the values (queries of the bf16 and int8 paths).
+// stores hit 32 distinct banks. Rows at or past r_lim are zero.
 __device__ __forceinline__ void stage_f32(const float* __restrict__ src, int r0,
                                           int r_lim, int Dp, int d0, float* dst,
-                                          int tid, bool round) {
+                                          int tid) {
 #pragma unroll
   for (int p = 0; p < (64 * DK / 4) / NT; ++p) {
     const int f = tid + NT * p;
-    const int r = piece_row(f), c = piece_col<4>(f);
+    const int r = (f >> 1) & 63, c = (f >> 7) * 8 + (f & 1) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < r_lim)
       v = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * Dp + d0 + c);
-    if (round) {
-      v.x = bf16_round(v.x);
-      v.y = bf16_round(v.y);
-      v.z = bf16_round(v.z);
-      v.w = bf16_round(v.w);
-    }
     dst[(c + 0) * LD + r] = v.x;
     dst[(c + 1) * LD + r] = v.y;
     dst[(c + 2) * LD + r] = v.z;
@@ -121,64 +171,10 @@ __device__ __forceinline__ void stage_f32(const float* __restrict__ src, int r0,
   }
 }
 
-__device__ __forceinline__ void stage_bf16(const __nv_bfloat16* __restrict__ src,
-                                           int r0, int r_lim, int Dp, int d0,
-                                           float* dst, int tid) {
-#pragma unroll
-  for (int p = 0; p < (64 * DK / 8) / NT; ++p) {
-    const int f = tid + NT * p;
-    const int r = piece_row(f), c = piece_col<8>(f);
-    float x[8];
-    if (r0 + r < r_lim) {
-      const uint4 w = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * Dp + d0 + c);
-      unpack_bf16x8(w, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[(c + e) * LD + r] = x[e];
-  }
-}
-
-__device__ __forceinline__ void stage_i8(const int8_t* __restrict__ src, int r0,
-                                         int r_lim, int Dp, int d0, float* dst,
-                                         int tid) {
-  static_assert(64 * DK / 16 == NT, "one 16-byte load per thread");
-  const int r = piece_row(tid), c = piece_col<16>(tid);
-  float x[16];
-  if (r0 + r < r_lim) {
-    const uint4 w = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * Dp + d0 + c);
-    unpack_i8x16(w, x);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 16; ++e) x[e] = 0.f;
-  }
-#pragma unroll
-  for (int e = 0; e < 16; ++e) dst[(c + e) * LD + r] = x[e];
-}
-
-// int8 block kept packed: dst[(d / 4) * LD + r] holds dims d..d+3 of row r.
-__device__ __forceinline__ void stage_i8_packed(const int8_t* __restrict__ src,
-                                                int r0, int r_lim, int Dp, int d0,
-                                                int* dst, int tid) {
-  const int r = piece_row(tid), c = piece_col<16>(tid);
-  uint4 w = make_uint4(0u, 0u, 0u, 0u);
-  if (r0 + r < r_lim)
-    w = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * Dp + d0 + c);
-  dst[(c / 4 + 0) * LD + r] = static_cast<int>(w.x);
-  dst[(c / 4 + 1) * LD + r] = static_cast<int>(w.y);
-  dst[(c / 4 + 2) * LD + r] = static_cast<int>(w.z);
-  dst[(c / 4 + 3) * LD + r] = static_cast<int>(w.w);
-}
-
-template <int MODE>
 __global__ void __launch_bounds__(NT, 2)
-scan_partial_kernel(const void* __restrict__ qptr, const void* __restrict__ vptr,
-                    const float* __restrict__ scales,
-                    const float* __restrict__ qscales,
-                    float* __restrict__ part_vals, int* __restrict__ part_ids,
-                    int B, int Dp, int n_eff, int k, int S, int rows_per_slice) {
+scan_f32_kernel(const float* __restrict__ qptr, const float* __restrict__ vptr,
+                float* __restrict__ part_vals, int* __restrict__ part_ids, int B,
+                int Dp, int n_eff, int k, int S, int rows_per_slice) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* As = reinterpret_cast<float*>(smem);  // [DK][LD] queries, dim-major
   float* Bs = As + DK * LD;                    // [DK][LD] rows, dim-major
@@ -199,83 +195,36 @@ scan_partial_kernel(const void* __restrict__ qptr, const void* __restrict__ vptr
   }
   __syncthreads();
 
+  const float* qf = qptr + (size_t)q0 * Dp;
   for (int r0 = r_begin; r0 < r_end; r0 += TR) {
-    float sc[4][4];
-    if constexpr (MODE == kI8Q8) {
-      const int8_t* q8 = static_cast<const int8_t*>(qptr) + (size_t)q0 * Dp;
-      const int8_t* v8 = static_cast<const int8_t*>(vptr);
-      int* Ai = reinterpret_cast<int*>(As);
-      int* Bi = reinterpret_cast<int*>(Bs);
-      int acc[4][4] = {};
-      for (int d0 = 0; d0 < Dp; d0 += DK) {
-        stage_i8_packed(q8, 0, B - q0, Dp, d0, Ai, tid);
-        stage_i8_packed(v8, r0, r_end, Dp, d0, Bi, tid);
-        __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < DK / 4; ++kk) {
-          const int4 a = *reinterpret_cast<const int4*>(Ai + kk * LD + ty * 4);
-          const int4 b = *reinterpret_cast<const int4*>(Bi + kk * LD + tx * 4);
-          const int av[4] = {a.x, a.y, a.z, a.w};
-          const int bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = static_cast<float>(acc[i][j]);
-    } else {
-      const float* qf = static_cast<const float*>(qptr) + (size_t)q0 * Dp;
-      float acc[4][4] = {};
-      for (int d0 = 0; d0 < Dp; d0 += DK) {
-        stage_f32(qf, 0, B - q0, Dp, d0, As, tid, MODE != kF32);
-        if constexpr (MODE == kF32)
-          stage_f32(static_cast<const float*>(vptr), r0, r_end, Dp, d0, Bs, tid, false);
-        else if constexpr (MODE == kBF16)
-          stage_bf16(static_cast<const __nv_bfloat16*>(vptr), r0, r_end, Dp, d0, Bs, tid);
-        else
-          stage_i8(static_cast<const int8_t*>(vptr), r0, r_end, Dp, d0, Bs, tid);
-        __syncthreads();
+    float acc[4][4] = {};
+    for (int d0 = 0; d0 < Dp; d0 += DK) {
+      stage_f32(qf, 0, B - q0, Dp, d0, As, tid);
+      stage_f32(vptr, r0, r_end, Dp, d0, Bs, tid);
+      __syncthreads();
 #pragma unroll 8
-        for (int kk = 0; kk < DK; ++kk) {
-          const float4 a = *reinterpret_cast<const float4*>(As + kk * LD + ty * 4);
-          const float4 b = *reinterpret_cast<const float4*>(Bs + kk * LD + tx * 4);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float bv[4] = {b.x, b.y, b.z, b.w};
+      for (int kk = 0; kk < DK; ++kk) {
+        const float4 a = *reinterpret_cast<const float4*>(As + kk * LD + ty * 4);
+        const float4 b = *reinterpret_cast<const float4*>(Bs + kk * LD + tx * 4);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = acc[i][j];
+      __syncthreads();
     }
 
-    // epilogue: scales, then the tile's scores to shared memory
+    // the tile's scores to shared memory
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = r0 + tx * 4 + j;
-      const float rs = (MODE == kI8 || MODE == kI8Q8) && row < r_end ? scales[row] : 1.f;
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = q0 + ty * 4 + i;
-        float v = sc[i][j];
-        if (MODE == kI8 || MODE == kI8Q8) v = v * rs;
-        if (MODE == kI8Q8) v = v * (q < B ? qscales[q] : 1.f);
-        Ss[(ty * 4 + i) * LD + tx * 4 + j] = v;
-      }
-    }
+      for (int i = 0; i < 4; ++i) Ss[(ty * 4 + i) * LD + tx * 4 + j] = acc[i][j];
     __syncthreads();
 
-    // running top-k: warp w owns queries w, w + 8, ...
+    // running top-k: warp w owns queries w, w + 8, ...; a score is tested
+    // against the query's k-th entry first, only improvers are inserted
     for (int qi = warp; qi < QB && q0 + qi < B; qi += NT / 32) {
 #pragma unroll
       for (int h = 0; h < TR; h += 32) {
@@ -298,57 +247,744 @@ scan_partial_kernel(const void* __restrict__ qptr, const void* __restrict__ vptr
   }
 }
 
-template <int MODE>
-cudaError_t launch_scan(const void* q, const void* v, const float* scales,
-                        const float* qscales, float* part_vals, int* part_ids,
-                        int B, int Dp, int n_eff, int k, int S, int rows_per_slice,
-                        cudaStream_t stream) {
+cudaError_t launch_f32(const float* q, const float* v, float* part_vals, int* part_ids,
+                       int B, int Dp, int n_eff, int k, int S, cudaStream_t stream) {
+  const int tiles = (n_eff + TR - 1) / TR;
+  const int rows_per_slice = ((tiles + S - 1) / S) * TR;
   const size_t smem = (size_t)2 * DK * LD * sizeof(float) + (size_t)QB * k * 8;
-  cudaError_t e = cudaFuncSetAttribute(scan_partial_kernel<MODE>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(
+      scan_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(S, (B + QB - 1) / QB);
-  scan_partial_kernel<MODE><<<grid, NT, smem, stream>>>(
-      q, v, scales, qscales, part_vals, part_ids, B, Dp, n_eff, k, S, rows_per_slice);
+  scan_f32_kernel<<<grid, NT, smem, stream>>>(q, v, part_vals, part_ids, B, Dp, n_eff,
+                                              k, S, rows_per_slice);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core path: bf16, int8 and int8 x int8 stores.
+// ---------------------------------------------------------------------------
+
+constexpr int TQ = 128;            // queries per CTA: 64 per consumer warpgroup
+constexpr int TN = 256;            // rows per tile: the wgmma's N
+constexpr int CHUNK = 128;         // bytes of the dims per staged chunk and row
+constexpr int MAX_STAGES = 4;
+constexpr int NT_TC = 384;         // two consumer warpgroups and the producer's
+constexpr int A_BYTES = TQ * CHUNK;          // the queries' box of a stage
+constexpr int WIDE_BYTES = TN * CHUNK;       // a [TN x 128 B] swizzled row tile
+constexpr int ACC = TN / 2;        // accumulator registers per thread
+constexpr int QCAP = 128;          // candidates a warp queues before it drains
+constexpr int QUEUES_BYTES = 8 * QCAP * 8;   // eight warps' queues
+constexpr int SCALES_BYTES = 2 * TN * 4;     // a tile's row scales, per warpgroup
+
+// Per store type: bytes of the rows' box in a stage, bytes of the widened
+// tiles, dims per chunk, bytes of the filter's own room (the candidate
+// queues and, for int8 stores, each warpgroup's copy of the tile's row
+// scales; with widened tiles both lie over the first of those).
+template <int MODE> struct Cfg;
+template <> struct Cfg<kBF16> {
+  static constexpr int B_BYTES = WIDE_BYTES, CVT_BYTES = 0, Q_DIMS = 64, V_DIMS = 64,
+                       FILTER_BYTES = QUEUES_BYTES;
+};
+template <> struct Cfg<kI8Q8> {
+  static constexpr int B_BYTES = WIDE_BYTES, CVT_BYTES = 0, Q_DIMS = 128, V_DIMS = 128,
+                       FILTER_BYTES = QUEUES_BYTES + SCALES_BYTES;
+};
+template <> struct Cfg<kI8> {
+  static constexpr int B_BYTES = TN * 64, CVT_BYTES = 2 * WIDE_BYTES, Q_DIMS = 64,
+                       V_DIMS = 64, FILTER_BYTES = 0;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Waits until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA load of the map's box at (c0 = dim, c1 = row) into shared memory;
+// the bytes are counted on the mbarrier.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The shared-memory descriptor of a K-major operand tile in the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart; the tile
+// starts on a 1024-byte boundary. A step of 32 bytes along K adds 2.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+#define NVDB_ACC8(c, a, o)                                                           \
+  c(a[o]), c(a[o + 1]), c(a[o + 2]), c(a[o + 3]), c(a[o + 4]), c(a[o + 5]),          \
+      c(a[o + 6]), c(a[o + 7])
+#define NVDB_ACC128(c, a)                                                            \
+  NVDB_ACC8(c, a, 0), NVDB_ACC8(c, a, 8), NVDB_ACC8(c, a, 16), NVDB_ACC8(c, a, 24),  \
+      NVDB_ACC8(c, a, 32), NVDB_ACC8(c, a, 40), NVDB_ACC8(c, a, 48),                 \
+      NVDB_ACC8(c, a, 56), NVDB_ACC8(c, a, 64), NVDB_ACC8(c, a, 72),                 \
+      NVDB_ACC8(c, a, 80), NVDB_ACC8(c, a, 88), NVDB_ACC8(c, a, 96),                 \
+      NVDB_ACC8(c, a, 104), NVDB_ACC8(c, a, 112), NVDB_ACC8(c, a, 120)
+#define NVDB_REGS128                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "         \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "         \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "         \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "         \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "         \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "   \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "     \
+  "%125, %126, %127}"
+#define NVDB_F(x) "+f"(x)
+#define NVDB_R(x) "+r"(x)
+
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], bf16 operands, f32 sums; the sums
+// start from zero where accumulate == 0.
+__device__ __forceinline__ void wgmma_tile(float (&d)[ACC], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " NVDB_REGS128
+      ", %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : NVDB_ACC128(NVDB_F, d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 256] (+)= A[64 x 32] B[32 x 256], int8 operands, int32 sums.
+__device__ __forceinline__ void wgmma_tile(int (&d)[ACC], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " NVDB_REGS128
+      ", %128, %129, p;\n"
+      "}\n"
+      : NVDB_ACC128(NVDB_R, d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Keeps the compiler from reading the accumulators before the wait that
+// precedes this, or from moving their use past the next wgmma.
+__device__ __forceinline__ void acc_fence(float (&d)[ACC]) {
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void acc_fence(int (&d)[ACC]) {
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Widens 16 int8 codes to bf16 (exact): two 16-byte groups of 8.
+__device__ __forceinline__ void widen_i8x16(const uint4& w, uint4& lo, uint4& hi) {
+  const uint32_t in[4] = {w.x, w.y, w.z, w.w};
+  uint32_t out[8];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t u = in[e];
+    const float f0 = static_cast<float>(static_cast<int>(u << 24) >> 24);
+    const float f1 = static_cast<float>(static_cast<int>(u << 16) >> 24);
+    const float f2 = static_cast<float>(static_cast<int>(u << 8) >> 24);
+    const float f3 = static_cast<float>(static_cast<int>(u) >> 24);
+    const __nv_bfloat162 a = __floats2bfloat162_rn(f0, f1);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(f2, f3);
+    out[2 * e] = *reinterpret_cast<const uint32_t*>(&a);
+    out[2 * e + 1] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  lo = make_uint4(out[0], out[1], out[2], out[3]);
+  hi = make_uint4(out[4], out[5], out[6], out[7]);
+}
+
+// Sixteen of a thread's accumulators as scores. Accumulator 4 j + e is the
+// score of tile row 8 j + 2 (lane % 4) + (e & 1) for the warp's query
+// lane / 4 (e < 2) or lane / 4 + 8 (e >= 2); group g holds j = 4 g .. 4 g + 3.
+// col0 = 2 (lane % 4) is the thread's first column. int8 stores: times the
+// row's scale (wg_scales: the tile's, in shared memory, zero past n_valid),
+// then (int8 queries) the query's. Returns whether any score reaches its
+// query's threshold value.
+template <int MODE, typename Acc>
+__device__ __forceinline__ bool group_scores(const Acc (&acc)[ACC], int g, int col0,
+                                             const float* wg_scales, float qs0, float qs1,
+                                             float thv0, float thv1, float (&sc)[16]) {
+  bool any = false;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int j = g * 4 + jj;
+    float rs0 = 1.f, rs1 = 1.f;
+    if constexpr (MODE != kBF16) {
+      const float2 rs = *reinterpret_cast<const float2*>(wg_scales + j * 8 + col0);
+      rs0 = rs.x;
+      rs1 = rs.y;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = static_cast<float>(acc[4 * j + e]);
+      if constexpr (MODE != kBF16) v = v * ((e & 1) ? rs1 : rs0);
+      if constexpr (MODE == kI8Q8) v = v * ((e & 2) ? qs1 : qs0);
+      sc[4 * jj + e] = v;
+      any |= v >= ((e & 2) ? thv1 : thv0);
+    }
+  }
+  return any;
+}
+
+// A queued candidate: (score, row of the tile | the warp's query << 8).
+__device__ __forceinline__ uint2 queue_entry(float v, int col, int ql) {
+  return make_uint2(__float_as_uint(v), (unsigned)(col | (ql << 8)));
+}
+
+// Inserts up to 32 candidates, one per lane (ok: the lane has one, for the
+// warp's query ql), into the warp's lists. Short lists (k <=
+// LANE_INSERT_MAX_K): the lanes insert on their own, each with a serial
+// shift from the tail of its query's list, one lane per list in a round, so
+// candidates of different queries go in side by side. Long lists: those that
+// beat their list's tail are inserted one by one with the whole warp, the
+// rest held against the new tail after each.
+constexpr int LANE_INSERT_MAX_K = 32;
+
+__device__ __forceinline__ void insert_batch(float v, int id, int ql, bool ok, float* wlv,
+                                             int* wli, int k, int lane) {
+  float* mv = wlv + ql * k;
+  int* mi = wli + ql * k;
+  ok = ok && better(v, id, mv[k - 1], mi[k - 1]);
+  unsigned m = __ballot_sync(FULL_MASK, ok);
+  if (k <= LANE_INSERT_MAX_K) {
+    while (m) {
+      if (ok) {
+        const unsigned peers = __match_any_sync(m, ql);
+        if (__ffs(peers) - 1 == lane) {
+          // the tail may have risen since this candidate was tested
+          if (better(v, id, mv[k - 1], mi[k - 1])) {
+            int j = k - 1;
+            while (j > 0 && better(v, id, mv[j - 1], mi[j - 1])) {
+              mv[j] = mv[j - 1];
+              mi[j] = mi[j - 1];
+              --j;
+            }
+            mv[j] = v;
+            mi[j] = id;
+          }
+          ok = false;
+        }
+      }
+      __syncwarp();
+      m = __ballot_sync(FULL_MASK, ok);
+    }
+  } else {
+    while (m) {
+      const int src = __ffs(m) - 1;
+      const float bv = __shfl_sync(FULL_MASK, v, src);
+      const int bid = __shfl_sync(FULL_MASK, id, src);
+      const int bq = __shfl_sync(FULL_MASK, ql, src);
+      warp_insert(wlv + bq * k, wli + bq * k, k, bv, bid, lane);
+      ok = ok && better(v, id, mv[k - 1], mi[k - 1]);
+      m = (m & (m - 1)) & __ballot_sync(FULL_MASK, ok);
+    }
+  }
+}
+
+// Drains the first cnt entries of a warp's queue into its lists.
+__device__ __forceinline__ void drain_queue(const uint2* queue, int cnt, int tile_row,
+                                            float* wlv, int* wli, int k, int lane) {
+  for (int base = 0; base < cnt; base += 32) {
+    const bool have = base + lane < cnt;
+    const uint2 en = queue[have ? base + lane : 0];
+    insert_batch(__uint_as_float(en.x), tile_row + (int)(en.y & 255u),
+                 have ? (int)(en.y >> 8) : 0, have, wlv, wli, k, lane);
+  }
+  __syncwarp();
+}
+
+__global__ void round_queries_kernel(const float* __restrict__ q,
+                                     __nv_bfloat16* __restrict__ out, size_t n) {
+  const size_t step = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step)
+    out[i] = __float2bfloat16_rn(q[i]);
+}
+
+// The shared memory of scan_wgmma_kernel after its 1024-byte alignment:
+// stages, widened tiles, lists, the warps' candidate queues, barriers, the
+// queues' counters.
+template <int MODE>
+__host__ __device__ constexpr int stage_bytes() {
+  return A_BYTES + Cfg<MODE>::B_BYTES;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(NT_TC, 1)
+scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  const float* __restrict__ scales, const float* __restrict__ qscales,
+                  float* __restrict__ part_vals, int* __restrict__ part_ids, int B,
+                  int n_eff, int k, int S, int n_qblocks, int tiles_per_slice,
+                  int n_tiles, int n_chunks, int n_stages) {
+  using C = Cfg<MODE>;
+  using Acc = typename std::conditional<MODE == kI8Q8, int, float>::type;
+  constexpr int STAGE = stage_bytes<MODE>();
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  unsigned char* cvt = sm + (size_t)n_stages * STAGE;
+  float* lv = reinterpret_cast<float*>(cvt + C::CVT_BYTES);   // [TQ][k]
+  int* li = reinterpret_cast<int*>(lv + TQ * k);              // [TQ][k]
+  // The filter's room: [8 warps][QCAP] candidate queues and (int8 stores)
+  // [2 warpgroups][TN] row scales. With widened tiles it lies over the first
+  // of them: it is in use only between a tile's last product and the next
+  // tile's first barrier, when no thread widens and no wgmma reads.
+  unsigned char* filter_room = MODE == kI8 ? cvt : reinterpret_cast<unsigned char*>(li + TQ * k);
+  uint2* queues = reinterpret_cast<uint2*>(filter_room);
+  float* tile_scales = reinterpret_cast<float*>(filter_room + QUEUES_BYTES);   // [2][TN]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(li + TQ * k) + C::FILTER_BYTES);
+  int* qcounts = reinterpret_cast<int*>(bars + 2 * MAX_STAGES);   // one per warp
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + MAX_STAGES);
+  const uint32_t stage0 = smem_u32(sm);
+
+  const int qblock = blockIdx.x % n_qblocks, s = blockIdx.x / n_qblocks;
+  const int q0 = qblock * TQ;
+  const int t_begin = min(n_tiles, s * tiles_per_slice);
+  const int t_end = min(n_tiles, t_begin + tiles_per_slice);
+  // warpgroups with queries: the second one leaves when the block has <= 64
+  const int n_wg = B - q0 > 64 ? 2 : 1;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < n_stages; ++i) {
+      mbar_init(full0 + 8 * i, 1);            // the producer's arrive + the bytes
+      mbar_init(empty0 + 8 * i, 4 * n_wg);    // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    // ---- producer ----------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        for (int c = 0; c < n_chunks; ++c) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          const uint32_t full = full0 + 8 * stage;
+          const uint32_t dst = stage0 + stage * STAGE;
+          mbar_expect_tx(full, STAGE);
+          tma_load_2d(dst, &qmap, full, c * C::Q_DIMS, q0);
+          tma_load_2d(dst + A_BYTES, &vmap, full, c * C::V_DIMS, t * TN);
+          if (++stage == n_stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers ---------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if (wg < n_wg) {
+      const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+      const int quad = lane >> 2;
+      // the warp's sixteen queries and their lists; a thread's accumulators
+      // belong to queries quad and quad + 8 of them
+      const int wq0 = wg * 64 + w * 16;
+      float* wlv = lv + wq0 * k;
+      int* wli = li + wq0 * k;
+      uint2* queue = queues + (wg * 4 + w) * QCAP;
+      int* qcount = qcounts + wg * 4 + w;
+      float* wg_scales = tile_scales + wg * TN;
+      const int wt = threadIdx.x & 127;   // thread of the warpgroup
+      for (int i = lane; i < 16 * k; i += 32) {
+        const bool real = q0 + wq0 + i / k < B;
+        wlv[i] = real ? -INFINITY : INFINITY;
+        wli[i] = real ? -1 : INT_MAX;
+      }
+      __syncwarp();
+      float thv0 = wlv[quad * k + k - 1], thv1 = wlv[(quad + 8) * k + k - 1];
+      int thi0 = wli[quad * k + k - 1], thi1 = wli[(quad + 8) * k + k - 1];
+      float qs0 = 1.f, qs1 = 1.f;
+      if constexpr (MODE == kI8Q8) {
+        if (q0 + wq0 + quad < B) qs0 = qscales[q0 + wq0 + quad];
+        if (q0 + wq0 + quad + 8 < B) qs1 = qscales[q0 + wq0 + quad + 8];
+      }
+      const int n_cons = 128 * n_wg;   // threads that widen (int8 stores)
+
+      Acc acc[ACC];
+      int stage = 0, prev = -1, cb = 0;
+      uint32_t phase = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        // the tile's row scales, asked for now and needed after its products
+        float rs_lo = 0.f, rs_hi = 0.f;
+        if constexpr (MODE != kBF16) {
+          if (t * TN + wt < n_eff) rs_lo = __ldg(scales + t * TN + wt);
+          if (t * TN + 128 + wt < n_eff) rs_hi = __ldg(scales + t * TN + 128 + wt);
+        }
+        for (int c = 0; c < n_chunks; ++c) {
+          mbar_wait(full0 + 8 * stage, phase);
+          const uint32_t a_tile = stage0 + stage * STAGE + wg * 64 * CHUNK;
+          uint32_t b_tile = stage0 + stage * STAGE + A_BYTES;
+          if constexpr (MODE == kI8) {
+            // The products that read this widened tile two chunks ago are
+            // done in this warpgroup (the release below waited for them);
+            // the barrier says the same of the other one.
+            bar_sync(1, n_cons);
+            const unsigned char* src = sm + (size_t)stage * STAGE + A_BYTES;
+            unsigned char* dstb = cvt + cb * WIDE_BYTES;
+            for (int p = threadIdx.x; p < TN * 4; p += n_cons) {
+              const int row = p >> 2, piece = p & 3;
+              const uint4 wv = *reinterpret_cast<const uint4*>(src + row * 64 + piece * 16);
+              uint4 lo, hi;
+              widen_i8x16(wv, lo, hi);
+              const int sw = row & 7;
+              unsigned char* drow = dstb + row * CHUNK;
+              *reinterpret_cast<uint4*>(drow + (((2 * piece) ^ sw) << 4)) = lo;
+              *reinterpret_cast<uint4*>(drow + (((2 * piece + 1) ^ sw) << 4)) = hi;
+            }
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            bar_sync(2, n_cons);
+            b_tile = smem_u32(dstb);
+            cb ^= 1;
+          }
+          const uint64_t da = sw128_desc(a_tile), db = sw128_desc(b_tile);
+          acc_fence(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_tile(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+          wgmma_commit();
+          if (n_stages == 1) {
+            // a ring of one (k = 128 with the widened tiles): no overlap
+            wgmma_wait<0>();
+            if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+          } else {
+            if (prev >= 0) {
+              wgmma_wait<1>();   // the chunk before is done: release its stage
+              if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+            }
+            prev = stage;
+          }
+          if (++stage == n_stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+        if (prev >= 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+        prev = -1;
+        acc_fence(acc);
+        // the queues lie over a widened tile: wait for the other
+        // warpgroup's last products too
+        if constexpr (MODE == kI8) bar_sync(1, n_cons);
+        if constexpr (MODE != kBF16) {
+          // every warp of the warpgroup is past the last tile's filter: its
+          // products above needed all four
+          wg_scales[wt] = rs_lo;
+          wg_scales[128 + wt] = rs_hi;
+          bar_sync(3 + wg, 128);
+        }
+
+        // The filter (see group_scores for the accumulator's layout).
+        // Sixteen scores at a time are held against the two thresholds in
+        // registers; a group with no candidate costs the compares and one
+        // vote. In a group with one, the lanes mark which of their sixteen
+        // reach the threshold, the warp walks the few marked in any lane,
+        // and each lane pushes its own candidates into the warp's queue;
+        // the queue is drained into the lists at the end of the tile. If the queue overflows (the first tiles of a
+        // slice, while the thresholds are low), the tile is scanned again in
+        // order, in rounds of at most QCAP candidates.
+        const int tile_row = t * TN, col0 = (lane & 3) * 2;
+        if (lane == 0) *qcount = 0;
+        __syncwarp();
+#if NVDB_FLAT_ABLATE == 1
+        if (n_eff < 0)   // never
+#endif
+#pragma unroll
+        for (int g = 0; g < ACC / 16; ++g) {
+          float sc[16];
+          const bool any = group_scores<MODE>(acc, g, col0, wg_scales, qs0, qs1, thv0, thv1,
+                                              sc);
+          if (!__any_sync(FULL_MASK, any)) continue;
+          // which of the sixteen reach their threshold, in this lane and in
+          // any lane: the warp then walks only those few, together
+          unsigned mask = 0;
+#pragma unroll
+          for (int x = 0; x < 16; ++x)
+            mask |= sc[x] >= ((x & 2) ? thv1 : thv0) ? 1u << x : 0u;
+          unsigned todo = __reduce_or_sync(FULL_MASK, mask);
+#if NVDB_FLAT_ABLATE == 2
+          asm volatile("" ::"r"(todo));
+          todo = 0;
+#endif
+          while (todo) {
+            const int x = __ffs(todo) - 1;
+            todo &= todo - 1;
+            float v = sc[0];
+#pragma unroll
+            for (int i = 1; i < 16; ++i) v = x == i ? sc[i] : v;
+            const int col = (g * 4 + (x >> 2)) * 8 + col0 + (x & 1);
+            if (((mask >> x) & 1u) && tile_row + col < n_eff &&
+                better(v, tile_row + col, (x & 2) ? thv1 : thv0, (x & 2) ? thi1 : thi0)) {
+              const int pos = atomicAdd(qcount, 1);
+              if (pos < QCAP) queue[pos] = queue_entry(v, col, quad + ((x & 2) ? 8 : 0));
+            }
+          }
+        }
+        __syncwarp();
+        const int pushed = *qcount;
+        if (pushed <= QCAP) {
+          drain_queue(queue, pushed, tile_row, wlv, wli, k, lane);
+        } else {
+          int start = 0;
+          while (true) {
+            int cnt = 0;
+            bool over = false;
+#pragma unroll
+            for (int g = 0; g < ACC / 16; ++g) {
+              if (over || start >= (g + 1) * 16) continue;
+              float sc[16];
+              const bool any = group_scores<MODE>(acc, g, col0, wg_scales, qs0, qs1, thv0,
+                                                  thv1, sc);
+              if (!__any_sync(FULL_MASK, any)) continue;
+#pragma unroll
+              for (int x = 0; x < 16; ++x) {
+                if (over || g * 16 + x < start) continue;
+                const int e = x & 3;
+                const int col = (g * 4 + (x >> 2)) * 8 + col0 + (e & 1);
+                const bool ok = tile_row + col < n_eff &&
+                                better(sc[x], tile_row + col, (e & 2) ? thv1 : thv0,
+                                       (e & 2) ? thi1 : thi0);
+                const unsigned m = __ballot_sync(FULL_MASK, ok);
+                if (m == 0) continue;
+                const int n = __popc(m);
+                if (cnt + n > QCAP) {
+                  over = true;
+                  start = g * 16 + x;
+                } else {
+                  if (ok)
+                    queue[cnt + __popc(m & ((1u << lane) - 1u))] =
+                        queue_entry(sc[x], col, quad + ((e & 2) ? 8 : 0));
+                  cnt += n;
+                }
+              }
+            }
+            __syncwarp();
+            drain_queue(queue, cnt, tile_row, wlv, wli, k, lane);
+            thv0 = wlv[quad * k + k - 1];
+            thi0 = wli[quad * k + k - 1];
+            thv1 = wlv[(quad + 8) * k + k - 1];
+            thi1 = wli[(quad + 8) * k + k - 1];
+            if (!over) break;
+          }
+        }
+        __syncwarp();
+        thv0 = wlv[quad * k + k - 1];
+        thi0 = wli[quad * k + k - 1];
+        thv1 = wlv[(quad + 8) * k + k - 1];
+        thi1 = wli[(quad + 8) * k + k - 1];
+      }
+
+      __syncwarp();
+      for (int i = lane; i < 16 * k; i += 32) {
+        const int ql = i / k, j = i - ql * k;
+        const int b = q0 + wq0 + ql;
+        if (b < B) {
+          const size_t o = ((size_t)b * S + s) * k + j;
+          part_vals[o] = wlv[i];
+          part_ids[o] = wli[i];
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query,
+// so the library links nothing but the runtime.
+EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult st;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &st);
+#else
+    cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &st);
+#endif
+    if (e != cudaSuccess || st != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The map of a row-major [rows, Dp] array of 1- or 2-byte elements, read in
+// boxes of box_rows x box_dims; rows and dims past the array read as zero.
+bool encode_map(CUtensorMap* map, const void* base, int elem_bytes, int rows, int Dp,
+                int box_dims, int box_rows, bool swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)Dp, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)Dp * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_dims, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+            2, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The ring's depth and the kernel's dynamic shared memory at list length k:
+// as many stages (up to MAX_STAGES) as fit beside the lists.
+template <int MODE>
+cudaError_t plan_smem(int k, int* n_stages, size_t* smem) {
+  using C = Cfg<MODE>;
+  constexpr int STAGE = stage_bytes<MODE>();
+  int dev = 0, max_smem = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  const size_t fixed =
+      1024 + (size_t)C::CVT_BYTES + (size_t)TQ * k * 8 + C::FILTER_BYTES + 2 * MAX_STAGES * 8 + 8 * 4;
+  if ((size_t)max_smem < fixed + STAGE) return cudaErrorInvalidConfiguration;
+  const size_t fit = ((size_t)max_smem - fixed) / STAGE;
+  *n_stages = fit < (size_t)MAX_STAGES ? (int)fit : MAX_STAGES;
+  *smem = fixed + (size_t)*n_stages * STAGE;
+  return cudaFuncSetAttribute(scan_wgmma_kernel<MODE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+template <int MODE>
+cudaError_t launch_wgmma(const void* q, const void* v, const float* scales,
+                         const float* qscales, float* part_vals, int* part_ids, int B,
+                         int Dp, int Np, int n_eff, int k, int S, cudaStream_t stream) {
+  using C = Cfg<MODE>;
+  constexpr int QE = MODE == kI8Q8 ? 1 : 2, VE = MODE == kBF16 ? 2 : 1;
+  const int n_qblocks = (B + TQ - 1) / TQ;
+  CUtensorMap qmap, vmap;
+  if (!encode_map(&qmap, q, QE, B, Dp, C::Q_DIMS, TQ, true) ||
+      !encode_map(&vmap, v, VE, Np, Dp, C::V_DIMS, TN, MODE != kI8))
+    return cudaErrorInvalidValue;
+  int n_stages = 0;
+  size_t smem = 0;
+  cudaError_t e = plan_smem<MODE>(k, &n_stages, &smem);
+  if (e != cudaSuccess) return e;
+
+  const int n_tiles = (n_eff + TN - 1) / TN;
+  const int tiles_per_slice = (n_tiles + S - 1) / S;
+  const int n_chunks = (Dp + C::V_DIMS - 1) / C::V_DIMS;
+  scan_wgmma_kernel<MODE><<<n_qblocks * S, NT_TC, smem, stream>>>(
+      qmap, vmap, scales, qscales, part_vals, part_ids, B, n_eff, k, S, n_qblocks,
+      tiles_per_slice, n_tiles, n_chunks, n_stages);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface (loaded with ctypes). mode: 0 f32 store, 1 bf16 store, 2 int8
-// store with f32 queries, 3 int8 store with int8 queries (qscales given).
-// Scratch part_vals / part_ids hold [B, S, k]; outputs are [B, k].
+// C interface (loaded with ctypes). mode: 0 f32 store (SIMT), 1 bf16 store,
+// 2 int8 store with f32 queries, 3 int8 store with int8 queries (qscales
+// given); 1-3 run on the tensor cores. q16 is scratch for the bf16-rounded
+// queries [B, Dp] of modes 1 and 2. Scratch part_vals / part_ids hold
+// [B, S, k]; outputs are [B, k]. Every pointer starts on a 16-byte boundary.
 // Returns a cudaError_t (0 on success); the launches are asynchronous on
 // `stream`.
 extern "C" int nvdb_flat_topk(const void* q, const void* v, const void* scales,
-                              const void* qscales, void* part_vals, void* part_ids,
-                              void* out_vals, void* out_ids, int B, int Dp, int n_eff,
-                              int k, int S, int mode, void* stream) {
-  if (B < 1 || k < 1 || k > MAX_K || S < 1 || Dp < DK || Dp % DK != 0 || n_eff < 0)
+                              const void* qscales, void* q16, void* part_vals,
+                              void* part_ids, void* out_vals, void* out_ids, int B,
+                              int Dp, int Np, int n_eff, int k, int S, int mode,
+                              void* stream) {
+  if (B < 1 || k < 1 || k > MAX_K || S < 1 || Dp < 64 || Dp % 64 != 0 || n_eff < 0 ||
+      n_eff > Np)
     return (int)cudaErrorInvalidValue;
   if ((mode == kI8 || mode == kI8Q8) && scales == nullptr) return (int)cudaErrorInvalidValue;
   if (mode == kI8Q8 && qscales == nullptr) return (int)cudaErrorInvalidValue;
+  if ((mode == kBF16 || mode == kI8) && q16 == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = (n_eff + TR - 1) / TR;
-  const int rows_per_slice = ((tiles + S - 1) / S) * TR;
   const float* sc = static_cast<const float*>(scales);
   const float* qs = static_cast<const float*>(qscales);
   float* pv = static_cast<float*>(part_vals);
   int* pi = static_cast<int*>(part_ids);
   cudaError_t e;
+  if (mode == kBF16 || mode == kI8) {
+    const size_t n = (size_t)B * Dp;
+    const int blocks = n < 256 * 1024 ? (int)((n + 255) / 256) : 1024;
+    round_queries_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(q),
+                                                 static_cast<__nv_bfloat16*>(q16), n);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   switch (mode) {
     case kF32:
-      e = launch_scan<kF32>(q, v, sc, qs, pv, pi, B, Dp, n_eff, k, S, rows_per_slice, st);
+      e = launch_f32(static_cast<const float*>(q), static_cast<const float*>(v), pv, pi, B,
+                     Dp, n_eff, k, S, st);
       break;
     case kBF16:
-      e = launch_scan<kBF16>(q, v, sc, qs, pv, pi, B, Dp, n_eff, k, S, rows_per_slice, st);
+      e = launch_wgmma<kBF16>(q16, v, sc, qs, pv, pi, B, Dp, Np, n_eff, k, S, st);
       break;
     case kI8:
-      e = launch_scan<kI8>(q, v, sc, qs, pv, pi, B, Dp, n_eff, k, S, rows_per_slice, st);
+      e = launch_wgmma<kI8>(q16, v, sc, qs, pv, pi, B, Dp, Np, n_eff, k, S, st);
       break;
     case kI8Q8:
-      e = launch_scan<kI8Q8>(q, v, sc, qs, pv, pi, B, Dp, n_eff, k, S, rows_per_slice, st);
+      e = launch_wgmma<kI8Q8>(q, v, sc, qs, pv, pi, B, Dp, Np, n_eff, k, S, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -20,13 +20,14 @@ from nvdb_tpu_torch.utils import cdiv
 
 MAX_K = 128
 
-# the kernel's tiling (csrc/flat_topk.cu): queries per CTA, rows per tile,
-# dims per staged chunk
-_QB = 64
-_TR = 64
-_DK = 64
-# pass-1 CTAs per SM the slice count aims for (two fit by shared memory at k=128)
-_CTAS_PER_SM = 2
+# The two pass-1 kernels of csrc/flat_topk.cu and their tiling: queries per
+# CTA, rows per tile, CTAs per SM that the slice count aims for. The SIMT
+# kernel fits two CTAs per SM by shared memory at k = 128; the tensor-core
+# kernel is one CTA per SM (its ring and lists fill the SM's shared memory).
+SIMT = "simt"
+TENSOR_CORE = "tensor_core"
+_TILING = {SIMT: (64, 64, 2), TENSOR_CORE: (128, 256, 1)}
+_DIM_STEP = 64   # padded dims come in multiples of this
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MODE_I8Q8 = 3
@@ -34,6 +35,17 @@ _MODE_I8Q8 = 3
 # Launches of the kernel since the last reset: a run can show that its main
 # path went through the kernel. Only flat_topk_cuda's launch adds to it.
 LAUNCHES = 0
+
+
+def kernel_for(store_dtype: torch.dtype) -> str:
+    """Which pass-1 kernel scores a store: by store type alone. f32 means
+    exact f32 FMA, so it keeps the SIMT kernel; bf16 and int8 stores (with
+    f32 or int8 queries) are scored on the tensor cores."""
+    if store_dtype == torch.float32:
+        return SIMT
+    if store_dtype in (torch.bfloat16, torch.int8):
+        return TENSOR_CORE
+    raise TypeError(f"the flat_topk kernel takes f32, bf16 or int8 stores, not {store_dtype}")
 
 
 def flat_topk_reference(
@@ -55,8 +67,8 @@ def _lib():
     from nvdb_tpu_torch.kernels import _build
 
     fn = _build.load("flat_topk").nvdb_flat_topk
-    # 8 pointers, B, Dp, n_eff, k, S, mode, stream
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    # 9 pointers, B, Dp, Np, n_eff, k, S, mode, stream
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -83,12 +95,35 @@ def check_tensor(t: torch.Tensor, name: str, device: torch.device, dtypes, shape
         raise ValueError(f"{name} must start on a 16-byte boundary (16-byte loads)")
 
 
-def _slice_count(batch: int, n_valid: int, device: torch.device) -> int:
-    """Row slices of pass 1: enough CTAs for ``_CTAS_PER_SM`` per SM at any
-    batch, but no slice shorter than one tile."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = max(cdiv(n_valid, _TR), 1)
-    return max(1, min(tiles, cdiv(_CTAS_PER_SM * n_sm, cdiv(batch, _QB))))
+def check_tma_operand(t: torch.Tensor, name: str) -> None:
+    """What a TMA tensor map asks of a [rows, Dp] operand: dims contiguous,
+    a base and a row pitch on 16-byte boundaries; and the kernels' own rule
+    that Dp is a multiple of 64."""
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be 2-D")
+    if t.shape[1] % _DIM_STEP != 0:
+        raise ValueError(f"{name}: padded dim {t.shape[1]} is not a multiple of {_DIM_STEP}")
+    if t.stride(1) != 1:
+        raise ValueError(f"{name}: the dims of a row must be contiguous")
+    pitch = t.stride(0) * t.element_size()
+    if t.shape[0] > 1 and pitch % 16 != 0:
+        raise ValueError(f"{name}: row pitch {pitch} bytes is not a multiple of 16")
+    if t.data_ptr() % 16 != 0:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def slice_count(batch: int, n_valid: int, n_sm: int, kernel: str) -> int:
+    """Row slices of pass 1, one CTA per (slice, query block). SIMT kernel:
+    enough slices for two CTAs per SM at any batch. Tensor-core kernel: as
+    many as keep the grid within one wave of one CTA per SM (a second,
+    partial wave would cost a whole one), so that the query blocks of a
+    slice run side by side and share its rows in L2. No slice is shorter
+    than one tile."""
+    qb, tr, per_sm = _TILING[kernel]
+    tiles = max(cdiv(n_valid, tr), 1)
+    q_blocks = cdiv(batch, qb)
+    want = cdiv(per_sm * n_sm, q_blocks) if kernel == SIMT else (per_sm * n_sm) // q_blocks
+    return max(1, min(tiles, want))
 
 
 def flat_topk_cuda(
@@ -111,8 +146,9 @@ def flat_topk_cuda(
     dev = vectors.device
     Np, Dp = vectors.shape
     B = queries.shape[0]
-    if Dp % _DK != 0:
-        raise ValueError(f"padded dim {Dp} is not a multiple of {_DK}")
+    kernel = kernel_for(vectors.dtype)
+    check_tma_operand(vectors, "vectors")
+    check_tma_operand(queries, "queries")
     check_tensor(vectors, "vectors", dev, tuple(_MODES), (Np, Dp))
     mode = _MODES[vectors.dtype]
     if vectors.dtype == torch.int8:
@@ -135,7 +171,11 @@ def flat_topk_cuda(
     if B == 0:
         return vals, ids
     n_eff = max(0, min(int(n_valid), Np))
-    S = _slice_count(B, n_eff, dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    S = slice_count(B, n_eff, n_sm, kernel)
+    # the bf16-rounded queries of a bf16 or int8 store (int8 queries go as they are)
+    q16 = (torch.empty((B, Dp), dtype=torch.bfloat16, device=dev)
+           if kernel == TENSOR_CORE and mode != _MODE_I8Q8 else None)
     part_vals = torch.empty((B, S, k), dtype=torch.float32, device=dev)
     part_ids = torch.empty((B, S, k), dtype=torch.int32, device=dev)
 
@@ -145,9 +185,10 @@ def flat_topk_cuda(
         rc = fn(queries.data_ptr(), vectors.data_ptr(),
                 scales.data_ptr() if scales is not None else None,
                 query_scales.data_ptr() if query_scales is not None else None,
+                q16.data_ptr() if q16 is not None else None,
                 part_vals.data_ptr(), part_ids.data_ptr(),
                 vals.data_ptr(), ids.data_ptr(),
-                B, Dp, n_eff, k, S, mode, stream)
+                B, Dp, Np, n_eff, k, S, mode, stream)
     if rc != 0:
         raise RuntimeError(f"flat_topk kernel launch failed: cudaError_t {rc}")
     LAUNCHES += 1

@@ -28,3 +28,13 @@ def test_digest_stable_and_follows_source(tmp_path):
     src = csrc / "rerank_topk.cu"
     src.write_text(src.read_text().replace("NT = 256", "NT = 128"))
     assert _build.source_digest("rerank_topk", csrc) != d0
+
+
+def test_digest_follows_defines():
+    """A measurement build (preprocessor definitions) never shares a library
+    with the port's own build of the same source."""
+    plain = _build.source_digest("flat_topk")
+    ablated = _build.source_digest("flat_topk", defines=("NVDB_FLAT_ABLATE=1",))
+    assert plain != ablated
+    assert ablated != _build.source_digest("flat_topk", defines=("NVDB_FLAT_ABLATE=2",))
+    assert plain == _build.source_digest("flat_topk", defines=())

@@ -251,3 +251,82 @@ def test_wrapper_cpu_tensor_runs_plain_version(data):
     want = ops.scan_topk(q, v, None, N, 10)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# -- the CUDA wrapper's host side (no card here: routing, grid, argument checks) --
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.float32, flat_scan.SIMT),
+                                          (torch.bfloat16, flat_scan.TENSOR_CORE),
+                                          (torch.int8, flat_scan.TENSOR_CORE)])
+def test_kernel_routing_is_by_store_type(dtype, kernel):
+    """f32 stores keep the SIMT kernel (f32 means exact FMA); bf16 and int8
+    stores, with f32 or int8 queries alike, go to the tensor-core kernel."""
+    assert flat_scan.kernel_for(dtype) == kernel
+
+
+def test_kernel_routing_rejects_other_types():
+    with pytest.raises(TypeError):
+        flat_scan.kernel_for(torch.float64)
+    with pytest.raises(TypeError):
+        flat_scan.kernel_for(torch.float16)
+
+
+N_SM = 132   # an H100 SXM
+
+
+@pytest.mark.parametrize("batch,simt,tensor", [(1, 264, 132), (8, 264, 132), (64, 264, 132),
+                                               (512, 33, 33), (513, 30, 26)])
+def test_slice_count_full_store(batch, simt, tensor):
+    """1M rows: the SIMT kernel (64 queries x 64 rows a CTA) gets two CTAs
+    per SM or a few more; the tensor-core kernel (128 queries x 256 rows,
+    one CTA per SM) never more CTAs than SMs, so its grid is one wave."""
+    n = 1_000_000
+    assert flat_scan.slice_count(batch, n, N_SM, flat_scan.SIMT) == simt
+    assert flat_scan.slice_count(batch, n, N_SM, flat_scan.TENSOR_CORE) == tensor
+    assert -(-batch // 128) * tensor <= N_SM       # CTAs: query blocks x slices
+    assert -(-batch // 64) * simt >= 2 * N_SM
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64, 512, 513])
+@pytest.mark.parametrize("n_valid,simt_tiles,tensor_tiles", [(0, 1, 1), (5, 1, 1), (64, 1, 1),
+                                                             (65, 2, 1), (300, 5, 2),
+                                                             (4096, 64, 16)])
+def test_slice_count_small_store(batch, n_valid, simt_tiles, tensor_tiles):
+    """No slice is shorter than one tile of its kernel, and there is always
+    one (an empty store still gets its (-inf, -1) lists)."""
+    for kernel, tiles in ((flat_scan.SIMT, simt_tiles), (flat_scan.TENSOR_CORE, tensor_tiles)):
+        s = flat_scan.slice_count(batch, n_valid, N_SM, kernel)
+        assert 1 <= s <= tiles
+    # more query blocks than SMs: one slice, the grid takes several waves
+    assert flat_scan.slice_count(128 * (N_SM + 1), 10**6, N_SM, flat_scan.TENSOR_CORE) == 1
+
+
+def test_tma_operand_checks():
+    """What the tensor maps of the tensor-core kernel need of queries and
+    store: contiguous dims, a 16-byte aligned base and row pitch, Dp % 64."""
+    ok = torch.zeros((4, 128), dtype=torch.int8)
+    flat_scan.check_tma_operand(ok, "vectors")
+    flat_scan.check_tma_operand(torch.zeros((4, 64), dtype=torch.bfloat16), "vectors")
+    with pytest.raises(ValueError, match="multiple of 64"):
+        flat_scan.check_tma_operand(torch.zeros((4, 96)), "vectors")
+    with pytest.raises(ValueError, match="row pitch"):
+        flat_scan.check_tma_operand(torch.zeros((4, 72), dtype=torch.int8)[:, :64], "vectors")
+    with pytest.raises(ValueError, match="contiguous"):
+        flat_scan.check_tma_operand(torch.zeros((64, 64)).T, "queries")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flat_scan.check_tma_operand(torch.zeros(4 * 64 + 1, dtype=torch.int8)[1:].view(4, 64),
+                                    "vectors")
+    with pytest.raises(ValueError, match="2-D"):
+        flat_scan.check_tma_operand(torch.zeros(64), "queries")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wrapper_raises_on_cpu_tensor_every_store_type(data, dtype):
+    """Whichever kernel a store type routes to, a CPU tensor is refused and
+    no launch is counted."""
+    _, q_p = data
+    q, v, sc, qs = _port_args(_case(data, dtype), q_p)
+    before = flat_scan.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flat_scan.flat_topk_cuda(q, v, sc, N, 10, query_scales=qs)
+    assert flat_scan.LAUNCHES == before

@@ -1,5 +1,6 @@
-"""The CUDA flat top-k kernel against its plain PyTorch version and a float64
-numpy oracle, on a card. Marked ``gpu``: each test asks its fixture for a
+"""The CUDA kernels against their plain PyTorch versions and a float64 numpy
+oracle, on a card (the flat top-k: the SIMT kernel of f32 stores and the
+tensor-core kernel of bf16 and int8 stores). Marked ``gpu``: each test asks its fixture for a
 card and skips without one. The file imports no JAX, so it also runs where
 JAX is not installed:
 
@@ -131,6 +132,106 @@ def test_wrapper_rejects_bad_input(cuda_device):
         flat_scan.flat_topk_cuda(q[:, :64], v, None, 1024, 10)
     with pytest.raises(ValueError):
         flat_scan.flat_topk_cuda(q, v, torch.ones(1024, device=cuda_device), 1024, 10)
+
+
+# -- the tensor-core flat kernel's edges (bf16 and int8 stores) ------------------
+
+TC_DTYPES = ["bf16", "i8", "i8xi8"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", TC_DTYPES)
+@pytest.mark.parametrize("n_valid", [0, 5, 255, 257])
+def test_tensor_core_kernel_few_valid_rows(cuda_device, dtype, n_valid):
+    """n_valid = 0, n_valid < k, and an n_valid one row short of and one row
+    past the 256-row tile."""
+    c = _case(1024, 128, 8, dtype, seed=3)
+    q, v, sc, qs = _args(c, cuda_device)
+    kv, ki = flat_scan.flat_topk_cuda(q, v, sc, n_valid, 10, query_scales=qs)
+    kv, ki = kv.cpu().numpy(), ki.cpu().numpy()
+    if n_valid == 0:
+        assert (ki == -1).all() and np.isneginf(kv).all()
+    else:
+        _check(kv, ki, c, n_valid, 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", TC_DTYPES)
+def test_tensor_core_kernel_ties_go_to_larger_id(cuda_device, dtype):
+    """A store of duplicated rows: equal scores come out by descending id,
+    whatever order tiles and candidates arrive in (rows 3, 300 and 700 lie
+    in three different row tiles)."""
+    base = np.zeros((1024, 128), np.float32)
+    base[:, 0] = 0.5
+    base[[3, 300, 700], 0] = 1.0
+    q = np.zeros((130, 128), np.float32)
+    q[:, 0] = 1.0
+    sc = qs = None
+    if dtype == "bf16":
+        v = torch.from_numpy(base).to(torch.bfloat16).to(cuda_device)
+        qt = torch.from_numpy(q).to(cuda_device)
+    else:
+        codes, scn = vecbin.quantize_i8(base)
+        v, sc = torch.from_numpy(codes).to(cuda_device), torch.from_numpy(scn).to(cuda_device)
+        qt = torch.from_numpy(q).to(cuda_device)
+        if dtype == "i8xi8":
+            qq, qsn = vecbin.quantize_i8(q)
+            qt, qs = torch.from_numpy(qq).to(cuda_device), torch.from_numpy(qsn).to(cuda_device)
+    vals, ids = flat_scan.flat_topk_cuda(qt, v, sc, 1000, 6, query_scales=qs)
+    pv, pi = flat_scan.flat_topk_reference(qt, v, sc, 1000, 6, query_scales=qs)
+    assert ids.cpu().tolist() == [[700, 300, 3, 999, 998, 997]] * 130
+    assert torch.equal(ids, pi)
+    np.testing.assert_allclose(vals.cpu().numpy(), pv.cpu().numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", TC_DTYPES)
+@pytest.mark.parametrize("dp", [64, 384, 768])
+@pytest.mark.parametrize("b", [1, 513])
+def test_tensor_core_kernel_dims_and_batches(cuda_device, dtype, dp, b):
+    """Dp of one chunk, of an odd number of 128-byte int8 chunks, and the
+    main path's; one query, and five query blocks with a ragged last one;
+    k = 128 (the shortest ring)."""
+    n_pad, n_valid, k = 4096, 4000, 128
+    c = _case(n_pad, dp, b, dtype, seed=dp + b)
+    q, v, sc, qs = _args(c, cuda_device)
+    kv, ki = flat_scan.flat_topk_cuda(q, v, sc, n_valid, k, query_scales=qs)
+    pv, pi = flat_scan.flat_topk_reference(q, v, sc, n_valid, k, query_scales=qs)
+    kv, ki = kv.cpu().numpy(), ki.cpu().numpy()
+    _check(kv, ki, c, n_valid, k)
+    np.testing.assert_allclose(kv, pv.cpu().numpy(), atol=1e-5, rtol=1e-5)
+    if dtype == "i8xi8":   # exact int32 sums: bit for bit
+        np.testing.assert_array_equal(kv, pv.cpu().numpy())
+    assert np.mean(ki == pi.cpu().numpy()) >= 0.95
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", TC_DTYPES)
+@pytest.mark.parametrize("n_rows", [300, 512])
+def test_tensor_core_kernel_zero_fill_does_not_win(cuda_device, dtype, n_rows):
+    """Every score is negative and the last row tile is ragged: the zeros
+    that the tile's rows past the store (n_rows = 300) or past n_valid
+    (n_rows = 512, rows 300.. all zero) score must not enter a list, nor
+    the zero rows of the queries past B."""
+    rng = np.random.default_rng(9)
+    base = -np.abs(rng.standard_normal((n_rows, 128))).astype(np.float32) - 0.1
+    base[300:] = 0.0
+    q = np.abs(rng.standard_normal((5, 128))).astype(np.float32) + 0.1
+    sc = qs = None
+    qt = torch.from_numpy(q).to(cuda_device)
+    if dtype == "bf16":
+        v = torch.from_numpy(base).to(torch.bfloat16).to(cuda_device)
+    else:
+        codes, scn = vecbin.quantize_i8(base)
+        v, sc = torch.from_numpy(codes).to(cuda_device), torch.from_numpy(scn).to(cuda_device)
+        if dtype == "i8xi8":
+            qq, qsn = vecbin.quantize_i8(q)
+            qt, qs = torch.from_numpy(qq).to(cuda_device), torch.from_numpy(qsn).to(cuda_device)
+    vals, ids = flat_scan.flat_topk_cuda(qt, v, sc, 300, 10, query_scales=qs)
+    pv, pi = flat_scan.flat_topk_reference(qt, v, sc, 300, 10, query_scales=qs)
+    assert bool((vals < 0).all()) and bool(((ids >= 0) & (ids < 300)).all())
+    np.testing.assert_allclose(vals.cpu().numpy(), pv.cpu().numpy(), atol=1e-5, rtol=1e-5)
+    assert np.mean(ids.cpu().numpy() == pi.cpu().numpy()) >= 0.95
 
 
 # -- the rerank kernel ---------------------------------------------------------
@@ -401,3 +502,13 @@ def test_add1_kernel(cuda_device):
     assert add1.LAUNCHES == before + 1
     with pytest.raises(ValueError, match="CUDA tensors"):
         add1.add1_cuda(x.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(7, 3), (1,), (5, 4), (1000, 33)])
+def test_add1_kernel_other_shapes(cuda_device, shape):
+    """Sizes off the 256-thread block, down to one element."""
+    from nvdb_tpu_torch.kernels import add1
+
+    x = torch.arange(int(np.prod(shape)), dtype=torch.float32, device=cuda_device).reshape(shape)
+    assert torch.equal(add1.add1_cuda(x), x + 1.0)
