@@ -24,21 +24,34 @@ then, one phase per line group:
    rate of their type, whichever is larger) and time / bound; one
    ``torch.matmul`` of the bf16 B = 512 product as the library's time for
    the scoring part alone; the headline line of ``nvdb_tpu_torch.bench``;
-6. ADC kernel vs plain: a random packed index at the flagship's M = 96 and
-   Lcap = 640, B in {1, 8, 64, 256}, P in {1, 7, 64}, kk in {10, 100, 256,
-   1024}, and an index whose lists share ids (replicated rows);
+6. ADC kernels vs plain: a random packed index at the flagship's M = 96,
+   dsub = 8 and Lcap = 640, B in {1, 8, 64, 256}, P in {1, 7, 64}, kk in {10,
+   100, 256, 1024}, and an index whose lists share ids (replicated rows).
+   The table kernel against ``pq.adc_lut`` + bf16 cast: at least 99.9% of
+   the live probes' entries bit-equal, the rest one bf16 step off (the f32
+   sum of 8 products in another order than the library's, then one
+   rounding). The scan on the kernel's own tables, and on a random f32
+   table that the wrapper rounds, against its plain version on the same
+   tables;
 7. rerank kernel vs plain and a float64 oracle: f32 / bf16 / int8 stores x
-   l2 / dot, B in {1, 8, 256}, R in {10, 100, 256}, k in {1, 10, 100};
+   l2 / dot, B in {1, 8, 256}, R in {10, 100, 256}, k in {1, 10, 100}, with
+   padding ids and a repeated id, and a residual-int8 store; every call is
+   one launch, and a call on a plain store runs no other operation on the
+   device (every torch operator the call dispatches is recorded);
 8. the IVF-PQ main path at the flagship's width: a 1M x 768 clustered f32
    vecbin and 1,024 sampled queries, ground truth by the flat kernel,
    ``tools.ivf_build --kind ivfpq --nlist 4096 --pq-m 96 --opq``, then
    ``tools.ivf_eval --chained --nprobe 64 --refine-k 100 --k 10 --batch-q
-   256`` with the kernels (both launch counts reset just before and read
-   just after) and with ``--ivf-backend torch``; recall@10 and QPS of each;
-9. times: the ADC kernel at B = 256, P = 64, M = 96, Lcap = 640, kk = 100 on
-   the built index, and the rerank kernel at B = 256 and B = 8, R = 100,
-   k = 10 on the 1M x 768 bf16 store, each against its plain version in
-   turns;
+   256`` with the kernels (the three launch counts reset just before and
+   read just after) and with ``--ivf-backend torch``; recall@10 and QPS of
+   each;
+9. times at B = 256, P = 64, M = 96, Lcap = 640, kk = 100 on the built index,
+   each alone: rotation + coarse ranking (plain torch), the table kernel,
+   the scan, the rerank wrapper at B = 256 and B = 8 (R = 100, k = 10, the
+   1M x 768 bf16 store), each kernel against its plain version in turns
+   and beside its bound; the rerank kernel alone (100 launches in one CUDA
+   graph); the whole ``search_device``, whose operators are recorded to
+   show that no f32 table and no bf16 copy of one is made;
 10. IVF probe kernel vs plain and a float64 oracle: random packed indexes
    of f32 / bf16 / int8 payloads at Lcap 384 and 992 (lists full, with
    holes, filled below k, dead), B in {1, 8, 64, 256}, P in {1, 7, 32, 64},
@@ -96,7 +109,10 @@ PR_RECALL_MIN = 0.9    # partition recall@10 at nprobe 32 (published: .9947)
 # NVIDIA H100 SXM data sheet, dense rates: what a kernel's bound is reckoned from
 HBM_GBPS = 3350.0
 PEAK_TOPS = {"bf16": 989.0, "int8": 1979.0, "f32": 67.0}   # f32: outside the tensor cores
-KERNELS = ("flat_topk", "adc_topk", "rerank_topk", "ivf_probe_topk", "hbm_stream", "add1")
+TABLE_EQUAL_MIN = 0.999  # share of a live probe's table entries equal bit for bit; the
+                         # rest one bf16 step off (8 products summed in another order)
+KERNELS = ("flat_topk", "adc_tables", "adc_topk", "rerank_topk", "ivf_probe_topk",
+           "hbm_stream", "add1")
 
 
 def say(*a):
@@ -395,6 +411,49 @@ def graph_ms(torch, fn, launches=100, replays=20):
     return cuda_ms(torch, graph.replay, replays) / launches
 
 
+def dispatched_ops(torch, fn):
+    """Run ``fn`` and return (its result, [(operator name, [(shape, dtype) of
+    each tensor it returned])]) for every torch operator it dispatched. A
+    hand-written kernel launched through ctypes is no torch operator, so a
+    wrapper that only allocates and launches shows ``aten.empty`` alone."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            seen.append((str(func), [(tuple(o.shape), o.dtype) for o in outs
+                                     if isinstance(o, torch.Tensor)]))
+            return out
+
+    with Recorder():
+        res = fn()
+    return res, seen
+
+
+def bf16_steps(torch, a, b):
+    """|a - b| in bf16 steps (units in the last place), elementwise, for
+    finite bf16 tensors: the sign-magnitude bits mapped to ordered integers."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def table_inputs(torch, dev, b, nlist, m, dsub, seed):
+    """Rotated queries near the centroids, centroids and codebooks of the
+    width the ADC tables are built from (Dp = m * dsub)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dp = m * dsub
+    cents = torch.randn((nlist, dp), generator=g, device=dev) / dp ** 0.5
+    near = torch.randint(0, nlist, (b,), generator=g, device=dev)
+    q_rot = cents[near] + 0.3 * torch.randn((b, dp), generator=g, device=dev) / dp ** 0.5
+    codebooks = 0.3 * torch.randn((m, 256, dsub), generator=g, device=dev) / dp ** 0.5
+    return q_rot.contiguous(), cents, codebooks
+
+
 def adc_case(torch, dev, b, p, seed, nlist=128, m=96, lcap=640, dup=False):
     """A random packed index (lists of varied fill, one empty), its tables
     and probes; ``dup``: lists 1 and 2 hold the same ids."""
@@ -433,25 +492,57 @@ def check_adc(torch, tag, kv, ki, pv, pi):
     return err, agree
 
 
+def check_tables(torch, tag, got, want, live):
+    """The table gate: over the live probes' entries, at least
+    TABLE_EQUAL_MIN equal bit for bit and none further than one bf16 step."""
+    check(tuple(got.shape) == tuple(want.shape) and got.dtype == torch.bfloat16,
+          f"{tag}: table shape or dtype")
+    check(bool(torch.isfinite(got.float()).all()), f"{tag}: non-finite table entries")
+    steps = bf16_steps(torch, got[live], want[live])
+    equal = float((steps == 0).float().mean()) if steps.numel() else 1.0
+    worst = int(steps.max()) if steps.numel() else 0
+    check(equal >= TABLE_EQUAL_MIN, f"{tag}: only {equal} of table entries bit-equal")
+    check(worst <= 1, f"{tag}: a table entry is {worst} bf16 steps off")
+    check(bool((got[~live] == 0).all()), f"{tag}: a dead probe's table is not zero")
+    return equal, worst
+
+
 def phase_adc_vs_plain(torch, dev):
     from nvdb_tpu_torch.kernels import adc_scan
 
-    max_err = 0.0
+    out = {"scan_err": 0.0, "table_err": 0.0, "table_equal": 1.0}
     cases = [(b, p, kk, False) for b in (1, 8, 64, 256) for p in (1, 7, 64)
              for kk in (10, 100, 256, 1024)] + [(8, 7, 100, True), (64, 64, 1024, True)]
     for b, p, kk, dup in cases:
-        lut, probes, codes, slot_ids = adc_case(torch, dev, b, p, seed=b * 131 + p, dup=dup)
-        kv, ki = adc_scan.adc_topk_cuda(lut, probes, codes, slot_ids, kk)
-        torch.cuda.synchronize(dev)
-        pv, pi = adc_scan.adc_topk_reference(lut, probes, codes, slot_ids, kk)
+        lut32, probes, codes, slot_ids = adc_case(torch, dev, b, p, seed=b * 131 + p, dup=dup)
         tag = f"B={b} P={p} kk={kk}{' dup' if dup else ''}"
-        err, agree = check_adc(torch, tag, kv, ki, pv, pi)
-        max_err = max(max_err, err)
-        live = float((ki >= 0).float().mean())
-        say(f"  {tag}: max_abs_err={err:.3e} id_agree={agree:.4f} filled={live:.3f}")
-        del lut, probes, codes, slot_ids
+        # the table kernel on this index's probes (list 3 is dead), then the
+        # scan on the kernel's own tables
+        q_rot, cents, codebooks = table_inputs(torch, dev, b, codes.shape[0], codes.shape[1], 8,
+                                               seed=b * 17 + p)
+        fills = adc_scan.list_fills(slot_ids)
+        lut = adc_scan.adc_tables_cuda(q_rot, probes, cents, codebooks, fills)
+        torch.cuda.synchronize(dev)
+        want = adc_scan.adc_tables_reference(q_rot, probes, cents, codebooks, fills)
+        live = adc_scan.live_probes(probes, fills)
+        equal, worst = check_tables(torch, tag, lut, want, live)
+        out["table_equal"] = min(out["table_equal"], equal)
+        out["table_err"] = max(out["table_err"],
+                               float((lut.float() - want.float())[live].abs().max()))
+        del want
+        msg = f"  {tag}: tables bit-equal {equal:.6f}, worst {worst} step(s)"
+        for name, table in (("kernel's tables", lut), ("f32 table", lut32)):
+            kv, ki = adc_scan.adc_topk_cuda(table, probes, codes, slot_ids, kk, fills=fills)
+            torch.cuda.synchronize(dev)
+            pv, pi = adc_scan.adc_topk_reference(table, probes, codes, slot_ids, kk)
+            err, agree = check_adc(torch, f"{tag} ({name})", kv, ki, pv, pi)
+            out["scan_err"] = max(out["scan_err"], err)
+            msg += f" | scan on {name}: err={err:.1e} id_agree={agree:.3f}"
+        msg += f" filled={float((ki >= 0).float().mean()):.3f}"
+        say(msg)
+        del lut, lut32, probes, codes, slot_ids
     torch.cuda.empty_cache()
-    return max_err
+    return out
 
 
 def rerank_regret(s64, cand, ids, k):
@@ -498,22 +589,31 @@ def phase_rerank_vs_plain(torch, dev):
                 for r in (10, 100, 256):
                     cand = np.stack([rng.choice(n, r, replace=False) for _ in range(b)])
                     cand = cand.astype(np.int32)
-                    cand[0, r // 2:] = -1
+                    cand[0, r // 2:] = -1                 # padding ids
+                    if b > 1:
+                        cand[1, 1] = cand[1, 0]           # an id that repeats
+                        cand[1, r - 1] = cand[1, 0]
                     cand_t = torch.from_numpy(cand).to(dev)
                     rows = eff[cand_t.clamp(min=0).long()]                # [b, r, dp]
                     s64 = torch.einsum("bd,brd->br", q_all[:b].double(), rows)
                     if metric == "l2":
                         s64 = 2.0 * s64 - (rows * rows).sum(-1)
                     s64 = torch.where(cand_t >= 0, s64, float("-inf")).cpu().numpy()
+                    qb = q_all[:b]
                     for k in (1, 10, 100):
                         if k > r:
                             continue
-                        kv, ki = rerank.rerank_topk_cuda(q_all[:b], cand_t, store, sc, k,
-                                                         norms2=n2, metric=metric)
+                        tag = f"{dtype} {metric} B={b} R={r} k={k}"
+                        before = rerank.LAUNCHES
+                        (kv, ki), ops_seen = dispatched_ops(
+                            torch, lambda: rerank.rerank_topk_cuda(
+                                qb, cand_t, store, sc, k, norms2=n2, metric=metric))
                         torch.cuda.synchronize(dev)
+                        check(rerank.LAUNCHES == before + 1, f"{tag}: not one launch")
+                        other = [name for name, _ in ops_seen if "empty" not in name]
+                        check(not other, f"{tag}: the wrapper ran {other} beside its launch")
                         pv, pi = rerank.rerank_topk_reference(q_all[:b], cand_t, store, sc,
                                                               k, norms2=n2, metric=metric)
-                        tag = f"{dtype} {metric} B={b} R={r} k={k}"
                         fin = ki >= 0
                         err = float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) else 0.0
                         check(bool((fin == (pi >= 0)).all()), f"{tag}: filler differs")
@@ -526,8 +626,58 @@ def phase_rerank_vs_plain(torch, dev):
                         if k == 10 or b == 256:
                             say(f"  {tag}: regret={rg:.3e} max_abs_err={err:.3e}")
         del store, eff, n2
+    max_err = max(max_err, rerank_residual_cases(torch, dev, base, q_all, rng))
     torch.cuda.empty_cache()
     return max_err
+
+
+def rerank_residual_cases(torch, dev, base, q_all, rng, nlist=64):
+    """A residual-int8 store (row = cent + s * codes): q.cent is gathered in
+    torch and folded inside the kernel; held against the plain version and
+    a float64 oracle over the dequantized rows, both metrics."""
+    from nvdb_tpu_torch.formats import vecbin
+    from nvdb_tpu_torch.kernels import rerank
+
+    n, dp = base.shape
+    cents = base[rng.choice(n, nlist, replace=False)]
+    list_of = rng.integers(0, nlist, n).astype(np.int32)
+    rows = 0.7 * cents[list_of] + 0.3 * base
+    codes, scn = vecbin.quantize_i8(rows - cents[list_of])
+    deq = cents[list_of].astype(np.float64) + codes.astype(np.float64) * scn[:, None]
+    store, sc = torch.from_numpy(codes).to(dev), torch.from_numpy(scn).to(dev)
+    res_cents, res_ids = torch.from_numpy(cents).to(dev), torch.from_numpy(list_of).to(dev)
+    n2 = torch.from_numpy((deq * deq).sum(1).astype(np.float32)).to(dev)
+    eff = torch.from_numpy(deq).to(dev)
+    worst = 0.0
+    for metric in ("l2", "dot"):
+        for b, r, k in ((8, 100, 10), (256, 100, 10), (8, 256, 100)):
+            cand = np.stack([rng.choice(n, r, replace=False) for _ in range(b)]).astype(np.int32)
+            cand[0, r // 2:] = -1
+            cand[1, 1] = cand[1, 0]
+            cand_t = torch.from_numpy(cand).to(dev)
+            rows64 = eff[cand_t.clamp(min=0).long()]
+            s64 = torch.einsum("bd,brd->br", q_all[:b].double(), rows64)
+            if metric == "l2":
+                s64 = 2.0 * s64 - (rows64 * rows64).sum(-1)
+            s64 = torch.where(cand_t >= 0, s64, float("-inf")).cpu().numpy()
+            kw = dict(norms2=n2 if metric == "l2" else None, metric=metric,
+                      res_cents=res_cents, res_ids=res_ids)
+            before = rerank.LAUNCHES
+            kv, ki = rerank.rerank_topk_cuda(q_all[:b], cand_t, store, sc, k, **kw)
+            torch.cuda.synchronize(dev)
+            pv, pi = rerank.rerank_topk_reference(q_all[:b], cand_t, store, sc, k, **kw)
+            tag = f"residual i8 {metric} B={b} R={r} k={k}"
+            check(rerank.LAUNCHES == before + 1, f"{tag}: not one launch")
+            fin = ki >= 0
+            err = float((kv[fin] - pv[fin]).abs().max())
+            check(bool((fin == (pi >= 0)).all()), f"{tag}: filler differs")
+            check(bool(torch.allclose(kv[fin], pv[fin], atol=VALUE_ATOL, rtol=VALUE_RTOL)),
+                  f"{tag}: values differ from plain by {err}")
+            rg = rerank_regret(s64, cand, ki.cpu().numpy(), k)
+            check(rg <= REGRET_TOL, f"{tag}: regret {rg} > {REGRET_TOL}")
+            worst = max(worst, err)
+            say(f"  {tag}: regret={rg:.3e} max_abs_err={err:.3e}")
+    return worst
 
 
 def phase_ivf_main_path(torch, dev, work, n=1_000_000, nlist=4096):
@@ -576,11 +726,13 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
     for backend in ("auto", "torch"):
         if backend == "auto":
             adc_scan.LAUNCHES = 0
+            adc_scan.TABLE_LAUNCHES = 0
             rerank.LAUNCHES = 0
         res = run_tool(ivf_eval.main, eval_args + ["--ivf-backend", backend],
                        keep=("kind=", "RESULT"))[0]
         if backend == "auto":
-            out["launches"] = {"adc_topk": adc_scan.LAUNCHES, "rerank_topk": rerank.LAUNCHES,
+            out["launches"] = {"adc_tables": adc_scan.TABLE_LAUNCHES,
+                               "adc_topk": adc_scan.LAUNCHES, "rerank_topk": rerank.LAUNCHES,
                                "flat_topk": gt_launches}
         say(f"  ivf_eval --ivf-backend {backend}: recall@10={res['recall']:.4f} "
             f"QPS={res['qps']:.1f}")
@@ -597,37 +749,60 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
 
 def phase_ivf_times(torch, dev, idx, store, queries):
     from nvdb_tpu_torch.index.ivf_flat import _coarse_probes
-    from nvdb_tpu_torch.kernels import adc_scan, ops, pq, rerank
+    from nvdb_tpu_torch.kernels import adc_scan, ops, rerank
 
     out = {}
     b, nprobe, kk = 256, min(64, idx.nlist), 100
     q = torch.zeros((b, idx.centroids.shape[1]), device=dev)
     q[:, :idx.d] = torch.from_numpy(queries[:b]).to(dev)
+    fills, terms = idx.fills(), idx.coarse_terms()
+    dsub = idx.codebooks.shape[2]
 
-    def tables():
-        """The plain stages before the ADC kernel: rotation, coarse probes,
-        f32 ADC tables, their bf16 copy."""
+    def rotate_and_rank():
         ops.no_tf32()
         q_rot = q @ idx.rotation
-        probes = _coarse_probes(q_rot, idx.centroids, idx.slot_ids, nprobe)
-        res = q_rot[:, None, :] - idx.centroids[probes]
-        lut = pq.adc_lut(res.reshape(b * nprobe, -1), idx.codebooks, idx.m)
-        return probes, lut.reshape(b, nprobe, idx.m, 256).to(torch.bfloat16)
+        return q_rot, _coarse_probes(q_rot, idx.centroids, idx.slot_ids, nprobe, terms=terms)
 
-    probes, lut = tables()
-    fills = idx.fills()
-    tables_ms = cuda_ms(torch, tables, iters=5)
-    whole_ms = cuda_ms(torch, lambda: idx.search_device(q, 10, nprobe, refine_k=kk,
-                                                        refine_store=store), iters=5)
-    say(f"  stages at B={b}: rotation + coarse probes + tables {tables_ms:.4f} ms; "
-        f"whole search_device (kernels) {whole_ms:.4f} ms")
+    q_rot, probes = rotate_and_rank()
+    probes = probes.to(torch.int32)
+    coarse_ms = cuda_ms(torch, rotate_and_rank, iters=10)
+    # bytes: queries in and out, the rotation, the centroids, the probes;
+    # operations: the two f32 products
+    dp = q.shape[1]
+    nbytes = 2 * q.numel() * 4 + dp * dp * 4 + idx.centroids.numel() * 4 + probes.numel() * 8
+    bnd, by = bound_ms(nbytes, 2.0 * b * dp * (dp + idx.nlist), "f32")
+    say(f"  rotation + coarse ranking B={b} (plain torch on both paths, nlist {idx.nlist}): "
+        f"{coarse_ms:.4f} ms | bound {bnd:.4f} ms ({by}) time / bound {coarse_ms / bnd:.2f}")
+    out["rotation + coarse ranking"] = dict(ms=coarse_ms, bound_ms=bnd, bound_by=by)
+
+    targs = (q_rot, probes, idx.centroids, idx.codebooks, fills)
+    kern, plain, runs = in_turns(torch, lambda: adc_scan.adc_tables_reference(*targs),
+                                 lambda: adc_scan.adc_tables_cuda(*targs), iters=5)
+    lut = adc_scan.adc_tables_cuda(*targs)
+    live = adc_scan.live_probes(probes, fills)
+    equal, worst = check_tables(torch, "flagship tables", lut,
+                                adc_scan.adc_tables_reference(*targs), live)
+    # bytes: the tables written; the queries, probes, codebooks and the
+    # distinct probed centroids read
+    nbytes = (lut.numel() * 2 + q_rot.numel() * 4 + probes.numel() * 4
+              + idx.codebooks.numel() * 4
+              + int(torch.unique(probes).numel()) * idx.centroids.shape[1] * 4)
+    flops = 2.0 * int(live.sum()) * idx.m * 256 * dsub
+    bnd, by = bound_ms(nbytes, flops, "f32")
+    say(f"  tables B={b} P={nprobe} M={idx.m} dsub={dsub}: kernel {kern:.4f} ms {runs['kernel']} "
+        f"| plain (pq.adc_lut + bf16 cast) {plain:.4f} ms {runs['plain']} | bit-equal "
+        f"{equal:.6f}, worst {worst} bf16 step(s)")
+    say(f"    bound {bnd:.4f} ms ({by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.2f} GFLOP) "
+        f"time / bound {kern / bnd:.2f}")
+    out["adc_tables"] = dict(ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by)
+
     args = (lut, probes, idx.codes, idx.slot_ids, kk)
     kern, plain, runs = in_turns(
         torch, lambda: adc_scan.adc_topk_reference(*args),
         lambda: adc_scan.adc_topk_cuda(*args, fills=fills), iters=5)
-    live = float((idx.slot_ids[probes] >= 0).float().mean())
+    live_share = float((idx.slot_ids[probes.long()] >= 0).float().mean())
     say(f"  ADC B={b} P={nprobe} M={idx.m} Lcap={idx.lcap} kk={kk} (live share of "
-        f"probed slots {live:.3f}): kernel {kern:.4f} ms {runs['kernel']} | plain "
+        f"probed slots {live_share:.3f}): kernel {kern:.4f} ms {runs['kernel']} | plain "
         f"{plain:.4f} ms {runs['plain']}")
     # bytes: the live slots' codes and ids, the bf16 tables, the probes, the result
     slots = int(fills[probes.long()].sum())
@@ -636,25 +811,70 @@ def phase_ivf_times(torch, dev, idx, store, queries):
     say(f"    bound {bnd:.4f} ms ({by}: {nbytes / 1e9:.4f} GB, {slots} live slots) "
         f"time / bound {kern / bnd:.2f}")
     out["adc_topk"] = dict(ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by)
-    cand = adc_scan.adc_topk_cuda(*args, fills=fills)[1].contiguous()
-    del lut
+    kv, cand = adc_scan.adc_topk_cuda(*args, fills=fills)
+    pv, pi = adc_scan.adc_topk_reference(*args)
+    err, _ = check_adc(torch, "flagship scan", kv, cand, pv, pi)
+    say(f"    scan on the kernel's tables vs plain on the same tables: max_abs_err={err:.3e}")
+    cand = cand.contiguous()
+    del lut, kv, pv, pi
+
+    # the whole batch, its operators recorded: nothing the size of the
+    # tables but the one bf16 tensor the table kernel fills
+    table_elems = b * nprobe * idx.m * 256
+    search = lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store)
+    search()          # the store computes and caches its norms on the first refine
+    _, ops_seen = dispatched_ops(torch, search)
+    big = [(name, shape, dt) for name, outs in ops_seen for shape, dt in outs
+           if int(np.prod(shape)) >= table_elems]
+    say(f"  search_device dispatches {len(ops_seen)} torch operators; table-sized results: {big}")
+    check(len(big) == 1 and "empty" in big[0][0] and big[0][2] == torch.bfloat16,
+          f"the kernel path made table-sized tensors beside the bf16 tables: {big}")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    search()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base_mem
+    say(f"    peak device memory of one batch: {peak / 1e9:.4f} GB (bf16 tables "
+        f"{table_elems * 2 / 1e9:.4f} GB; an f32 table would be {table_elems * 4 / 1e9:.4f})")
+    check(peak < table_elems * 4, "the kernel path allocated as much as an f32 table")
+    whole_ms, whole_plain, runs = in_turns(
+        torch, lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
+                                         backend="torch"), search, iters=5)
+    # the batch's bound: its stages', one after the other; the refine reads
+    # each candidate's f32 row, id and norm
+    dp = store.vectors.shape[1]
+    refine_bnd, _ = bound_ms(int((cand >= 0).sum()) * (dp * 4 + 8) + b * dp * 4 + b * 10 * 8,
+                             2.0 * cand.numel() * dp, "f32")
+    whole_bnd = refine_bnd + sum(out[name]["bound_ms"] for name in (
+        "rotation + coarse ranking", "adc_tables", "adc_topk"))
+    say(f"  whole search_device B={b}: kernels {whole_ms:.4f} ms {runs['kernel']} | plain "
+        f"versions {whole_plain:.4f} ms {runs['plain']} | bound {whole_bnd:.4f} ms (the sum of "
+        f"its stages' bounds) time / bound {whole_ms / whole_bnd:.2f}")
+    out["whole search_device"] = dict(ms=whole_ms, plain_ms=whole_plain, bound_ms=whole_bnd)
 
     st16 = store.vectors.to(torch.bfloat16)
     n2 = rerank.store_norms2(st16)
     for bb in (256, 8):
         qb, cb = q[:bb].contiguous(), cand[:bb].contiguous()
+        wrapper = lambda: rerank.rerank_topk_cuda(qb, cb, st16, None, 10, norms2=n2)
         kern, plain, runs = in_turns(
             torch, lambda: rerank.rerank_topk_reference(qb, cb, st16, None, 10, norms2=n2),
-            lambda: rerank.rerank_topk_cuda(qb, cb, st16, None, 10, norms2=n2), iters=20)
-        say(f"  rerank bf16 1M x 768 B={bb} R={kk} k=10 l2: kernel {kern:.4f} ms "
-            f"{runs['kernel']} | plain {plain:.4f} ms {runs['plain']}")
+            wrapper, iters=20)
+        # the wrapper is one launch, so a graph of 100 calls times the kernel alone
+        alone = [graph_ms(torch, wrapper) for _ in range(2)]
+        say(f"  rerank bf16 1M x 768 B={bb} R={kk} k=10 l2: wrapper {kern:.4f} ms "
+            f"{runs['kernel']} | kernel alone, 100 launches in a CUDA graph "
+            f"{sum(alone) / 2:.5f} ms {alone} | plain {plain:.4f} ms {runs['plain']}")
         # bytes: each candidate's row, id and norm, the queries, the result
         n_cand = int((cb >= 0).sum())
         dp = st16.shape[1]
         nbytes = n_cand * (dp * 2 + 8) + bb * dp * 4 + bb * 10 * 8
         bnd, by = bound_ms(nbytes, 2.0 * n_cand * dp, "f32")
-        say(f"    bound {bnd:.4f} ms ({by}: {nbytes / 1e6:.3f} MB) time / bound {kern / bnd:.2f}")
-        out[f"rerank_topk B={bb}"] = dict(ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by)
+        say(f"    bound {bnd:.4f} ms ({by}: {nbytes / 1e6:.3f} MB) kernel / bound "
+            f"{sum(alone) / 2 / bnd:.2f}, wrapper / bound {kern / bnd:.2f}")
+        out[f"rerank_topk B={bb}"] = dict(ms=sum(alone) / 2, wrapper_ms=kern, plain_ms=plain,
+                                          bound_ms=bnd, bound_by=by)
     del st16, n2
     torch.cuda.empty_cache()
     return out
@@ -1060,10 +1280,13 @@ def main() -> int:
                    "plain/kernel/kernel/plain"):
             times = phase_times(torch, dev)
 
-        with phase("[6 ADC kernel vs plain] M = 96, Lcap = 640 "
-                   f"(|kernel - plain| <= {ADC_ATOL}, id agreement >= {ID_AGREE_MIN}, "
-                   "no duplicate ids)"):
-            adc_err = phase_adc_vs_plain(torch, dev)
+        with phase("[6 ADC kernels vs plain] M = 96, dsub = 8, Lcap = 640 (tables: >= "
+                   f"{TABLE_EQUAL_MIN} bit-equal, the rest one bf16 step; scan: |kernel - plain| "
+                   f"<= {ADC_ATOL}, id agreement >= {ID_AGREE_MIN}, no duplicate ids)"):
+            adc = phase_adc_vs_plain(torch, dev)
+            say(f"  tables: least bit-equal share {adc['table_equal']:.6f}, largest "
+                f"|kernel - plain| {adc['table_err']:.3e}; scan: largest |kernel - plain| "
+                f"{adc['scan_err']:.3e}")
 
         with phase("[7 rerank kernel vs plain] 65,536 x 768 "
                    f"(regret <= {REGRET_TOL}, |kernel - plain| <= {VALUE_ATOL} + "
@@ -1074,8 +1297,8 @@ def main() -> int:
                    "refine 100"):
             idx, store, queries, ivf = phase_ivf_main_path(torch, dev, work)
 
-        with phase("[9 IVF-PQ times] CUDA events over chained calls, "
-                   "plain/kernel/kernel/plain"):
+        with phase("[9 IVF-PQ times] each stage alone, CUDA events over chained calls, "
+                   "plain/kernel/kernel/plain; the rerank kernel alone in a CUDA graph"):
             ivf_times = phase_ivf_times(torch, dev, idx, store, queries)
             del idx, store, queries
             torch.cuda.empty_cache()
@@ -1113,8 +1336,10 @@ def main() -> int:
         ("flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
          launches + ivf["launches"]["flat_topk"] + pl["flat_topk"], max_err,
          times["bf16 B=512 k=10"]),
+        ("adc_tables", "nvdb_tpu/kernels/pq.py:89", ivf["launches"]["adc_tables"],
+         adc["table_err"], ivf_times["adc_tables"]),
         ("adc_topk", "nvdb_tpu/kernels/adc_scan.py:558", ivf["launches"]["adc_topk"],
-         adc_err, ivf_times["adc_topk"]),
+         adc["scan_err"], ivf_times["adc_topk"]),
         ("rerank_topk", "nvdb_tpu/kernels/rerank.py:187",
          ivf["launches"]["rerank_topk"] + pl["pr"]["rerank_topk"], rerank_err,
          ivf_times["rerank_topk B=256"]),

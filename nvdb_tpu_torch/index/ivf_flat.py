@@ -106,17 +106,28 @@ def _pack_lists(
     return packed, slot_ids, slot_scales, spilled
 
 
+def coarse_terms(centroids: torch.Tensor, slot_ids: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The parts of the coarse ranking that depend on the index alone:
+    (||c||^2 [1, nlist] f32, the live-list mask [1, nlist] bool). The index
+    classes cache them (``coarse_terms()``), as they cache ``fills()``."""
+    return (torch.sum(centroids * centroids, dim=1)[None, :],
+            (slot_ids >= 0).any(dim=1)[None, :])
+
+
 def _coarse_probes(queries: torch.Tensor, centroids: torch.Tensor,
-                   slot_ids: torch.Tensor, nprobe: int) -> torch.Tensor:
+                   slot_ids: torch.Tensor, nprobe: int,
+                   terms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> torch.Tensor:
     """Coarse top-nprobe lists by L2 (argmax 2 q.c - ||c||^2), full-f32
     products, with EMPTY lists masked out of the ranking: a dead k-means
     centroid keeps its init position, a corpus row, and near the query it
     would outrank the real cell means and burn probe slots on lists with
-    no candidate. Returns [B, nprobe] int64."""
+    no candidate. ``terms``: the index's cached ``coarse_terms``. Returns
+    [B, nprobe] int64."""
     ops.no_tf32()
     qc = queries @ centroids.T
-    c2 = torch.sum(centroids * centroids, dim=1)[None, :]
-    live = (slot_ids >= 0).any(dim=1)[None, :]
+    c2, live = terms if terms is not None else coarse_terms(centroids, slot_ids)
     return torch.topk(torch.where(live, 2.0 * qc - c2, ops.NEG_INF), nprobe, dim=1).indices
 
 
@@ -162,9 +173,10 @@ def _ivf_search_block(
     nprobe: int,
     backend: str = "auto",
     fills: Optional[torch.Tensor] = None,  # [nlist] int32 (kernel path)
+    terms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cached coarse_terms
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Coarse probes, then the exact top-k over the probed slabs."""
-    probes = _coarse_probes(queries, centroids, slot_ids, nprobe)  # [B, P]
+    probes = _coarse_probes(queries, centroids, slot_ids, nprobe, terms=terms)  # [B, P]
     return dispatch.ivf_probe_topk(queries, probes, packed, slot_ids, slot_scales, k,
                                    backend=backend, fills=fills)
 
@@ -189,6 +201,8 @@ class IVFFlatIndex:
     dtype_code: int
     n_spilled: int = 0
     _fills: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _coarse: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
         default=None, repr=False, compare=False)
 
     @property
@@ -217,6 +231,12 @@ class IVFFlatIndex:
         if self._fills is None:
             self._fills = adc_scan.list_fills(self.slot_ids)
         return self._fills
+
+    def coarse_terms(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(||c||^2, live-list mask) of the coarse ranking, cached."""
+        if self._coarse is None:
+            self._coarse = coarse_terms(self.centroids, self.slot_ids)
+        return self._coarse
 
     # -- build -----------------------------------------------------------------
 
@@ -325,7 +345,7 @@ class IVFFlatIndex:
         nprobe = min(nprobe, self.nlist)
         return _ivf_search_block(queries, self.centroids, self.packed, self.slot_ids,
                                  self.slot_scales, k, nprobe, backend=backend,
-                                 fills=self.fills())
+                                 fills=self.fills(), terms=self.coarse_terms())
 
     def search(self, queries: np.ndarray, k: int, nprobe: int, q_chunk: int = 32,
                backend: str = "auto") -> Tuple[np.ndarray, np.ndarray]:

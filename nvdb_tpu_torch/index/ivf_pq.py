@@ -7,10 +7,11 @@ ids ``[nlist, Lcap]`` int32 (-1 padding). All geometry lives in the OPQ-
 rotated space; queries are rotated once at search time. Codes encode the
 rotated residual against the list each row is packed in.
 
-Search is coarse probe -> ADC candidate top-kk (the ``adc_topk`` kernel) ->
-exact refine against the flat store (the ``rerank_topk`` kernel), all on
-one device. ``.npz`` files are plain numpy and byte-compatible with the JAX
-package's, so an index built by either package loads in the other.
+Search is coarse probe -> bf16 ADC tables (the ``adc_tables`` kernel) -> ADC
+candidate top-kk (the ``adc_topk`` kernel) -> exact refine against the flat
+store (the ``rerank_topk`` kernel), all on one device. ``.npz`` files are
+plain numpy and byte-compatible with the JAX package's, so an index built
+by either package loads in the other.
 
 Not ported yet (``ROADMAP.md``): ``repack`` and replicated builds (a
 replicated index built by ``nvdb_tpu`` loads and searches), corpus-scale
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from nvdb_tpu_torch.index.ivf_flat import (_coarse_probes, _host_chunked, _pack_lists,
-                                           _stage_logger, _topS_centroids)
+                                           _stage_logger, _topS_centroids, coarse_terms)
 from nvdb_tpu_torch.kernels import adc_scan, dispatch, kmeans, ops, pq
 from nvdb_tpu_torch.utils import round_up
 
@@ -44,16 +45,24 @@ def _ivfpq_search_block(
     backend: str = "auto",
     dedup: int = 0,            # replica count of the index (<= 1: ids unique)
     fills: Optional[torch.Tensor] = None,  # [nlist] int32 (kernel path)
+    terms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cached coarse_terms
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Coarse probes, ADC tables and the ADC candidate top-k of one batch."""
+    """Coarse probes, ADC tables and the ADC candidate top-k of one batch.
+    The kernel path writes the bf16 tables in one pass (``adc_tables_cuda``)
+    and scans them (``adc_topk_cuda``): no f32 table exists on it."""
     B = q_rot.shape[0]
-    probes = _coarse_probes(q_rot, centroids, slot_ids, nprobe)     # [B, P]
+    probes = _coarse_probes(q_rot, centroids, slot_ids, nprobe, terms=terms)  # [B, P]
+    path = dispatch.refine_backend(backend, codes)
+    if path == "cuda":
+        probes = probes.to(torch.int32)       # once, for both kernels
+        if fills is None:
+            fills = adc_scan.list_fills(slot_ids)
+        lut = adc_scan.adc_tables_cuda(q_rot.contiguous(), probes, centroids, codebooks,
+                                       fills)
+        return adc_scan.adc_topk_cuda(lut, probes, codes, slot_ids, k, fills=fills)
     residuals = q_rot[:, None, :] - centroids[probes]                # [B, P, Dp]
     lut = pq.adc_lut(residuals.reshape(B * nprobe, -1), codebooks, m)
     lut = lut.reshape(B, nprobe, m, pq.KSUB)                         # [B, P, M, 256]
-    path = dispatch.refine_backend(backend, codes)
-    if path == "cuda":
-        return adc_scan.adc_topk_cuda(lut, probes, codes, slot_ids, k, fills=fills)
     if path == "torch":
         return adc_scan.adc_topk_reference(lut, probes, codes, slot_ids, k)
     # the JAX package's jnp path: f32 tables, gathered code slabs
@@ -81,6 +90,8 @@ class IVFPQIndex:
         default=None, repr=False, compare=False)
     _ids_mode: Optional[str] = dataclasses.field(
         default=None, repr=False, compare=False)
+    _coarse: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def nlist(self) -> int:
@@ -100,6 +111,12 @@ class IVFPQIndex:
         if self._fills is None:
             self._fills = adc_scan.list_fills(self.slot_ids)
         return self._fills
+
+    def coarse_terms(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(||c||^2, live-list mask) of the coarse ranking, cached."""
+        if self._coarse is None:
+            self._coarse = coarse_terms(self.centroids, self.slot_ids)
+        return self._coarse
 
     def ids_mode(self) -> str:
         """The id strategy the JAX package would pick for this index: 'key'
@@ -270,7 +287,8 @@ class IVFPQIndex:
         v, i = _ivfpq_search_block(q_rot, self.centroids, self.codebooks, self.codes,
                                    self.slot_ids, kk, nprobe, self.m, backend=backend,
                                    dedup=self.replicas,
-                                   fills=self.fills() if path == "cuda" else None)
+                                   fills=self.fills() if path == "cuda" else None,
+                                   terms=self.coarse_terms())
         if refine_k > 0:
             if refine_store is None:
                 raise ValueError("refine_k > 0 requires refine_store")

@@ -48,6 +48,11 @@ class PartitionRerankIndex:
         package (it is shared deployment state, like the base file)."""
         return self.ivf.index_bytes
 
+    def coarse_terms(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The partition's cached coarse-ranking terms (``IVFFlatIndex.coarse_terms``);
+        every search of this index ranks its probes with them."""
+        return self.ivf.coarse_terms()
+
     @classmethod
     def build(
         cls,

@@ -1,14 +1,19 @@
 // Exact rerank top-k for Hopper (sm_90a): for each query, gathers its R
 // candidate rows by id straight from the store, scores them exactly and
-// returns the k best (score, id).
+// returns the k best (score, id). One launch per call.
 //
 // Replaces the Pallas TPU kernel nvdb_tpu/kernels/rerank.py:pallas_rerank
 // (body _make_kernel :71-182, coefficients folded at :245-281). Same
 // contract:
-//   * score = amul[b, r] * dot(q_b, row) - boff[b, r]. The wrapper folds
-//     the metric, the int8 scale and the cached row norms into amul / boff
-//     (l2: amul = 2 s, boff = s^2 ||codes||^2; dot: amul = s, boff = 0), so
-//     the kernel is metric-oblivious;
+//   * score = amul * dot(q_b, row) - boff, the product and the difference
+//     each rounded. The metric, the int8 row scale s, the cached row norms
+//     n2 and, for residual stores, q.cent of the row's centroid fold into
+//     the two coefficients per candidate, computed here as
+//     kernels/rerank.py:fold_coefficients computes them (the same products
+//     in the same order, each rounded):
+//       dot: amul = s (1 without scales), boff = -qcent (0 without);
+//       l2 (2 q.row - ||row||^2): amul = 2 s, boff = (s s) n2, or n2 without
+//       scales, or n2 - 2 qcent for a residual store;
 //   * the dot is exact f32: FMA, no TF32; the query is NOT rounded to bf16
 //     (unlike the flat scan); bf16 rows are widened exactly, int8 codes are
 //     widened exactly;
@@ -25,12 +30,18 @@
 //
 // Design. The Pallas kernel DMAs aligned 8/16/32-row blocks because Mosaic
 // cannot slice one row of a tiled HBM ref; that workaround is not carried
-// over. One CTA per query: the query sits in shared memory in f32, each
-// warp takes candidates r = warp, warp + 8, ... and reads the row with
-// 16-byte loads, neighbouring lanes on neighbouring addresses, then
-// reduces the dot across the warp. The R scores go to shared memory;
-// duplicates are masked; then one warp folds them into the sorted top-k
-// list with the shared threshold-then-insert (topk_common.cuh).
+// over. One CTA of 16 warps per query, the query in shared memory in f32.
+//   Rows in flight. A warp takes eight candidates at a time: lane i reads
+//   candidate i's id and coefficients, the ids are shared by shuffle, and
+//   every lane issues its 16-byte loads of all eight rows before any
+//   product, neighbouring lanes on neighbouring addresses; then eight
+//   shuffle reductions. At R = 100 each warp makes one such pass.
+//   Selection by counting. The R scores and ids go to shared memory. A
+//   candidate whose id an earlier slot holds is struck (its score is the
+//   same: the same row and query give the same dot). Then each candidate's
+//   rank is the number of candidates whose (score, id) beats it, every
+//   thread counting at once; rank < k writes slot `rank`. Nothing is
+//   inserted in sequence.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,62 +52,98 @@
 
 namespace {
 
-constexpr int NT = 256;  // threads per CTA
+constexpr int NT = 512;  // threads per CTA
 constexpr int NW = NT / 32;
+constexpr int NR = 8;    // rows a warp has in flight
 
 enum Mode { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
+// acc[i] = dot(q, row id[i]) for the NR rows with ok[i], every lane holding
+// the full sums. Each row's products run in the order c = lane, lane + 32,
+// ... and within a 16-byte piece left to right, then a butterfly reduction.
 template <int MODE>
-__device__ __forceinline__ float row_dot(const void* __restrict__ vptr, size_t row,
-                                         int Dp, const float* qs, int lane) {
-  float acc = 0.f;
+__device__ __forceinline__ void rows_dot(const void* __restrict__ vptr, const int (&id)[NR],
+                                         const bool (&ok)[NR], int Dp, const float* qs,
+                                         int lane, float (&acc)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) acc[i] = 0.f;
+  const float4* q4 = reinterpret_cast<const float4*>(qs);
   if constexpr (MODE == kF32) {
-    const float4* r4 = reinterpret_cast<const float4*>(
-        static_cast<const float*>(vptr) + row * (size_t)Dp);
+    const float* base = static_cast<const float*>(vptr);
     for (int c = lane; c < Dp / 4; c += 32) {
-      const float4 v = r4[c];
-      const float* q = qs + 4 * c;
-      acc = fmaf(q[0], v.x, acc);
-      acc = fmaf(q[1], v.y, acc);
-      acc = fmaf(q[2], v.z, acc);
-      acc = fmaf(q[3], v.w, acc);
+      float4 v[NR];
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+        v[i] = ok[i] ? reinterpret_cast<const float4*>(base + (size_t)id[i] * Dp)[c]
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 q = q4[c];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        acc[i] = fmaf(q.x, v[i].x, acc[i]);
+        acc[i] = fmaf(q.y, v[i].y, acc[i]);
+        acc[i] = fmaf(q.z, v[i].z, acc[i]);
+        acc[i] = fmaf(q.w, v[i].w, acc[i]);
+      }
     }
   } else if constexpr (MODE == kBF16) {
-    const uint4* r4 = reinterpret_cast<const uint4*>(
-        static_cast<const __nv_bfloat16*>(vptr) + row * (size_t)Dp);
+    const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(vptr);
     for (int c = lane; c < Dp / 8; c += 32) {
-      const uint4 w = r4[c];
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
-      const float* q = qs + 8 * c;
+      uint4 w[NR];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h[e]);
-        acc = fmaf(q[2 * e], f.x, acc);
-        acc = fmaf(q[2 * e + 1], f.y, acc);
+      for (int i = 0; i < NR; ++i)
+        w[i] = ok[i] ? reinterpret_cast<const uint4*>(base + (size_t)id[i] * Dp)[c]
+                     : make_uint4(0u, 0u, 0u, 0u);
+      const float4 qa = q4[2 * c], qb = q4[2 * c + 1];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        // a bf16 is the upper half of its f32; the lower address is the low half
+        acc[i] = fmaf(qa.x, __uint_as_float(w[i].x << 16), acc[i]);
+        acc[i] = fmaf(qa.y, __uint_as_float(w[i].x & 0xffff0000u), acc[i]);
+        acc[i] = fmaf(qa.z, __uint_as_float(w[i].y << 16), acc[i]);
+        acc[i] = fmaf(qa.w, __uint_as_float(w[i].y & 0xffff0000u), acc[i]);
+        acc[i] = fmaf(qb.x, __uint_as_float(w[i].z << 16), acc[i]);
+        acc[i] = fmaf(qb.y, __uint_as_float(w[i].z & 0xffff0000u), acc[i]);
+        acc[i] = fmaf(qb.z, __uint_as_float(w[i].w << 16), acc[i]);
+        acc[i] = fmaf(qb.w, __uint_as_float(w[i].w & 0xffff0000u), acc[i]);
       }
     }
   } else {
-    const uint4* r4 = reinterpret_cast<const uint4*>(
-        static_cast<const int8_t*>(vptr) + row * (size_t)Dp);
+    const int8_t* base = static_cast<const int8_t*>(vptr);
     for (int c = lane; c < Dp / 16; c += 32) {
-      const uint4 w = r4[c];
-      const int8_t* b = reinterpret_cast<const int8_t*>(&w);
-      const float* q = qs + 16 * c;
+      uint4 w[NR];
 #pragma unroll
-      for (int e = 0; e < 16; ++e) acc = fmaf(q[e], static_cast<float>(b[e]), acc);
+      for (int i = 0; i < NR; ++i)
+        w[i] = ok[i] ? reinterpret_cast<const uint4*>(base + (size_t)id[i] * Dp)[c]
+                     : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 q = q4[4 * c + e];
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          const uint32_t x = e == 0 ? w[i].x : e == 1 ? w[i].y : e == 2 ? w[i].z : w[i].w;
+          // the word's four bytes, lowest address first, sign-extended
+          acc[i] = fmaf(q.x, static_cast<float>((int)(x << 24) >> 24), acc[i]);
+          acc[i] = fmaf(q.y, static_cast<float>((int)(x << 16) >> 24), acc[i]);
+          acc[i] = fmaf(q.z, static_cast<float>((int)(x << 8) >> 24), acc[i]);
+          acc[i] = fmaf(q.w, static_cast<float>((int)x >> 24), acc[i]);
+        }
+      }
     }
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(nvdb::FULL_MASK, acc, o);
-  return acc;
+  for (int i = 0; i < NR; ++i) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc[i] += __shfl_xor_sync(nvdb::FULL_MASK, acc[i], o);
+  }
 }
 
 template <int MODE>
 __global__ void __launch_bounds__(NT)
 rerank_kernel(const float* __restrict__ queries, const int* __restrict__ cand_ids,
-              const void* __restrict__ vectors, const float* __restrict__ amul,
-              const float* __restrict__ boff, float* __restrict__ out_vals,
-              int* __restrict__ out_ids, int R, int Dp, int n_rows, int k) {
+              const void* __restrict__ vectors, const float* __restrict__ scales,
+              const float* __restrict__ norms2, const float* __restrict__ qcent,
+              float* __restrict__ out_vals, int* __restrict__ out_ids, int R, int Dp,
+              int n_rows, int k, int l2) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [Dp] the query, f32
   float* sv = qs + Dp;                         // [R] candidate scores
@@ -108,28 +155,66 @@ rerank_kernel(const float* __restrict__ queries, const int* __restrict__ cand_id
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float4* q4 = reinterpret_cast<const float4*>(queries + (size_t)b * Dp);
   for (int c = tid; c < Dp / 4; c += NT) reinterpret_cast<float4*>(qs)[c] = q4[c];
+  for (int j = tid; j < k; j += NT) {
+    lv[j] = -INFINITY;
+    li[j] = -1;
+  }
   __syncthreads();
 
   const size_t base = (size_t)b * R;
-  for (int r = warp; r < R; r += NW) {
-    const int id = cand_ids[base + r];  // warp-uniform
-    const bool ok = id >= 0 && id < n_rows;
-    float s = -INFINITY;
-    // multiply, then subtract, each rounded (no contraction to one FMA),
-    // as the plain version and the Pallas kernel compute it
-    if (ok)
-      s = __fsub_rn(__fmul_rn(amul[base + r],
-                              row_dot<MODE>(vectors, (size_t)id, Dp, qs, lane)),
-                    boff[base + r]);
-    if (lane == 0) {
-      sv[r] = s;
-      si[r] = ok ? id : -1;
+  for (int rb = warp; rb < R; rb += NW * NR) {
+    // lane i < NR owns candidate rb + i * NW: its id, coefficients and score
+    const int my_r = rb + lane * NW;
+    const bool mine = lane < NR && my_r < R;
+    const int my_id = mine ? cand_ids[base + my_r] : -1;
+    const bool my_ok = my_id >= 0 && my_id < n_rows;
+    float sc = 1.f, n2 = 0.f, qc = 0.f;
+    if (my_ok) {
+      if (scales != nullptr) sc = scales[my_id];
+      if (l2) n2 = norms2[my_id];
+      if (qcent != nullptr) qc = qcent[base + my_r];
+    }
+    int id[NR];
+    bool ok[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      id[i] = __shfl_sync(nvdb::FULL_MASK, my_id, i);
+      ok[i] = id[i] >= 0 && id[i] < n_rows;
+    }
+    float acc[NR];
+    rows_dot<MODE>(vectors, id, ok, Dp, qs, lane, acc);
+    float dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < NR; ++i)
+      if (lane == i) dot = acc[i];
+    if (mine) {
+      float s = -INFINITY;
+      if (my_ok) {
+        // fold_coefficients, each product and difference rounded (no
+        // contraction into an FMA), as the plain version computes them
+        float amul, boff;
+        if (!l2) {
+          amul = sc;
+          boff = -qc;
+        } else if (qcent != nullptr) {
+          amul = __fmul_rn(2.0f, sc);
+          boff = __fsub_rn(n2, __fmul_rn(2.0f, qc));
+        } else if (scales != nullptr) {
+          amul = __fmul_rn(2.0f, sc);
+          boff = __fmul_rn(__fmul_rn(sc, sc), n2);
+        } else {
+          amul = 2.0f;
+          boff = n2;
+        }
+        s = __fsub_rn(__fmul_rn(amul, dot), boff);
+      }
+      sv[my_r] = s;
+      si[my_r] = my_ok ? my_id : -1;
     }
   }
   __syncthreads();
 
-  // an id seen earlier in the row is masked (its score is the same: the
-  // same row and query give the same dot). Reads si only, writes sv only.
+  // an id seen earlier in the row is struck. Reads si only, writes sv only.
   for (int r = tid; r < R; r += NT) {
     const int id = si[r];
     if (id < 0) continue;
@@ -142,71 +227,73 @@ rerank_kernel(const float* __restrict__ queries, const int* __restrict__ cand_id
   }
   __syncthreads();
 
-  if (warp != 0) return;  // one warp folds the R scores into the list
-  for (int j = lane; j < k; j += 32) {
-    lv[j] = -INFINITY;
-    li[j] = -1;
+  // rank by counting: the kept candidates have distinct ids, so (score desc,
+  // id desc) orders them strictly and every rank is taken once
+  for (int r = tid; r < R; r += NT) {
+    const float s = sv[r];
+    const int id = si[r];
+    if (id < 0 || !(s > -INFINITY)) continue;
+    int rank = 0;
+    for (int r2 = 0; r2 < R; ++r2) rank += nvdb::better(sv[r2], si[r2], s, id) ? 1 : 0;
+    if (rank < k) {
+      lv[rank] = s;
+      li[rank] = id;
+    }
   }
-  __syncwarp();
-  for (int r0 = 0; r0 < R; r0 += 32) {
-    const int r = r0 + lane;
-    const bool in = r < R;
-    const float s = in ? sv[r] : -INFINITY;
-    const int id = in ? si[r] : -1;
-    nvdb::warp_offer(lv, li, k, s, id, in && id >= 0 && s > -INFINITY, lane);
-  }
-  for (int j = lane; j < k; j += 32) {
+  __syncthreads();
+  for (int j = tid; j < k; j += NT) {
     out_vals[(size_t)b * k + j] = lv[j];
     out_ids[(size_t)b * k + j] = li[j];
   }
 }
 
 template <int MODE>
-cudaError_t launch(const float* q, const int* ids, const void* v, const float* am,
-                   const float* bo, float* ov, int* oi, int B, int R, int Dp,
-                   int n_rows, int k, cudaStream_t st) {
+cudaError_t launch(const float* q, const int* ids, const void* v, const float* sc,
+                   const float* n2, const float* qc, float* ov, int* oi, int B, int R,
+                   int Dp, int n_rows, int k, int l2, cudaStream_t st) {
   const size_t smem = (size_t)Dp * 4 + (size_t)R * 8 + (size_t)k * 8;
   cudaError_t e = cudaFuncSetAttribute(rerank_kernel<MODE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  rerank_kernel<MODE><<<B, NT, smem, st>>>(q, ids, v, am, bo, ov, oi, R, Dp, n_rows, k);
+  rerank_kernel<MODE><<<B, NT, smem, st>>>(q, ids, v, sc, n2, qc, ov, oi, R, Dp, n_rows, k,
+                                           l2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface (loaded with ctypes). mode: 0 f32 store, 1 bf16, 2 int8 (the
-// row scale is folded into amul / boff by the caller). queries [B, Dp] f32,
-// cand_ids / amul / boff [B, R], outputs [B, k]. Returns a cudaError_t (0 on
-// success); the launch is asynchronous on `stream`.
+// C interface (loaded with ctypes). mode: 0 f32 store, 1 bf16, 2 int8.
+// queries [B, Dp] f32, cand_ids [B, R] int32, outputs [B, k]; scales [Np]
+// f32 (int8 row scales), norms2 [Np] f32 (needed when l2 != 0) and qcent
+// [B, R] f32 (residual stores) may each be null. Returns a cudaError_t (0
+// on success); the one launch is asynchronous on `stream`.
 extern "C" int nvdb_rerank_topk(const void* q, const void* cand_ids, const void* vectors,
-                                const void* amul, const void* boff, void* out_vals,
-                                void* out_ids, int B, int R, int Dp, int n_rows, int k,
-                                int mode, void* stream) {
+                                const void* scales, const void* norms2, const void* qcent,
+                                void* out_vals, void* out_ids, int B, int R, int Dp,
+                                int n_rows, int k, int mode, int l2, void* stream) {
   if (B < 1 || R < 1 || k < 1 || k > nvdb::WARP_LIST_MAX_K || Dp < 16 || Dp % 16 != 0 ||
-      n_rows < 0)
+      n_rows < 0 || (l2 && norms2 == nullptr))
     return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   const int* ids = static_cast<const int*>(cand_ids);
-  const float* am = static_cast<const float*>(amul);
-  const float* bo = static_cast<const float*>(boff);
+  const float* sc = static_cast<const float*>(scales);
+  const float* n2 = static_cast<const float*>(norms2);
+  const float* qc = static_cast<const float*>(qcent);
   float* ov = static_cast<float*>(out_vals);
   int* oi = static_cast<int*>(out_ids);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
   switch (mode) {
     case kF32:
-      e = launch<kF32>(qf, ids, vectors, am, bo, ov, oi, B, R, Dp, n_rows, k, st);
-      break;
+      return (int)launch<kF32>(qf, ids, vectors, sc, n2, qc, ov, oi, B, R, Dp, n_rows, k, l2,
+                               st);
     case kBF16:
-      e = launch<kBF16>(qf, ids, vectors, am, bo, ov, oi, B, R, Dp, n_rows, k, st);
-      break;
+      return (int)launch<kBF16>(qf, ids, vectors, sc, n2, qc, ov, oi, B, R, Dp, n_rows, k,
+                                l2, st);
     case kI8:
-      e = launch<kI8>(qf, ids, vectors, am, bo, ov, oi, B, R, Dp, n_rows, k, st);
-      break;
+      return (int)launch<kI8>(qf, ids, vectors, sc, n2, qc, ov, oi, B, R, Dp, n_rows, k, l2,
+                              st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)e;
 }

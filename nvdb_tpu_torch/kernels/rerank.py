@@ -3,15 +3,17 @@
 PyTorch version.
 
 Both fold the metric, the int8 row scale and the cached row norms into two
-per-candidate coefficients, score = amul * dot(q, raw_row) - boff
-(``fold_coefficients``, the fold of ``rerank.py:245-281``), so the kernel
-is metric- and dtype-oblivious. Residual-int8 stores (row = cent + s *
-codes, ``VectorStore.attach_residual``) fold into the same form through
-q.cent, one [B, nlist] product gathered per candidate
-(``residual_qcent``), and need no kernel change.
+per-candidate coefficients, score = amul * dot(q, raw_row) - boff (the fold
+of ``rerank.py:245-281``): the plain version with ``fold_coefficients``,
+the kernel itself from ``scales`` / ``norms2`` / ``qcent`` and a metric
+flag, with the same products in the same order. Residual-int8 stores (row =
+cent + s * codes, ``VectorStore.attach_residual``) fold into the same form
+through q.cent, one [B, nlist] product gathered per candidate
+(``residual_qcent``, plain torch on both paths).
 
 ``rerank_topk_cuda`` launches the kernel on a CUDA tensor and raises on any
-other.
+other. With ``norms2`` given (or metric dot) and no residual store, that one
+launch is all the device work of a call.
 """
 
 from __future__ import annotations
@@ -89,10 +91,11 @@ def fold_coefficients(
     return torch.full(cand_ids.shape, 2.0, device=cand_ids.device), n2.contiguous()
 
 
-def _coefficients(queries, cand_ids, vectors, scales, norms2, metric, res_cents,
-                  res_ids) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fold both versions share, with the residual checks of
-    ``pallas_rerank`` (``rerank.py:237-243``)."""
+def _fold_inputs(queries, cand_ids, vectors, scales, norms2, metric, res_cents,
+                 res_ids) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(norms2, qcent) as the fold takes them, with the residual checks of
+    ``pallas_rerank`` (``rerank.py:237-243``): the store's norms where
+    metric l2 was given none, q.cent per candidate for a residual store."""
     if metric not in ("l2", "dot"):
         raise ValueError(f"unknown metric {metric!r}")
     if res_cents is not None and (scales is None or res_ids is None):
@@ -104,7 +107,7 @@ def _coefficients(queries, cand_ids, vectors, scales, norms2, metric, res_cents,
         norms2 = store_norms2(vectors)
     qcent = (residual_qcent(queries, cand_ids, res_cents, res_ids)
              if res_cents is not None else None)
-    return fold_coefficients(cand_ids, scales, norms2, metric, qcent)
+    return (norms2 if metric == "l2" else None), qcent
 
 
 def rerank_topk_reference(
@@ -121,8 +124,9 @@ def rerank_topk_reference(
     """The plain PyTorch version of the kernel: the same fold, the rows
     gathered and widened to f32, full-f32 dots (TF32 off), ids outside
     [0, Np) never ranked, a repeated id taken once, (score desc, id desc)."""
-    amul, boff = _coefficients(queries, cand_ids, vectors, scales, norms2, metric,
-                               res_cents, res_ids)
+    norms2, qcent = _fold_inputs(queries, cand_ids, vectors, scales, norms2, metric,
+                                 res_cents, res_ids)
+    amul, boff = fold_coefficients(cand_ids, scales, norms2, metric, qcent)
     valid = (cand_ids >= 0) & (cand_ids < vectors.shape[0])
     safe = torch.where(valid, cand_ids, 0).long()
     ops.no_tf32()
@@ -138,8 +142,8 @@ def _lib():
     from nvdb_tpu_torch.kernels import _build
 
     fn = _build.load("rerank_topk").nvdb_rerank_topk
-    # 7 pointers, B, R, Dp, n_rows, k, mode, stream
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    # 8 pointers, B, R, Dp, n_rows, k, mode, l2, stream
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -182,8 +186,13 @@ def rerank_topk_cuda(
     if Dp * 4 + R * 8 + k * 8 > _SMEM_LIMIT:
         raise ValueError(f"R={R} candidates of dim {Dp} exceed the kernel's "
                          f"shared memory")
-    amul, boff = _coefficients(queries, cand_ids, vectors, scales, norms2, metric,
-                               res_cents, res_ids)
+    norms2, qcent = _fold_inputs(queries, cand_ids, vectors, scales, norms2, metric,
+                                 res_cents, res_ids)
+    if norms2 is not None:
+        check_tensor(norms2, "norms2", dev, (torch.float32,), (Np,))
+    if qcent is not None:
+        qcent = qcent.contiguous()
+        check_tensor(qcent, "qcent", dev, (torch.float32,), (B, R))
 
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)
@@ -192,9 +201,10 @@ def rerank_topk_cuda(
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(queries.data_ptr(), cand_ids.data_ptr(), vectors.data_ptr(),
-                amul.data_ptr(), boff.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-                B, R, Dp, Np, k, _MODES[vectors.dtype], stream)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        rc = fn(queries.data_ptr(), cand_ids.data_ptr(), vectors.data_ptr(), ptr(scales),
+                ptr(norms2), ptr(qcent), vals.data_ptr(), ids.data_ptr(),
+                B, R, Dp, Np, k, _MODES[vectors.dtype], int(metric == "l2"), stream)
     if rc != 0:
         raise RuntimeError(f"rerank_topk kernel launch failed: cudaError_t {rc}")
     LAUNCHES += 1

@@ -26,7 +26,9 @@ def test_digest_stable_and_follows_source(tmp_path):
     d0 = _build.source_digest("rerank_topk", csrc)
     assert _build.source_digest("rerank_topk", csrc) == d0
     src = csrc / "rerank_topk.cu"
-    src.write_text(src.read_text().replace("NT = 256", "NT = 128"))
+    edited = src.read_text().replace("NT = 512", "NT = 128")
+    assert edited != src.read_text()
+    src.write_text(edited)
     assert _build.source_digest("rerank_topk", csrc) != d0
 
 

@@ -29,6 +29,27 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _dispatched_ops(fn):
+    """Run ``fn``; return (result, [(operator, [(shape, dtype) of each tensor
+    result])]) of every torch operator it dispatched. A kernel launched
+    through ctypes is no torch operator."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            seen.append((str(func), [(tuple(o.shape), o.dtype) for o in outs
+                                     if isinstance(o, torch.Tensor)]))
+            return out
+
+    with Recorder():
+        res = fn()
+    return res, seen
+
+
 def _case(n_pad, dp, b, dtype, seed):
     base = np.zeros((n_pad, dp), np.float32)
     base[:, :] = synth.normalized_gaussian(n_pad, dp, seed=seed)
@@ -268,9 +289,13 @@ def test_rerank_kernel_matches_plain(cuda_device, dtype, metric, b, r, k):
     sc = torch.from_numpy(sc).to(cuda_device) if sc is not None else None
     n2 = rerank.store_norms2(store)
     before = rerank.LAUNCHES
-    kv, ki = rerank.rerank_topk_cuda(q, cand, store, sc, k, norms2=n2, metric=metric)
+    (kv, ki), ops_seen = _dispatched_ops(
+        lambda: rerank.rerank_topk_cuda(q, cand, store, sc, k, norms2=n2, metric=metric))
     torch.cuda.synchronize()
+    # one launch a call, and nothing else on the device: the coefficients
+    # are folded inside the kernel
     assert rerank.LAUNCHES == before + 1
+    assert [name for name, _ in ops_seen if "empty" not in name] == []
     pv, pi = rerank.rerank_topk_reference(q, cand, store, sc, k, norms2=n2, metric=metric)
     kv, ki, pv, pi = (x.cpu().numpy() for x in (kv, ki, pv, pi))
     np.testing.assert_allclose(kv, pv, atol=1e-5, rtol=1e-5)
@@ -296,6 +321,11 @@ def test_rerank_kernel_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError):
         rerank.rerank_topk_cuda(q, cand, store, torch.ones(4096, device=cuda_device), 10,
                                 metric="dot")
+    with pytest.raises(ValueError):                     # norms of another length
+        rerank.rerank_topk_cuda(q, cand, store, None, 10, metric="l2",
+                                norms2=torch.ones(100, device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rerank.rerank_topk_cuda(q.cpu(), cand.cpu(), store.cpu(), None, 10, metric="dot")
 
 
 # -- the ADC kernel ------------------------------------------------------------
@@ -346,6 +376,121 @@ def test_adc_kernel_matches_plain(cuda_device, b, p, kk, dup):
         assert len(set(live.tolist())) == len(live)
         assert np.all(np.diff(vals[np.isfinite(vals)]) <= 0)
         assert np.isneginf(vals[row < 0]).all()
+
+
+@pytest.mark.gpu
+def test_adc_kernel_rejects_bad_input(cuda_device):
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    lut, probes, codes, slot_ids = (torch.from_numpy(x).to(cuda_device)
+                                    for x in _adc_case(4, 3, seed=1))
+    with pytest.raises(ValueError):
+        adc_scan.adc_topk_cuda(lut, probes, codes, slot_ids, 1025)
+    with pytest.raises(ValueError, match="multiple of 16"):     # 16-byte code row copies
+        adc_scan.adc_topk_cuda(lut, probes, codes[:, :, :250].contiguous(),
+                               slot_ids[:, :250].contiguous(), 10)
+    with pytest.raises(ValueError):
+        adc_scan.adc_topk_cuda(lut[:, :, :8].contiguous(), probes, codes, slot_ids, 10)
+
+
+# -- the ADC table kernel ------------------------------------------------------
+
+def _table_case(b, p, nlist, m, dsub, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    dp = m * dsub
+    cents = torch.randn((nlist, dp), generator=g, device=device)
+    near = torch.randint(0, nlist, (b,), generator=g, device=device)
+    q_rot = cents[near] + 0.3 * torch.randn((b, dp), generator=g, device=device)
+    cb = 0.3 * torch.randn((m, 256, dsub), generator=g, device=device)
+    fills = torch.randint(0, 4, (nlist,), generator=g, device=device).to(torch.int32)
+    probes = torch.randint(0, nlist, (b, p), generator=g, device=device).to(torch.int32)
+    probes[0, 0] = -1
+    probes[-1, -1] = nlist + 3
+    return q_rot.contiguous(), probes, cents, cb, fills
+
+
+def _bf16_steps(a, b):
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,p,nlist,m,dsub", [
+    (1, 1, 8, 16, 8), (8, 7, 40, 96, 8), (37, 12, 64, 16, 8), (64, 64, 512, 96, 8),
+    (5, 3, 20, 32, 4), (5, 3, 20, 64, 12), (5, 3, 20, 8, 16), (5, 3, 20, 4, 32),
+    (5, 3, 20, 10, 8)])
+def test_tables_kernel_matches_plain(cuda_device, b, p, nlist, m, dsub):
+    """Register-resident instances (dsub 4, 8, 12, 16), the any-dsub kernel
+    (32), an M off the 8-subspace group (10); dead and out-of-range probes.
+    At least 99.9% of the live probes' entries bit-equal, the rest one bf16
+    step off (8 products summed in another order, then one rounding)."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    args = _table_case(b, p, nlist, m, dsub, seed=b * p + m, device=cuda_device)
+    before = adc_scan.TABLE_LAUNCHES
+    got, ops_seen = _dispatched_ops(lambda: adc_scan.adc_tables_cuda(*args))
+    torch.cuda.synchronize()
+    assert adc_scan.TABLE_LAUNCHES == before + 1
+    assert [name for name, _ in ops_seen if "empty" not in name] == []
+    want = adc_scan.adc_tables_reference(*args)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, p, m, 256)
+    live = adc_scan.live_probes(args[1], args[4])
+    assert bool((got[~live] == 0).all())
+    if bool(live.any()):
+        steps = _bf16_steps(got[live], want[live])
+        assert float((steps == 0).float().mean()) >= 0.999
+        assert int(steps.max()) <= 1
+
+
+@pytest.mark.gpu
+def test_tables_kernel_rejects_bad_input(cuda_device):
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    q, probes, cents, cb, fills = _table_case(4, 3, 20, 16, 8, seed=3, device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        adc_scan.adc_tables_cuda(q.cpu(), probes.cpu(), cents.cpu(), cb.cpu(), fills.cpu())
+    with pytest.raises(TypeError):
+        adc_scan.adc_tables_cuda(q, probes.long(), cents, cb, fills)
+    with pytest.raises(ValueError):
+        adc_scan.adc_tables_cuda(q, probes, cents, cb[:, :, :4].contiguous(), fills)
+    with pytest.raises(ValueError):
+        adc_scan.adc_tables_cuda(q[:, :64].contiguous(), probes, cents, cb, fills)
+    with pytest.raises(ValueError):
+        adc_scan.adc_tables_cuda(q, probes, cents, cb, fills[:5].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_ivfpq_kernel_path_makes_no_f32_table(cuda_device, replicas):
+    """``IVFPQIndex.search_device`` on a CUDA index: one table launch and one
+    scan launch, and no tensor the size of the tables but the bf16 one the
+    table kernel fills; its candidates are the plain path's."""
+    from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    b, p, nlist, m, lcap, k = 16, 8, 40, 16, 256, 20
+    _, _, codes, slot_ids = (torch.from_numpy(x).to(cuda_device)
+                             for x in _adc_case(b, p, seed=11, nlist=nlist, m=m, lcap=lcap,
+                                                dup=replicas > 1))
+    q_rot, _, cents, cb, _ = _table_case(b, p, nlist, m, 8, seed=12, device=cuda_device)
+    idx = IVFPQIndex(rotation=None, centroids=cents, codebooks=cb, codes=codes,
+                     slot_ids=slot_ids, n=nlist * lcap, d=m * 8, m=m, replicas=replicas)
+    t0, s0 = adc_scan.TABLE_LAUNCHES, adc_scan.LAUNCHES
+    (kv, ki), ops_seen = _dispatched_ops(lambda: idx.search_device(q_rot, k, p))
+    torch.cuda.synchronize()
+    assert (adc_scan.TABLE_LAUNCHES, adc_scan.LAUNCHES) == (t0 + 1, s0 + 1)
+    big = [(name, shape, dt) for name, outs in ops_seen for shape, dt in outs
+           if int(np.prod(shape)) >= b * p * m * 256]
+    assert len(big) == 1 and "empty" in big[0][0] and big[0][2] == torch.bfloat16
+    pv, pi = idx.search_device(q_rot, k, p, backend="torch")
+    kv, ki, pv, pi = (x.cpu().numpy() for x in (kv, ki, pv, pi))
+    # the kernel's tables differ from the plain ones in a rare entry by one
+    # bf16 step, 2^-8 of that entry
+    np.testing.assert_allclose(kv, pv, atol=2.0 ** -8 * float(np.abs(pv).max()), rtol=0)
+    for x, y in zip(ki, pi):
+        assert len(set(x.tolist()) & set(y.tolist())) >= int(0.9 * k)
 
 
 # -- the IVF probe kernel ------------------------------------------------------
@@ -459,7 +604,9 @@ def test_rerank_kernel_residual_fold(cuda_device, metric):
                             .astype(np.int32)).to(cuda_device)
     kw = dict(norms2=store.norms2() if metric == "l2" else None, metric=metric,
               res_cents=store.res_cents, res_ids=store.res_ids)
+    before = rerank.LAUNCHES
     kv, ki = rerank.rerank_topk_cuda(q, cand, store.vectors, store.scales, k, **kw)
+    assert rerank.LAUNCHES == before + 1
     pv, pi = rerank.rerank_topk_reference(q, cand, store.vectors, store.scales, k, **kw)
     kv, ki, pv, pi = (x.cpu().numpy() for x in (kv, ki, pv, pi))
     np.testing.assert_allclose(kv, pv, atol=1e-4, rtol=1e-5)

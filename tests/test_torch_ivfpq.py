@@ -19,10 +19,11 @@ import torch
 
 from nvdb_tpu.formats import synth as jsynth
 from nvdb_tpu.index import ivf_flat as jivf_flat
+from nvdb_tpu.index import ivf_pq as jivf_pq
 from nvdb_tpu.index.ivf_pq import IVFPQIndex as JIVFPQIndex
 from nvdb_tpu.kernels import adc_scan as jadc
 from nvdb_tpu.kernels import pq as jpq
-from nvdb_tpu_torch.index import ivf_flat
+from nvdb_tpu_torch.index import ivf_flat, ivf_pq
 from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
 from nvdb_tpu_torch.kernels import adc_scan
 from nvdb_tpu_torch.store import VectorStore
@@ -256,3 +257,75 @@ def test_unported_modes_raise(world):
     with pytest.raises(ValueError, match="CUDA tensors"):
         adc_scan.adc_topk_cuda(torch.zeros((1, 1, M, 256)), torch.zeros((1, 1)),
                                t.codes, t.slot_ids, 10)
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch"])
+def test_search_block_matches_jax_block(world, backend):
+    """``_ivfpq_search_block`` on the CPU: ``auto`` is the JAX package's f32
+    jnp block (ids equal at >= 0.99 of positions, values to 1e-4); ``torch``
+    rounds the tables to bf16 as the JAX block's pallas backend does (run
+    in interpret mode: candidate overlap >= 0.9 k, values to 1e-3). The
+    index's cached coarse terms change nothing."""
+    j = world["j"]
+    t = _port_of(j)
+    k, nprobe = 20, 8
+    qp = np.zeros((B, 128), np.float32)
+    qp[:, :D] = world["q"]
+    q_rot_j = jnp.asarray(qp) @ j.rotation
+    jv, ji = jivf_pq._ivfpq_search_block(
+        q_rot_j, j.centroids, j.codebooks, j.codes, j.slot_ids, k, nprobe, j.m,
+        backend="jnp" if backend == "auto" else "pallas", fills=j.fills())
+    q_rot = torch.from_numpy(np.array(q_rot_j))
+    args = (q_rot, t.centroids, t.codebooks, t.codes, t.slot_ids, k, nprobe, t.m)
+    tv, ti = ivf_pq._ivfpq_search_block(*args, backend=backend)
+    cv, ci = ivf_pq._ivfpq_search_block(*args, backend=backend, terms=t.coarse_terms(),
+                                        fills=t.fills())
+    np.testing.assert_array_equal(tv.numpy(), cv.numpy())
+    np.testing.assert_array_equal(ti.numpy(), ci.numpy())
+    tv, ti, jv, ji = tv.numpy(), ti.numpy(), np.asarray(jv), np.asarray(ji)
+    if backend == "auto":
+        assert np.mean(ti == ji) >= 0.99
+        np.testing.assert_allclose(tv, jv, atol=1e-4, rtol=0)
+    else:
+        _assert_overlap(ti, ji, 0.9)
+        np.testing.assert_allclose(tv, jv, atol=1e-3, rtol=0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ivf_pq._ivfpq_search_block(*args, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        adc_scan.adc_tables_cuda(q_rot, torch.zeros((B, nprobe), dtype=torch.int32),
+                                 t.centroids, t.codebooks, t.fills())
+
+
+def test_coarse_terms_cached_and_probes_unchanged(world):
+    """The cached ||c||^2 and live-list mask give bit-equal probes."""
+    t = _port_of(world["j"])
+    sids = t.slot_ids.clone()
+    sids[3] = -1                                                  # an empty list
+    t = IVFPQIndex(rotation=t.rotation, centroids=t.centroids, codebooks=t.codebooks,
+                   codes=t.codes, slot_ids=sids, n=t.n, d=t.d, m=t.m)
+    assert t.coarse_terms() is t.coarse_terms()
+    c2, live = t.coarse_terms()
+    assert tuple(c2.shape) == (1, NLIST) and not bool(live[0, 3]) and int(live.sum()) == NLIST - 1
+    q = torch.from_numpy(np.random.default_rng(6).standard_normal((B, 128)).astype(np.float32))
+    before = ivf_flat._coarse_probes(q, t.centroids, t.slot_ids, 6)
+    after = ivf_flat._coarse_probes(q, t.centroids, t.slot_ids, 6, terms=t.coarse_terms())
+    assert before.dtype == torch.int64
+    np.testing.assert_array_equal(before.numpy(), after.numpy())
+    assert not bool((after == 3).any())
+
+
+def test_scan_plan_fits_shared_memory():
+    """The ring plan of the ADC scan: two stages of whole lists at the
+    flagship shape, narrower tiles or one stage as k and M grow, an error
+    when one table cannot fit."""
+    assert adc_scan.scan_plan(100, 96, 640) == (2, 640)
+    stages, tile = adc_scan.scan_plan(1024, 96, 640)
+    assert stages == 2 and tile % 128 == 0 and tile < 640
+    assert adc_scan.scan_plan(10, 16, 256) == (2, 256)
+    assert adc_scan.scan_plan(100, 192, 640)[0] == 1
+    for k, m, lcap in [(100, 96, 640), (1024, 96, 640), (100, 192, 640), (1024, 8, 2048)]:
+        stages, tile = adc_scan.scan_plan(k, m, lcap)
+        cap = 1024 if k <= 512 else 2048
+        assert cap * 8 + stages * (m * 512 + m * tile) <= 227 * 1024 - 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        adc_scan.scan_plan(10, 400, 640)

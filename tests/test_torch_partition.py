@@ -165,3 +165,25 @@ def test_port_build_recall_near_jax(world, refine):
     _, ti = t.search(world["q"], K, 4, rerank_k=RERANK_K)
     _, ji = j.search(world["q"], K, 4, rerank_k=RERANK_K)
     assert _recall(ti, world["gt"]) >= _recall(np.asarray(ji), world["gt"]) - 0.02
+
+
+def test_coarse_terms_cached_and_search_unchanged(world):
+    """The partition and its IVF-Flat index cache ||c||^2 and the live-list
+    mask of the coarse ranking; probes and results are bit-equal to the
+    ranking that recomputes them on every batch."""
+    from nvdb_tpu_torch.index import ivf_flat
+
+    t = _port_of(world["j"]["f32"])
+    assert t.coarse_terms() is t.ivf.coarse_terms() is t.coarse_terms()
+    ivf = t.ivf
+    q = torch.zeros((Q, DP))
+    q[:, :D] = torch.from_numpy(world["q"])
+    before = ivf_flat._coarse_probes(q, ivf.centroids, ivf.slot_ids, 8)
+    after = ivf_flat._coarse_probes(q, ivf.centroids, ivf.slot_ids, 8,
+                                    terms=ivf.coarse_terms())
+    np.testing.assert_array_equal(before.numpy(), after.numpy())
+    v0, i0 = ivf_flat._ivf_search_block(q, ivf.centroids, ivf.packed, ivf.slot_ids,
+                                        ivf.slot_scales, K, 8)
+    v1, i1 = t.search_device(q, K, 8)
+    np.testing.assert_array_equal(v0.numpy(), v1.numpy())
+    np.testing.assert_array_equal(i0.numpy(), i1.numpy())

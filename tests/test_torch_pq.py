@@ -2,6 +2,9 @@
 seeded numpy inputs.
 
 Tolerances: ADC tables and scores to atol 1e-5 (f32 sums in another order);
+the bf16 tables of ``adc_tables_reference`` against ``adc_lut(...).astype(
+bfloat16)``: at least 99.9% of the live probes' entries bit-equal, the rest
+one bf16 step off (an f32 sum in another order, then one rounding);
 ``encode`` on the same codebooks bit for bit; ``decode`` exact. Training
 draws other random numbers than JAX, so trained codebooks and rotations are
 held to the quantization MSE of JAX's on the same data, within 5%."""
@@ -14,7 +17,7 @@ import torch
 
 from nvdb_tpu.formats import synth as jsynth
 from nvdb_tpu.kernels import pq as jpq
-from nvdb_tpu_torch.kernels import pq
+from nvdb_tpu_torch.kernels import adc_scan, pq
 
 M, D = 8, 64
 
@@ -89,3 +92,40 @@ def test_train_opq_mse_near_jax(data):
     jrot, jcb = jpq.train_opq(jax.random.PRNGKey(0), x[:2000], M, n_opq_iters=3)
     np.testing.assert_allclose(rot @ rot.T, np.eye(D), atol=1e-4)
     assert _mse(x, cb, rot) <= 1.05 * _mse(x, jcb, jrot)
+
+
+def _ordered_bits(bits_u16):
+    """bf16 bit patterns (uint16) as integers ordered like the values."""
+    b = bits_u16.astype(np.int32)
+    return np.where(b >= 0x8000, -(b & 0x7FFF), b)
+
+
+@pytest.mark.parametrize("m,d,nlist,b,p", [(8, 64, 12, 6, 4), (16, 128, 20, 5, 7),
+                                           (8, 128, 9, 3, 9)])
+def test_adc_tables_reference_matches_jax(m, d, nlist, b, p):
+    rng = np.random.default_rng(m * d + b)
+    cents = rng.standard_normal((nlist, d)).astype(np.float32)
+    q_rot = (cents[rng.integers(0, nlist, b)]
+             + 0.3 * rng.standard_normal((b, d))).astype(np.float32)
+    cb = (0.3 * rng.standard_normal((m, pq.KSUB, d // m))).astype(np.float32)
+    fills = rng.integers(1, 50, nlist).astype(np.int32)
+    fills[2] = 0                                           # a dead list
+    probes = np.stack([rng.choice(nlist, p, replace=False) for _ in range(b)]).astype(np.int32)
+    probes[0, 0] = 2
+    probes[1, 1] = -1                                      # out of range
+    got = adc_scan.adc_tables_reference(torch.from_numpy(q_rot), torch.from_numpy(probes),
+                                        torch.from_numpy(cents), torch.from_numpy(cb),
+                                        torch.from_numpy(fills))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, p, m, pq.KSUB)
+    live = adc_scan.live_probes(torch.from_numpy(probes), torch.from_numpy(fills)).numpy()
+    np.testing.assert_array_equal(live, (probes >= 0) & (fills[np.maximum(probes, 0)] > 0))
+    assert not live[0, 0] and not live[1, 1]
+    assert bool((got[torch.from_numpy(~live)] == 0).all())  # dead probes: zeros
+    res = jnp.asarray(q_rot)[:, None, :] - jnp.take(jnp.asarray(cents),
+                                                    jnp.asarray(np.maximum(probes, 0)), axis=0)
+    want = jpq.adc_lut(res.reshape(b * p, d), jnp.asarray(cb), m).astype(jnp.bfloat16)
+    want_bits = np.asarray(want).reshape(b, p, m, pq.KSUB).view(np.uint16)
+    got_bits = got.view(torch.int16).numpy().view(np.uint16)
+    steps = np.abs(_ordered_bits(got_bits[live]) - _ordered_bits(want_bits[live]))
+    assert np.mean(steps == 0) >= 0.999
+    assert steps.max() <= 1

@@ -9,7 +9,11 @@ Tolerances: values to atol 1e-5 / rtol 1e-5 (f32 sums in another order);
 score regret <= 1e-5 against float64 over the stored rows as the store holds
 them (bf16 values exactly, int8 dequantized). Ids are compared through the
 regret, not position by position: ``lax.top_k`` ties to the lower index, the
-port to the larger id. The CUDA kernel's own tests are in test_torch_gpu.py."""
+port to the larger id. ``_kernel_model`` is a plain-torch model of the CUDA
+kernel's contract (the fold inside the kernel from scales / norms2 / qcent
+and a metric flag, duplicates of an earlier slot struck, selection by rank
+counting): it equals ``rerank_topk_reference`` bit for bit, since both take
+the same products. The CUDA kernel's own tests are in test_torch_gpu.py."""
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -166,3 +170,105 @@ def test_store_norms2_matches_jax(dtype):
     np.testing.assert_allclose(t.norms2().numpy(), np.asarray(j.norms2()),
                                atol=1e-4, rtol=1e-6)
     assert t.norms2() is t.norms2()  # cached
+
+
+def _kernel_model(q, cand, vectors, scales, norms2, qcent, metric, k):
+    """The CUDA kernel's contract in plain torch: per candidate, amul and
+    boff from ``scales`` / ``norms2`` / ``qcent`` (any may be None) and the
+    metric, with the kernel's own products in its order; ids outside
+    [0, Np) never scored; an id that an earlier slot holds struck; then each
+    candidate's rank is the number of candidates whose (score, id) beats
+    it, and rank < k writes slot ``rank`` of a (-inf, -1) list."""
+    B, R = cand.shape
+    ok = (cand >= 0) & (cand < vectors.shape[0])
+    safe = torch.where(ok, cand, 0).long()
+    dots = torch.einsum("bd,brd->br", q, vectors[safe].to(torch.float32))
+    sc = scales[safe] if scales is not None else None
+    if metric == "dot":
+        amul = sc if sc is not None else torch.ones((B, R))
+        boff = -qcent if qcent is not None else torch.zeros((B, R))
+    else:
+        n2 = norms2[safe]
+        if qcent is not None:
+            amul, boff = 2.0 * sc, n2 - 2.0 * qcent
+        elif sc is not None:
+            amul, boff = 2.0 * sc, (sc * sc) * n2
+        else:
+            amul, boff = torch.full((B, R), 2.0), n2
+    s = torch.where(ok, amul * dots - boff, float("-inf"))
+    ids = torch.where(ok, cand, -1)
+    same = (ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] >= 0)      # [B, r, r2]
+    earlier = torch.tril(torch.ones((R, R), dtype=torch.bool), diagonal=-1)   # r2 < r
+    s = torch.where((same & earlier).any(-1), float("-inf"), s)
+    beats = (s[:, None, :] > s[:, :, None]) | ((s[:, None, :] == s[:, :, None])
+                                               & (ids[:, None, :] > ids[:, :, None]))
+    rank = beats.sum(-1)                                                      # [B, R]
+    out_v = torch.full((B, k), float("-inf"))
+    out_i = torch.full((B, k), -1, dtype=torch.int32)
+    for b in range(B):
+        sel = (ids[b] >= 0) & (s[b] > float("-inf")) & (rank[b] < k)
+        assert len(set(rank[b][sel].tolist())) == int(sel.sum())   # every rank taken once
+        out_v[b, rank[b][sel]] = s[b][sel]
+        out_i[b, rank[b][sel]] = ids[b][sel]
+    return out_v, out_i
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "i8"])
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_kernel_model_matches_reference_and_pallas(dtype, metric):
+    c = _case(dtype, seed=13)
+    c["cand"][2, 1] = c["cand"][2, 0]            # a repeated id
+    c["cand"][2, 30] = c["cand"][2, 0]
+    c["cand"][4, 2] = N + 7                      # an id past the store
+    q, cand = torch.from_numpy(c["q"]), torch.from_numpy(c["cand"])
+    sc = torch.from_numpy(c["sc"]) if c["sc"] is not None else None
+    n2 = rerank.store_norms2(c["tv"]) if metric == "l2" else None
+    mv, mi = _kernel_model(q, cand, c["tv"], sc, n2, None, metric, K)
+    c["cand"][4, 2] = -1                         # the plain version's fold indexes by id
+    rv, ri = _port(c, metric)
+    np.testing.assert_array_equal(mv.numpy(), rv.numpy())
+    np.testing.assert_array_equal(mi.numpy(), ri.numpy())
+    jsc = jnp.asarray(c["sc"]) if c["sc"] is not None else None
+    c["cand"][2, 1] = c["cand"][2, 30] = -1      # the repeats count once: drop them
+    _check(mv.numpy(), mi.numpy(), c, metric)    # for the oracles, which take unique ids
+    pv, _ = pallas_rerank(jnp.asarray(c["q"]), jnp.asarray(c["cand"]), jnp.asarray(c["jv"]),
+                          jsc, K, metric=metric, chunk=8, bq=4, interpret=True)
+    pv = np.asarray(pv)
+    for b in range(B):
+        kk = min(K, int((c["cand"][b] >= 0).sum()))
+        np.testing.assert_allclose(mv.numpy()[b, :kk], pv[b, :kk], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_kernel_model_residual_fold(metric):
+    """Residual-int8 store: q.cent is gathered in torch (``residual_qcent``)
+    and folded per candidate; the model equals the plain version bit for
+    bit and ``pallas_rerank(res_cents=...)`` in interpret mode to 1e-5."""
+    rng = np.random.default_rng(14)
+    nlist = 8
+    cents = rng.standard_normal((nlist, D)).astype(np.float32)
+    list_of = rng.integers(0, nlist, N).astype(np.int32)
+    rows = cents[list_of] + 0.3 * rng.standard_normal((N, D)).astype(np.float32)
+    codes, scn = vecbin.quantize_i8(rows - cents[list_of])
+    deq = cents[list_of].astype(np.float64) + codes.astype(np.float64) * scn[:, None]
+    n2 = (deq * deq).sum(1).astype(np.float32)
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    cand = np.stack([rng.choice(N, R, replace=False) for _ in range(B)]).astype(np.int32)
+    cand[0, 20:] = -1
+    t = lambda a: torch.from_numpy(a)
+    qcent = rerank.residual_qcent(t(q), t(cand), t(cents), t(list_of))
+    mv, mi = _kernel_model(t(q), t(cand), t(codes), t(scn), t(n2) if metric == "l2" else None,
+                           qcent, metric, K)
+    rv, ri = rerank.rerank_topk_reference(t(q), t(cand), t(codes), t(scn), K,
+                                          norms2=t(n2) if metric == "l2" else None,
+                                          metric=metric, res_cents=t(cents),
+                                          res_ids=t(list_of))
+    np.testing.assert_array_equal(mv.numpy(), rv.numpy())
+    np.testing.assert_array_equal(mi.numpy(), ri.numpy())
+    pv, pi = pallas_rerank(jnp.asarray(q), jnp.asarray(cand), jnp.asarray(codes),
+                           jnp.asarray(scn), K, metric=metric, chunk=8, bq=4,
+                           norms2=jnp.asarray(n2) if metric == "l2" else None,
+                           interpret=True, res_cents=jnp.asarray(cents),
+                           res_ids=jnp.asarray(list_of))
+    assert ((mi.numpy() >= 0) == (np.asarray(pi) >= 0)).all()
+    np.testing.assert_allclose(mv.numpy(), np.asarray(pv), atol=1e-5, rtol=1e-5)

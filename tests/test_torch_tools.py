@@ -2,7 +2,8 @@
 ``ivf_build`` + ``ivf_eval`` for IVF-PQ and IVF-Flat, ``pr_build`` /
 ``pr_search`` / ``pr_eval``), and the no-fallback rule: without a card the
 port's measurement entry points fail unless the CPU is asked for, and the
-card-only tools (``hbm_probe``, ``gpu_sanity``, ``flat_breakdown``) always fail."""
+card-only tools (``hbm_probe``, ``gpu_sanity``, ``flat_breakdown``,
+``adc_breakdown``) always fail."""
 
 import re
 
@@ -15,8 +16,9 @@ from nvdb_tpu.formats import synth as jsynth
 from nvdb_tpu.formats import vecbin as jvecbin
 from nvdb_tpu.tools import bench as jbench
 from nvdb_tpu_torch import bench as headline
-from nvdb_tpu_torch.tools import (bench, flat_breakdown, gpu_sanity, hbm_probe, ivf_build,
-                                  ivf_eval, pr_build, pr_eval, pr_search)
+from nvdb_tpu_torch.tools import (adc_breakdown, bench, flat_breakdown, gpu_sanity,
+                                  hbm_probe, ivf_build, ivf_eval, pr_build, pr_eval,
+                                  pr_search)
 
 
 @pytest.fixture(scope="module")
@@ -261,7 +263,7 @@ def test_pr_eval_shards_not_ported(ivf_files, capsys):
     assert "not ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("tool", [hbm_probe, gpu_sanity, flat_breakdown])
+@pytest.mark.parametrize("tool", [hbm_probe, gpu_sanity, flat_breakdown, adc_breakdown])
 def test_card_only_tools_fail_without_card(tool, capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the tool runs")
