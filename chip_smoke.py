@@ -24,15 +24,20 @@ then, one phase per line group:
    rate of their type, whichever is larger) and time / bound; one
    ``torch.matmul`` of the bf16 B = 512 product as the library's time for
    the scoring part alone; the headline line of ``nvdb_tpu_torch.bench``;
-6. ADC kernels vs plain: a random packed index at the flagship's M = 96,
-   dsub = 8 and Lcap = 640, B in {1, 8, 64, 256}, P in {1, 7, 64}, kk in {10,
-   100, 256, 1024}, and an index whose lists share ids (replicated rows).
-   The table kernel against ``pq.adc_lut`` + bf16 cast: at least 99.9% of
-   the live probes' entries bit-equal, the rest one bf16 step off (the f32
-   sum of 8 products in another order than the library's, then one
-   rounding). The scan on the kernel's own tables, and on a random f32
-   table that the wrapper rounds, against its plain version on the same
-   tables;
+6. ADC kernels vs plain: a random prefix-packed index at the flagship's M =
+   96, dsub = 8 and Lcap = 640 (fills below kk, a dead list), B in {1, 8,
+   64, 256}, P in {1, 7, 64}, kk in {10, 100, 256, 1024}, an index whose
+   lists share ids (replicated rows) and one of at most 12 rows a list
+   (fewer candidates than kk). The table kernel against ``pq.adc_lut`` +
+   bf16 cast: at least 99.9% of the live probes' entries bit-equal, the
+   rest one bf16 step off (the f32 sum of 8 products in another order than
+   the library's, then one rounding). The dma scan on the kernel's own
+   tables, and on a random f32 table that the wrapper rounds, against its
+   plain version on the same tables; on the same tables the key and gather
+   kernels bit for bit their plain version and each other, every key-mode
+   value its id's ADC score truncated to bf16, every dma candidate above
+   the key result's last value in it, and the ids shared with the dma
+   kernel's at >= 0.95 over the phase;
 7. rerank kernel vs plain and a float64 oracle: f32 / bf16 / int8 stores x
    l2 / dot, B in {1, 8, 256}, R in {10, 100, 256}, k in {1, 10, 100}, with
    padding ids and a repeated id, and a residual-int8 store; every call is
@@ -42,16 +47,24 @@ then, one phase per line group:
    vecbin and 1,024 sampled queries, ground truth by the flat kernel,
    ``tools.ivf_build --kind ivfpq --nlist 4096 --pq-m 96 --opq``, then
    ``tools.ivf_eval --chained --nprobe 64 --refine-k 100 --k 10 --batch-q
-   256`` with the kernels (the three launch counts reset just before and
-   read just after) and with ``--ivf-backend torch``; recall@10 and QPS of
-   each;
+   256`` four ways, each with the IVF-PQ launch counts reset just before and
+   read just after: ``auto`` (key-mode candidates), ``--ids-mode dma``,
+   ``--ids-mode gather`` and ``--ivf-backend torch``; then ``tools.quantize_i8
+   --residual`` of the same base against the index and ``ivf_eval
+   --residual-refine`` with the kernels and with ``--ivf-backend torch``,
+   and, for reference, a plain int8 store of the same bytes; recall@10 and
+   QPS of each, auto within 0.005 of torch and of dma, gather equal to
+   auto, the residual pair within 0.005;
 9. times at B = 256, P = 64, M = 96, Lcap = 640, kk = 100 on the built index,
    each alone: rotation + coarse ranking (plain torch), the table kernel,
-   the scan, the rerank wrapper at B = 256 and B = 8 (R = 100, k = 10, the
-   1M x 768 bf16 store), each kernel against its plain version in turns
-   and beside its bound; the rerank kernel alone (100 launches in one CUDA
-   graph); the whole ``search_device``, whose operators are recorded to
-   show that no f32 table and no bf16 copy of one is made;
+   the dma scan, the key scan, the gather wrapper and its two parts (the
+   slab copy and the scan of the slab), the rerank wrapper at B = 256 and
+   B = 8 (R = 100, k = 10, the 1M x 768 bf16 store), each kernel against
+   its plain version in turns and beside its bound; the rerank kernel
+   alone (100 launches in one CUDA graph); the whole ``search_device``,
+   whose operators are recorded to show that no f32 table and no bf16 copy
+   of one is made, against its plain versions and, in turns, with dma
+   candidates in place of the key ones;
 10. IVF probe kernel vs plain and a float64 oracle: random packed indexes
    of f32 / bf16 / int8 payloads at Lcap 384 and 992 (lists full, with
    holes, filled below k, dead), B in {1, 8, 64, 256}, P in {1, 7, 32, 64},
@@ -111,8 +124,10 @@ HBM_GBPS = 3350.0
 PEAK_TOPS = {"bf16": 989.0, "int8": 1979.0, "f32": 67.0}   # f32: outside the tensor cores
 TABLE_EQUAL_MIN = 0.999  # share of a live probe's table entries equal bit for bit; the
                          # rest one bf16 step off (8 products summed in another order)
+KEY_OVERLAP_MIN = 0.95   # key-mode ids shared with the dma kernel's over phase 6 (the TPU
+                         # smoke's figure; the rest tie at the kk-th truncated value)
 KERNELS = ("flat_topk", "adc_tables", "adc_topk", "rerank_topk", "ivf_probe_topk",
-           "hbm_stream", "add1")
+           "hbm_stream", "add1")   # the libraries: adc_topk.cu holds the key and gather kernels
 
 
 def say(*a):
@@ -454,15 +469,18 @@ def table_inputs(torch, dev, b, nlist, m, dsub, seed):
     return q_rot.contiguous(), cents, codebooks
 
 
-def adc_case(torch, dev, b, p, seed, nlist=128, m=96, lcap=640, dup=False):
-    """A random packed index (lists of varied fill, one empty), its tables
-    and probes; ``dup``: lists 1 and 2 hold the same ids."""
+def adc_case(torch, dev, b, p, seed, nlist=128, m=96, lcap=640, dup=False, scarce=False):
+    """A random prefix-packed index (lists of varied fill, one empty), its
+    tables and probes; ``dup``: lists 1 and 2 hold the same ids; ``scarce``:
+    every list holds at most 12 rows."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 256, (nlist, m, lcap)).astype(np.uint8)
     slot_ids = np.full((nlist, lcap), -1, np.int32)
     perm = rng.permutation(nlist * lcap).astype(np.int32)
     for li in range(nlist):
         f = int(rng.integers(0, lcap + 1)) if li % 4 else lcap
+        if scarce:
+            f = int(rng.integers(0, 13))
         slot_ids[li, :f] = perm[li * lcap:li * lcap + f]
     slot_ids[3] = -1
     if dup:
@@ -492,6 +510,79 @@ def check_adc(torch, tag, kv, ki, pv, pi):
     return err, agree
 
 
+def exact_adc_scores(torch, lut, probes, codes, slot_ids, ids):
+    """[B, kk] f32 ADC scores of the rows ``ids`` (-1: -inf) over each query's
+    probes, summed over m in order as the kernels and plain versions sum
+    them, from an inverse of the slot table."""
+    nlist, m, lcap = codes.shape
+    b, p = probes.shape
+    dev = codes.device
+    live = slot_ids >= 0
+    n_ids = int(slot_ids.max()) + 1
+    where = torch.full((n_ids,), -1, dtype=torch.int64, device=dev)
+    pos = torch.arange(nlist * lcap, device=dev).reshape(nlist, lcap)
+    where[slot_ids[live].long()] = pos[live]
+    pinv = torch.full((b, nlist), -1, dtype=torch.int64, device=dev)
+    pinv.scatter_(1, probes.long(), torch.arange(p, device=dev).expand(b, p).contiguous())
+    ok = ids >= 0
+    at = torch.where(ok, where[torch.where(ok, ids, 0).long()], 0)
+    li, lane = at // lcap, at % lcap
+    pp = torch.gather(pinv, 1, li)
+    code = codes[li[..., None], torch.arange(m, device=dev), lane[..., None]]   # [B, kk, M]
+    tab = lut.to(torch.bfloat16).to(torch.float32)
+    acc = torch.zeros(ids.shape, dtype=torch.float32, device=dev)
+    bi = torch.arange(b, device=dev)[:, None]
+    for j in range(m):
+        acc += tab[bi, pp.clamp(min=0), j, code[..., j].long()]
+    return torch.where(ok, -acc, float("-inf"))
+
+
+def truncate_bf16(torch, x):
+    """f32 values with the low 16 bits of their pattern cleared (+0 for 0)."""
+    return ((x + 0.0).view(torch.int32) & -65536).view(torch.float32)
+
+
+def check_keys(torch, tag, lut, probes, codes, slot_ids, kk, fills, dma):
+    """The key and gather kernels on one case: each bit for bit its plain
+    version (values and ids), gather bit for bit key; against the dma
+    kernel's (vals, ids) on the same tables, every key-mode id's exact ADC
+    score truncates to the value beside it, and every dma candidate whose
+    truncated score beats the key result's last value is in it (the rest
+    tie there). Returns (shared ids, dma ids) of the rows."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    pv, pi = adc_scan.adc_topk_keys_reference(lut, probes, codes, slot_ids, kk, fills=fills)
+    got = []
+    for gathered in (False, True):
+        kv, ki = adc_scan.adc_topk_keys_cuda(lut, probes, codes, slot_ids, kk, fills=fills,
+                                             gathered=gathered)
+        torch.cuda.synchronize()
+        name = "gather" if gathered else "key"
+        check(torch.equal(kv, pv) and torch.equal(ki, pi),
+              f"{tag}: the {name} kernel differs from its plain version")
+        got.append((kv, ki))
+    check(torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1], got[1][1]),
+          f"{tag}: gather differs from key")
+    kv, ki = got[0]
+    fin = ki >= 0
+    exact = exact_adc_scores(torch, lut, probes, codes, slot_ids, ki)
+    check(torch.equal(truncate_bf16(torch, exact)[fin], kv[fin]),
+          f"{tag}: a key-mode value is not its id's truncated ADC score")
+    check(bool(torch.isneginf(kv[~fin]).all()), f"{tag}: key filler is not (-inf, -1)")
+    check(bool((fin == (dma[1] >= 0)).all()), f"{tag}: key and dma fill differently")
+    last = torch.where(fin, kv, float("inf")).amin(dim=1, keepdim=True)
+    must = (dma[1] >= 0) & (truncate_bf16(torch, dma[0]) > last)
+    shared = dma_ids = 0
+    for krow, drow, mrow in zip(ki.cpu().numpy(), dma[1].cpu().numpy(), must.cpu().numpy()):
+        kset = set(krow[krow >= 0].tolist())
+        check(set(drow[mrow].tolist()) <= kset, f"{tag}: a dma candidate above the key "
+                                                f"result's last value is missing")
+        dset = set(drow[drow >= 0].tolist())
+        shared += len(kset & dset)
+        dma_ids += len(dset)
+    return shared, dma_ids
+
+
 def check_tables(torch, tag, got, want, live):
     """The table gate: over the live probes' entries, at least
     TABLE_EQUAL_MIN equal bit for bit and none further than one bf16 step."""
@@ -511,11 +602,15 @@ def phase_adc_vs_plain(torch, dev):
     from nvdb_tpu_torch.kernels import adc_scan
 
     out = {"scan_err": 0.0, "table_err": 0.0, "table_equal": 1.0}
-    cases = [(b, p, kk, False) for b in (1, 8, 64, 256) for p in (1, 7, 64)
-             for kk in (10, 100, 256, 1024)] + [(8, 7, 100, True), (64, 64, 1024, True)]
-    for b, p, kk, dup in cases:
-        lut32, probes, codes, slot_ids = adc_case(torch, dev, b, p, seed=b * 131 + p, dup=dup)
-        tag = f"B={b} P={p} kk={kk}{' dup' if dup else ''}"
+    cases = [(b, p, kk, "") for b in (1, 8, 64, 256) for p in (1, 7, 64)
+             for kk in (10, 100, 256, 1024)] + [(8, 7, 100, "dup"), (64, 64, 1024, "dup"),
+                                                (8, 64, 1024, "scarce")]
+    shared = dma_ids = 0
+    for b, p, kk, kind in cases:
+        dup = kind == "dup"
+        lut32, probes, codes, slot_ids = adc_case(torch, dev, b, p, seed=b * 131 + p, dup=dup,
+                                                  scarce=kind == "scarce")
+        tag = f"B={b} P={p} kk={kk}{' ' + kind if kind else ''}"
         # the table kernel on this index's probes (list 3 is dead), then the
         # scan on the kernel's own tables
         q_rot, cents, codebooks = table_inputs(torch, dev, b, codes.shape[0], codes.shape[1], 8,
@@ -538,9 +633,21 @@ def phase_adc_vs_plain(torch, dev):
             err, agree = check_adc(torch, f"{tag} ({name})", kv, ki, pv, pi)
             out["scan_err"] = max(out["scan_err"], err)
             msg += f" | scan on {name}: err={err:.1e} id_agree={agree:.3f}"
+            if not dup:
+                # the key and gather kernels on the same tables
+                sh, dn = check_keys(torch, f"{tag} ({name})", table, probes, codes, slot_ids,
+                                    kk, fills, (kv, ki))
+                shared += sh
+                dma_ids += dn
+                msg += f" key=gather=plain overlap(dma)={sh / max(1, dn):.3f}"
         msg += f" filled={float((ki >= 0).float().mean()):.3f}"
         say(msg)
         del lut, lut32, probes, codes, slot_ids
+    out["key_overlap"] = shared / max(1, dma_ids)
+    say(f"  key / gather vs dma: id overlap {out['key_overlap']:.4f} over all cases "
+        f"(gate {KEY_OVERLAP_MIN})")
+    check(out["key_overlap"] >= KEY_OVERLAP_MIN,
+          f"key-mode ids overlap the dma kernel's at {out['key_overlap']} < {KEY_OVERLAP_MIN}")
     torch.cuda.empty_cache()
     return out
 
@@ -682,19 +789,34 @@ def rerank_residual_cases(torch, dev, base, q_all, rng, nlist=64):
 
 def phase_ivf_main_path(torch, dev, work, n=1_000_000, nlist=4096):
     d, nq, k = 768, 1024, 10
-    paths = work_paths(work, "ivf", ("base.vecbin", "q.vecbin", "gt.gtbin", "index.npz"))
+    paths = work_paths(work, "ivf", ("base.vecbin", "q.vecbin", "gt.gtbin", "index.npz",
+                                     "res.vecbin", "i8.vecbin"))
     try:
         return _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths)
     finally:
         remove_files(paths)
 
 
+def ivf_eval_counted(torch, main, argv):
+    """One ``ivf_eval`` run with every IVF-PQ launch counter set to 0 just
+    before it; returns (its first RESULT record, the counts just after)."""
+    from nvdb_tpu_torch.kernels import adc_scan, rerank
+
+    adc_scan.LAUNCHES = adc_scan.TABLE_LAUNCHES = 0
+    adc_scan.KEY_LAUNCHES = adc_scan.GATHER_LAUNCHES = 0
+    rerank.LAUNCHES = 0
+    res = run_tool(main, argv, keep=("kind=", "RESULT"))[0]
+    return res, {"adc_tables": adc_scan.TABLE_LAUNCHES, "adc_topk": adc_scan.LAUNCHES,
+                 "adc_topk_key": adc_scan.KEY_LAUNCHES,
+                 "adc_topk_gather": adc_scan.GATHER_LAUNCHES, "rerank_topk": rerank.LAUNCHES}
+
+
 def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
     from nvdb_tpu_torch.formats import gtbin, synth, vecbin
     from nvdb_tpu_torch.index.flat import FlatIndex
-    from nvdb_tpu_torch.kernels import adc_scan, flat_scan, rerank
+    from nvdb_tpu_torch.kernels import flat_scan
     from nvdb_tpu_torch.store import VectorStore
-    from nvdb_tpu_torch.tools import ivf_build, ivf_eval
+    from nvdb_tpu_torch.tools import ivf_build, ivf_eval, quantize_i8
 
     t0 = time.perf_counter()
     base = synth.clustered(n, d, n_clusters=16384, spread=0.25, seed=41)
@@ -722,29 +844,128 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
     eval_args = [paths["index.npz"], paths["base.vecbin"], paths["q.vecbin"], "--gt",
                  paths["gt.gtbin"], "--chained", "--nprobe", "64", "--refine-k", "100",
                  "--k", str(k), "--batch-q", "256", "--device", dev.type]
-    out = {}
-    for backend in ("auto", "torch"):
-        if backend == "auto":
-            adc_scan.LAUNCHES = 0
-            adc_scan.TABLE_LAUNCHES = 0
-            rerank.LAUNCHES = 0
-        res = run_tool(ivf_eval.main, eval_args + ["--ivf-backend", backend],
-                       keep=("kind=", "RESULT"))[0]
-        if backend == "auto":
-            out["launches"] = {"adc_tables": adc_scan.TABLE_LAUNCHES,
-                               "adc_topk": adc_scan.LAUNCHES, "rerank_topk": rerank.LAUNCHES,
-                               "flat_topk": gt_launches}
-        say(f"  ivf_eval --ivf-backend {backend}: recall@10={res['recall']:.4f} "
-            f"QPS={res['qps']:.1f}")
-        out[backend] = res
-    say(f"  launches in the auto run: {out['launches']}")
-    for name, count in out["launches"].items():
-        check(count > 0, f"the IVF-PQ main path did not launch {name}")
-    gap = abs(out["auto"]["recall"] - out["torch"]["recall"])
-    check(gap <= RECALL_GAP, f"kernel recall {out['auto']['recall']} vs plain "
-                             f"{out['torch']['recall']}: gap {gap} > {RECALL_GAP}")
+    # (name, extra flags, the launch counters the run must raise); each run's
+    # counters are set to 0 just before it and read just after
+    runs = [("auto", [], ("adc_tables", "adc_topk_key", "rerank_topk")),
+            ("dma", ["--ids-mode", "dma"], ("adc_topk",)),
+            ("gather", ["--ids-mode", "gather"], ("adc_topk_gather",)),
+            ("torch", ["--ivf-backend", "torch"], ())]
+    out = {"launches": {"flat_topk": gt_launches}}
+    for name, extra, counted in runs:
+        res, launches = ivf_eval_counted(torch, ivf_eval.main, eval_args + extra)
+        for c in counted:
+            check(launches[c] > 0, f"ivf_eval {name}: the IVF-PQ main path did not "
+                                   f"launch {c}")
+            out["launches"][c] = out["launches"].get(c, 0) + launches[c]
+        say(f"  ivf_eval {' '.join(extra) or '(auto: key candidates)'}: recall@10="
+            f"{res['recall']:.4f} QPS={res['qps']:.1f} launches {launches}")
+        out[name] = res
+    for a, b in (("auto", "torch"), ("auto", "dma")):
+        gap = abs(out[a]["recall"] - out[b]["recall"])
+        check(gap <= RECALL_GAP, f"recall@10 {a} {out[a]['recall']} vs {b} "
+                                 f"{out[b]['recall']}: gap {gap} > {RECALL_GAP}")
+    check(out["gather"]["recall"] == out["auto"]["recall"],
+          f"gather recall {out['gather']['recall']} != key {out['auto']['recall']}")
     check(out["auto"]["recall"] >= 0.5, f"recall@10 {out['auto']['recall']} < 0.5")
+
+    # the residual-int8 refine of the JAX package's flagship: residual codes
+    # of the same base against this index, then the refine on both paths
+    t0 = time.perf_counter()
+    run_tool(quantize_i8.main, [paths["base.vecbin"], paths["res.vecbin"], "--residual",
+                                paths["index.npz"]], keep=("wrote",))
+    say(f"  quantize_i8 --residual: {time.perf_counter() - t0:.1f} s")
+    res_args = [paths["index.npz"], paths["res.vecbin"]] + eval_args[2:] + ["--residual-refine"]
+    for name, extra, counted in (("res_auto", [], ("adc_topk_key", "rerank_topk")),
+                                 ("res_torch", ["--ivf-backend", "torch"], ())):
+        res, launches = ivf_eval_counted(torch, ivf_eval.main, res_args + extra)
+        for c in counted:
+            check(launches[c] > 0, f"ivf_eval --residual-refine did not launch {c}")
+            out["launches"][c] = out["launches"].get(c, 0) + launches[c]
+        say(f"  ivf_eval --residual-refine {' '.join(extra)}: recall@10={res['recall']:.4f} "
+            f"QPS={res['qps']:.1f} launches {launches}")
+        out[name] = res
+    gap = abs(out["res_auto"]["recall"] - out["res_torch"]["recall"])
+    check(gap <= RECALL_GAP, f"residual refine: kernel recall {out['res_auto']['recall']} "
+                             f"vs plain {out['res_torch']['recall']}: gap {gap}")
+    # the same bytes a row without the centroid: a plain int8 refine store
+    run_tool(quantize_i8.main, [paths["base.vecbin"], paths["i8.vecbin"]], keep=("wrote",))
+    res, _ = ivf_eval_counted(torch, ivf_eval.main,
+                              [paths["index.npz"], paths["i8.vecbin"]] + eval_args[2:])
+    out["i8"] = res
+    say(f"  refine recall@10 by store: f32 {out['auto']['recall']:.4f}, residual int8 "
+        f"{out['res_auto']['recall']:.4f}, plain int8 {res['recall']:.4f} (QPS {res['qps']:.1f})")
+    say(f"  launches on the IVF-PQ main paths: {out['launches']}")
     return idx, store, queries, out
+
+
+def key_scan_times(torch, lut, probes, idx, kk, fills, slots, dma):
+    """The key kernel, the gather kernel's two parts (the slab copy, then
+    the scan over the slab) and the whole gather wrapper at the flagship
+    shape, each against its plain version in turns, beside their bounds;
+    the key result checked against the dma kernel's on the same tables."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    out = {}
+    args = (lut, probes, idx.codes, idx.slot_ids, kk)
+    b, p = probes.shape
+    # bytes: the live slots' codes, the bf16 tables, the probes, the result
+    # (no slot ids: the winners' ids are read in pass 2, kk per query)
+    nbytes = slots * idx.m + lut.numel() * 2 + probes.numel() * 4 + b * kk * 12
+    bnd, by = bound_ms(nbytes, float(slots) * idx.m, "f32")
+    kern, plain, runs = in_turns(
+        torch, lambda: adc_scan.adc_topk_keys_reference(*args, fills=fills),
+        lambda: adc_scan.adc_topk_keys_cuda(*args, fills=fills), iters=5)
+    say(f"  ADC key B={b} P={p} kk={kk}: kernel {kern:.4f} ms {runs['kernel']} | plain "
+        f"{plain:.4f} ms {runs['plain']}")
+    say(f"    bound {bnd:.4f} ms ({by}: {nbytes / 1e9:.4f} GB) time / bound {kern / bnd:.2f}")
+    out["adc_topk_key"] = dict(ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by)
+    sh, dn = check_keys(torch, "flagship key", lut, probes, idx.codes, idx.slot_ids, kk, fills,
+                        dma)
+    say(f"    key = gather = plain bit for bit; id overlap with the dma kernel {sh / dn:.4f}")
+
+    slab_bytes = b * p * idx.m * idx.lcap
+    copy_ms = cuda_ms(torch, lambda: adc_scan.gather_codes(idx.codes, probes), iters=5)
+    # the copy reads each distinct probed list once and writes the slab
+    list_bytes = int(torch.unique(probes).numel()) * idx.m * idx.lcap
+    cbnd, _ = bound_ms(list_bytes + slab_bytes, 0.0, "f32")
+    slab = adc_scan.gather_codes(idx.codes, probes)
+    scan_ms = cuda_ms(torch, lambda: gathered_scan(torch, adc_scan, lut, probes, slab, idx, kk,
+                                                   fills), iters=5)
+    kern, plain, runs = in_turns(
+        torch, lambda: adc_scan.adc_topk_keys_reference(
+            lut, probes, adc_scan.gather_codes(idx.codes, probes), idx.slot_ids, kk,
+            fills=fills, gathered=True),
+        lambda: adc_scan.adc_topk_keys_cuda(*args, fills=fills, gathered=True), iters=5)
+    say(f"  ADC gather B={b} P={p} kk={kk}: wrapper {kern:.4f} ms {runs['kernel']} = "
+        f"index_select of the {slab_bytes / 1e9:.4f} GB slab from {list_bytes / 1e9:.4f} GB "
+        f"of distinct lists {copy_ms:.4f} ms (bound {cbnd:.4f} ms) + scan of the "
+        f"slab {scan_ms:.4f} ms | plain {plain:.4f} ms {runs['plain']}")
+    say(f"    bound {bnd:.4f} ms ({by}, the key scan's: the slab is the mode's own "
+        f"intermediate) time / bound {kern / bnd:.2f}")
+    out["adc_topk_gather"] = dict(ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                  index_select_ms=copy_ms, scan_ms=scan_ms)
+    del slab
+    return out
+
+
+def gathered_scan(torch, adc_scan, lut, probes, slab, idx, kk, fills):
+    """The gather kernel alone over a slab made beforehand (the wrapper
+    makes it on every call): one launch of the C entry point."""
+    b, p = probes.shape
+    nlist, m, lcap = idx.codes.shape
+    stages, tile = adc_scan.scan_plan(kk, m, lcap, key_bytes=4)
+    s_grp = adc_scan.key_groups(adc_scan._probe_groups(b, p, slab.device), p, lcap)
+    part = torch.empty((b, s_grp, kk), dtype=torch.int32, device=slab.device)
+    vals = torch.empty((b, kk), dtype=torch.float32, device=slab.device)
+    ids = torch.empty((b, kk), dtype=torch.int32, device=slab.device)
+    lut16 = lut if lut.dtype == torch.bfloat16 else lut.to(torch.bfloat16)
+    stream = torch.cuda.current_stream(slab.device).cuda_stream
+    rc = adc_scan._keys_lib()(lut16.data_ptr(), probes.data_ptr(), slab.data_ptr(),
+                              idx.slot_ids.data_ptr(), fills.data_ptr(), part.data_ptr(),
+                              vals.data_ptr(), ids.data_ptr(), b, p, m, lcap, nlist, kk, s_grp,
+                              stages, tile, 1, stream)
+    check(rc == 0, f"gather kernel launch failed: cudaError_t {rc}")
+    return vals, ids
 
 
 def phase_ivf_times(torch, dev, idx, store, queries):
@@ -815,6 +1036,7 @@ def phase_ivf_times(torch, dev, idx, store, queries):
     pv, pi = adc_scan.adc_topk_reference(*args)
     err, _ = check_adc(torch, "flagship scan", kv, cand, pv, pi)
     say(f"    scan on the kernel's tables vs plain on the same tables: max_abs_err={err:.3e}")
+    out.update(key_scan_times(torch, lut, probes, idx, kk, fills, slots, (kv, cand)))
     cand = cand.contiguous()
     del lut, kv, pv, pi
 
@@ -852,6 +1074,11 @@ def phase_ivf_times(torch, dev, idx, store, queries):
         f"versions {whole_plain:.4f} ms {runs['plain']} | bound {whole_bnd:.4f} ms (the sum of "
         f"its stages' bounds) time / bound {whole_ms / whole_bnd:.2f}")
     out["whole search_device"] = dict(ms=whole_ms, plain_ms=whole_plain, bound_ms=whole_bnd)
+    key_ms, dma_ms, runs = in_turns(
+        torch, lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
+                                         ids_mode="dma"), search, iters=5)
+    say(f"  whole search_device B={b}: key candidates (auto) {key_ms:.4f} ms {runs['kernel']} | "
+        f"dma candidates {dma_ms:.4f} ms {runs['plain']}")
 
     st16 = store.vectors.to(torch.bfloat16)
     n2 = rerank.store_norms2(st16)
@@ -1282,7 +1509,9 @@ def main() -> int:
 
         with phase("[6 ADC kernels vs plain] M = 96, dsub = 8, Lcap = 640 (tables: >= "
                    f"{TABLE_EQUAL_MIN} bit-equal, the rest one bf16 step; scan: |kernel - plain| "
-                   f"<= {ADC_ATOL}, id agreement >= {ID_AGREE_MIN}, no duplicate ids)"):
+                   f"<= {ADC_ATOL}, id agreement >= {ID_AGREE_MIN}, no duplicate ids; key and "
+                   f"gather: bit for bit their plain version and each other, id overlap with "
+                   f"dma >= {KEY_OVERLAP_MIN})"):
             adc = phase_adc_vs_plain(torch, dev)
             say(f"  tables: least bit-equal share {adc['table_equal']:.6f}, largest "
                 f"|kernel - plain| {adc['table_err']:.3e}; scan: largest |kernel - plain| "
@@ -1294,7 +1523,8 @@ def main() -> int:
             rerank_err = phase_rerank_vs_plain(torch, dev)
 
         with phase("[8 IVF-PQ main path] 1M x 768, nlist 4096, m 96, OPQ; nprobe 64, "
-                   "refine 100"):
+                   "refine 100: auto (key), dma, gather, torch; then the residual-int8 "
+                   "refine on both paths"):
             idx, store, queries, ivf = phase_ivf_main_path(torch, dev, work)
 
         with phase("[9 IVF-PQ times] each stage alone, CUDA events over chained calls, "
@@ -1333,28 +1563,33 @@ def main() -> int:
     say(smi)
     pl = part["launches"]
     rows = [
-        ("flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
+        ("flat_topk", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
          launches + ivf["launches"]["flat_topk"] + pl["flat_topk"], max_err,
          times["bf16 B=512 k=10"]),
-        ("adc_tables", "nvdb_tpu/kernels/pq.py:89", ivf["launches"]["adc_tables"],
+        ("adc_tables", "adc_tables", "nvdb_tpu/kernels/pq.py:89", ivf["launches"]["adc_tables"],
          adc["table_err"], ivf_times["adc_tables"]),
-        ("adc_topk", "nvdb_tpu/kernels/adc_scan.py:558", ivf["launches"]["adc_topk"],
+        ("adc_topk", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:558", ivf["launches"]["adc_topk"],
          adc["scan_err"], ivf_times["adc_topk"]),
-        ("rerank_topk", "nvdb_tpu/kernels/rerank.py:187",
+        # bit for bit their plain version in phase 6, so their error is 0
+        ("adc_topk_key", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:691",
+         ivf["launches"]["adc_topk_key"], 0.0, ivf_times["adc_topk_key"]),
+        ("adc_topk_gather", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:718",
+         ivf["launches"]["adc_topk_gather"], 0.0, ivf_times["adc_topk_gather"]),
+        ("rerank_topk", "rerank_topk", "nvdb_tpu/kernels/rerank.py:187",
          ivf["launches"]["rerank_topk"] + pl["pr"]["rerank_topk"], rerank_err,
          ivf_times["rerank_topk B=256"]),
-        ("ivf_probe_topk", "nvdb_tpu/kernels/ivf_scan.py:111",
+        ("ivf_probe_topk", "ivf_probe_topk", "nvdb_tpu/kernels/ivf_scan.py:111",
          pl["pr"]["ivf_probe_topk"] + pl["ivfflat"]["ivf_probe_topk"], probe_err,
          probe_times["partition"]),
-        ("hbm_stream", "scripts/hbm_probe.py:62", sum(hbm["stream_launches"].values()),
-         hbm["stream_err"], hbm["hbm_stream"]),
-        ("add1", "nvdb_tpu/tools/tpu_sanity.py:28", hbm["add1_launches"], hbm["add1_err"],
-         hbm["add1"]),
+        ("hbm_stream", "hbm_stream", "scripts/hbm_probe.py:62",
+         sum(hbm["stream_launches"].values()), hbm["stream_err"], hbm["hbm_stream"]),
+        ("add1", "add1", "nvdb_tpu/tools/tpu_sanity.py:28", hbm["add1_launches"],
+         hbm["add1_err"], hbm["add1"]),
     ]
     say(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": f"nvdb_tpu_torch/kernels/csrc/{name}.cu",
+        "source": f"nvdb_tpu_torch/kernels/csrc/{lib}.cu",
         "replaces": replaces,
         "launches": n_launch,
         "max_abs_err": err,
@@ -1363,7 +1598,7 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t.get("library_ms"),
-    } for name, replaces, n_launch, err, t in rows]}))
+    } for name, lib, replaces, n_launch, err, t in rows]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

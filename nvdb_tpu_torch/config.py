@@ -2,8 +2,8 @@
 names (``WARMUP``, ``EVAL_MODE``, ``GT_PATH``, ``GT_MODE``, ``EXACT_METRIC``)
 so run scripts translate 1:1, with the IVF (``IVF_NLIST``, ``IVF_NPROBE``,
 ``IVF_TRAIN``) and PQ (``PQ_M``, ``USE_OPQ``, ``OPQ_NITER``, ``REFINE_K``)
-knobs. The scan and partition configs of ``nvdb_tpu.config`` arrive with the
-slices that use them."""
+knobs, the scan backend (``EXACT_MODE``, ``NVDB_FORCE_TORCH`` or its alias
+``NVDB_FORCE_JNP``) and the partition index (``HNSW_EF_SEARCH``)."""
 
 from __future__ import annotations
 
@@ -18,6 +18,19 @@ def _env_int(name: str, default: int) -> int:
 def _env_flag(name: str, default: bool) -> bool:
     v = os.environ.get(name)
     return default if v is None else v not in ("0", "", "false", "False")
+
+
+@dataclasses.dataclass
+class ScanConfig:
+    backend: str = "auto"          # auto | cuda | torch  (EXACT_MODE analogue)
+    native_threads: int = 0        # 0 = all cores (EXACT_THREADS analogue)
+    row_block: int = 1024
+
+    @classmethod
+    def from_env(cls) -> "ScanConfig":
+        forced = _env_flag("NVDB_FORCE_TORCH", False) or _env_flag("NVDB_FORCE_JNP", False)
+        return cls(backend="torch" if forced else os.environ.get("EXACT_MODE", "auto"),
+                   native_threads=_env_int("EXACT_THREADS", 0))
 
 
 @dataclasses.dataclass
@@ -49,6 +62,18 @@ class PQConfig:
                    use_opq=_env_flag("USE_OPQ", True),
                    opq_iters=_env_int("OPQ_NITER", 4),
                    refine_k=_env_int("REFINE_K", 0))
+
+
+@dataclasses.dataclass
+class PartitionConfig:
+    nlist: int | None = None       # None = sqrt-auto (HNSW_M analogue knob)
+    nprobe: int = 64               # HNSW_EF_SEARCH analogue
+    rerank_k: int = 0
+    dtype: str = "bf16"
+
+    @classmethod
+    def from_env(cls) -> "PartitionConfig":
+        return cls(nprobe=_env_int("HNSW_EF_SEARCH", 64))
 
 
 @dataclasses.dataclass

@@ -223,6 +223,49 @@ def write_vecbin(
     return VecbinInfo(path, count, dim, code, False, HEADER_BYTES)
 
 
+class StreamingVecbinWriter:
+    """Chunked vecbin64 writer whose header is patched at close (the
+    streamed-write pattern of ``nvdb_tpu.formats.vecbin``; i8 scales are
+    buffered and appended at the end, as nvdb_quantize_i8.cpp:49-85 does).
+    bf16 rows are ``np.uint16`` bits."""
+
+    def __init__(self, path: str, dim: int, dtype: str = "f32"):
+        self.path = path
+        self.dim = dim
+        self.code = dtype_code(dtype)
+        self._np_dt = _NP_BY_CODE[self.code]
+        self._count = 0
+        self._scales: list[np.ndarray] = []
+        self._f = open(path, "wb")
+        self._f.write(_header_bytes(0, dim, self.code))  # patched on close
+
+    def append(self, rows: np.ndarray, scales: Optional[np.ndarray] = None) -> None:
+        rows = np.ascontiguousarray(rows, dtype=self._np_dt)
+        if rows.ndim != 2 or rows.shape[1] != self.dim:
+            raise ValueError(f"rows must be [n, {self.dim}]")
+        rows.tofile(self._f)
+        self._count += rows.shape[0]
+        if self.code == DTYPE_I8:
+            if scales is None or scales.shape != (rows.shape[0],):
+                raise ValueError("i8 rows require matching per-row scales")
+            self._scales.append(np.ascontiguousarray(scales, dtype="<f4"))
+
+    def close(self) -> VecbinInfo:
+        for s in self._scales:
+            s.tofile(self._f)
+        self._f.seek(0)
+        self._f.write(_header_bytes(self._count, self.dim, self.code))
+        self._f.close()
+        return VecbinInfo(self.path, self._count, self.dim, self.code, False, HEADER_BYTES)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
 # -- dtype conversion -------------------------------------------------------------
 
 

@@ -8,15 +8,15 @@ rotated space; queries are rotated once at search time. Codes encode the
 rotated residual against the list each row is packed in.
 
 Search is coarse probe -> bf16 ADC tables (the ``adc_tables`` kernel) -> ADC
-candidate top-kk (the ``adc_topk`` kernel) -> exact refine against the flat
-store (the ``rerank_topk`` kernel), all on one device. ``.npz`` files are
-plain numpy and byte-compatible with the JAX package's, so an index built
-by either package loads in the other.
+candidate top-kk (the ``adc_topk`` kernels, in the id mode the JAX package
+picks) -> exact refine against the flat store or a residual-int8 store (the
+``rerank_topk`` kernel), all on one device. ``.npz`` files are plain numpy
+and byte-compatible with the JAX package's, so an index built by either
+package loads in the other.
 
 Not ported yet (``ROADMAP.md``): ``repack`` and replicated builds (a
-replicated index built by ``nvdb_tpu`` loads and searches), corpus-scale
-k-means refinement, residual-int8 refine stores, and the ADC ``key`` /
-``gather`` id modes: the port always runs the exact ``dma`` semantics.
+replicated index built by ``nvdb_tpu`` loads and searches) and corpus-scale
+k-means refinement.
 """
 
 from __future__ import annotations
@@ -46,24 +46,39 @@ def _ivfpq_search_block(
     dedup: int = 0,            # replica count of the index (<= 1: ids unique)
     fills: Optional[torch.Tensor] = None,  # [nlist] int32 (kernel path)
     terms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cached coarse_terms
+    ids_mode: str = "dma",     # "key" / "gather": prefix-packed, replicas == 1 only
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Coarse probes, ADC tables and the ADC candidate top-k of one batch.
     The kernel path writes the bf16 tables in one pass (``adc_tables_cuda``)
-    and scans them (``adc_topk_cuda``): no f32 table exists on it."""
+    and scans them (``adc_topk_cuda``, or ``adc_topk_keys_cuda`` in the key
+    and gather modes): no f32 table exists on it. The ``torch`` path runs
+    the same modes' plain versions; the oracle path, the JAX package's jnp
+    block, ignores ``ids_mode`` as that block does."""
     B = q_rot.shape[0]
     probes = _coarse_probes(q_rot, centroids, slot_ids, nprobe, terms=terms)  # [B, P]
     path = dispatch.refine_backend(backend, codes)
+    keyed = ids_mode in ("key", "gather")
     if path == "cuda":
         probes = probes.to(torch.int32)       # once, for both kernels
         if fills is None:
             fills = adc_scan.list_fills(slot_ids)
         lut = adc_scan.adc_tables_cuda(q_rot.contiguous(), probes, centroids, codebooks,
                                        fills)
+        if keyed:
+            return adc_scan.adc_topk_keys_cuda(lut, probes, codes, slot_ids, k, fills=fills,
+                                               gathered=ids_mode == "gather")
         return adc_scan.adc_topk_cuda(lut, probes, codes, slot_ids, k, fills=fills)
     residuals = q_rot[:, None, :] - centroids[probes]                # [B, P, Dp]
     lut = pq.adc_lut(residuals.reshape(B * nprobe, -1), codebooks, m)
     lut = lut.reshape(B, nprobe, m, pq.KSUB)                         # [B, P, M, 256]
     if path == "torch":
+        if ids_mode == "gather":
+            return adc_scan.adc_topk_keys_reference(
+                lut, probes, adc_scan.gather_codes(codes, probes), slot_ids, k,
+                fills=fills, gathered=True)
+        if keyed:
+            return adc_scan.adc_topk_keys_reference(lut, probes, codes, slot_ids, k,
+                                                    fills=fills)
         return adc_scan.adc_topk_reference(lut, probes, codes, slot_ids, k)
     # the JAX package's jnp path: f32 tables, gathered code slabs
     code_slab = codes[probes].transpose(-1, -2)                      # [B, P, L, M]
@@ -119,9 +134,9 @@ class IVFPQIndex:
         return self._coarse
 
     def ids_mode(self) -> str:
-        """The id strategy the JAX package would pick for this index: 'key'
-        when the lists are prefix-packed and replicas == 1, else 'dma'. The
-        port runs the 'dma' semantics either way; checked once, cached."""
+        """The id strategy of refine candidates, as the JAX package picks it:
+        'key' (ids derived from list and lane) when the lists are
+        prefix-packed and replicas == 1, else 'dma'. Checked once, cached."""
         if self._ids_mode is None:
             ok = self.replicas <= 1 and adc_scan.is_prefix_packed(self.slot_ids)
             self._ids_mode = "key" if ok else "dma"
@@ -259,44 +274,62 @@ class IVFPQIndex:
 
     def search_device(self, queries: torch.Tensor, k: int, nprobe: int,
                       refine_k: int = 0, refine_store=None, backend: str = "auto",
-                      refine_metric: str = "l2", ids_mode: Optional[str] = None,
+                      for_refine: bool = False, refine_metric: str = "l2",
+                      ids_mode: Optional[str] = None,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Padded on-device queries [B, Dp] in, device tensors out: coarse ->
         ADC -> optional exact refine against ``refine_store`` (a
-        ``VectorStore`` of the original rows).
+        ``VectorStore`` of the original rows, or a residual-int8 store of
+        this index's rotated space, which is scored with the rotated
+        queries and the dequantized rows' norms).
 
         ``backend``: ``auto`` takes the CUDA kernels on a CUDA index and the
         JAX package's jnp path on the CPU; ``cuda`` the kernels (raising on
         the CPU); ``torch`` the kernels' plain versions. ``refine_metric``:
-        "l2" (2 q.r - ||r||^2) or "dot". The JAX package's ``for_refine``
-        only chose the ``key`` id mode, which is not ported."""
-        if ids_mode in ("key", "gather"):
-            raise NotImplementedError(
-                f"ids_mode={ids_mode!r} is not ported (ROADMAP.md: the ADC key "
-                f"mode comes only after the exact modes, and only if it wins on "
-                f"the H100); the port runs ids_mode='dma'")
-        if ids_mode not in (None, "dma"):
-            raise ValueError(f"unknown ids_mode {ids_mode!r}")
+        "l2" (2 q.r - ||r||^2) or "dot".
+
+        ``ids_mode`` overrides the candidate generator (None: ``self.ids_mode()``
+        when the results are refine candidates, ``refine_k > 0`` or
+        ``for_refine`` as for ``tools.ivf_eval``'s staged stage A, else
+        'dma', whose ranking is exact f32). 'key' and 'gather' rank at bf16
+        granularity and need a prefix-packed index with replicas == 1. The
+        cuda and torch paths run the mode; the oracle path keeps the jnp
+        semantics, as the JAX package's jnp backend does."""
+        if ids_mode not in (None, "dma", "key", "gather"):
+            raise ValueError(f"ids_mode must be 'dma', 'key' or 'gather', got {ids_mode!r}")
+        # the key modes derive ids from list and lane, right only on a
+        # prefix-packed index with unique ids
+        if ids_mode in ("key", "gather") and self.ids_mode() != "key":
+            raise ValueError(
+                f"ids_mode={ids_mode!r} requires a prefix-packed index with "
+                f"replicas == 1 (this index: replicas={self.replicas}, "
+                f"auto mode {self.ids_mode()!r}); use ids_mode='dma' or None")
         nprobe = min(nprobe, self.nlist)
         if refine_k > 0:
             # refining fewer than k candidates cannot give k results
             refine_k = max(refine_k, k)
         kk = max(k, refine_k)
+        mode = ids_mode or (self.ids_mode() if (refine_k > 0 or for_refine) else "dma")
         q_rot = _matmul(queries, self.rotation) if self.rotation is not None else queries
         path = dispatch.refine_backend(backend, self.codes)
         v, i = _ivfpq_search_block(q_rot, self.centroids, self.codebooks, self.codes,
                                    self.slot_ids, kk, nprobe, self.m, backend=backend,
                                    dedup=self.replicas,
                                    fills=self.fills() if path == "cuda" else None,
-                                   terms=self.coarse_terms())
+                                   terms=self.coarse_terms(), ids_mode=mode)
         if refine_k > 0:
             if refine_store is None:
                 raise ValueError("refine_k > 0 requires refine_store")
+            # a residual-int8 store dequantizes against the index's rotated
+            # centroids: score it with q_rot (the dot is rotation-invariant)
+            residual = refine_store.is_residual
             v, i = dispatch.exact_refine(
-                queries, i[:, :refine_k], refine_store.vectors, refine_store.scales, k,
-                metric=refine_metric, backend=backend,
+                q_rot if residual else queries, i[:, :refine_k], refine_store.vectors,
+                refine_store.scales, k, metric=refine_metric, backend=backend,
                 norms2=(refine_store.norms2()
-                        if refine_metric == "l2" and path != "oracle" else None))
+                        if refine_metric == "l2" and path != "oracle" else None),
+                res_cents=refine_store.res_cents if residual else None,
+                res_ids=refine_store.res_ids if residual else None)
         return v[:, :k], i[:, :k]
 
     def search(self, queries: np.ndarray, k: int, nprobe: int, refine_k: int = 0,

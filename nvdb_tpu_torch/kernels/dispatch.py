@@ -3,8 +3,10 @@ probe top-k (the port of ``nvdb_tpu.kernels.dispatch``).
 
 ``backend="auto"`` sends CUDA tensors to the CUDA kernel and CPU tensors to
 the plain PyTorch ops; ``"torch"`` forces the plain ops on any device (the
-A/B switch, as ``NVDB_FORCE_JNP`` is for the JAX package); ``"cuda"`` calls
-the kernel's wrapper, which launches the kernel on a CUDA tensor or raises.
+A/B switch); ``"cuda"`` calls the kernel's wrapper, which launches the
+kernel on a CUDA tensor or raises. ``NVDB_FORCE_TORCH=1`` (or the JAX
+package's name for it, ``NVDB_FORCE_JNP=1``) makes ``auto`` resolve to
+``torch`` everywhere: ``refine_backend`` is the one place that resolves it.
 The kernel takes any batch size, so the TPU-tuned 512-query split of the JAX
 dispatch is not carried over, nor is the refine crossover ``B*R <= 3200``,
 which is about TPU block DMAs: on a CUDA tensor the refine takes its kernel
@@ -12,6 +14,7 @@ at every size."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -19,6 +22,12 @@ import torch
 from nvdb_tpu_torch.kernels import flat_scan, ivf_scan, ops, rerank
 
 BACKENDS = ("auto", "cuda", "torch")
+FORCE_ENV = ("NVDB_FORCE_TORCH", "NVDB_FORCE_JNP")
+
+
+def forced_torch() -> bool:
+    """Whether ``NVDB_FORCE_TORCH=1`` or its alias ``NVDB_FORCE_JNP=1`` is set."""
+    return any(os.environ.get(name, "0") == "1" for name in FORCE_ENV)
 
 
 def flat_topk(
@@ -37,9 +46,8 @@ def flat_topk(
     ``metric="l2"`` ranks by 2 q.r - ||r||^2 and always runs the plain ops,
     as it runs plain jnp in the JAX package: it serves exact ground truth on
     un-normalized corpora, not the serving scan."""
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}")
-    if metric == "l2" or backend == "torch" or (backend == "auto" and not vectors.is_cuda):
+    path = refine_backend(backend, vectors)
+    if metric == "l2" or path != "cuda":
         return ops.scan_topk(queries, vectors, scales, n_valid, k,
                              row_block=row_block, query_scales=query_scales,
                              metric=metric)
@@ -54,10 +62,12 @@ def refine_backend(backend: str, tensor: torch.Tensor) -> str:
     IVF-PQ ADC and the IVF probe alike: ``"cuda"`` (the kernel), ``"torch"``
     (the kernel's plain version) or ``"oracle"`` (the JAX package's jnp
     path, which ``auto`` runs on the CPU: for the refine, gathered rows and
-    ``ops.exact_rerank``)."""
+    ``ops.exact_rerank``). Under ``forced_torch()`` ``auto`` is ``"torch"``."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "auto":
+        if forced_torch():
+            return "torch"
         return "cuda" if tensor.is_cuda else "oracle"
     return backend
 

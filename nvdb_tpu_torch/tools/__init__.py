@@ -6,6 +6,7 @@ nvdb_bench              ->  bench
 nvdb_ivf_build          ->  ivf_build (--kind ivfflat)
 nvdb_ivfpq_build        ->  ivf_build (--kind ivfpq)
 nvdb_ivf_eval           ->  ivf_eval
+nvdb_quantize_i8        ->  quantize_i8 (--residual: the residual-int8 refine store)
 nvdb_hnsw_build         ->  pr_build   (partition-then-rerank replaces HNSW)
 nvdb_hnsw_search        ->  pr_search
 nvdb_hnsw_eval          ->  pr_eval

@@ -1,13 +1,15 @@
 """The flat-scan benchmark harness — the nvdb_bench analogue (apps/nvdb_bench.cpp).
 
     python -m nvdb_tpu_torch.tools.bench base.vecbin q.vecbin 10 --batch-q 128 \\
-        --gt gt.gtbin [--quantize-queries] [--backend auto|cuda|torch] \\
-        [--device cuda|cpu]
+        --gt gt.gtbin [--quantize-queries [--refine-k R]] [--device-queries] \\
+        [--backend auto|cuda|torch] [--device cuda|cpu]
 
 Reports Total / Avg / QPS / p50 / p95 / p99 (batch-level when batching),
 bytes_per_query and payload_equiv_bandwidth_GBps (nvdb_bench.cpp:369-425),
-recall@k against a gtbin file, and a machine-parsable RESULT line. Every
-timed batch ends with the copy of its ids to the host.
+recall@k against a gtbin file, and a machine-parsable RESULT line with the
+JAX package's keys and the device name. Every timed batch ends with the
+copy of its ids to the host. ``--shards N > 1`` (a row-sharded store) is
+not ported yet and exits non-zero.
 """
 
 from __future__ import annotations
@@ -30,12 +32,22 @@ def main(argv=None):
     p.add_argument("--batch-q", type=int, default=1)
     p.add_argument("--warmup", type=int,
                    default=config.EvalConfig.from_env().warmup)
+    p.add_argument("--shards", type=int, default=1,
+                   help=">1: row-shard the store over this many devices (not ported)")
     p.add_argument("--gt", default=None, help="gtbin file for recall@k")
     p.add_argument("--quantize-queries", action="store_true",
                    help="int8 stores: quantize queries to int8 and score "
                         "int8 x int8 with exact int32 sums (adds query "
                         "quantization noise)")
+    p.add_argument("--refine-k", type=int, default=0,
+                   help="with --quantize-queries: the exact-i8 mode, an f32-query "
+                        "dot rerank of the scan's top REFINE_K")
+    p.add_argument("--device-queries", action="store_true",
+                   help="upload the query pool once and slice batches on the device "
+                        "(no host-to-device copy in the timed loop)")
     args = p.parse_args(argv)
+    if args.shards > 1:
+        fail("--shards > 1 is not ported yet (ROADMAP.md queue 6)")
     device = setup_device(args)
 
     from nvdb_tpu_torch.index.flat import FlatIndex
@@ -45,7 +57,7 @@ def main(argv=None):
     queries = qf.rows_f32()
     store = VectorStore.from_vecbin(args.base, device=device)
     index = FlatIndex(store, backend=args.backend,
-                      quantize_queries=args.quantize_queries)
+                      quantize_queries=args.quantize_queries, refine_k=args.refine_k)
 
     dev_name = "cpu"
     if device.type == "cuda":
@@ -55,8 +67,22 @@ def main(argv=None):
     print(f"N={store.n} dim={store.d} dtype={vecbin.dtype_name(store.dtype_code)} "
           f"Q={qf.count} k={args.k} backend={args.backend} device={dev_name}")
 
+    search_fn = index.search
+    if args.device_queries:
+        import torch
+
+        pool = torch.from_numpy(store.pad_queries(queries)).to(device)
+        base_addr = queries.__array_interface__["data"][0]
+        row_stride = queries.strides[0]
+
+        def search_fn(qs, k):
+            # the batch's first row, from the slice's offset in `queries`
+            start = (qs.__array_interface__["data"][0] - base_addr) // row_stride
+            v, i = index.search_device(pool[start:start + qs.shape[0]], k)
+            return v.cpu().numpy(), i.cpu().numpy()
+
     ids, stats = run_benchmark(
-        index.search, queries, args.k, batch_q=args.batch_q,
+        search_fn, queries, args.k, batch_q=args.batch_q,
         warmup=args.warmup, bytes_per_query=store.payload_bytes)
     print(stats.render())
 
@@ -68,8 +94,8 @@ def main(argv=None):
         recall = recall_at_k(ids, np.asarray(gt_ids), k=args.k)
         print(f"recall@{args.k}={recall:.4f}")
 
-    kv = dict(mode="flat", backend=args.backend, device=dev_name,
-              N=store.n, dim=store.d, dtype=vecbin.dtype_name(store.dtype_code),
+    kv = dict(mode="flat", backend=args.backend, device=dev_name, shards=args.shards,
+              refine_k=args.refine_k, N=store.n, dim=store.d, dtype=vecbin.dtype_name(store.dtype_code),
               Q=qf.count, k=args.k, batch_q=args.batch_q,
               avg_ms=stats.avg_ms, qps=stats.qps,
               p50_ms=stats.p50_ms, p95_ms=stats.p95_ms, p99_ms=stats.p99_ms,

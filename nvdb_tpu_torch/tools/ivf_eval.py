@@ -3,7 +3,8 @@ port of ``nvdb_tpu.tools.ivf_eval``, one device).
 
     python -m nvdb_tpu_torch.tools.ivf_eval index.npz base.vecbin q.vecbin \\
         --gt gt.gtbin --nprobe 64 --refine-k 100 --k 10 --batch-q 256 \\
-        [--chained [--wave W]] [--ivf-backend auto|cuda|torch] [--device cuda|cpu]
+        [--chained [--wave W]] [--ivf-backend auto|cuda|torch] [--device cuda|cpu] \\
+        [--ids-mode dma|key|gather] [--residual-refine]
 
 Two ways to run each (nprobe, refine_k) grid point, as in the JAX package:
 
@@ -16,13 +17,22 @@ Two ways to run each (nprobe, refine_k) grid point, as in the JAX package:
   query batches staged on the device, one fetch at the end; ``--wave W``
   also fetches every W-th batch for wave latency percentiles.
 
-Each grid point prints a ``RESULT key=value ...`` line with the device
-name; ``main`` returns those records as dicts. Every timed batch ends in a
-copy to the host, so times include the device work. The index kind is read
-from the ``.npz``; an IVF-Flat payload is already exact, so its grid points
-with ``refine_k > 0`` are skipped, as in the JAX package. ``--shards``,
-``--force-sharded``, ``--residual-refine`` and ``--ids-mode key|gather`` are
-not ported yet and exit non-zero.
+Each grid point prints a ``RESULT key=value ...`` line with the keys of the
+JAX package's tool, ``refine_backend`` being the path ``--ivf-backend``
+resolves to (cuda, torch or oracle) and ``ids_mode`` present when
+``--ids-mode`` is given, plus the device name; ``main`` returns those
+records as dicts. Every timed batch ends in a copy to the host, so times
+include the device work. The index kind is read from the ``.npz``; an
+IVF-Flat payload is already exact, so its grid points with ``refine_k > 0``
+are skipped, as in the JAX package.
+
+``--ids-mode`` overrides the IVF-PQ candidate generator (default: the
+index's ``ids_mode()``, ``key`` on every index ``ivf_build`` makes, for refine
+candidates, and ``dma`` for ADC-only results). ``--residual-refine``: the
+base vecbin holds residual int8 codes of this index
+(``tools.quantize_i8 --residual``); the refine dequantizes them against the
+index's centroids and scores rotated queries. ``--shards`` and
+``--force-sharded`` are not ported yet and exit non-zero.
 """
 
 from __future__ import annotations
@@ -61,10 +71,16 @@ def main(argv=None):
                    help="probe / ADC / refine path: auto = the CUDA kernels on a card, the "
                         "JAX package's jnp path on the CPU; torch = the kernels' "
                         "plain versions (the A/B switch)")
-    p.add_argument("--ids-mode", default=None, choices=["dma", "key", "gather"])
+    p.add_argument("--ids-mode", default=None, choices=["dma", "key", "gather"],
+                   help="override the IVF-PQ candidate generator: 'key' and 'gather' "
+                        "rank candidates at bf16 granularity, 'dma' at exact f32; "
+                        "default: auto")
     p.add_argument("--exact-metric", default=eval_env.exact_metric,
                    choices=["l2", "dot"], help="refine ranking metric (EXACT_METRIC)")
-    p.add_argument("--residual-refine", action="store_true")
+    p.add_argument("--residual-refine", action="store_true",
+                   help="the base vecbin holds residual int8 codes of this index "
+                        "(quantize_i8 --residual): the refine adds the centroid back "
+                        "and scores rotated queries")
     p.add_argument("--shards", type=int, default=1)
     p.add_argument("--force-sharded", action="store_true")
     p.add_argument("--device-queries", action="store_true",
@@ -79,16 +95,12 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.shards > 1 or args.force_sharded:
         fail("--shards / --force-sharded are not ported yet (ROADMAP.md queue 6)")
-    if args.residual_refine:
-        fail("--residual-refine is not ported yet (ROADMAP.md queue 1)")
-    if args.ids_mode in ("key", "gather"):
-        fail(f"--ids-mode {args.ids_mode} is not ported (ROADMAP.md); the port "
-             f"runs the dma semantics")
     device = setup_device(args)
 
     import torch
 
     from nvdb_tpu_torch.index.ivf_flat import IVFFlatIndex
+    from nvdb_tpu_torch.kernels import dispatch
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
     from nvdb_tpu_torch.store import VectorStore
 
@@ -115,6 +127,18 @@ def main(argv=None):
     refine_store = None
     if max(refine_ks) > 0 and is_pq:
         refine_store = VectorStore.from_vecbin(args.base, device=device)
+        if args.residual_refine:
+            # pair the residual codes with this index's centroids and lists
+            from nvdb_tpu_torch.tools.quantize_i8 import residual_params
+
+            r_cents, _, r_list_of = residual_params(args.index)
+            refine_store.attach_residual(r_cents, r_list_of)
+    refine_path = dispatch.refine_backend(args.ivf_backend, torch.empty(0, device=device))
+    # --ids-mode reaches the IVF-PQ candidate generator only
+    im_kw = {"ids_mode": args.ids_mode} if args.ids_mode and is_pq else {}
+    if args.ids_mode and not im_kw:
+        print(f"WARNING: --ids-mode {args.ids_mode} ignored (non-PQ index); RESULT "
+              f"lines will not carry it")
 
     print(f"kind={kind} nlist={idx.nlist} lcap={idx.lcap} N={idx.n} d={idx.d} Q={Q} "
           f"k={args.k} index_MB={idx.index_bytes / 1e6:.1f} device={dev_name}")
@@ -143,7 +167,8 @@ def main(argv=None):
         kk = max(refine_k, args.k) if do_refine else args.k
         blocks = [to_dev(x) for x in host_blocks] if staged else host_blocks
         common = dict(kind=kind, refine_k=refine_k, nprobe=nprobe, Q=Q, k=args.k,
-                      batch_q=b, backend=args.ivf_backend, device=dev_name)
+                      batch_q=b, backend=args.ivf_backend, device=dev_name, **im_kw,
+                      refine_backend=refine_path)
 
         if args.chained:
             def fused(block):
@@ -152,7 +177,7 @@ def main(argv=None):
                 return idx.search_device(block, args.k, nprobe, refine_k=refine_k,
                                          refine_store=refine_store,
                                          backend=args.ivf_backend,
-                                         refine_metric=args.exact_metric)
+                                         refine_metric=args.exact_metric, **im_kw)
 
             fused(blocks[0])[1].cpu()  # load the kernels, warm up
             for w in range(min(args.warmup, n_batches)):
@@ -181,9 +206,15 @@ def main(argv=None):
                  index_mb=idx.index_bytes / 1e6, **extra)
             continue
 
-        def ann_step(block, nprobe=nprobe, kk=kk):
+        def ann_step(block, nprobe=nprobe, kk=kk, do_refine=do_refine):
             q = block if torch.is_tensor(block) else to_dev(block)
-            _, i = idx.search_device(q, kk, nprobe, backend=args.ivf_backend)
+            if is_pq:
+                # for_refine: stage B re-scores these candidates exactly, so
+                # stage A takes the refine candidates' generator
+                _, i = idx.search_device(q, kk, nprobe, backend=args.ivf_backend,
+                                         for_refine=do_refine, **im_kw)
+            else:
+                _, i = idx.search_device(q, kk, nprobe, backend=args.ivf_backend)
             return i.cpu().numpy()
 
         # ---- stage A: ANN candidate generation, timed per batch ----------
@@ -201,21 +232,28 @@ def main(argv=None):
         ref_stats = None
         final_ids = cand[:Q, :args.k]
         if do_refine:
-            from nvdb_tpu_torch.kernels import dispatch
+            from nvdb_tpu_torch.index.ivf_pq import _matmul
 
             cblocks = [np.ascontiguousarray(cand[s * b:(s + 1) * b, :refine_k],
                                             dtype=np.int32) for s in range(n_batches)]
             if staged:
                 cblocks = [to_dev(c) for c in cblocks]
             norms2 = refine_store.norms2() if args.exact_metric == "l2" else None
+            residual = refine_store.is_residual
+            rot = idx.rotation if residual else None
 
             def refine_step(block, cblock):
                 q = block if torch.is_tensor(block) else to_dev(block)
                 c = cblock if torch.is_tensor(cblock) else to_dev(cblock)
-                _, i = dispatch.exact_refine(q, c, refine_store.vectors,
-                                             refine_store.scales, args.k,
-                                             metric=args.exact_metric, norms2=norms2,
-                                             backend=args.ivf_backend)
+                if rot is not None:
+                    # residual codes live in the index's rotated space: rotate
+                    # the refine queries (the dot is rotation-invariant)
+                    q = _matmul(q, rot)
+                _, i = dispatch.exact_refine(
+                    q, c, refine_store.vectors, refine_store.scales, args.k,
+                    metric=args.exact_metric, norms2=norms2, backend=args.ivf_backend,
+                    res_cents=refine_store.res_cents if residual else None,
+                    res_ids=refine_store.res_ids if residual else None)
                 return i.cpu().numpy()
 
             for w in range(min(args.warmup, n_batches)):

@@ -184,3 +184,32 @@ def test_port_imports_with_jax_blocked():
             "nvdb_tpu_torch.tools.gpu_sanity; "
             "assert not any(m.startswith('nvdb_tpu.') or m == 'nvdb_tpu' for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "i8"])
+def test_streaming_writer_matches_jax(tmp_path, dtype):
+    """Chunks appended to the port's StreamingVecbinWriter give the JAX
+    writer's file byte for byte (bf16 as uint16 bits on the port's side);
+    the i8 scales land after the payload, the header counts every row."""
+    rows = np.random.default_rng(7).standard_normal((300, 40)).astype(np.float32)
+    chunks = [(0, 128), (128, 256), (256, 300)]
+    ours, theirs = str(tmp_path / "t.vecbin"), str(tmp_path / "j.vecbin")
+    codes, sc = vecbin.quantize_i8(rows)
+    with vecbin.StreamingVecbinWriter(ours, 40, dtype) as w, \
+            jvecbin.StreamingVecbinWriter(theirs, 40, dtype) as jw:
+        for a, b in chunks:
+            if dtype == "i8":
+                w.append(codes[a:b], sc[a:b])
+                jw.append(codes[a:b], sc[a:b])
+            elif dtype == "bf16":
+                w.append(vecbin.to_bf16(rows[a:b]))
+                jw.append(rows[a:b].astype(ml_dtypes.bfloat16))
+            else:
+                w.append(rows[a:b])
+                jw.append(rows[a:b])
+    assert open(ours, "rb").read() == open(theirs, "rb").read()
+    f = vecbin.VecbinFile(ours)
+    assert (f.count, f.dim) == (300, 40)
+    with pytest.raises(ValueError, match="scales"):
+        with vecbin.StreamingVecbinWriter(str(tmp_path / "x.vecbin"), 40, "i8") as w:
+            w.append(codes[:4])

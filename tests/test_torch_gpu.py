@@ -493,6 +493,132 @@ def test_ivfpq_kernel_path_makes_no_f32_table(cuda_device, replicas):
         assert len(set(x.tolist()) & set(y.tolist())) >= int(0.9 * k)
 
 
+# -- the ADC key and gather kernels -----------------------------------------------
+
+def _key_check(cuda_device, lut, probes, codes, slot_ids, kk):
+    """Both key kernels against the plain version, bit for bit, values and
+    ids; one launch each on its own counter."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    pv, pi = adc_scan.adc_topk_keys_reference(lut, probes, codes, slot_ids, kk)
+    out = []
+    for gathered in (False, True):
+        before = (adc_scan.KEY_LAUNCHES, adc_scan.GATHER_LAUNCHES)
+        kv, ki = adc_scan.adc_topk_keys_cuda(lut, probes, codes, slot_ids, kk,
+                                             gathered=gathered)
+        torch.cuda.synchronize()
+        after = (adc_scan.KEY_LAUNCHES, adc_scan.GATHER_LAUNCHES)
+        assert after == (before[0] + (not gathered), before[1] + gathered)
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+        out.append((kv, ki))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    return pv, pi
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,p", [(1, 1), (8, 7), (64, 32)])
+@pytest.mark.parametrize("kk", [10, 100, 1024])
+def test_adc_key_kernels_match_plain(cuda_device, b, p, kk):
+    lut, probes, codes, slot_ids = (torch.from_numpy(x).to(cuda_device)
+                                    for x in _adc_case(b, p, seed=b * p + kk + 3))
+    pv, pi = _key_check(cuda_device, lut, probes, codes, slot_ids, kk)
+    assert not bool((pv[pi >= 0].view(torch.int32) & 0xFFFF).any())   # truncated to bf16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lcap,nlist,p", [(256, 40, 32), (2048, 80, 64)])
+def test_adc_key_kernels_ties_and_coordinate_groups(cuda_device, lcap, nlist, p):
+    """Tables of small integers make most truncated scores tie, so the kk-th
+    value is shared by many candidates; at Lcap 2048 the 64 probes split
+    into groups whose coordinates fit 16 bits, merged in pass 2."""
+    _, probes, codes, slot_ids = (torch.from_numpy(x).to(cuda_device)
+                                  for x in _adc_case(4, p, seed=lcap, nlist=nlist, lcap=lcap))
+    g = torch.Generator(device=cuda_device).manual_seed(lcap)
+    lut = torch.randint(0, 3, (4, p, 16, 256), generator=g, device=cuda_device).float()
+    for kk in (10, 1024):
+        _key_check(cuda_device, lut, probes, codes, slot_ids, kk)
+
+
+@pytest.mark.gpu
+def test_adc_key_kernels_scarce_dead_and_bad_input(cuda_device):
+    """Fewer live candidates than kk (list 3 dead, list 5 three slots, an
+    out-of-range probe): the real candidates, then (-inf, -1). Bad input
+    raises by name."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    lut, probes, codes, slot_ids = (torch.from_numpy(x).to(cuda_device)
+                                    for x in _adc_case(3, 4, seed=5))
+    slot_ids[:] = -1
+    slot_ids[5, :3] = torch.tensor([7, 8, 9], device=cuda_device)
+    probes[:] = torch.tensor([3, 5, 40, -1], device=cuda_device, dtype=torch.int32)
+    pv, pi = _key_check(cuda_device, lut, probes, codes, slot_ids, 100)
+    assert (pi[:, :3] >= 7).all() and (pi[:, 3:] == -1).all()
+    assert torch.isneginf(pv[:, 3:]).all()
+    with pytest.raises(ValueError, match="outside"):
+        adc_scan.adc_topk_keys_cuda(lut, probes, codes, slot_ids, 1025)
+    with pytest.raises(ValueError, match="16-bit"):
+        adc_scan.adc_topk_keys_cuda(
+            lut[:1, :1], probes[:1, :1], torch.zeros((1, 16, 65552), dtype=torch.uint8,
+                                                     device=cuda_device),
+            torch.zeros((1, 65552), dtype=torch.int32, device=cuda_device), 10)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        adc_scan.adc_topk_keys_cuda(lut.cpu(), probes.cpu(), codes.cpu(), slot_ids.cpu(), 10)
+
+
+def _ivfpq_on_card(cuda_device, replicas=1, b=16, p=8, nlist=40, m=16, lcap=256):
+    from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+
+    _, _, codes, slot_ids = (torch.from_numpy(x).to(cuda_device)
+                             for x in _adc_case(b, p, seed=11, nlist=nlist, m=m, lcap=lcap,
+                                                dup=replicas > 1))
+    q_rot, _, cents, cb, _ = _table_case(b, p, nlist, m, 8, seed=12, device=cuda_device)
+    idx = IVFPQIndex(rotation=None, centroids=cents, codebooks=cb, codes=codes,
+                     slot_ids=slot_ids, n=nlist * lcap, d=m * 8, m=m, replicas=replicas)
+    return idx, q_rot
+
+
+@pytest.mark.gpu
+def test_ivfpq_key_mode_on_a_replicated_index_raises(cuda_device):
+    idx, q = _ivfpq_on_card(cuda_device, replicas=2)
+    assert idx.ids_mode() == "dma"
+    for mode in ("key", "gather"):
+        with pytest.raises(ValueError, match="replicas == 1"):
+            idx.search_device(q, 10, 8, ids_mode=mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_ivfpq_residual_refine_through_the_kernels(cuda_device, metric):
+    """``search_device`` with a residual-int8 refine store on a CUDA index:
+    the table, key and rerank kernels launch once each, and the result is
+    the plain path's: ids at >= 0.9 of positions (a rare table entry one
+    bf16 step off may change a candidate), values where the ids agree to
+    1e-4."""
+    from nvdb_tpu_torch.kernels import adc_scan, rerank
+    from nvdb_tpu_torch.store import VectorStore
+
+    idx, q = _ivfpq_on_card(cuda_device)
+    rng = np.random.default_rng(13)
+    n, dp = idx.n, idx.centroids.shape[1]
+    list_of = rng.integers(0, idx.nlist, n).astype(np.int32)
+    cents = idx.centroids.cpu().numpy()
+    rows = cents[list_of] + 0.05 * rng.standard_normal((n, dp)).astype(np.float32)
+    codes, sc = vecbin.quantize_i8(rows - cents[list_of])
+    store = VectorStore.from_numpy(codes, "i8", scales=sc, device=cuda_device)
+    store.attach_residual(cents, list_of)
+    before = (adc_scan.TABLE_LAUNCHES, adc_scan.KEY_LAUNCHES, rerank.LAUNCHES)
+    kv, ki = idx.search_device(q, 10, 8, refine_k=50, refine_store=store,
+                               refine_metric=metric)
+    torch.cuda.synchronize()
+    assert (adc_scan.TABLE_LAUNCHES, adc_scan.KEY_LAUNCHES, rerank.LAUNCHES) == tuple(
+        x + 1 for x in before)
+    pv, pi = idx.search_device(q, 10, 8, refine_k=50, refine_store=store, backend="torch",
+                               refine_metric=metric)
+    same = ki == pi
+    assert float(same.float().mean()) >= 0.9
+    assert torch.allclose(kv[same], pv[same], atol=1e-4, rtol=1e-4)
+
+
 # -- the IVF probe kernel ------------------------------------------------------
 
 def _probe_case(dtype, b, p, seed, nlist=24, lcap=160, dp=128):

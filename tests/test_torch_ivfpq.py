@@ -247,10 +247,6 @@ def test_deterministic_helpers_bit_for_bit(world):
 
 def test_unported_modes_raise(world):
     t = _port_of(world["j"])
-    qp = torch.zeros((2, 128))
-    for mode in ("key", "gather"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t.search_device(qp, 10, 4, ids_mode=mode)
     with pytest.raises(NotImplementedError, match="not ported"):
         IVFPQIndex.build(world["base"][:500], nlist=4, m=16, corpus_refine_iters=1,
                          device="cpu")
@@ -329,3 +325,91 @@ def test_scan_plan_fits_shared_memory():
         assert cap * 8 + stages * (m * 512 + m * tile) <= 227 * 1024 - 1024
     with pytest.raises(ValueError, match="shared memory"):
         adc_scan.scan_plan(10, 400, 640)
+
+
+@pytest.mark.parametrize("mode", ["key", "gather"])
+def test_key_modes_run(world, mode):
+    """The key and gather modes run on the torch path: the same candidates
+    as the plain key version on the same tables, ids from the index."""
+    t = _port_of(world["j"])
+    qp = torch.zeros((B, 128))
+    qp[:, :D] = torch.from_numpy(world["q"])
+    v, i = t.search_device(qp, 20, 8, backend="torch", ids_mode=mode)
+    kv, ki = t.search_device(qp, 20, 8, backend="torch", ids_mode="key")
+    assert torch.equal(v, kv) and torch.equal(i, ki)
+    dv, di = t.search_device(qp, 20, 8, backend="torch", ids_mode="dma")
+    _assert_overlap(i.numpy(), di.numpy(), 0.9)
+    # every value is a bf16-truncated score: its low 16 bits are clear
+    assert not bool((v.view(torch.int32) & 0xFFFF).any())
+
+
+def test_ids_mode_resolution_and_guard(world, monkeypatch):
+    """``search_device`` picks the mode as the JAX package does: the
+    index's ``ids_mode()`` (key on a prefix-packed, replicas 1 index) for
+    refine candidates (``refine_k > 0`` or ``for_refine``), else dma; an
+    explicit mode wins; key and gather on an index whose auto mode is dma
+    raise the JAX package's ValueError; the oracle path ignores the mode."""
+    t = _port_of(world["j"])
+    assert t.ids_mode() == "key" == world["j"].ids_mode()
+    calls = []
+    real_keys, real_dma = adc_scan.adc_topk_keys_reference, adc_scan.adc_topk_reference
+    monkeypatch.setattr(adc_scan, "adc_topk_keys_reference",
+                        lambda *a, **kw: calls.append("gather" if kw.get("gathered") else "key")
+                        or real_keys(*a, **kw))
+    monkeypatch.setattr(adc_scan, "adc_topk_reference",
+                        lambda *a, **kw: calls.append("dma") or real_dma(*a, **kw))
+    qp = torch.zeros((2, 128))
+    qp[:, :D] = torch.from_numpy(world["q"][:2])
+    store = world["store"]
+    t.search_device(qp, 10, 4, backend="torch")
+    t.search_device(qp, 10, 4, backend="torch", for_refine=True)
+    t.search_device(qp, 10, 4, refine_k=20, refine_store=store, backend="torch")
+    t.search_device(qp, 10, 4, refine_k=20, refine_store=store, backend="torch",
+                    ids_mode="dma")
+    t.search_device(qp, 10, 4, backend="torch", ids_mode="gather")
+    assert calls == ["dma", "key", "key", "dma", "gather"]
+    calls.clear()
+    t.search_device(qp, 10, 4, refine_k=20, refine_store=store, ids_mode="key")
+    assert calls == []                                   # auto on the CPU: the jnp path
+    with pytest.raises(ValueError, match="must be 'dma', 'key' or 'gather'"):
+        t.search_device(qp, 10, 4, ids_mode="slots")
+    j = world["j"]
+    rep = IVFPQIndex.from_reference(
+        np.asarray(j.rotation), np.asarray(j.centroids), np.asarray(j.codebooks),
+        np.asarray(j.codes), np.asarray(j.slot_ids), j.n, j.d, j.m, replicas=2,
+        device="cpu")
+    assert rep.ids_mode() == "dma"
+    for mode in ("key", "gather"):
+        with pytest.raises(ValueError, match="requires a prefix-packed index with "
+                                             "replicas == 1"):
+            rep.search_device(qp, 10, 4, ids_mode=mode)
+    holes = np.asarray(j.slot_ids).copy()
+    live = np.nonzero(holes[0] >= 0)[0]
+    holes[0, live[0]] = -1                               # an interior hole
+    holed = IVFPQIndex.from_reference(
+        np.asarray(j.rotation), np.asarray(j.centroids), np.asarray(j.codebooks),
+        np.asarray(j.codes), holes, j.n, j.d, j.m, device="cpu")
+    assert holed.ids_mode() == "dma"
+    with pytest.raises(ValueError, match="auto mode 'dma'"):
+        holed.search_device(qp, 10, 4, ids_mode="key")
+
+
+def test_refine_key_path_matches_jax_pallas(world):
+    """End to end: ``search_device(backend="torch", refine_k > 0)`` (key-mode
+    candidates, then the refine) against the JAX ``search_device`` with its
+    Pallas kernels in interpret mode (key mode too) on the same index:
+    the final ids equal except where two rows tie on their exact score."""
+    j = world["j"]
+    t = _port_of(j)
+    qp = np.zeros((B, 128), np.float32)
+    qp[:, :D] = world["q"]
+    jv, ji = j.search_device(jnp.asarray(qp), 10, 8, refine_k=40,
+                             refine_store=_JStore(world["base"]), backend="pallas")
+    tv, ti = t.search_device(torch.from_numpy(qp), 10, 8, refine_k=40,
+                             refine_store=world["store"], backend="torch")
+    tv, ti, jv, ji = tv.numpy(), ti.numpy(), np.asarray(jv), np.asarray(ji)
+    np.testing.assert_allclose(tv, jv, atol=1e-5, rtol=0)
+    differ = ti != ji
+    assert np.mean(differ) <= 0.05
+    for b, r in zip(*np.nonzero(differ)):        # a swap only where scores tie
+        assert abs(tv[b, r] - jv[b, r]) <= 1e-5

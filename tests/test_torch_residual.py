@@ -9,7 +9,15 @@ metrics dot and l2.
 Tolerances: values 1e-5 abs + 1e-5 rel (f32 sums in another order; the fold
 adds q.cent after the code dot where the jnp branch dequantizes first); ids
 by float64 score regret <= 1e-5 over the dequantized rows (the packages
-break ties differently)."""
+break ties differently).
+
+End to end (``IVFPQIndex.search_device`` with a residual store, the port of
+tests/test_residual_store.py::test_search_device_residual_end_to_end): on a
+JAX-built index carried across, the residual store ranks at least as well
+as a plain int8 store at a candidate depth where the ADC set is complete,
+and the final ids agree with the JAX ``search_device`` on the same index,
+store and queries at >= 0.95 of positions (values to 1e-4: the refine
+scores rotated queries against the dequantized rows in another order)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,10 +25,12 @@ import pytest
 import torch
 
 from nvdb_tpu.formats import synth as jsynth
+from nvdb_tpu.index.ivf_pq import IVFPQIndex as JIVFPQIndex
 from nvdb_tpu.kernels import dispatch as jdispatch
 from nvdb_tpu.kernels.rerank import pallas_rerank
 from nvdb_tpu.store import VectorStore as JVectorStore
 from nvdb_tpu_torch.formats import vecbin
+from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
 from nvdb_tpu_torch.kernels import dispatch, rerank
 from nvdb_tpu_torch.store import VectorStore
 
@@ -136,3 +146,78 @@ def test_residual_l2_needs_dequantized_norms(case):
                                      res_ids=t.res_ids)
     with pytest.raises(ValueError, match="need scales and res_ids"):
         rerank.rerank_topk_reference(*args, metric="dot", res_cents=t.res_cents)
+
+
+@pytest.fixture(scope="module")
+def built():
+    """A JAX-built IVF-OPQ-PQ index, the port's copy of it, and residual and
+    plain int8 stores of its base in both packages (residual encode as
+    ``tools.quantize_i8 --residual`` does it)."""
+    base = jsynth.clustered(6000, 64, n_clusters=32, seed=17)
+    j = JIVFPQIndex.build(base, nlist=16, m=16, use_opq=True, train_size=6000, seed=2)
+    t = IVFPQIndex.from_reference(np.asarray(j.rotation), np.asarray(j.centroids),
+                                  np.asarray(j.codebooks), np.asarray(j.codes),
+                                  np.asarray(j.slot_ids), j.n, j.d, j.m, device="cpu")
+    dp = t.centroids.shape[1]
+    rows = np.pad(base, ((0, 0), (0, dp - base.shape[1]))) @ np.asarray(j.rotation)
+    sids = np.asarray(j.slot_ids)
+    li, si = np.nonzero(sids >= 0)
+    list_of = np.zeros(base.shape[0], np.int32)
+    list_of[sids[li, si]] = li.astype(np.int32)
+    cents = np.asarray(j.centroids)
+    codes, sc = vecbin.quantize_i8(rows - cents[list_of])
+    stores = {}
+    for name, cls, kw in (("j", JVectorStore, {}), ("t", VectorStore, {"device": "cpu"})):
+        st = cls.from_numpy(codes, "i8", scales=sc, row_block=128, **kw)
+        st.attach_residual(cents, list_of)
+        pc, ps = vecbin.quantize_i8(base)
+        stores[name] = (st, cls.from_numpy(pc, "i8", scales=ps, row_block=128, **kw))
+    queries, _ = jsynth.sample_queries(base, 32, seed=19, perturb=0.03)
+    qp = np.zeros((queries.shape[0], dp), np.float32)
+    qp[:, :queries.shape[1]] = queries
+    s64 = queries.astype(np.float64) @ base.T.astype(np.float64)
+    ref_ids = np.argsort(-s64, axis=1, kind="stable")[:, :10]
+    return dict(j=j, t=t, stores=stores, qp=qp, ref_ids=ref_ids)
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch"])
+def test_search_device_residual_end_to_end(built, backend):
+    """At refine depth 256 the ADC candidate set is complete, so the
+    residual store's recall isolates refine precision: at least the plain
+    int8 store's, at least 0.95, and the JAX package's on the same inputs.
+    ``auto`` on the CPU is the oracle (jnp) path, ``torch`` the kernels'
+    plain versions (key-mode candidates, the fold of the rerank)."""
+    res, plain = built["stores"]["t"]
+    jres, _ = built["stores"]["j"]
+
+    def rec(ids):
+        return np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
+                        for a, b in zip(np.asarray(ids), built["ref_ids"])])
+
+    q = torch.from_numpy(built["qp"])
+    kw = dict(refine_k=256, backend=backend)
+    v_res, i_res = built["t"].search_device(q, 10, 16, refine_store=res, **kw)
+    _, i_pl = built["t"].search_device(q, 10, 16, refine_store=plain, **kw)
+    assert rec(i_res) >= rec(i_pl) - 1e-9
+    assert rec(i_res) >= 0.95
+    jv, ji = built["j"].search_device(jnp.asarray(built["qp"]), 10, 16, refine_k=256,
+                                      refine_store=jres, backend="jnp")
+    assert np.mean(i_res.numpy() == np.asarray(ji)) >= 0.95
+    np.testing.assert_allclose(v_res.numpy(), np.asarray(jv), atol=1e-4, rtol=1e-5)
+    assert abs(rec(i_res) - rec(ji)) <= 0.01
+
+
+def test_search_device_residual_l2_uses_dequantized_norms(built):
+    """The l2 refine of a residual store folds the dequantized rows' norms
+    (``store.norms2``): the torch path's values are 2 q_rot.r - ||r||^2 over
+    r = cent + s * codes, as a float64 rescoring of its ids gives them."""
+    res, _ = built["stores"]["t"]
+    t = built["t"]
+    q = torch.from_numpy(built["qp"][:8])
+    v, i = t.search_device(q, 10, 16, refine_k=64, refine_store=res, backend="torch",
+                           refine_metric="l2")
+    q_rot = (q.double() @ t.rotation.double())
+    rows = (res.res_cents[res.res_ids[i.long()].long()].double()
+            + res.vectors[i.long()].double() * res.scales[i.long()].double()[..., None])
+    want = 2.0 * torch.einsum("bd,bkd->bk", q_rot, rows) - (rows * rows).sum(-1)
+    np.testing.assert_allclose(v.numpy(), want.numpy(), atol=1e-3, rtol=1e-5)

@@ -1,10 +1,12 @@
 """The port's CLIs against the JAX package's on the same files (``bench``,
-``ivf_build`` + ``ivf_eval`` for IVF-PQ and IVF-Flat, ``pr_build`` /
-``pr_search`` / ``pr_eval``), and the no-fallback rule: without a card the
-port's measurement entry points fail unless the CPU is asked for, and the
-card-only tools (``hbm_probe``, ``gpu_sanity``, ``flat_breakdown``,
+``ivf_build`` + ``ivf_eval`` for IVF-PQ and IVF-Flat, ``quantize_i8``,
+``pr_build`` / ``pr_search`` / ``pr_eval``): flags, RESULT keys (the port's
+add the device name) and recall; and the no-fallback rule: without a card
+the port's measurement entry points fail unless the CPU is asked for, and
+the card-only tools (``hbm_probe``, ``gpu_sanity``, ``flat_breakdown``,
 ``adc_breakdown``) always fail."""
 
+import argparse
 import re
 
 import numpy as np
@@ -16,9 +18,14 @@ from nvdb_tpu.formats import synth as jsynth
 from nvdb_tpu.formats import vecbin as jvecbin
 from nvdb_tpu.tools import bench as jbench
 from nvdb_tpu_torch import bench as headline
+from nvdb_tpu_torch.formats import vecbin
 from nvdb_tpu_torch.tools import (adc_breakdown, bench, flat_breakdown, gpu_sanity,
                                   hbm_probe, ivf_build, ivf_eval, pr_build, pr_eval,
-                                  pr_search)
+                                  pr_search, quantize_i8)
+
+# flags of one package's parsers only: the JAX tools' platform switches, the
+# port's device choice
+_OWN_FLAGS = {"--cpu", "--debug-nans", "--device", "-h", "--help"}
 
 
 @pytest.fixture(scope="module")
@@ -42,6 +49,67 @@ def files(tmp_path_factory):
 
 def _recall(out: str) -> float:
     return float(out.split("recall@5=")[1].split()[0])
+
+
+def _result_keys(out: str):
+    """The key sets of the RESULT lines in ``out``."""
+    return [{kv.split("=", 1)[0] for kv in line.split()[1:]}
+            for line in out.splitlines() if line.startswith("RESULT ")]
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _flags(main, monkeypatch):
+    """The option strings of the parser ``main`` builds (it stops there)."""
+    seen = {}
+
+    def stop(self, args=None, namespace=None):
+        seen["parser"] = self
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", stop)
+    with pytest.raises(_Parsed):
+        main(["x"])
+    monkeypatch.undo()
+    return {o for a in seen["parser"]._actions for o in a.option_strings} - _OWN_FLAGS
+
+
+def test_bench_flags_match_jax(monkeypatch):
+    assert _flags(bench.main, monkeypatch) == _flags(jbench.main, monkeypatch)
+
+
+def test_bench_result_keys_match_jax(files, capsys):
+    args = [files["i8"], files["q"], "5", "--gt", files["gt"], "--batch-q", "8",
+            "--quantize-queries", "--refine-k", "20"]
+    bench.main(args + ["--device", "cpu"])
+    ours = _result_keys(capsys.readouterr().out)
+    jbench.main(args + ["--cpu", "--backend", "jnp"])
+    theirs = _result_keys(capsys.readouterr().out)
+    assert len(ours) == len(theirs) == 1
+    assert ours[0] - {"device"} == theirs[0] and "refine_k" in ours[0]
+
+
+@pytest.mark.parametrize("extra", [[], ["--device-queries"]])
+def test_bench_exact_i8_refine_k_matches_jax(files, capsys, extra):
+    """The exact-i8 mode (int8 x int8 scan, f32-query rerank of its top
+    REFINE_K) gives the JAX tool's recall, at least the plain int8 x int8
+    scan's; with the query pool staged on the device as well."""
+    args = [files["i8"], files["q"], "5", "--gt", files["gt"], "--batch-q", "8",
+            "--quantize-queries", *extra]
+    plain = bench.main(args + ["--device", "cpu"])
+    got = bench.main(args + ["--refine-k", "20", "--device", "cpu"])
+    jbench.main(args + ["--refine-k", "20", "--cpu", "--backend", "jnp"])
+    want = _recall(capsys.readouterr().out.split("RESULT")[-2])
+    assert got == want and got >= plain
+
+
+def test_bench_shards_not_ported(files, capsys):
+    with pytest.raises(SystemExit) as e:
+        bench.main([files["f32"], files["q"], "5", "--shards", "2", "--device", "cpu"])
+    assert e.value.code != 0
+    assert "not ported" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("dtype,extra", [("f32", []), ("bf16", []), ("i8", []),
@@ -142,14 +210,120 @@ def test_ivf_eval_torch_backend_on_cpu(ivf_files, capsys):
     assert got[0]["recall"] > 0.5
 
 
-@pytest.mark.parametrize("argv", [["--shards", "2"], ["--residual-refine"],
-                                  ["--ids-mode", "key"]])
+@pytest.mark.parametrize("argv", [["--shards", "2"], ["--force-sharded"]])
 def test_ivf_eval_unported_flags_exit(ivf_files, capsys, argv):
     with pytest.raises(SystemExit) as e:
         ivf_eval.main([ivf_files["idx"], ivf_files["base"], ivf_files["q"],
                        "--device", "cpu", *argv])
     assert e.value.code != 0
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def res_files(ivf_files, tmp_path_factory):
+    """ivf_files plus the residual int8 codes of its base against its index,
+    written by the port's ``quantize_i8 --residual``."""
+    d = tmp_path_factory.mktemp("torch_res_tools")
+    paths = dict(ivf_files, res=str(d / "res.vecbin"))
+    quantize_i8.main([ivf_files["base"], paths["res"], "--residual", ivf_files["idx"]])
+    return paths
+
+
+@pytest.mark.parametrize("argv", [["--residual-refine"], ["--ids-mode", "key"]])
+def test_ivf_eval_ported_modes_run(res_files, capsys, argv):
+    """The flags that once exited run: the residual refine (on the residual
+    codes) and the key-mode candidate generator, on both paths."""
+    base = res_files["res"] if argv == ["--residual-refine"] else res_files["base"]
+    for backend in ("auto", "torch"):
+        got = ivf_eval.main([res_files["idx"], base, res_files["q"], "--gt", res_files["gt"],
+                             "--nprobe", "4", "--refine-k", "40", "--batch-q", "4",
+                             "--device", "cpu", "--ivf-backend", backend, *argv])
+        assert got[0]["recall"] > 0.5 and got[0]["refine_enabled"] == 1
+        assert got[0]["refine_backend"] == ("oracle" if backend == "auto" else "torch")
+        assert got[0].get("ids_mode") == (argv[1] if len(argv) > 1 else None)
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("mode", [[], ["--chained"]])
+def test_ivf_eval_result_keys_match_jax(ivf_files, capsys, mode):
+    """Both tools' RESULT lines carry the same keys (the port's add the
+    device), ``ids_mode`` among them when ``--ids-mode`` is given."""
+    from nvdb_tpu.tools import ivf_eval as jivf_eval
+
+    args = [ivf_files["idx"], ivf_files["base"], ivf_files["q"], "--gt", ivf_files["gt"],
+            "--nprobe", "4", "--refine-k", "0", "40", "--batch-q", "4", "--warmup", "0",
+            "--ids-mode", "key", *mode]
+    ivf_eval.main(args + ["--device", "cpu"])
+    ours = _result_keys(capsys.readouterr().out)
+    jivf_eval.main(args + ["--cpu", "--ivf-backend", "jnp"])
+    theirs = _result_keys(capsys.readouterr().out)
+    assert len(ours) == len(theirs) == 2
+    assert [o - {"device"} for o in ours] == theirs
+    assert all({"ids_mode", "refine_backend"} <= o for o in ours)
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch"])
+def test_ivf_eval_residual_key_recall_matches_jax(res_files, capsys, backend):
+    """``--residual-refine --ids-mode key`` on the residual codes: ``auto`` on
+    the CPU (the JAX package's jnp semantics) gives the JAX tool's recall;
+    ``torch`` (key-mode candidates, the fold of the rerank) within 0.02."""
+    from nvdb_tpu.tools import ivf_eval as jivf_eval
+
+    args = [res_files["idx"], res_files["res"], res_files["q"], "--gt", res_files["gt"],
+            "--nprobe", "4", "--refine-k", "40", "--batch-q", "4", "--warmup", "0",
+            "--residual-refine", "--ids-mode", "key"]
+    got = ivf_eval.main(args + ["--device", "cpu", "--ivf-backend", backend])
+    capsys.readouterr()
+    jivf_eval.main(args + ["--cpu", "--ivf-backend", "jnp"])
+    want = [float(x) for x in re.findall(r"^RESULT .* recall=([0-9.]+) ",
+                                         capsys.readouterr().out, re.M)]
+    if backend == "auto":
+        assert [round(got[0]["recall"], 6)] == want
+    else:
+        assert abs(got[0]["recall"] - want[0]) <= 0.02
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_quantize_i8_byte_equal_to_jax_fallback(ivf_files, tmp_path, capsys, monkeypatch,
+                                                residual):
+    """The port's quantize_i8 writes the JAX tool's file byte for byte when
+    that tool runs its numpy fallback (NVDB_FORCE_PY_HOST=1)."""
+    from nvdb_tpu import native
+    from nvdb_tpu.tools import quantize_i8 as jquantize_i8
+
+    monkeypatch.setenv("NVDB_FORCE_PY_HOST", "1")
+    monkeypatch.setattr(native, "_load", lambda: None)
+    extra = ["--residual", ivf_files["idx"]] if residual else []
+    ours, theirs = str(tmp_path / "t.vecbin"), str(tmp_path / "j.vecbin")
+    out = quantize_i8.main([ivf_files["base"], ours, *extra])
+    jquantize_i8.main([ivf_files["base"], theirs, *extra, "--cpu"])
+    assert open(ours, "rb").read() == open(theirs, "rb").read()
+    assert (out.count, out.dim) == (3000, 128 if residual else 64)
+    assert ("residual-i8" in capsys.readouterr().out) == residual
+
+
+def test_quantize_i8_residual_matches_native(res_files):
+    """Against the JAX package's native quantizer (``nvdb_tpu.native``, its
+    numpy fallback where the library is not built) on the same residual
+    rows: codes equal, scales within rtol 1e-6 (tests/test_native.py)."""
+    from nvdb_tpu import native
+
+    cents, rot, list_of = quantize_i8.residual_params(res_files["idx"])
+    rows = vecbin.VecbinFile(res_files["base"]).rows_f32()
+    rows = np.pad(rows, ((0, 0), (0, cents.shape[1] - rows.shape[1]))) @ rot
+    rows = rows - cents[list_of]
+    f = vecbin.VecbinFile(res_files["res"])
+    codes, scales = native.quantize_i8(rows)
+    np.testing.assert_array_equal(np.asarray(f.vectors), codes)
+    np.testing.assert_allclose(np.asarray(f.scales), scales, rtol=1e-6)
+
+
+def test_quantize_i8_rejects_a_foreign_index(files, ivf_files, tmp_path, capsys):
+    with pytest.raises(SystemExit) as e:
+        quantize_i8.main([files["q"], str(tmp_path / "x.vecbin"), "--residual",
+                          ivf_files["idx"]])
+    assert e.value.code != 0
+    assert "wrong index" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv", [["--repack-from", "x.npz"], ["--replicas", "2"],
