@@ -44,7 +44,9 @@ then, one phase per line group:
    one launch, and a call on a plain store runs no other operation on the
    device (every torch operator the call dispatches is recorded);
 8. the IVF-PQ main path at the flagship's width: a 1M x 768 clustered f32
-   vecbin and 1,024 sampled queries, ground truth by the flat kernel,
+   vecbin written by ``tools.synth --clusters 16384 --spread 0.25 --seed 41``
+   and 1,024 queries by ``tools.make_query --seed 42 --perturb 0.05``,
+   ground truth by the flat kernel,
    ``tools.ivf_build --kind ivfpq --nlist 4096 --pq-m 96 --opq``, then
    ``tools.ivf_eval --chained --nprobe 64 --refine-k 100 --k 10 --batch-q
    256`` four ways, each with the IVF-PQ launch counts reset just before and
@@ -84,7 +86,27 @@ then, one phase per line group:
    over 1M x 768 bf16: the card's HBM ceiling, which phase 12's rates are
    read against) and ``tools.gpu_sanity`` (the add1 kernel); add1 and
    ``x + 1`` are timed as 100 launches captured in one CUDA graph, so the
-   figure is the device's and not the Python wrapper's.
+   figure is the device's and not the Python wrapper's;
+14. the build side and the data tools on phase 8's and phase 11's files:
+   (a) ``tools.ivf_build --repack-from`` of phase 8's index at the published
+   settings (pad 4.0, 8 spill candidates) and with ``--replicas 2
+   --pad-factor 2.0``, then ``tools.ivf_eval --chained --nprobe 16 32 64
+   --refine-k 50 --batch-q 256`` on phase 8's index, the repacked and the
+   replicated one, with the kernels and (repacked, replicated) with
+   ``--ivf-backend torch``: fewer spilled rows than phase 8's, the replicated
+   index on the dma kernel with no id twice in any query's candidates,
+   kernel recall within 0.005 of the plain path's at each nprobe;
+   (b) ``ivf_build --kind ivfflat --nlist 4096 --dtype bf16 --corpus-refine 2``
+   on phase 11's hard corpus (its dead lists against phase 11's quantizer's,
+   no more) and ``--repack-from`` phase 11's IVF-Flat index (pad 2.0, 8
+   spill candidates), ``ivf_eval --chained --nprobe 64`` on both, the
+   repacked one on the plain path too; (c) ``tools.gt_build`` on phase 8's
+   files on the card, ids equal to phase 8's ground truth except at float64
+   near-ties, and with ``--row-chunk 262144``; ``tools.slice --n 65536``,
+   ``make_query --q 256`` on the slice, ``gt_build --host`` against
+   ``gt_build`` there, ``search --q 4``, ``ab_compare --a cuda --b torch
+   --pairs 30``, ``convert_bf16`` -> ``dump`` -> ``sanity``. Each sub-step
+   prints its wall time; the launches of phase 14 join the kernels' record.
 
 Files go to ``build/chip_smoke``, which is removed at the end. Each phase
 prints its wall time. Every check raises on failure, so the exit code is
@@ -788,44 +810,50 @@ def rerank_residual_cases(torch, dev, base, q_all, rng, nlist=64):
 
 
 def phase_ivf_main_path(torch, dev, work, n=1_000_000, nlist=4096):
+    """Phase 8. Its corpus, queries, ground truth and index stay in ``work``
+    for phase 14; the refine stores go at its end."""
     d, nq, k = 768, 1024, 10
     paths = work_paths(work, "ivf", ("base.vecbin", "q.vecbin", "gt.gtbin", "index.npz",
                                      "res.vecbin", "i8.vecbin"))
     try:
-        return _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths)
+        return _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths) + (paths,)
     finally:
-        remove_files(paths)
+        remove_files({x: paths[x] for x in ("res.vecbin", "i8.vecbin")})
 
 
-def ivf_eval_counted(torch, main, argv):
+def ivf_eval_counted(torch, main, argv, first=True):
     """One ``ivf_eval`` run with every IVF-PQ launch counter set to 0 just
-    before it; returns (its first RESULT record, the counts just after)."""
+    before it; returns (its first RESULT record, or all of them unless
+    ``first``, and the counts just after)."""
     from nvdb_tpu_torch.kernels import adc_scan, rerank
 
     adc_scan.LAUNCHES = adc_scan.TABLE_LAUNCHES = 0
     adc_scan.KEY_LAUNCHES = adc_scan.GATHER_LAUNCHES = 0
     rerank.LAUNCHES = 0
-    res = run_tool(main, argv, keep=("kind=", "RESULT"))[0]
-    return res, {"adc_tables": adc_scan.TABLE_LAUNCHES, "adc_topk": adc_scan.LAUNCHES,
+    res = run_tool(main, argv, keep=("kind=", "RESULT"))
+    return res[0] if first else res, {"adc_tables": adc_scan.TABLE_LAUNCHES, "adc_topk": adc_scan.LAUNCHES,
                  "adc_topk_key": adc_scan.KEY_LAUNCHES,
                  "adc_topk_gather": adc_scan.GATHER_LAUNCHES, "rerank_topk": rerank.LAUNCHES}
 
 
 def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
-    from nvdb_tpu_torch.formats import gtbin, synth, vecbin
+    from nvdb_tpu_torch.formats import gtbin, vecbin
     from nvdb_tpu_torch.index.flat import FlatIndex
     from nvdb_tpu_torch.kernels import flat_scan
     from nvdb_tpu_torch.store import VectorStore
-    from nvdb_tpu_torch.tools import ivf_build, ivf_eval, quantize_i8
+    from nvdb_tpu_torch.tools import ivf_build, ivf_eval, make_query, quantize_i8, synth
 
+    # the corpus and queries as a user makes them: tools.synth, tools.make_query
     t0 = time.perf_counter()
-    base = synth.clustered(n, d, n_clusters=16384, spread=0.25, seed=41)
-    queries, _ = synth.sample_queries(base, nq, seed=42, perturb=0.05)
-    vecbin.write_vecbin(paths["base.vecbin"], base)
-    vecbin.write_vecbin(paths["q.vecbin"], queries)
-    del base
-    say(f"  corpus {n} x {d} clustered f32 + {nq} queries written in "
-        f"{time.perf_counter() - t0:.1f} s")
+    run_tool(synth.main, [paths["base.vecbin"], "--count", str(n), "--dim", str(d),
+                          "--clusters", "16384", "--spread", "0.25", "--seed", "41"],
+             keep=("wrote",))
+    t1 = time.perf_counter()
+    run_tool(make_query.main, [paths["base.vecbin"], paths["q.vecbin"], "--q", str(nq),
+                               "--seed", "42", "--perturb", "0.05"], keep=("wrote",))
+    queries = vecbin.VecbinFile(paths["q.vecbin"]).rows_f32()
+    say(f"  tools.synth ({n} x {d} clustered f32) {t1 - t0:.1f} s, tools.make_query "
+        f"({nq} queries) {time.perf_counter() - t1:.1f} s")
 
     t0 = time.perf_counter()
     store = VectorStore.from_vecbin(paths["base.vecbin"], device=dev)
@@ -1300,9 +1328,11 @@ def phase_partition_main_path(torch, dev, work, n=1_000_000, d=768, nq=1000, fla
     say(f"  pr_search: {self_hits} of 8 queries (base rows) find their own row first")
     check(self_hits >= 6, f"pr_search: only {self_hits} of 8 queries find their own row")
 
+    t0 = time.perf_counter()
     fidx = run_tool(ivf_build.main, [paths["base.vecbin"], paths["flat.npz"], "--kind",
                                      "ivfflat", "--nlist", str(flat_nlist), "--dtype",
                                      "bf16", "--device", dev.type], keep=("built",))
+    out["flat_build_s"] = time.perf_counter() - t0
     lcap = round_up(int(np.ceil(n / flat_nlist * 1.5)), 32)
     check(fidx.nlist == flat_nlist and fidx.lcap == lcap, f"ivf_build: lcap {fidx.lcap}")
     ev_args = [paths["flat.npz"], paths["base.vecbin"], paths["q.vecbin"], "--gt",
@@ -1381,6 +1411,248 @@ def phase_probe_times(torch, dev, pidx, fidx, base, queries):
         out[f"stage {stage}"] = ms
     del store, pr
     torch.cuda.empty_cache()
+    return out
+
+
+def wall(label, fn, *args, **kw):
+    """Run ``fn``, print its wall time under ``label``; returns (result, s)."""
+    t0 = time.perf_counter()
+    res = fn(*args, **kw)
+    dt = time.perf_counter() - t0
+    say(f"  {label}: {dt:.1f} s")
+    return res, dt
+
+
+def add_launches(total, counts):
+    for name, c in counts.items():
+        total[name] = total.get(name, 0) + c
+
+
+def ids_near_equal(tag, base_path, queries, got, want):
+    """``got`` equals ``want`` except at float64 near-ties: in each row
+    where they differ, the float64 scores of the two sorted id lists agree
+    to ``REGRET_TOL``. Returns the number of rows that differ."""
+    from nvdb_tpu_torch.formats import vecbin
+
+    got, want = np.asarray(got, np.int64), np.asarray(want, np.int64)
+    check(got.shape == want.shape, f"{tag}: shape {got.shape} != {want.shape}")
+    rows = np.nonzero((got != want).any(axis=1))[0]
+    f = vecbin.VecbinFile(base_path)
+    worst = 0.0
+    for r in rows:
+        q = queries[r].astype(np.float64)
+        sg, sw = (np.sort(np.asarray(f.vectors[np.sort(ids)], np.float64) @ q)
+                  for ids in (got[r], want[r]))
+        worst = max(worst, float(np.max(np.abs(sg - sw))))
+    say(f"  {tag}: {len(rows)} of {len(got)} rows differ, largest float64 score gap "
+        f"{worst:.3e}")
+    check(worst <= REGRET_TOL, f"{tag}: ids differ beyond near-ties ({worst})")
+    return len(rows)
+
+
+def build_side_ivfpq(torch, dev, work, p8, spilled8):
+    """14a: the IVF-PQ repacks of phase 8's index at the published settings
+    and ivf_eval on them, with the kernels and with their plain versions."""
+    from nvdb_tpu_torch.formats import vecbin
+    from nvdb_tpu_torch.kernels import adc_scan, kmeans, ops
+    from nvdb_tpu_torch.tools import ivf_build, ivf_eval
+
+    paths = work_paths(work, "b14", ("rep1.npz", "rep2.npz"))
+    out = {"launches": {}}
+    repack = [p8["base.vecbin"], None, "--kind", "ivfpq", "--repack-from", p8["index.npz"],
+              "--device", dev.type]
+    rep1, out["repack R=1 s"] = wall(
+        "ivf_build --repack-from (ivfpq, pad 4.0, S 8)", run_tool, ivf_build.main,
+        [repack[0], paths["rep1.npz"], *repack[2:]], keep=("built",))
+    rep2, out["repack R=2 s"] = wall(
+        "ivf_build --repack-from --replicas 2 --pad-factor 2.0", run_tool, ivf_build.main,
+        [repack[0], paths["rep2.npz"], *repack[2:], "--replicas", "2", "--pad-factor", "2.0"],
+        keep=("built",))
+    say(f"  spilled: phase 8 {spilled8}, repacked {rep1.n_spilled} (lcap {rep1.lcap}), "
+        f"replicated {rep2.n_spilled} (lcap {rep2.lcap})")
+    check(rep1.n_spilled < spilled8, f"repack spilled {rep1.n_spilled} >= phase 8's {spilled8}")
+    # where the spill comes from: the rows over each list's capacity, by the
+    # first-choice list sizes of the (shared) quantizer
+    ops.no_tf32()
+    rows = torch.from_numpy(vecbin.VecbinFile(p8["base.vecbin"]).rows_f32()).to(dev)
+    rows = torch.nn.functional.pad(rows, (0, rep1.centroids.shape[1] - rows.shape[1]))
+    if rep1.rotation is not None:
+        rows = rows @ rep1.rotation
+    sizes = torch.sort(torch.bincount(kmeans.assign(rows, rep1.centroids).long(),
+                                      minlength=rep1.centroids.shape[0]), descending=True)[0]
+    del rows
+    over = {c: int(torch.clamp(sizes - c, min=0).sum()) for c in (640, 1024)}
+    say(f"  first-choice list sizes: largest {sizes[:4].tolist()}, the 16 largest hold "
+        f"{int(sizes[:16].sum())} rows, {int((sizes == 0).sum())} empty; rows over "
+        f"capacity: {over[640]} at lcap 640, {over[1024]} at lcap 1024")
+    check(rep2.replicas == 2 and rep2.ids_mode() == "dma",
+          f"replicated index: replicas {rep2.replicas}, mode {rep2.ids_mode()}")
+    queries = vecbin.VecbinFile(p8["q.vecbin"]).rows_f32()
+    adc_scan.LAUNCHES = 0
+    _, cand = rep2.search(queries, 100, 64)
+    out["launches"]["adc_topk"] = adc_scan.LAUNCHES
+    dups = sum(len(set(row.tolist())) != len(row) for row in cand)
+    say(f"  replicated ADC candidates (k 100, nprobe 64, {len(cand)} queries, dma kernel "
+        f"{adc_scan.LAUNCHES} launches): {dups} queries with a repeated id")
+    check(adc_scan.LAUNCHES > 0 and dups == 0, f"replicated search: {dups} queries repeat an id")
+    del rep1, rep2
+    torch.cuda.empty_cache()
+
+    ev = [p8["base.vecbin"], p8["q.vecbin"], "--gt", p8["gt.gtbin"], "--chained", "--nprobe",
+          "16", "32", "64", "--refine-k", "50", "--k", "10", "--batch-q", "256",
+          "--device", dev.type]
+    runs = [("phase 8 index", p8["index.npz"], [], ("adc_tables", "adc_topk_key", "rerank_topk")),
+            ("repacked", paths["rep1.npz"], [], ("adc_tables", "adc_topk_key", "rerank_topk")),
+            ("repacked", paths["rep1.npz"], ["--ivf-backend", "torch"], ()),
+            ("replicated", paths["rep2.npz"], [], ("adc_tables", "adc_topk", "rerank_topk")),
+            ("replicated", paths["rep2.npz"], ["--ivf-backend", "torch"], ())]
+    for name, index, extra, counted in runs:
+        res, launches = ivf_eval_counted(torch, ivf_eval.main, [index, *ev, *extra],
+                                         first=False)
+        for c in counted:
+            check(launches[c] > 0, f"ivf_eval {name}: did not launch {c}")
+        add_launches(out["launches"], {c: launches[c] for c in counted})
+        out[(name, "torch" if extra else "cuda")] = {r["nprobe"]: r for r in res}
+    for name in ("repacked", "replicated"):
+        for np_ in (16, 32, 64):
+            rk, rt = (out[(name, b)][np_]["recall"] for b in ("cuda", "torch"))
+            check(abs(rk - rt) <= RECALL_GAP,
+                  f"{name} nprobe {np_}: kernel recall {rk} vs plain {rt}")
+    for np_ in (16, 32, 64):
+        say(f"  nprobe {np_} refine 50, recall@10 / QPS: " + " | ".join(
+            f"{name}{' plain' if b == 'torch' else ''} {out[(name, b)][np_]['recall']:.4f} / "
+            f"{out[(name, b)][np_]['qps']:.1f}"
+            for name, _, extra, _ in runs for b in ["torch" if extra else "cuda"]))
+    remove_files(paths)
+    return out
+
+
+def build_side_ivfflat(torch, dev, work, part, nlist=4096):
+    """14b: IVF-Flat on phase 11's hard corpus, with the corpus refinement
+    and repacked from phase 11's index, through ivf_eval."""
+    from nvdb_tpu_torch.formats import vecbin
+    from nvdb_tpu_torch.kernels import ivf_scan, kmeans
+    from nvdb_tpu_torch.tools import ivf_build, ivf_eval
+
+    hard = work_paths(work, "hard", ("base.vecbin", "q.vecbin", "gt.gtbin", "flat.npz"))
+    paths = work_paths(work, "b14", ("refined.npz", "flat_rep.npz"))
+    out = {"launches": {"ivf_probe_topk": 0}}
+    ref, out["refine build s"] = wall(
+        "ivf_build --kind ivfflat --nlist 4096 --dtype bf16 --corpus-refine 2", run_tool,
+        ivf_build.main, [hard["base.vecbin"], paths["refined.npz"], "--kind", "ivfflat",
+                         "--nlist", str(nlist), "--dtype", "bf16", "--corpus-refine", "2",
+                         "--device", dev.type], keep=("built",))
+    say(f"  build seconds: {out['refine build s']:.1f} with 2 corpus passes against "
+        f"{part['flat_build_s']:.1f} unrefined (phase 11)")
+    plain_cents = torch.from_numpy(np.load(hard["flat.npz"])["centroids"]).to(dev)
+    rows = torch.from_numpy(vecbin.VecbinFile(hard["base.vecbin"]).rows_f32()).to(dev)
+    rows = torch.nn.functional.pad(rows, (0, plain_cents.shape[1] - rows.shape[1]))
+    dead = [nlist - int(torch.unique(kmeans.assign(rows, c)).numel())
+            for c in (plain_cents, ref.centroids)]
+    del rows, plain_cents, ref
+    torch.cuda.empty_cache()
+    out["dead"] = dead
+    say(f"  corpus-dead lists: {dead[0]} unrefined (phase 11), {dead[1]} refined")
+    check(dead[1] <= dead[0], f"the refined quantizer has more dead lists: {dead}")
+    rep, out["repack s"] = wall(
+        "ivf_build --kind ivfflat --repack-from (pad 2.0, S 8)", run_tool, ivf_build.main,
+        [hard["base.vecbin"], paths["flat_rep.npz"], "--kind", "ivfflat", "--repack-from",
+         hard["flat.npz"], "--pad-factor", "2.0", "--spill-candidates", "8",
+         "--device", dev.type], keep=("built",))
+    say(f"  spilled: repacked {rep.n_spilled} (lcap {rep.lcap})")
+    del rep
+    torch.cuda.empty_cache()
+    ev = [hard["base.vecbin"], hard["q.vecbin"], "--gt", hard["gt.gtbin"], "--chained",
+          "--nprobe", "64", "--refine-k", "0", "--k", "10", "--batch-q", "256",
+          "--device", dev.type]
+    for name, index, backend in (("refined", paths["refined.npz"], "auto"),
+                                 ("repacked", paths["flat_rep.npz"], "auto"),
+                                 ("repacked", paths["flat_rep.npz"], "torch")):
+        ivf_scan.LAUNCHES = 0
+        res = run_tool(ivf_eval.main, [index, *ev, "--ivf-backend", backend])[0]
+        if backend == "auto":
+            check(ivf_scan.LAUNCHES > 0, f"ivf_eval {name}: did not launch ivf_probe_topk")
+            out["launches"]["ivf_probe_topk"] += ivf_scan.LAUNCHES
+        out[(name, backend)] = res
+    rk, rt = out[("repacked", "auto")]["recall"], out[("repacked", "torch")]["recall"]
+    check(abs(rk - rt) <= RECALL_GAP, f"repacked ivfflat: kernel recall {rk} vs plain {rt}")
+    say("  nprobe 64, recall@10 / QPS: " + " | ".join(
+        f"{name} {r['recall']:.4f} / {r['qps']:.1f}" for name, r in (
+            ("phase 11 index", part["flat_auto"]), ("refined", out[("refined", "auto")]),
+            ("repacked", out[("repacked", "auto")]),
+            ("repacked plain", out[("repacked", "torch")]))))
+    remove_files(paths)
+    return out
+
+
+def tools_on_card(torch, dev, work, p8):
+    """14c: gt_build on its three paths, slice, search, ab_compare,
+    convert_bf16, dump and sanity on phase 8's files (made by tools.synth
+    and tools.make_query)."""
+    from nvdb_tpu_torch.formats import gtbin, vecbin
+    from nvdb_tpu_torch.kernels import flat_scan
+    from nvdb_tpu_torch.tools import (ab_compare, convert_bf16, dump, gt_build, make_query,
+                                      sanity, search, slice as slice_tool)
+
+    paths = work_paths(work, "b14", ("gt.gtbin", "gt_chunk.gtbin", "s.vecbin", "s_q.vecbin",
+                                     "s_gt.gtbin", "s_gt_host.gtbin", "s_bf16.vecbin"))
+    base, qpath, dv = p8["base.vecbin"], p8["q.vecbin"], ["--device", dev.type]
+    queries = vecbin.VecbinFile(qpath).rows_f32()
+    out = {}
+    flat_scan.LAUNCHES = 0
+    ids, out["gt_build s"] = wall("gt_build (device, the flat kernel)", run_tool,
+                                  gt_build.main, [base, qpath, paths["gt.gtbin"], *dv],
+                                  keep=("wrote",))
+    ids_near_equal("gt_build against phase 8's ground truth", base, queries, ids,
+                   gtbin.read_gtbin(p8["gt.gtbin"])[1])
+    chunked, out["gt_build --row-chunk s"] = wall(
+        "gt_build --row-chunk 262144", run_tool, gt_build.main,
+        [base, qpath, paths["gt_chunk.gtbin"], "--row-chunk", "262144", *dv], keep=("wrote",))
+    ids_near_equal("gt_build --row-chunk against the device path", base, queries, chunked, ids)
+    wall("slice --n 65536", run_tool, slice_tool.main,
+         [base, paths["s.vecbin"], "--n", "65536"], keep=("wrote",))
+    # 256 queries of the slice: the host oracle scans at a few GFLOP/s
+    sq = paths["s_q.vecbin"]
+    wall("make_query --q 256 on the slice", run_tool, make_query.main,
+         [paths["s.vecbin"], sq, "--q", "256", "--seed", "43", "--perturb", "0.05"],
+         keep=("wrote",))
+    s_queries = vecbin.VecbinFile(sq).rows_f32()
+    s_ids, out["slice gt_build s"] = wall("gt_build on the slice", run_tool, gt_build.main,
+                                          [paths["s.vecbin"], sq, paths["s_gt.gtbin"], *dv],
+                                          keep=("wrote",))
+    host, out["slice gt_build --host s"] = wall(
+        "gt_build --host on the slice (native host scan)", run_tool, gt_build.main,
+        [paths["s.vecbin"], sq, paths["s_gt_host.gtbin"], "--host"], keep=("wrote",))
+    ids_near_equal("gt_build --host against the device path on the slice", paths["s.vecbin"],
+                   s_queries, host, s_ids)
+    (_, found), _ = wall("search --q 4", run_tool, search.main,
+                         [paths["s.vecbin"], sq, "--q", "4", *dv], keep=("query 0",))
+    ids_near_equal("search --q 4 against gt_build", paths["s.vecbin"], s_queries, found,
+                   s_ids[:4])
+    out["ab"], _ = wall("ab_compare --a cuda --b torch --pairs 30", run_tool, ab_compare.main,
+                        [paths["s.vecbin"], sq, "--a", "cuda", "--b", "torch", "--pairs",
+                         "30", *dv], keep=("mean(A-B)", "verdict", "RESULT"))
+    out["launches"] = {"flat_topk": flat_scan.LAUNCHES}
+    say(f"  flat kernel launches in gt_build, search and ab_compare: {flat_scan.LAUNCHES}")
+    check(flat_scan.LAUNCHES > 0, "the tools did not launch flat_topk")
+    wall("convert_bf16 -> dump -> sanity", lambda: (
+        run_tool(convert_bf16.main, [paths["s.vecbin"], paths["s_bf16.vecbin"]],
+                 keep=("wrote",)),
+        run_tool(dump.main, [paths["s_bf16.vecbin"], "--rows", "1"], keep=("count=", "row0")),
+        run_tool(sanity.main, [paths["s_bf16.vecbin"]], keep=("OK",))))
+    remove_files(paths)
+    return out
+
+
+def phase_build_side(torch, dev, work, p8, spilled8, part):
+    out = {"launches": {}}
+    for sub, fn, args in (("a", build_side_ivfpq, (p8, spilled8)),
+                          ("b", build_side_ivfflat, (part,)),
+                          ("c", tools_on_card, (p8,))):
+        say(f"  [14{sub}]")
+        out[sub], _ = wall(f"14{sub} in all", fn, torch, dev, work, *args)
+        add_launches(out["launches"], out[sub]["launches"])
+    say(f"  launches in phase 14: {out['launches']}")
     return out
 
 
@@ -1525,7 +1797,8 @@ def main() -> int:
         with phase("[8 IVF-PQ main path] 1M x 768, nlist 4096, m 96, OPQ; nprobe 64, "
                    "refine 100: auto (key), dma, gather, torch; then the residual-int8 "
                    "refine on both paths"):
-            idx, store, queries, ivf = phase_ivf_main_path(torch, dev, work)
+            idx, store, queries, ivf, ivf_paths = phase_ivf_main_path(torch, dev, work)
+            spilled8 = idx.n_spilled
 
         with phase("[9 IVF-PQ times] each stage alone, CUDA events over chained calls, "
                    "plain/kernel/kernel/plain; the rerank kernel alone in a CUDA graph"):
@@ -1557,30 +1830,39 @@ def main() -> int:
                 t = probe_times[name]
                 gbps = t["bytes"] / t["ms"] / 1e6
                 say(f"  probe {name}: {gbps:.1f} GB/s = {gbps / ceiling:.3f} of the ceiling")
+
+        with phase("[14 build side and data tools] IVF-PQ repacked (pad 4.0, S 8) and "
+                   "replicated (R 2, pad 2.0) from phase 8's index, nprobe 16/32/64 refine "
+                   "50; IVF-Flat with 2 corpus passes and repacked (pad 2.0, S 8) from phase "
+                   "11's; gt_build (device, chunked, host), slice, search, ab_compare, "
+                   "convert_bf16, dump, sanity"):
+            b14 = phase_build_side(torch, dev, work, ivf_paths, spilled8, part)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     say(smi)
     pl = part["launches"]
+    bl = b14["launches"]
     rows = [
         ("flat_topk", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
-         launches + ivf["launches"]["flat_topk"] + pl["flat_topk"], max_err,
+         launches + ivf["launches"]["flat_topk"] + pl["flat_topk"] + bl["flat_topk"], max_err,
          times["bf16 B=512 k=10"]),
-        ("adc_tables", "adc_tables", "nvdb_tpu/kernels/pq.py:89", ivf["launches"]["adc_tables"],
-         adc["table_err"], ivf_times["adc_tables"]),
-        ("adc_topk", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:558", ivf["launches"]["adc_topk"],
-         adc["scan_err"], ivf_times["adc_topk"]),
+        ("adc_tables", "adc_tables", "nvdb_tpu/kernels/pq.py:89",
+         ivf["launches"]["adc_tables"] + bl["adc_tables"], adc["table_err"],
+         ivf_times["adc_tables"]),
+        ("adc_topk", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:558",
+         ivf["launches"]["adc_topk"] + bl["adc_topk"], adc["scan_err"], ivf_times["adc_topk"]),
         # bit for bit their plain version in phase 6, so their error is 0
         ("adc_topk_key", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:691",
-         ivf["launches"]["adc_topk_key"], 0.0, ivf_times["adc_topk_key"]),
+         ivf["launches"]["adc_topk_key"] + bl["adc_topk_key"], 0.0, ivf_times["adc_topk_key"]),
         ("adc_topk_gather", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:718",
          ivf["launches"]["adc_topk_gather"], 0.0, ivf_times["adc_topk_gather"]),
         ("rerank_topk", "rerank_topk", "nvdb_tpu/kernels/rerank.py:187",
-         ivf["launches"]["rerank_topk"] + pl["pr"]["rerank_topk"], rerank_err,
-         ivf_times["rerank_topk B=256"]),
+         ivf["launches"]["rerank_topk"] + pl["pr"]["rerank_topk"] + bl["rerank_topk"],
+         rerank_err, ivf_times["rerank_topk B=256"]),
         ("ivf_probe_topk", "ivf_probe_topk", "nvdb_tpu/kernels/ivf_scan.py:111",
-         pl["pr"]["ivf_probe_topk"] + pl["ivfflat"]["ivf_probe_topk"], probe_err,
-         probe_times["partition"]),
+         pl["pr"]["ivf_probe_topk"] + pl["ivfflat"]["ivf_probe_topk"] + bl["ivf_probe_topk"],
+         probe_err, probe_times["partition"]),
         ("hbm_stream", "hbm_stream", "scripts/hbm_probe.py:62",
          sum(hbm["stream_launches"].values()), hbm["stream_err"], hbm["hbm_stream"]),
         ("add1", "add1", "nvdb_tpu/tools/tpu_sanity.py:28", hbm["add1_launches"],

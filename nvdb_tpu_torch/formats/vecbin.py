@@ -229,15 +229,31 @@ class StreamingVecbinWriter:
     buffered and appended at the end, as nvdb_quantize_i8.cpp:49-85 does).
     bf16 rows are ``np.uint16`` bits."""
 
-    def __init__(self, path: str, dim: int, dtype: str = "f32"):
+    def __init__(self, path: str, dim: int, dtype: str = "f32", resume_rows: int = 0):
+        """``resume_rows > 0`` reopens an interrupted write (its header still
+        says count 0) and continues after that many payload rows, which the
+        caller counts (e.g. down to a chunk boundary). i8 streams are not
+        resumable: their scales live in memory until close."""
         self.path = path
         self.dim = dim
         self.code = dtype_code(dtype)
         self._np_dt = _NP_BY_CODE[self.code]
         self._count = 0
         self._scales: list[np.ndarray] = []
-        self._f = open(path, "wb")
-        self._f.write(_header_bytes(0, dim, self.code))  # patched on close
+        if resume_rows > 0:
+            if self.code == DTYPE_I8:
+                raise ValueError("i8 streams are not resumable (scales are buffered "
+                                 "in memory and appended at close)")
+            end = HEADER_BYTES + resume_rows * dim * self._np_dt.itemsize
+            if os.path.getsize(path) < end:
+                raise ValueError(f"{path} has fewer than {resume_rows} rows")
+            self._f = open(path, "r+b")
+            self._f.truncate(end)
+            self._f.seek(end)
+            self._count = resume_rows
+        else:
+            self._f = open(path, "wb")
+            self._f.write(_header_bytes(0, dim, self.code))  # patched on close
 
     def append(self, rows: np.ndarray, scales: Optional[np.ndarray] = None) -> None:
         rows = np.ascontiguousarray(rows, dtype=self._np_dt)

@@ -12,8 +12,11 @@ probed slabs: the ``ivf_probe_topk`` kernel on a CUDA index
 byte-compatible with the JAX package's (a bf16 pack is stored as its uint8
 view), so an index built by either package loads in the other.
 
-Not ported yet (``ROADMAP.md``): ``repack`` and the corpus-scale k-means
-refinement of the build; both raise.
+The build trains the coarse quantizer on a subsample, optionally refines it
+over the whole corpus (``corpus_refine_iters``), and packs; ``repack``
+packs an index's rows again at another capacity and spill depth with its
+centroids kept, as the JAX package's does, bit for bit on the same
+centroids.
 """
 
 from __future__ import annotations
@@ -154,6 +157,17 @@ def _stage_logger(n: int):
     return log
 
 
+def _pad_rows(rows_f32: np.ndarray, dp: int) -> np.ndarray:
+    """[N, d] f32 rows zero-padded to [N, dp] (the rows themselves when
+    d == dp)."""
+    n, d = rows_f32.shape
+    if d == dp:
+        return rows_f32
+    out = np.zeros((n, dp), np.float32)
+    out[:, :d] = rows_f32
+    return out
+
+
 def _host_chunked(fn, rows_np: np.ndarray, device, chunk: int = 1_000_000) -> np.ndarray:
     """Apply a device function over host rows in chunks and reassemble on
     the host: one chunk (<= ~3 GB at 768 dims) is on the device at a time."""
@@ -260,37 +274,61 @@ class IVFFlatIndex:
         first ``train_size`` rows, top-S coarse assignment, list packing
         with spill, payload encoding. Random draws come from a
         ``torch.Generator`` seeded from ``seed`` (not the JAX package's
-        numbers); the steps after k-means are deterministic."""
-        if corpus_refine_iters > 0:
-            raise NotImplementedError(
-                "corpus_refine_iters > 0 (kmeans.corpus_refine) is not ported "
-                "yet (ROADMAP.md queue 7)")
+        numbers); the steps after k-means are deterministic.
+        ``corpus_refine_iters`` > 0 refines the quantizer with that many
+        corpus passes (``kmeans.corpus_refine``, seeded ``seed + 1``)."""
+        rows_f32 = np.ascontiguousarray(rows_f32, dtype=np.float32)
         device = torch.device(device)
         n, d = rows_f32.shape
         dp = round_up(d, 128)
         gen = torch.Generator(device=device).manual_seed(seed)
         stage = _stage_logger(n)
 
-        rows_f32 = np.ascontiguousarray(rows_f32, dtype=np.float32)
-        if d == dp:
-            data_p = rows_f32
-        else:
-            data_p = np.zeros((n, dp), np.float32)
-            data_p[:, :d] = rows_f32
+        data_p = _pad_rows(rows_f32, dp)
         t = min(train_size, n)
         stage(f"k-means coarse quantizer (t={t}, nlist={nlist})")
         cents, _ = kmeans.kmeans_fit(gen, torch.from_numpy(data_p[:t]).to(device), nlist,
                                      n_iters=n_iters)
+        if corpus_refine_iters > 0:
+            # full-corpus Lloyd passes reclaim the lists that the subsample
+            # quantizer leaves dead on the corpus
+            stage(f"corpus-scale Lloyd refinement ({corpus_refine_iters} passes)")
+            cents = kmeans.corpus_refine(data_p, cents, n_iters=corpus_refine_iters,
+                                         seed=seed + 1, log=stage)
+        return cls._pack(cents, rows_f32, data_p, vecbin.dtype_code(dtype),
+                         spill_candidates, pad_factor, stage)
 
+    @classmethod
+    def repack(cls, idx: "IVFFlatIndex", rows_f32: np.ndarray, pad_factor: float = 2.5,
+               spill_candidates: int = 8) -> "IVFFlatIndex":
+        """Pack the rows again at a new capacity and spill depth with the
+        index's centroids kept (``nvdb_tpu.index.ivf_flat.IVFFlatIndex.repack``):
+        on a skewed corpus tight packing sends overflow rows to far lists,
+        where probing misses them. Re-encodes in the index's own dtype, on
+        the index's device."""
+        rows_f32 = np.ascontiguousarray(rows_f32, dtype=np.float32)
+        stage = _stage_logger(rows_f32.shape[0])
+        data_p = _pad_rows(rows_f32, idx.packed.shape[2])
+        return cls._pack(idx.centroids, rows_f32, data_p, idx.dtype_code,
+                         spill_candidates, pad_factor, stage)
+
+    @classmethod
+    def _pack(cls, cents: torch.Tensor, rows_f32: np.ndarray, data_p: np.ndarray,
+              code: int, spill_candidates: int, pad_factor: float, stage
+              ) -> "IVFFlatIndex":
+        """Top-S coarse assignment against ``cents`` (on their device), list
+        packing with spill at ``lcap = round_up(ceil(n / nlist * pad), 32)``,
+        payload encoding in ``code``; the stages build and repack share."""
+        device = cents.device
+        n, d = rows_f32.shape
+        nlist, dp = cents.shape
         stage("coarse assignment (top-S centroids, device-chunked)")
         S = min(spill_candidates, nlist)
         alts = _host_chunked(lambda x: _topS_centroids(x, cents, S), data_p, device)
-        del data_p
         # 32 = the strictest sublane tile of the JAX layout, kept for equal shapes
         lcap = round_up(int(np.ceil(n / nlist * pad_factor)), 32)
 
         stage("encode payload")
-        code = vecbin.dtype_code(dtype)
         scales = None
         if code == vecbin.DTYPE_I8:
             enc, scales = vecbin.quantize_i8(rows_f32)
@@ -311,11 +349,6 @@ class IVFFlatIndex:
             slot_scales=(torch.from_numpy(slot_scales).to(device)
                          if slot_scales is not None else None),
             n=n, d=d, dtype_code=code, n_spilled=spilled)
-
-    @classmethod
-    def repack(cls, *args, **kwargs) -> "IVFFlatIndex":
-        raise NotImplementedError(
-            "IVFFlatIndex.repack is not ported yet (ROADMAP.md queue 7)")
 
     @classmethod
     def from_reference(cls, centroids, packed, slot_ids, slot_scales, n: int, d: int,

@@ -14,9 +14,11 @@ picks) -> exact refine against the flat store or a residual-int8 store (the
 and byte-compatible with the JAX package's, so an index built by either
 package loads in the other.
 
-Not ported yet (``ROADMAP.md``): ``repack`` and replicated builds (a
-replicated index built by ``nvdb_tpu`` loads and searches) and corpus-scale
-k-means refinement.
+The build may refine the coarse quantizer over the whole corpus
+(``corpus_refine_iters``); ``repack`` packs and encodes the rows again at
+another capacity and spill depth, optionally in each row's top-R lists
+(``replicas``), with the rotation, centroids and codebooks kept, bit for
+bit the JAX package's on the same index.
 """
 
 from __future__ import annotations
@@ -176,11 +178,9 @@ class IVFPQIndex:
         k-means in rotated space, top-S coarse assignment, list packing,
         PQ codebooks on the residuals, encoding. Random draws come from
         ``torch.Generator``s seeded from ``seed`` (not the JAX package's
-        numbers)."""
-        if corpus_refine_iters > 0:
-            raise NotImplementedError(
-                "corpus_refine_iters > 0 (kmeans.corpus_refine) is not ported "
-                "yet (ROADMAP.md, build side)")
+        numbers). ``corpus_refine_iters`` > 0 refines the coarse quantizer
+        with that many corpus passes (``kmeans.corpus_refine``, seeded
+        ``seed + 1``)."""
         device = torch.device(device)
         n, d = rows_f32.shape
         dp = round_up(d, 128)
@@ -203,17 +203,18 @@ class IVFPQIndex:
                                      device=device)
             rot = torch.from_numpy(rot_np).to(device)
             stage("apply rotation")
-            if n >= _HOST_BUILD_ROWS:
-                data_rot = _rotate_inplace_host(data_p, rot_np)
-            else:
-                data_rot = _host_chunked(lambda x: _matmul(x, rot), data_p, device)
-                del data_p
+            data_rot = _rotate(data_p, rot)
+            del data_p
         else:
             data_rot = data_p
 
         stage(f"k-means coarse quantizer (t={t}, nlist={nlist})")
         cents, _ = kmeans.kmeans_fit(gen, torch.from_numpy(data_rot[:t]).to(device),
                                      nlist, n_iters=n_iters)
+        if corpus_refine_iters > 0:
+            stage(f"corpus-scale Lloyd refinement ({corpus_refine_iters} passes)")
+            cents = kmeans.corpus_refine(data_rot, cents, n_iters=corpus_refine_iters,
+                                         seed=seed + 1, log=stage)
 
         stage("coarse assignment (top-S centroids, device-chunked)")
         S = min(spill_candidates, nlist)
@@ -243,10 +244,7 @@ class IVFPQIndex:
                                 n_iters=cb_iters)
 
         stage("PQ encode")
-        if n >= _HOST_BUILD_ROWS:
-            codes_rows = _encode_host(residuals, cb.cpu().numpy(), m)
-        else:
-            codes_rows = _host_chunked(lambda x: pq.encode(x, cb, m), residuals, device)
+        codes_rows = _encode(residuals, cb, m, host=n >= _HOST_BUILD_ROWS)
         stage("scatter codes into list slabs")
         codes = np.zeros((nlist, m, lcap), np.uint8)
         codes[li, :, si] = codes_rows[slot_ids[li, si]]
@@ -256,6 +254,74 @@ class IVFPQIndex:
                    codes=torch.from_numpy(codes).to(device),
                    slot_ids=torch.from_numpy(slot_ids).to(device),
                    n=n, d=d, m=m, n_spilled=spilled)
+
+    @classmethod
+    def repack(cls, idx: "IVFPQIndex", rows_f32: np.ndarray, pad_factor: float = 4.0,
+               spill_candidates: int = 8, replicas: int = 1) -> "IVFPQIndex":
+        """Pack and encode the rows again at a new capacity and spill depth,
+        with the index's rotation, centroids and codebooks kept
+        (``nvdb_tpu.index.ivf_pq.IVFPQIndex.repack``): minutes instead of the
+        k-means and OPQ build. ``replicas`` R > 1 encodes each row in its
+        top-R lists: copy r of a row (virtual row ``r * n + i``) prefers its
+        (r+1)-th nearest list, ``S = min(max(S, R), nlist)``, and slot ids
+        are ``vid % n``, so search returns each id once (the ``dma`` mode
+        with its duplicate pass). Runs on the index's device; the stages
+        whose output is corpus-sized run on the host from ``_HOST_BUILD_ROWS``
+        corpus rows, as in ``build``."""
+        device = idx.device
+        n, d = rows_f32.shape
+        nlist, dp = idx.centroids.shape
+        m = idx.m
+        stage = _stage_logger(n)
+        stage("pad corpus")
+        data_rot = np.zeros((n, dp), np.float32)
+        data_rot[:, :d] = rows_f32
+        if idx.rotation is not None:
+            stage("apply rotation")
+            data_rot = _rotate(data_rot, idx.rotation)
+
+        R = max(1, min(replicas, nlist))
+        S = min(max(spill_candidates, R), nlist)
+        stage("coarse assignment (top-S centroids, device-chunked)")
+        alts = _host_chunked(lambda x: _topS_centroids(x, idx.centroids, S), data_rot,
+                             device)
+        if R > 1:
+            # virtual rows: copy r of row i prefers the (r+1)-th nearest list
+            alts = np.concatenate(
+                [np.concatenate([alts[:, r:], np.repeat(alts[:, -1:], r, axis=1)], axis=1)
+                 for r in range(R)], axis=0)
+        n_v = n * R
+        lcap = round_up(int(np.ceil(n_v / nlist * pad_factor)), 128)
+
+        stage(f"pack lists (lcap={lcap}, replicas={R})")
+        _, slot_vids, _, spilled = _pack_lists(np.zeros((n_v, 1), np.float32), None,
+                                               alts[:, 0], None, alts, nlist, lcap, 1)
+
+        # the residual of each placed virtual row against its list's
+        # centroid, encoded in virtual-id order
+        cents_np = idx.centroids.cpu().numpy()
+        li, si = np.nonzero(slot_vids >= 0)
+        vids = slot_vids[li, si]
+        order = np.argsort(vids)
+        ro, lo = vids[order] % n, li[order]
+        stage("residual gather/subtract")
+        residuals = np.empty((ro.shape[0], dp), np.float32)
+        for s in range(0, ro.shape[0], 1_000_000):
+            residuals[s:s + 1_000_000] = (data_rot[ro[s:s + 1_000_000]]
+                                          - cents_np[lo[s:s + 1_000_000]])
+        del data_rot
+
+        stage("PQ encode")
+        codes_rows = _encode(residuals, idx.codebooks, m, host=n >= _HOST_BUILD_ROWS)
+        stage("scatter codes into list slabs")
+        codes = np.zeros((nlist, m, lcap), np.uint8)
+        codes[li[order], :, si[order]] = codes_rows
+        slot_ids = np.where(slot_vids >= 0, slot_vids % n, -1).astype(np.int32)
+        stage("upload index arrays")
+        return cls(rotation=idx.rotation, centroids=idx.centroids, codebooks=idx.codebooks,
+                   codes=torch.from_numpy(codes).to(device),
+                   slot_ids=torch.from_numpy(slot_ids).to(device),
+                   n=n, d=d, m=m, n_spilled=spilled, replicas=R)
 
     @classmethod
     def from_reference(cls, rotation, centroids, codebooks, codes, slot_ids, n: int,
@@ -404,6 +470,22 @@ def _rotate_inplace_host(data_p: np.ndarray, rot_np: np.ndarray,
     for s in range(0, data_p.shape[0], chunk):
         data_p[s:s + chunk] = data_p[s:s + chunk] @ rot_np
     return data_p
+
+
+def _rotate(data_p: np.ndarray, rot: torch.Tensor) -> np.ndarray:
+    """Host rows times the rotation: in place on the host from
+    ``_HOST_BUILD_ROWS`` rows, else in row chunks on the rotation's device."""
+    if data_p.shape[0] >= _HOST_BUILD_ROWS:
+        return _rotate_inplace_host(data_p, rot.cpu().numpy())
+    return _host_chunked(lambda x: _matmul(x, rot), data_p, rot.device)
+
+
+def _encode(residuals: np.ndarray, cb: torch.Tensor, m: int, host: bool) -> np.ndarray:
+    """PQ codes [N, M] uint8 of host residual rows: on the host
+    (``_encode_host``) or in row chunks on the codebooks' device."""
+    if host:
+        return _encode_host(residuals, cb.cpu().numpy(), m)
+    return _host_chunked(lambda x: pq.encode(x, cb, m), residuals, cb.device)
 
 
 def _encode_host(residuals: np.ndarray, cb_np: np.ndarray, m: int,

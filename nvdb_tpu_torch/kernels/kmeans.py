@@ -6,20 +6,25 @@
 - update: per-centroid sums and counts by ``index_add_``, where the JAX
   package multiplies by a one-hot matrix;
 - k-means++ seeding on a subsample, and the split-largest step that moves
-  under-populated centroids onto member points of the largest clusters.
+  under-populated centroids onto member points of the largest clusters;
+- ``corpus_refine``: exact Lloyd passes over a whole corpus streamed from
+  the host in chunks, sums and counts kept on the device, with the dead
+  centroids reseeded from a pool the JAX package draws with numpy, so
+  from the same starting centroids both packages give the same result up
+  to the order of f32 sums.
 
 Every function takes a leading group dimension G internally, so the M
 subspace codebooks of PQ train as one batched run (the JAX ``vmap``); the
 public functions without a ``_batched`` suffix take one group. Randomness
 comes from an explicit ``torch.Generator`` on the data's device; it gives
 other numbers than ``jax.random`` from the same seed.
-``corpus_refine`` arrives with a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from nvdb_tpu_torch.kernels import ops
@@ -145,3 +150,90 @@ def kmeans_fit(gen: torch.Generator, data: torch.Tensor, n_clusters: int,
     cents, objs = kmeans_fit_batched(gen, data[None].to(torch.float32), n_clusters,
                                      n_iters=n_iters, chunk=chunk)
     return cents[0], objs[0]
+
+
+def _corpus_partial(sums: torch.Tensor, counts: torch.Tensor, cents: torch.Tensor,
+                    chunk: torch.Tensor, inner: int = _CHUNK) -> None:
+    """Add one corpus chunk's Lloyd statistics into ``sums`` [K, D] and
+    ``counts`` [K] in place, on the device: only the final centroids ever
+    leave it. ``inner`` rows are assigned at a time, which bounds the
+    [inner, K] score slab."""
+    for s in range(0, chunk.shape[0], inner):
+        x = chunk[s:s + inner]
+        a = _assign_chunk(x[None], cents[None])[0]
+        sums.index_add_(0, a, x)
+        counts.index_add_(0, a, torch.ones_like(a, dtype=torch.float32))
+
+
+def _corpus_update(cents: torch.Tensor, sums: torch.Tensor, counts: torch.Tensor,
+                   pool: torch.Tensor, reseed: bool) -> torch.Tensor:
+    """Close one corpus pass: the mean where a centroid has rows, else the
+    centroid as it was; with ``reseed``, each dead (or starved, under 5% of
+    the mean count) centroid moves onto the first pool row of one of the
+    oversized clusters (over 1.5x), smallest paired with largest: the
+    split-largest step of ``kmeans_fit`` against the corpus's counts.
+    Stable sorts and the first pool row of a cluster, as the JAX package's
+    ``jnp.argsort`` and ``.at[].min`` give them."""
+    k = cents.shape[0]
+    new = torch.where(counts[:, None] > 0.5,
+                      sums / torch.clamp(counts, min=1.0)[:, None], cents)
+    if not reseed:
+        return new
+    mean_count = torch.sum(counts) / k
+    order_small = torch.argsort(counts, stable=True)
+    order_big = torch.argsort(-counts, stable=True)
+    pair_ok = (counts[order_small] < 0.05 * mean_count) & (counts[order_big] > 1.5 * mean_count)
+    m_pool = pool.shape[0]
+    pool_a = assign_batched(pool[None], new[None], _CHUNK)[0]
+    first_row = torch.full((k,), m_pool, dtype=torch.int64, device=pool.device)
+    first_row.scatter_reduce_(0, pool_a, torch.arange(m_pool, device=pool.device), "amin")
+    pick = first_row[order_big]
+    ok = pair_ok & (pick < m_pool)
+    donor_pos = pool[torch.clamp(pick, max=m_pool - 1)]
+    new[order_small] = torch.where(ok[:, None], donor_pos, new[order_small])
+    return new
+
+
+def corpus_refine(
+    data,                        # [N, Dp] f32: numpy on the host (streamed) or a tensor
+    cents: torch.Tensor,         # [K, Dp] f32 on the device, from kmeans_fit
+    n_iters: int = 2,
+    chunk: int = 262144,
+    pool_rows: int = 65536,
+    seed: int = 17,
+    log: Optional[Callable[[str], None]] = None,
+) -> torch.Tensor:
+    """Corpus-scale Lloyd refinement of a subsample-trained coarse quantizer
+    (``nvdb_tpu.kernels.kmeans.corpus_refine``): ``n_iters`` exact Lloyd
+    passes over the whole corpus, ``chunk`` rows at a time copied to the
+    device of ``cents``, and after every pass but the last (and after the
+    only pass when ``n_iters == 1``) the dead centroids are reseeded onto
+    rows of the largest clusters, so the last pass settles pure Lloyd. The
+    reseeding pool is ``pool_rows`` rows drawn by ``np.random.default_rng(seed)``,
+    the JAX package's draw. ``log`` receives each pass's dead count.
+    Returns the refined [K, Dp] f32 centroids on their device."""
+    k, d = cents.shape
+    dev = cents.device
+    n = data.shape[0]
+
+    def rows(sel) -> torch.Tensor:
+        if torch.is_tensor(data):
+            if isinstance(sel, np.ndarray):
+                sel = torch.from_numpy(sel).to(data.device)
+            return data[sel].to(dev, torch.float32)
+        return torch.from_numpy(np.asarray(data[sel], np.float32)).to(dev)
+
+    rng = np.random.default_rng(seed)
+    pool = rows(np.sort(rng.choice(n, size=min(pool_rows, n), replace=False)))
+    for it in range(n_iters):
+        sums = torch.zeros((k, d), dtype=torch.float32, device=dev)
+        counts = torch.zeros((k,), dtype=torch.float32, device=dev)
+        for s in range(0, n, chunk):
+            _corpus_partial(sums, counts, cents, rows(slice(s, s + chunk)))
+        cents = _corpus_update(cents, sums, counts, pool,
+                               reseed=n_iters == 1 or it < n_iters - 1)
+        if log is not None:
+            dead = int(torch.sum(counts < 0.5))
+            log(f"corpus_refine pass {it + 1}/{n_iters}: dead={dead} "
+                f"({100.0 * dead / k:.2f}%)")
+    return cents

@@ -47,7 +47,7 @@ def main(argv=None):
                         "(no host-to-device copy in the timed loop)")
     args = p.parse_args(argv)
     if args.shards > 1:
-        fail("--shards > 1 is not ported yet (ROADMAP.md queue 6)")
+        fail("--shards > 1 is not ported yet (dist: ROADMAP.md queue 1 item 4)")
     device = setup_device(args)
 
     from nvdb_tpu_torch.index.flat import FlatIndex

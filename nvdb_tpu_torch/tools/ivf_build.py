@@ -6,13 +6,16 @@ nvdb_ivf_build / nvdb_ivfpq_build analogue (the port of
         --nlist 4096 --dtype bf16 [--pad-factor 1.5] [--spill-candidates 4] \\
         [--device cuda|cpu]
     python -m nvdb_tpu_torch.tools.ivf_build base.vecbin index.npz --kind ivfpq \\
-        --nlist 4096 --pq-m 96 --opq [--train 50000] [--pad-factor 2.5]
+        --nlist 4096 --pq-m 96 --opq [--train 50000] [--pad-factor 2.5] \\
+        [--corpus-refine ITERS]
+    python -m nvdb_tpu_torch.tools.ivf_build base.vecbin repacked.npz --kind ivfpq \\
+        --repack-from index.npz [--pad-factor 4.0] [--spill-candidates 8] [--replicas 2]
 
 Flag defaults honor the reference's env vars (IVF_NLIST, IVF_TRAIN, PQ_M,
 USE_OPQ, OPQ_NITER); ``--pad-factor`` defaults to 1.5 for ivfflat and 2.5
-for ivfpq. The ``.npz`` it writes loads in ``nvdb_tpu`` too.
-``--repack-from``, ``--replicas`` and ``--corpus-refine`` are not ported yet
-and exit non-zero.
+for ivfpq, and on ``--repack-from`` to 2.5 and 4.0. The ``.npz`` it writes
+loads in ``nvdb_tpu`` too, and the index ``--repack-from`` reads may come
+from either package.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import time
 
 from nvdb_tpu_torch import config
 from nvdb_tpu_torch.formats import vecbin
-from nvdb_tpu_torch.tools._common import fail, make_parser, setup_device
+from nvdb_tpu_torch.tools._common import make_parser, setup_device
 
 
 def main(argv=None):
@@ -46,17 +49,26 @@ def main(argv=None):
     p.add_argument("--spill-candidates", type=int, default=4,
                    help="overflow rows try their S nearest lists before the "
                         "last-resort pour into any free list")
-    p.add_argument("--repack-from", default=None, metavar="IDX")
-    p.add_argument("--replicas", type=int, default=1)
+    p.add_argument("--repack-from", default=None, metavar="IDX",
+                   help="reuse a trained index's rotation/centroids/codebooks and only "
+                        "re-pack (+ re-encode for pq) the lists at the new "
+                        "--pad-factor/--spill-candidates")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="ivfpq --repack-from only: encode each row in its top-R lists")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--corpus-refine", type=int, default=0, metavar="ITERS")
+    p.add_argument("--corpus-refine", type=int, default=0, metavar="ITERS",
+                   help=">0: corpus-scale Lloyd passes + dead-centroid reseeding after "
+                        "the subsample k-means")
     args = p.parse_args(argv)
-    if args.repack_from or args.replicas != 1:
-        fail("--repack-from / --replicas are not ported yet (ROADMAP.md queue 7)")
-    if args.corpus_refine > 0:
-        fail("--corpus-refine is not ported yet (ROADMAP.md queue 7)")
+    if args.repack_from and args.kind == "ivfflat" and args.replicas != 1:
+        p.error("--replicas is ivfpq-only (flat payload replication doubles "
+                "full-vector memory; use ivfpq)")
     if args.pad_factor is None:
-        args.pad_factor = 1.5 if args.kind == "ivfflat" else 2.5
+        # a repack exists to escape tight packing: the roomier defaults
+        if args.repack_from:
+            args.pad_factor = 2.5 if args.kind == "ivfflat" else 4.0
+        else:
+            args.pad_factor = 1.5 if args.kind == "ivfflat" else 2.5
     device = setup_device(args)
 
     from nvdb_tpu_torch.index.ivf_flat import IVFFlatIndex
@@ -65,18 +77,32 @@ def main(argv=None):
     f = vecbin.VecbinFile(args.base)
     rows = f.rows_f32()
     t0 = time.perf_counter()
-    if args.kind == "ivfflat":
+    if args.repack_from:
+        if args.kind == "ivfpq":
+            idx = IVFPQIndex.repack(IVFPQIndex.load(args.repack_from, device=device), rows,
+                                    pad_factor=args.pad_factor,
+                                    spill_candidates=args.spill_candidates,
+                                    replicas=args.replicas)
+        else:
+            idx = IVFFlatIndex.repack(IVFFlatIndex.load(args.repack_from, device=device),
+                                      rows, pad_factor=args.pad_factor,
+                                      spill_candidates=args.spill_candidates)
+    elif args.kind == "ivfflat":
         idx = IVFFlatIndex.build(
             rows, nlist=args.nlist, dtype=args.dtype, train_size=args.train,
             n_iters=args.iters, pad_factor=args.pad_factor,
-            spill_candidates=args.spill_candidates, seed=args.seed, device=device)
-        shape = f"dtype={args.dtype}"
+            spill_candidates=args.spill_candidates, seed=args.seed,
+            corpus_refine_iters=args.corpus_refine, device=device)
     else:
         idx = IVFPQIndex.build(
             rows, nlist=args.nlist, m=args.pq_m, use_opq=args.opq, train_size=args.train,
             n_iters=args.iters, opq_iters=args.opq_iters, pad_factor=args.pad_factor,
-            spill_candidates=args.spill_candidates, seed=args.seed, device=device)
-        shape = f"m={idx.m}"
+            spill_candidates=args.spill_candidates, seed=args.seed,
+            corpus_refine_iters=args.corpus_refine, device=device)
+    if args.kind == "ivfflat":
+        shape = f"dtype={vecbin.dtype_name(idx.dtype_code)}"
+    else:
+        shape = f"m={idx.m} replicas={idx.replicas}"
     if device.type == "cuda":
         import torch
 

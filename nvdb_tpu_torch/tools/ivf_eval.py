@@ -32,12 +32,19 @@ candidates, and ``dma`` for ADC-only results). ``--residual-refine``: the
 base vecbin holds residual int8 codes of this index
 (``tools.quantize_i8 --residual``); the refine dequantizes them against the
 index's centroids and scores rotated queries. ``--shards`` and
-``--force-sharded`` are not ported yet and exit non-zero.
+``--force-sharded`` are not ported yet (they come with dist, ROADMAP.md
+queue 1 item 4) and exit non-zero.
+
+With ``NVDB_DBG_DIR`` set, each staged grid point also writes its stage
+spans (``eval.trace.Tracer``: ``ann`` and ``refine``, one sample per batch)
+to ``NVDB_DBG_DIR/stages_<kind>_np<nprobe>_r<refine_k>_q<Q>_k<k>.tsv``,
+the JAX package's file and columns.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import time
 
 import numpy as np
@@ -45,6 +52,7 @@ import numpy as np
 from nvdb_tpu_torch import config
 from nvdb_tpu_torch.eval.recall import candidate_recall, recall_at_k
 from nvdb_tpu_torch.eval.stats import compute_stats, result_line
+from nvdb_tpu_torch.eval.trace import Tracer
 from nvdb_tpu_torch.formats import gtbin, vecbin
 from nvdb_tpu_torch.tools._common import fail, make_parser, setup_device
 
@@ -94,7 +102,8 @@ def main(argv=None):
                         "latency percentiles; 0 disables")
     args = p.parse_args(argv)
     if args.shards > 1 or args.force_sharded:
-        fail("--shards / --force-sharded are not ported yet (ROADMAP.md queue 6)")
+        fail("--shards / --force-sharded are not ported yet (dist: ROADMAP.md queue 1 "
+             "item 4)")
     device = setup_device(args)
 
     import torch
@@ -152,6 +161,7 @@ def main(argv=None):
     staged = args.device_queries or args.chained
 
     results = []
+    dbg_dir = os.environ.get("NVDB_DBG_DIR")
 
     def to_dev(x):
         return torch.from_numpy(x).to(device)
@@ -218,15 +228,16 @@ def main(argv=None):
             return i.cpu().numpy()
 
         # ---- stage A: ANN candidate generation, timed per batch ----------
+        # (each step ends in its copy to the host, so a span holds the
+        # device's work)
+        tr = Tracer()
         for w in range(min(args.warmup, n_batches)):
             ann_step(blocks[w])
         cand = np.empty((n_batches * b, kk), np.int64)
-        ann_lat = []
         for s in range(n_batches):
-            t0 = time.perf_counter()
-            cand[s * b:(s + 1) * b] = ann_step(blocks[s])
-            ann_lat.append((time.perf_counter() - t0) * 1e3)
-        ann_stats = compute_stats(ann_lat, n_queries=Q, batch_q=b)
+            with tr.span("ann"):
+                cand[s * b:(s + 1) * b] = ann_step(blocks[s])
+        ann_stats = compute_stats(tr.samples_ms["ann"], n_queries=Q, batch_q=b)
 
         # ---- stage B: exact refine over the stored candidates ------------
         ref_stats = None
@@ -259,12 +270,10 @@ def main(argv=None):
             for w in range(min(args.warmup, n_batches)):
                 refine_step(blocks[w], cblocks[w])
             out = np.empty((n_batches * b, args.k), np.int64)
-            ref_lat = []
             for s in range(n_batches):
-                t0 = time.perf_counter()
-                out[s * b:(s + 1) * b] = refine_step(blocks[s], cblocks[s])
-                ref_lat.append((time.perf_counter() - t0) * 1e3)
-            ref_stats = compute_stats(ref_lat, n_queries=Q, batch_q=b)
+                with tr.span("refine"):
+                    out[s * b:(s + 1) * b] = refine_step(blocks[s], cblocks[s])
+            ref_stats = compute_stats(tr.samples_ms["refine"], n_queries=Q, batch_q=b)
             final_ids = out[:Q]
 
         recall = recall_at_k(final_ids, gt_ids, k=args.k) if gt_ids is not None else -1.0
@@ -280,6 +289,10 @@ def main(argv=None):
             refine_ms_per_q = ref_stats.avg_ms
         if recall >= 0:
             print(f"recall@{args.k}={recall:.4f} cand_recall={cand_recall:.4f}")
+        if dbg_dir:
+            os.makedirs(dbg_dir, exist_ok=True)
+            tr.dump_tsv(os.path.join(
+                dbg_dir, f"stages_{kind}_np{nprobe}_r{refine_k}_q{Q}_k{args.k}.tsv"))
         total = ann_stats.avg_ms + refine_ms_per_q
         # total = per-query ANN + amortized refine (nvdb_ivf_eval.cpp:659-662)
         emit(**common, device_queries=int(args.device_queries),

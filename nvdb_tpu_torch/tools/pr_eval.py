@@ -58,7 +58,7 @@ def main(argv=None):
                         "percentiles; 0 disables")
     args = p.parse_args(argv)
     if args.shards > 1:
-        fail("--shards > 1 is not ported yet (ROADMAP.md queue 6, dist)")
+        fail("--shards > 1 is not ported yet (dist: ROADMAP.md queue 1 item 4)")
     device = setup_device(args)
 
     import torch

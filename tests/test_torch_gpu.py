@@ -785,3 +785,95 @@ def test_add1_kernel_other_shapes(cuda_device, shape):
 
     x = torch.arange(int(np.prod(shape)), dtype=torch.float32, device=cuda_device).reshape(shape)
     assert torch.equal(add1.add1_cuda(x), x + 1.0)
+
+
+# -- the build side and the data tools on the card ------------------------------
+
+@pytest.fixture(scope="module")
+def built_pq():
+    """A small IVF-PQ index built on the card (4,000 x 64, nlist 16, m 16)
+    with its base and queries; None without a card."""
+    if not torch.cuda.is_available():
+        return None
+    from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+    from nvdb_tpu_torch.store import VectorStore
+
+    base = synth.low_rank(4000, 64, intrinsic=16, n_clusters=12, spread=0.5, seed=71)
+    queries, _ = synth.sample_queries(base, 32, seed=72, perturb=0.05)
+    idx = IVFPQIndex.build(base, nlist=16, m=16, use_opq=True, opq_iters=2, n_iters=6,
+                           pad_factor=1.0, spill_candidates=2, seed=2, device="cuda")
+    return dict(base=base, q=queries, idx=idx,
+                store=VectorStore.from_numpy(base, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_repacked_ivfpq_kernels_match_plain(cuda_device, built_pq, replicas):
+    """A repacked (R = 1) and a replicated (R = 2) index searched through the
+    kernels against the plain path: ids equal at >= 0.99 of positions after
+    the exact refine, and no id twice in any query's ADC candidates or
+    results (R = 2 takes the dma kernel with its duplicate pass)."""
+    from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    w = built_pq
+    idx = IVFPQIndex.repack(w["idx"], w["base"], pad_factor=2.0, spill_candidates=8,
+                            replicas=replicas)
+    assert idx.replicas == replicas and idx.device.type == "cuda"
+    assert idx.n_spilled < w["idx"].n_spilled
+    assert idx.ids_mode() == ("key" if replicas == 1 else "dma")
+    before = adc_scan.LAUNCHES
+    _, ki = idx.search(w["q"], 10, 4, refine_k=50, refine_store=w["store"])
+    _, pi = idx.search(w["q"], 10, 4, refine_k=50, refine_store=w["store"], backend="torch")
+    assert float(np.mean(ki == pi)) >= 0.99
+    _, cand = idx.search(w["q"], 40, 4)
+    if replicas > 1:
+        assert adc_scan.LAUNCHES > before
+    for row in [*ki, *cand]:
+        live = row[row >= 0]
+        assert len(set(live.tolist())) == len(live)
+
+
+@pytest.mark.gpu
+def test_corpus_refine_on_card_matches_cpu(cuda_device):
+    from nvdb_tpu_torch.kernels import kmeans
+
+    base = synth.clustered(6000, 64, n_clusters=48, seed=13)
+    rng = np.random.default_rng(5)
+    c0 = base[rng.choice(6000, 48, replace=False)].copy()
+    c0[-8:] = 3.0 * rng.standard_normal((8, 64)).astype(np.float32)
+    logs = {"cpu": [], "cuda": []}
+    cpu = kmeans.corpus_refine(base, torch.from_numpy(c0), n_iters=2, chunk=2048,
+                               pool_rows=4096, log=logs["cpu"].append)
+    card = kmeans.corpus_refine(base, torch.from_numpy(c0).to(cuda_device), n_iters=2,
+                                chunk=2048, pool_rows=4096, log=logs["cuda"].append)
+    assert card.device.type == "cuda" and logs["cuda"] == logs["cpu"]
+    assert torch.allclose(card.cpu(), cpu, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_gt_build_on_card_matches_cpu(cuda_device, tmp_path):
+    """``tools.gt_build`` on the card (the flat kernel), chunked on the card,
+    and with ``--device cpu``: the same ids at >= 0.99 of positions (f32
+    sums in another order may swap a near-tie), and the card's ids lose no
+    float64 score against the CPU's beyond 1e-5."""
+    from nvdb_tpu_torch.kernels import flat_scan
+    from nvdb_tpu_torch.tools import gt_build
+
+    base = synth.clustered(20000, 96, n_clusters=32, spread=0.5, seed=31)
+    queries, _ = synth.sample_queries(base, 64, seed=32, perturb=0.05)
+    bp, qp = str(tmp_path / "base.vecbin"), str(tmp_path / "q.vecbin")
+    vecbin.write_vecbin(bp, base)
+    vecbin.write_vecbin(qp, queries)
+    before = flat_scan.LAUNCHES
+    card = gt_build.main([bp, qp, str(tmp_path / "a.gtbin"), "--k", "10"])
+    assert flat_scan.LAUNCHES > before
+    chunked = gt_build.main([bp, qp, str(tmp_path / "b.gtbin"), "--k", "10",
+                             "--row-chunk", "7000"])
+    cpu = gt_build.main([bp, qp, str(tmp_path / "c.gtbin"), "--k", "10", "--device", "cpu"])
+    s64 = queries.astype(np.float64) @ base.astype(np.float64).T
+    for ids in (card, chunked):
+        assert float(np.mean(ids == cpu)) >= 0.99
+        got = np.sort(np.take_along_axis(s64, ids.astype(np.int64), axis=1), axis=1)
+        want = np.sort(np.take_along_axis(s64, cpu.astype(np.int64), axis=1), axis=1)
+        assert float(np.max(want - got)) <= 1e-5

@@ -293,12 +293,20 @@ def test_port_build_recall_near_jax(world, dtype):
     assert _recall(ti, world["gt"]) >= _recall(ji, world["gt"]) - 0.02
 
 
-def test_unported_build_options_raise(world):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IVFFlatIndex.build(world["base"][:500], nlist=4, corpus_refine_iters=1,
+def test_corpus_refine_build_and_repack(world):
+    """The build options that raised before the build side was ported:
+    ``corpus_refine_iters`` packs every row once, and ``repack`` of a
+    carried-across index equals the JAX package's repack bit for bit."""
+    r = IVFFlatIndex.build(world["base"][:500], nlist=4, corpus_refine_iters=1,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IVFFlatIndex.repack(_port_of(world["j"]["f32"]), world["base"])
+    live = r.slot_ids.numpy()
+    assert sorted(live[live >= 0].tolist()) == list(range(500))
+    j = world["j"]["f32"]
+    got = IVFFlatIndex.repack(_port_of(j), world["base"])
+    want = JIVFFlatIndex.repack(j, world["base"])
+    assert (got.lcap, got.n_spilled) == (want.lcap, want.n_spilled)
+    np.testing.assert_array_equal(got.slot_ids.numpy(), np.asarray(want.slot_ids))
+    np.testing.assert_array_equal(got.packed.numpy(), np.asarray(want.packed))
 
 
 def test_cuda_paths_raise_on_cpu(world):

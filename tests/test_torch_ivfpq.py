@@ -245,11 +245,15 @@ def test_deterministic_helpers_bit_for_bit(world):
     assert adc_scan.is_prefix_packed(torch.from_numpy(np.array(j.slot_ids)))
 
 
-def test_unported_modes_raise(world):
+def test_corpus_refine_build_and_cuda_wrapper_guard(world):
+    """``corpus_refine_iters`` builds (it raised before the build side was
+    ported): every row packed once; the ADC kernel wrapper still refuses a
+    CPU tensor."""
     t = _port_of(world["j"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        IVFPQIndex.build(world["base"][:500], nlist=4, m=16, corpus_refine_iters=1,
+    r = IVFPQIndex.build(world["base"][:500], nlist=4, m=16, corpus_refine_iters=1,
                          device="cpu")
+    live = r.slot_ids.numpy()
+    assert sorted(live[live >= 0].tolist()) == list(range(500))
     with pytest.raises(ValueError, match="CUDA tensors"):
         adc_scan.adc_topk_cuda(torch.zeros((1, 1, M, 256)), torch.zeros((1, 1)),
                                t.codes, t.slot_ids, 10)

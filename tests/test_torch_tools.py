@@ -326,14 +326,72 @@ def test_quantize_i8_rejects_a_foreign_index(files, ivf_files, tmp_path, capsys)
     assert "wrong index" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [["--repack-from", "x.npz"], ["--replicas", "2"],
-                                  ["--corpus-refine", "1"]])
-def test_ivf_build_unported_flags_exit(ivf_files, tmp_path, capsys, argv):
-    with pytest.raises(SystemExit) as e:
-        ivf_build.main([ivf_files["base"], str(tmp_path / "x.npz"), "--device", "cpu",
-                        *argv])
-    assert e.value.code != 0
-    assert "not ported" in capsys.readouterr().err
+@pytest.mark.parametrize("flag", ["--repack-from", "--replicas", "--corpus-refine"])
+def test_ivf_build_build_side_flags(ivf_files, tmp_path, capsys, flag):
+    """The flags that once exited run and write an index the JAX package
+    loads and searches: ``--repack-from`` (pad 4.0, 8 spill candidates by
+    default) and ``--repack-from --replicas 2`` give the JAX tool's arrays
+    from the same index; ``--corpus-refine 1`` builds."""
+    from nvdb_tpu.index.ivf_pq import IVFPQIndex as JIVFPQIndex
+    from nvdb_tpu.tools import ivf_build as jivf_build
+
+    ours, theirs = str(tmp_path / "t.npz"), str(tmp_path / "j.npz")
+    if flag == "--corpus-refine":
+        argv = ["--kind", "ivfpq", "--nlist", "8", "--pq-m", "8", "--train", "3000",
+                "--opq-iters", "2", "--corpus-refine", "1"]
+    else:
+        argv = ["--kind", "ivfpq", "--repack-from", ivf_files["idx"]]
+        argv += ["--replicas", "2"] if flag == "--replicas" else []
+    ivf_build.main([ivf_files["base"], ours, *argv, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "built ivfpq" in out and "spilled=" in out
+    t = JIVFPQIndex.load(ours)
+    live = np.asarray(t.slot_ids)
+    counts = np.bincount(live[live >= 0], minlength=3000)
+    assert counts.min() >= 1 and counts.max() == t.replicas
+    assert t.replicas == (2 if flag == "--replicas" else 1)
+    queries = jvecbin.VecbinFile(ivf_files["q"]).rows_f32()
+    _, ids = t.search(queries, 10, 4)
+    assert ((np.asarray(ids) >= 0) & (np.asarray(ids) < 3000)).all()
+    if flag != "--corpus-refine":
+        jivf_build.main([ivf_files["base"], theirs, *argv, "--cpu"])
+        capsys.readouterr()
+        zt, zj = np.load(ours), np.load(theirs)
+        assert sorted(zt.files) == sorted(zj.files)
+        for name in zj.files:
+            np.testing.assert_array_equal(zt[name], zj[name])
+        assert t.lcap == {1: 1536, 2: 3072}[t.replicas]   # round_up(3000 R / 8 * 4, 128)
+
+
+def test_ivf_build_replicas_on_ivfflat_refused(flat_files, tmp_path, capsys):
+    """``--replicas`` is ivfpq-only, with the JAX tool's error."""
+    from nvdb_tpu.tools import ivf_build as jivf_build
+
+    argv = [flat_files["base"], str(tmp_path / "x.npz"), "--kind", "ivfflat",
+            "--repack-from", flat_files["idx"], "--replicas", "2"]
+    errs = []
+    for main, extra in ((ivf_build.main, ["--device", "cpu"]), (jivf_build.main, ["--cpu"])):
+        with pytest.raises(SystemExit) as e:
+            main(argv + extra)
+        assert e.value.code == 2
+        errs.append(capsys.readouterr().err.splitlines()[-1].split("error: ", 1)[1])
+    assert errs[0] == errs[1] and "ivfpq-only" in errs[0]
+
+
+def test_ivf_build_ivfflat_repack_matches_jax(flat_files, tmp_path, capsys):
+    """``--kind ivfflat --repack-from`` (pad 2.5, 8 spill candidates by
+    default) writes the JAX tool's arrays from the same index."""
+    from nvdb_tpu.tools import ivf_build as jivf_build
+
+    ours, theirs = str(tmp_path / "t.npz"), str(tmp_path / "j.npz")
+    argv = ["--kind", "ivfflat", "--repack-from", flat_files["idx"]]
+    ivf_build.main([flat_files["base"], ours, *argv, "--device", "cpu"])
+    jivf_build.main([flat_files["base"], theirs, *argv, "--cpu"])
+    capsys.readouterr()
+    zt, zj = np.load(ours), np.load(theirs)
+    for name in zj.files:
+        np.testing.assert_array_equal(zt[name], zj[name])
+    assert zt["packed"].shape[1] == 480          # round_up(ceil(3000 / 16 * 2.5), 32)
 
 
 # -- IVF-Flat and the partition index --------------------------------------------
