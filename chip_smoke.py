@@ -11,19 +11,28 @@ then, one phase per line group:
 2. build: build seconds and each kernel's ptxas register / spill line;
 3. kernel vs plain: the kernel against its plain PyTorch version and a
    float64 oracle on a 65,536 x 768 store (n_valid 65,000, which ends
-   inside a row tile), every store type (f32 through the SIMT kernel, the
-   others through the tensor-core kernel), B in {1, 8, 37, 200, 512, 600},
-   k in {1, 10, 128}; int8 x int8 must equal the plain version bit for bit;
+   inside a row tile), every store type through the tensor-core kernel and
+   f32 also through the SIMT kernel, B in {1, 8, 37, 200, 512, 600}, k in
+   {1, 10, 128}; int8 x int8 must equal the plain version bit for bit; the
+   f32 tensor-core instance must pass the error gate on every case: its
+   largest |value - float64| at most twice the SIMT kernel's on the same
+   call, and its ids equal to the SIMT kernel's wherever the float64 scores
+   of the two ids differ by more than 1e-6 (printed with the plain six-pass
+   decomposition's regret, ``flat_scan.six_pass_scores``);
 4. main path: ``FlatIndex.search`` of 512 queries, k = 10, over a 1M x 768
    bf16 store synthesized on the card, through ``dispatch.flat_topk``; the
-   kernel's launch count is reset just before and must have risen; then
-   ``tools.bench`` on a 262,144 x 384 f32 vecbin with float64 ground truth;
+   kernel's launch counts (in all and by instance) are reset just before and
+   must have risen; then ``tools.bench`` on a 262,144 x 384 f32 vecbin with
+   float64 ground truth, whose f32 store must go to the tensor-core
+   instance (so must the f32 ground truths of phases 8, 11 and 14);
 5. times: kernel and plain version in turns at 1M x 768, B = 512, k = 10 per
-   store type and at B = 8 for bf16, each beside its bound (the least time
-   the card could take: bytes over the HBM rate or operations over the peak
-   rate of their type, whichever is larger) and time / bound; one
-   ``torch.matmul`` of the bf16 B = 512 product as the library's time for
-   the scoring part alone; the headline line of ``nvdb_tpu_torch.bench``;
+   store type and at B = 8 for bf16 and f32 (f32: the SIMT kernel in the
+   same turns), each beside its bound (the least time the card could take:
+   bytes over the HBM rate or operations over the peak rate of their type,
+   whichever is larger; six bf16 passes for the f32 tensor-core instance)
+   and time / bound; one library call of the scores alone where there is
+   one (``torch.matmul``, with TF32 off for f32; ``torch._int_mm`` for int8
+   x int8); the headline line of ``nvdb_tpu_torch.bench``;
 6. ADC kernels vs plain: a random prefix-packed index at the flagship's M =
    96, dsub = 8 and Lcap = 640 (fills below kk, a dead list), B in {1, 8,
    64, 256}, P in {1, 7, 64}, kk in {10, 100, 256, 1024}, an index whose
@@ -105,17 +114,20 @@ then, one phase per line group:
    near-ties, and with ``--row-chunk 262144``; ``tools.slice --n 65536``,
    ``make_query --q 256`` on the slice, ``gt_build --host`` against
    ``gt_build`` there, ``search --q 4``, ``ab_compare --a cuda --b torch
-   --pairs 30``, ``convert_bf16`` -> ``dump`` -> ``sanity``. Each sub-step
+   --pairs 30``, ``convert_bf16`` -> ``dump`` -> ``sanity``; the SIMT
+   kernel's ground truth of phase 8's files (the A/B) against ``gt_build``'s
+   on the tensor cores, equal except at float64 near-ties. Each sub-step
    prints its wall time; the launches of phase 14 join the kernels' record.
 
 Files go to ``build/chip_smoke``, which is removed at the end. Each phase
 prints its wall time. Every check raises on failure, so the exit code is
 non-zero if any phase fails; nothing falls back to the CPU or to the plain
 version. Without a CUDA device it exits 1 before printing any result. The
-last three lines are ``nvidia-smi``'s name and power limit, the kernels'
-JSON record (launches on the main paths, error, ms, plain ms, bound ms and
-what sets it, the library call's ms where there is one), and
-``{"ok": true, "device": {...}}``.
+last lines are ``nvidia-smi``'s name and power limit, the flat kernel's
+launches by instance, the kernels' JSON record (launches on the main paths,
+error, ms, plain ms, bound ms and what sets it, the library call's ms where
+there is one; the flat kernel has three rows: bf16 / int8, f32 on the
+tensor cores, f32 on the SIMT kernel), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -134,6 +146,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 REGRET_TOL = 1e-5      # float64 score regret of the kernel's ids
+F32_ERR_RATIO = 2.0    # f32 on the tensor cores: largest |value - float64| against the
+F32_ID_GAP = 1e-6      # SIMT kernel's on the same call; ids equal beyond this float64 gap
 VALUE_ATOL = 1e-5      # |kernel - plain| per value (f32 sums in another order),
 VALUE_RTOL = 1e-5      # as in the repository's parity tests
 ID_AGREE_MIN = 0.99    # share of positions where kernel and plain ids agree
@@ -214,7 +228,20 @@ def regret(torch, s64, ids, k):
     return float((ref - got).max())
 
 
+def value_err64(torch, s64, vals, ids):
+    """Largest |value - float64 score of its id| of a kernel's result."""
+    return float((vals.double() - torch.gather(s64, 1, ids.long())).abs().max())
+
+
 def phase_kernel_vs_plain(torch, dev):
+    """Every store type against the plain version and float64. f32 stores go
+    through the tensor-core kernel (the default) and, in the same loop, the
+    SIMT kernel, and the tensor-core kernel must pass the error gate: its
+    largest |value - float64| no more than F32_ERR_RATIO times the SIMT
+    kernel's, and its ids equal to the SIMT kernel's wherever the float64
+    scores of the two ids differ by more than F32_ID_GAP. The plain
+    six-pass decomposition's regret is printed beside them. Returns the
+    largest |kernel - plain| per instance."""
     from nvdb_tpu_torch.formats import synth, vecbin
     from nvdb_tpu_torch.index.flat import quantize_queries_i8
     from nvdb_tpu_torch.kernels import flat_scan
@@ -222,7 +249,7 @@ def phase_kernel_vs_plain(torch, dev):
     n_pad, n_valid, dp = 65536, 65000, 768
     base = torch.from_numpy(synth.normalized_gaussian(n_pad, dp, seed=11)).to(dev)
     qall = torch.from_numpy(synth.normalized_gaussian(600, dp, seed=12)).to(dev)
-    max_err = 0.0
+    max_err = {"flat_topk": 0.0, "f32_tensor_core": 0.0, "f32_simt": 0.0}
     for dtype in ("f32", "bf16", "i8", "i8xi8"):
         scales = qq = qs = None
         if dtype == "f32":
@@ -237,42 +264,95 @@ def phase_kernel_vs_plain(torch, dev):
             qq, qs = quantize_queries_i8(qall)
         q64, s64_store = effective_f64(torch, dtype, qall, base, store, scales, qq, qs)
         s64_all = q64 @ s64_store[:n_valid].T
+        # the decomposition alone, in plain torch: the split's own error
+        six = flat_scan.six_pass_scores(qall, base[:n_valid]) if dtype == "f32" else None
+        kernels = (flat_scan.TENSOR_CORE, flat_scan.SIMT) if dtype == "f32" else (None,)
         for b in (1, 8, 37, 200, 512, 600):
             q = qq[:b] if qq is not None else qall[:b]
             qsb = qs[:b] if qs is not None else None
             for k in (1, 10, 128):
-                kv, ki = flat_scan.flat_topk_cuda(q, store, scales, n_valid, k,
-                                                  query_scales=qsb)
-                torch.cuda.synchronize(dev)
                 pv, pi = flat_scan.flat_topk_reference(q, store, scales, n_valid, k,
                                                        query_scales=qsb)
-                tag = f"{dtype} B={b} k={k}"
-                check(tuple(kv.shape) == (b, k) and tuple(ki.shape) == (b, k), f"{tag}: shape")
-                check(bool(torch.isfinite(kv).all()), f"{tag}: non-finite values")
-                check(bool(((ki >= 0) & (ki < n_valid)).all()), f"{tag}: id out of [0, n_valid)")
-                check(bool((kv[:, 1:] <= kv[:, :-1]).all()), f"{tag}: values not sorted")
-                r = regret(torch, s64_all[:b], ki, k)
-                err = float((kv - pv).abs().max())
-                agree = float((ki == pi).float().mean())
-                check(r <= REGRET_TOL, f"{tag}: regret {r} > {REGRET_TOL}")
-                check(bool(torch.allclose(kv, pv, atol=VALUE_ATOL, rtol=VALUE_RTOL)),
-                      f"{tag}: values differ from plain by {err}")
-                check(agree >= ID_AGREE_MIN, f"{tag}: id agreement {agree} < {ID_AGREE_MIN}")
-                if dtype == "i8xi8":   # int32 sums are exact in any order
-                    check(bool(torch.equal(kv, pv)), f"{tag}: not bit-equal to plain")
-                max_err = max(max_err, err)
-                say(f"  {tag}: regret={r:.3e} max_abs_err={err:.3e} id_agree={agree:.4f}")
-        del store, scales, s64_all, s64_store, q64
+                res = {}
+                for kern in kernels:
+                    extra = {} if kern is None else {"f32_kernel": kern}
+                    kv, ki = flat_scan.flat_topk_cuda(q, store, scales, n_valid, k,
+                                                      query_scales=qsb, **extra)
+                    torch.cuda.synchronize(dev)
+                    tag = f"{dtype}{'' if kern is None else ' ' + kern} B={b} k={k}"
+                    check(tuple(kv.shape) == (b, k) and tuple(ki.shape) == (b, k),
+                          f"{tag}: shape")
+                    check(bool(torch.isfinite(kv).all()), f"{tag}: non-finite values")
+                    check(bool(((ki >= 0) & (ki < n_valid)).all()),
+                          f"{tag}: id out of [0, n_valid)")
+                    check(bool((kv[:, 1:] <= kv[:, :-1]).all()), f"{tag}: values not sorted")
+                    r = regret(torch, s64_all[:b], ki, k)
+                    err = float((kv - pv).abs().max())
+                    agree = float((ki == pi).float().mean())
+                    check(r <= REGRET_TOL, f"{tag}: regret {r} > {REGRET_TOL}")
+                    check(bool(torch.allclose(kv, pv, atol=VALUE_ATOL, rtol=VALUE_RTOL)),
+                          f"{tag}: values differ from plain by {err}")
+                    check(agree >= ID_AGREE_MIN,
+                          f"{tag}: id agreement {agree} < {ID_AGREE_MIN}")
+                    if dtype == "i8xi8":   # int32 sums are exact in any order
+                        check(bool(torch.equal(kv, pv)), f"{tag}: not bit-equal to plain")
+                    key = "flat_topk" if kern is None else f"f32_{kern}"
+                    max_err[key] = max(max_err[key], err)
+                    res[kern] = (kv, ki)
+                    say(f"  {tag}: regret={r:.3e} max_abs_err={err:.3e} id_agree={agree:.4f}")
+                if dtype == "f32":
+                    # the error gate of the tensor-core instance against the SIMT kernel
+                    (tv, ti), (sv, si) = res[flat_scan.TENSOR_CORE], res[flat_scan.SIMT]
+                    s64 = s64_all[:b]
+                    e_tc, e_simt = value_err64(torch, s64, tv, ti), value_err64(torch, s64, sv, si)
+                    gap = (torch.gather(s64, 1, ti.long()) - torch.gather(s64, 1, si.long())).abs()
+                    apart = int(((ti != si) & (gap > F32_ID_GAP)).sum())
+                    _, si6 = torch.topk(six[:b], k, dim=1)
+                    r6 = regret(torch, s64, si6.to(torch.int32), k)
+                    say(f"  f32 gate B={b} k={k}: |value - float64| tensor core {e_tc:.3e} "
+                        f"simt {e_simt:.3e} (ratio {e_tc / max(e_simt, 1e-30):.2f}, limit "
+                        f"{F32_ERR_RATIO}); ids apart from simt beyond a {F32_ID_GAP} gap: "
+                        f"{apart}; six-pass plain regret {r6:.3e}")
+                    check(e_tc <= F32_ERR_RATIO * e_simt,
+                          f"f32 B={b} k={k}: tensor-core error {e_tc} > {F32_ERR_RATIO} x "
+                          f"simt's {e_simt}")
+                    check(apart == 0, f"f32 B={b} k={k}: {apart} ids differ from simt's "
+                                      f"beyond a {F32_ID_GAP} float64 gap")
+        del store, scales, s64_all, s64_store, q64, six
     del base, qall
     torch.cuda.empty_cache()
     return max_err
+
+
+def flat_reset():
+    """Set the flat kernel's launch counts to 0, in all and by instance."""
+    from nvdb_tpu_torch.kernels import flat_scan
+
+    flat_scan.LAUNCHES = 0
+    for key in flat_scan.LAUNCHES_BY_KERNEL:
+        flat_scan.LAUNCHES_BY_KERNEL[key] = 0
+
+
+def flat_counts(tag, f32=False):
+    """The flat kernel's launches by instance since flat_reset, printed under
+    ``tag``; with ``f32``, the f32 store of that path must have gone to the
+    tensor-core instance and never to the SIMT one."""
+    from nvdb_tpu_torch.kernels import flat_scan
+
+    counts = {k: v for k, v in flat_scan.LAUNCHES_BY_KERNEL.items() if v}
+    say(f"  {tag}: flat kernel launches by instance {counts}")
+    check(flat_scan.LAUNCHES > 0, f"{tag}: the flat kernel was not launched")
+    if f32:
+        check(counts.get("f32_tensor_core", 0) > 0 and "f32_simt" not in counts,
+              f"{tag}: the f32 store did not go to the tensor-core instance alone")
+    return counts
 
 
 def phase_main_path(torch, dev):
     from nvdb_tpu_torch.bench import synth_store
     from nvdb_tpu_torch.formats import synth
     from nvdb_tpu_torch.index.flat import FlatIndex
-    from nvdb_tpu_torch.kernels import flat_scan, ops
+    from nvdb_tpu_torch.kernels import ops
 
     n, d, b, k = 1_000_000, 768, 512, 10
     store = synth_store(n, d, "bf16", dev, seed=0)
@@ -280,14 +360,13 @@ def phase_main_path(torch, dev):
     queries = synth.normalized_gaussian(b, d, seed=13)
     index = FlatIndex(store)
 
-    flat_scan.LAUNCHES = 0
+    flat_reset()
     t0 = time.perf_counter()
     vals, ids = index.search(queries, k)
     wall = time.perf_counter() - t0
-    launches = flat_scan.LAUNCHES
-    say(f"  FlatIndex.search 1M x 768 bf16, B={b}, k={k}: launches={launches} "
-        f"first-call wall {wall:.3f} s")
-    check(launches > 0, "the main path did not launch the kernel")
+    say(f"  FlatIndex.search 1M x 768 bf16, B={b}, k={k}: first-call wall {wall:.3f} s")
+    launches = flat_counts("FlatIndex.search")
+    check(launches.get("bf16", 0) > 0, "the main path did not launch the bf16 instance")
     check(vals.shape == (b, k) and ids.shape == (b, k), "main path: shape")
     check(np.isfinite(vals).all(), "main path: non-finite values")
     check(((ids >= 0) & (ids < n)).all(), "main path: id out of [0, n)")
@@ -326,7 +405,6 @@ def remove_files(paths):
 def phase_tools_bench(torch, dev, work):
     from nvdb_tpu_torch.formats import gtbin, synth, vecbin
     from nvdb_tpu_torch.index.flat import FlatIndex
-    from nvdb_tpu_torch.kernels import flat_scan
     from nvdb_tpu_torch.store import VectorStore
     from nvdb_tpu_torch.tools import bench as bench_tool
 
@@ -339,13 +417,11 @@ def phase_tools_bench(torch, dev, work):
     vecbin.write_vecbin(paths["base.vecbin"], base)
     vecbin.write_vecbin(paths["q.vecbin"], queries)
     gtbin.write_gtbin(paths["gt.gtbin"], gt, dim=d, N=n)
-    flat_scan.LAUNCHES = 0
+    flat_reset()
     recall = run_tool(bench_tool.main, [paths["base.vecbin"], paths["q.vecbin"], str(k),
                                         "--batch-q", "16", "--gt", paths["gt.gtbin"]],
                       keep=("N=", "recall@", "RESULT"))
-    launches = flat_scan.LAUNCHES
-    say(f"  tools.bench: {launches} launches of the flat kernel")
-    check(launches > 0, "tools.bench did not launch the kernel")
+    launches = flat_counts("tools.bench (f32 store)", f32=True)
     if recall < 1.0:
         # near-ties may swap ids between f32 and float64: judge by regret
         idx = FlatIndex(VectorStore.from_vecbin(paths["base.vecbin"], device=dev))
@@ -359,44 +435,81 @@ def phase_tools_bench(torch, dev, work):
     return launches
 
 
+def library_scores_ms(torch, dtype, qi8, q, store, iters):
+    """One PyTorch call that computes the scan's scores alone on the same
+    inputs (never on the port's path): ``torch.matmul`` for bf16 and, with
+    TF32 off, f32 stores; ``torch._int_mm`` for int8 x int8. None for the
+    int8 store with f32 queries, which no single call computes."""
+    from nvdb_tpu_torch.index.flat import quantize_queries_i8
+    from nvdb_tpu_torch.kernels import ops
+
+    v = store.vectors
+    if dtype == "f32":
+        ops.no_tf32()
+        out = torch.empty((q.shape[0], v.shape[0]), dtype=torch.float32, device=v.device)
+        fn = lambda: torch.matmul(q, v.T, out=out)
+    elif dtype == "bf16":
+        q16 = q.to(torch.bfloat16)
+        out = torch.empty((q.shape[0], v.shape[0]), dtype=torch.bfloat16, device=v.device)
+        fn = lambda: torch.matmul(q16, v.T, out=out)
+    elif qi8:
+        qq, _ = quantize_queries_i8(q)
+        fn = lambda: torch._int_mm(qq, v.T)
+    else:
+        return None
+    ms = cuda_ms(torch, fn, iters)
+    torch.cuda.empty_cache()
+    return ms
+
+
 def phase_times(torch, dev):
+    """Kernel and plain version in turns per store type at 1M x 768; the f32
+    rows also time the SIMT kernel in the same turns (plain, tensor core,
+    SIMT, SIMT, tensor core, plain). Bounds: bytes over the HBM rate or
+    operations over the peak of their type; the f32 tensor-core instance
+    does six bf16 passes, the SIMT kernel one pass of f32 FMA."""
     from nvdb_tpu_torch import bench as headline
     from nvdb_tpu_torch.bench import synth_queries, synth_store, time_scan
 
     n, d, k, iters = 1_000_000, 768, 10, 10
-    cases = [("f32", 512, False), ("bf16", 512, False), ("i8", 512, False),
+    cases = [("f32", 512, False), ("f32", 8, False), ("bf16", 512, False), ("i8", 512, False),
              ("i8", 512, True), ("bf16", 8, False)]
     out = {}
     for dtype, b, qi8 in cases:
         store = synth_store(n, d, dtype, dev, seed=0)
         qall = synth_queries(4 * b, store, seed=1)
         qpool = [qall[i * b:(i + 1) * b] for i in range(4)]
-        runs = {"torch": [], "auto": []}
-        for backend in ("torch", "auto", "auto", "torch"):
-            runs[backend].append(time_scan(store, qpool, k, backend=backend,
-                                           qi8=qi8, iters=iters))
-        kern = sum(runs["auto"]) / 2
-        plain = sum(runs["torch"]) / 2
+        order = (("torch", "auto", "simt", "simt", "auto", "torch") if dtype == "f32"
+                 else ("torch", "auto", "auto", "torch"))
+        runs = {name: [] for name in order}
+        for name in order:
+            kw = {"f32_kernel": "simt"} if name == "simt" else {"backend": name}
+            runs[name].append(time_scan(store, qpool, k, qi8=qi8, iters=iters, **kw))
+        ms = {name: sum(r) / len(r) for name, r in runs.items()}
         name = f"{'i8xi8' if qi8 else dtype} B={b} k={k}"
         # bytes: the valid rows (and their scales), the queries, the result
         esize = store.vectors.element_size()
         nbytes = (n * store.d_padded * esize + (n * 4 if store.scales is not None else 0)
                   + b * store.d_padded * (1 if qi8 else 4) + (b * 4 if qi8 else 0) + b * k * 8)
-        kind = "f32" if dtype == "f32" else ("int8" if qi8 else "bf16")
-        bnd, by = bound_ms(nbytes, 2.0 * b * n * store.d_padded, kind)
-        lib = None
-        if dtype == "bf16" and b == 512:
-            # the scoring part alone, as one library call (never on the port's path)
-            q16 = qpool[0].to(torch.bfloat16)
-            scores = torch.empty((b, store.vectors.shape[0]), dtype=torch.bfloat16, device=dev)
-            lib = cuda_ms(torch, lambda: torch.matmul(q16, store.vectors.T, out=scores), iters)
-            del q16, scores
-        say(f"  {name}: kernel {kern:.4f} ms ({runs['auto']}) {b / kern * 1e3:.1f} QPS | plain "
-            f"{plain:.4f} ms ({runs['torch']}) {b / plain * 1e3:.1f} QPS | bound {bnd:.4f} ms "
-            f"({by}: {nbytes / 1e9:.4f} GB, {2.0 * b * n * store.d_padded / 1e9:.1f} G{kind} "
-            f"ops) time / bound {kern / bnd:.2f}"
-            + (f" | torch.matmul of the scores alone {lib:.4f} ms" if lib is not None else ""))
-        out[name] = dict(ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib)
+        ops1 = 2.0 * b * n * store.d_padded
+        lib = (library_scores_ms(torch, dtype, qi8, qpool[0], store, iters)
+               if b == 512 or dtype == "bf16" else None)
+        rows = [("auto", ops1 * (6 if dtype == "f32" else 1), "int8" if qi8 else "bf16",
+                 "six bf16 passes" if dtype == "f32" else None)]
+        if dtype == "f32":
+            rows.append(("simt", ops1, "f32", "f32 FMA outside the tensor cores"))
+        for kern, ops_n, kind, what in rows:
+            bnd, by = bound_ms(nbytes, ops_n, kind)
+            t = ms[kern]
+            row = f"{name}" + (" simt" if kern == "simt" else "")
+            say(f"  {row}: kernel {t:.4f} ms ({runs[kern]}) {b / t * 1e3:.1f} QPS | plain "
+                f"{ms['torch']:.4f} ms ({runs['torch']}) | bound {bnd:.4f} ms ({by}"
+                f"{', ' + what if by == 'operations' and what else ''}: {nbytes / 1e9:.4f} GB, "
+                f"{ops_n / 1e9:.1f} G{kind} ops) time / bound {t / bnd:.2f}"
+                + (f" | library call of the scores alone {lib:.4f} ms" if lib is not None
+                   else ""))
+            out[row] = dict(ms=t, plain_ms=ms["torch"], bound_ms=bnd, bound_by=by,
+                            library_ms=lib)
         del store, qall, qpool
         torch.cuda.empty_cache()
     buf = io.StringIO()
@@ -839,7 +952,6 @@ def ivf_eval_counted(torch, main, argv, first=True):
 def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
     from nvdb_tpu_torch.formats import gtbin, vecbin
     from nvdb_tpu_torch.index.flat import FlatIndex
-    from nvdb_tpu_torch.kernels import flat_scan
     from nvdb_tpu_torch.store import VectorStore
     from nvdb_tpu_torch.tools import ivf_build, ivf_eval, make_query, quantize_i8, synth
 
@@ -857,12 +969,11 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
 
     t0 = time.perf_counter()
     store = VectorStore.from_vecbin(paths["base.vecbin"], device=dev)
-    flat_scan.LAUNCHES = 0
+    flat_reset()
     gt = FlatIndex(store).search(queries, k)[1]
-    gt_launches = flat_scan.LAUNCHES
     gtbin.write_gtbin(paths["gt.gtbin"], gt, dim=d, N=n)
-    say(f"  ground truth by the flat kernel (f32 store, {gt_launches} launches): "
-        f"{time.perf_counter() - t0:.1f} s")
+    say(f"  ground truth by the flat kernel (f32 store): {time.perf_counter() - t0:.1f} s")
+    gt_launches = flat_counts("ground truth", f32=True)
 
     idx = run_tool(ivf_build.main, [paths["base.vecbin"], paths["index.npz"], "--kind",
                                     "ivfpq", "--nlist", str(nlist), "--pq-m", "96", "--opq",
@@ -1256,7 +1367,7 @@ def phase_partition_main_path(torch, dev, work, n=1_000_000, d=768, nq=1000, fla
     from nvdb_tpu_torch.formats import gtbin, synth, vecbin
     from nvdb_tpu_torch.index.flat import FlatIndex
     from nvdb_tpu_torch.index.partition import auto_nlist
-    from nvdb_tpu_torch.kernels import flat_scan, ivf_scan, rerank
+    from nvdb_tpu_torch.kernels import ivf_scan, rerank
     from nvdb_tpu_torch.store import VectorStore
     from nvdb_tpu_torch.tools import ivf_build, ivf_eval, pr_build, pr_eval, pr_search
     from nvdb_tpu_torch.utils import round_up
@@ -1275,15 +1386,13 @@ def phase_partition_main_path(torch, dev, work, n=1_000_000, d=768, nq=1000, fla
 
     t0 = time.perf_counter()
     store = VectorStore.from_vecbin(paths["base.vecbin"], device=dev)
-    flat_scan.LAUNCHES = 0
+    flat_reset()
     gt = FlatIndex(store).search(queries, k)[1]
-    out = {"launches": {"flat_topk": flat_scan.LAUNCHES}}
     gtbin.write_gtbin(paths["gt.gtbin"], gt, dim=d, N=n)
     del store
     torch.cuda.empty_cache()
-    say(f"  ground truth by the flat kernel (f32 store, {out['launches']['flat_topk']} "
-        f"launches): {time.perf_counter() - t0:.1f} s")
-    check(out["launches"]["flat_topk"] > 0, "the ground truth did not launch flat_topk")
+    say(f"  ground truth by the flat kernel (f32 store): {time.perf_counter() - t0:.1f} s")
+    out = {"launches": {"flat_topk": flat_counts("ground truth", f32=True)}}
 
     pr_args = [paths["base.vecbin"], paths["q.vecbin"], "--gt", paths["gt.gtbin"],
                "--chained", "--nprobe", "16", "32", "--rerank-k", "50", "--k", str(k),
@@ -1426,6 +1535,7 @@ def wall(label, fn, *args, **kw):
 def add_launches(total, counts):
     for name, c in counts.items():
         total[name] = total.get(name, 0) + c
+    return total
 
 
 def ids_near_equal(tag, base_path, queries, got, want):
@@ -1585,6 +1695,21 @@ def build_side_ivfflat(torch, dev, work, part, nlist=4096):
     return out
 
 
+def simt_truth(torch, dev, base_path, queries, k):
+    """The top-k of every query over a vecbin's f32 store by the SIMT kernel
+    (``f32_kernel="simt"``), in one launch: (ids, vals) as numpy arrays."""
+    from nvdb_tpu_torch.kernels import flat_scan
+    from nvdb_tpu_torch.store import VectorStore
+
+    store = VectorStore.from_vecbin(base_path, device=dev)
+    q = torch.from_numpy(store.pad_queries(queries)).to(dev)
+    vals, ids = flat_scan.flat_topk_cuda(q, store.vectors, None, store.n, k, f32_kernel="simt")
+    out = ids.cpu().numpy(), vals.cpu().numpy()
+    del store, q
+    torch.cuda.empty_cache()
+    return out
+
+
 def tools_on_card(torch, dev, work, p8):
     """14c: gt_build on its three paths, slice, search, ab_compare,
     convert_bf16, dump and sanity on phase 8's files (made by tools.synth
@@ -1599,7 +1724,7 @@ def tools_on_card(torch, dev, work, p8):
     base, qpath, dv = p8["base.vecbin"], p8["q.vecbin"], ["--device", dev.type]
     queries = vecbin.VecbinFile(qpath).rows_f32()
     out = {}
-    flat_scan.LAUNCHES = 0
+    flat_reset()
     ids, out["gt_build s"] = wall("gt_build (device, the flat kernel)", run_tool,
                                   gt_build.main, [base, qpath, paths["gt.gtbin"], *dv],
                                   keep=("wrote",))
@@ -1632,9 +1757,14 @@ def tools_on_card(torch, dev, work, p8):
     out["ab"], _ = wall("ab_compare --a cuda --b torch --pairs 30", run_tool, ab_compare.main,
                         [paths["s.vecbin"], sq, "--a", "cuda", "--b", "torch", "--pairs",
                          "30", *dv], keep=("mean(A-B)", "verdict", "RESULT"))
-    out["launches"] = {"flat_topk": flat_scan.LAUNCHES}
-    say(f"  flat kernel launches in gt_build, search and ab_compare: {flat_scan.LAUNCHES}")
-    check(flat_scan.LAUNCHES > 0, "the tools did not launch flat_topk")
+    counts = flat_counts("gt_build, search and ab_compare", f32=True)
+    # the A/B: the same ground truth by the SIMT kernel of f32 FMA
+    (simt_ids, _), _ = wall("the SIMT kernel's ground truth of the same files", simt_truth,
+                            torch, dev, base, queries, ids.shape[1])
+    ids_near_equal("gt_build (tensor cores) against the SIMT kernel's ground truth", base,
+                   queries, ids, simt_ids)
+    counts["f32_simt"] = flat_scan.LAUNCHES_BY_KERNEL["f32_simt"]
+    out["launches"] = {f"flat_topk.{key}": c for key, c in counts.items()}
     wall("convert_bf16 -> dump -> sanity", lambda: (
         run_tool(convert_bf16.main, [paths["s.vecbin"], paths["s_bf16.vecbin"]],
                  keep=("wrote",)),
@@ -1707,7 +1837,8 @@ def phase_hbm_and_sanity(torch, dev):
         runs[name].append(graph_ms(torch, lambda: fn(x)))
     kern, plain = sum(runs["kernel"]) / 2, sum(runs["plain"]) / 2
     bnd, by = bound_ms(2 * x.numel() * 4, x.numel(), "f32")
-    say(f"  add1 [8, 128], 100 launches in a CUDA graph: kernel {kern:.5f} ms {runs['kernel']} "
+    say(f"  add1 [8, 128] ({add1.launch_blocks(x.numel())} CTA of {add1.THREADS} threads, "
+        f"16-byte loads), 100 launches in a CUDA graph: kernel {kern:.5f} ms {runs['kernel']} "
         f"| x + 1 {plain:.5f} ms {runs['plain']} | bound {bnd:.2e} ms ({by})")
     out["add1"] = dict(ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=plain)
     stream = out["hbm"]["stream"]
@@ -1773,7 +1904,7 @@ def main() -> int:
 
         with phase("[4 main path] 1M x 768 bf16 store, FlatIndex.search, then tools.bench"):
             launches = phase_main_path(torch, dev)
-            launches += phase_tools_bench(torch, dev, work)
+            add_launches(launches, phase_tools_bench(torch, dev, work))
 
         with phase("[5 times] 1M x 768, CUDA events over chained scans, "
                    "plain/kernel/kernel/plain"):
@@ -1843,10 +1974,21 @@ def main() -> int:
     say(smi)
     pl = part["launches"]
     bl = b14["launches"]
+    # the flat kernel's launches by instance over phases 4, 8, 11 and 14
+    flat = add_launches(add_launches(dict(launches), ivf["launches"]["flat_topk"]),
+                        pl["flat_topk"])
+    add_launches(flat, {key.split(".", 1)[1]: c for key, c in bl.items()
+                        if key.startswith("flat_topk.")})
+    say(f"flat kernel launches by instance, phases 4, 8, 11 and 14: {flat}")
     rows = [
         ("flat_topk", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
-         launches + ivf["launches"]["flat_topk"] + pl["flat_topk"] + bl["flat_topk"], max_err,
-         times["bf16 B=512 k=10"]),
+         flat.get("bf16", 0) + flat.get("int8", 0) + flat.get("int8_int8", 0),
+         max_err["flat_topk"], times["bf16 B=512 k=10"]),
+        ("flat_topk_f32", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
+         flat.get("f32_tensor_core", 0), max_err["f32_tensor_core"], times["f32 B=512 k=10"]),
+        # the A/B, on no default path: its launches are phase 14's SIMT ground truth
+        ("flat_topk_f32_simt", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
+         flat.get("f32_simt", 0), max_err["f32_simt"], times["f32 B=512 k=10 simt"]),
         ("adc_tables", "adc_tables", "nvdb_tpu/kernels/pq.py:89",
          ivf["launches"]["adc_tables"] + bl["adc_tables"], adc["table_err"],
          ivf_times["adc_tables"]),

@@ -26,7 +26,7 @@ import torch
 
 from nvdb_tpu_torch.formats import vecbin
 from nvdb_tpu_torch.index.flat import quantize_queries_i8
-from nvdb_tpu_torch.kernels import dispatch
+from nvdb_tpu_torch.kernels import dispatch, flat_scan
 from nvdb_tpu_torch.store import VectorStore
 from nvdb_tpu_torch.utils import round_up
 
@@ -84,9 +84,11 @@ def synth_queries(count: int, store: VectorStore, seed: int = 1) -> torch.Tensor
 
 def time_scan(store: VectorStore, qpool: Sequence[torch.Tensor], k: int,
               backend: str = "auto", qi8: bool = False, iters: int = 20,
-              warmup: int = 2) -> float:
+              warmup: int = 2, f32_kernel: Optional[str] = None) -> float:
     """Milliseconds per scan over ``iters`` chained scans (CUDA events),
-    cycling through the query batches of ``qpool``."""
+    cycling through the query batches of ``qpool``. ``f32_kernel`` (an f32
+    store only) calls the kernel's wrapper with that pass-1 kernel, the
+    SIMT A/B (``"simt"``) or the default (``"tensor_core"``)."""
     if qi8:
         batches = [quantize_queries_i8(q) for q in qpool]
     else:
@@ -94,6 +96,9 @@ def time_scan(store: VectorStore, qpool: Sequence[torch.Tensor], k: int,
 
     def run(i):
         q, qs = batches[i % len(batches)]
+        if f32_kernel is not None:
+            return flat_scan.flat_topk_cuda(q, store.vectors, store.scales, store.n, k,
+                                            f32_kernel=f32_kernel)
         return dispatch.flat_topk(q, store.vectors, store.scales, store.n, k,
                                   backend=backend, query_scales=qs)
 

@@ -5,7 +5,10 @@
 // (body _make_kernel :133-364, scoring _scores :98-130, final sort
 // _merge_topk_sorted :76-95). Same contract:
 //   * score = dot(q, row), one code path per store type:
-//       f32 store     full f32 FMA (no TF32 or tensor-core shortcut);
+//       f32 store     both operands split into three bf16 parts, six passes
+//                     of bf16 products with f32 sums (the TPU's HIGHEST; no
+//                     TF32 in any form); the SIMT kernel of f32 FMA stays as
+//                     the A/B (mode 0);
 //       bf16 store    query rounded to bf16 first, exact products, f32 sums;
 //       int8 store    query rounded to bf16, codes widened exactly, f32 sum,
 //                     times the row's scale;
@@ -29,9 +32,10 @@
 // store with f32 queries 2.24 ms. With the filter compiled out the same
 // ring runs bf16 B = 512 in 1.00 ms: what remains above that is the
 // handling of candidates at each tile's end, while the tensor cores wait.
+// f32 on the tensor cores: 9.01 ms at B = 512 (the SIMT kernel 29.84, its
+// ring alone 8.22) and 1.98 ms at B = 8.
 //
-// Design of the tensor-core path (scan_wgmma_kernel; bf16, int8 and
-// int8 x int8 stores):
+// Design of the tensor-core path (scan_wgmma_kernel; every store type):
 //   * Orientation: queries are M, store rows are N. A CTA holds TQ = 128
 //     queries, 64 per consumer warpgroup, and walks its row slice in tiles
 //     of TN = 256 rows; one tile is 4 x (Dp / 64) wgmma m64n256k16 per
@@ -99,10 +103,37 @@
 //   pass 2 (nvdb::merge_kernel, topk_common.cuh): one warp per query folds
 //     the S sorted partial lists into the final sorted top-k.
 //
-// f32 stores keep the SIMT kernel (scan_f32_kernel): f32 means exact, and a
-// tensor-core f32 needs a three-way bf16 split of both operands whose error
-// has to be shown first. It scores a 64 x 64 tile with 4 x 4 register tiles
-// of fmaf over chunks staged in shared memory.
+// f32 stores on the tensor cores (Cfg<kF32>). 1M x 768 at B = 512 is six
+// times the bf16 scan's products, 4.77 ms on the tensor cores, against 0.92
+// ms for its 3.07 GB: bound by operations above B ~ 98. Each operand is
+// split as h = bf16(x), m = bf16(x - h), l = bf16(x - h - m) (exact: h + m
+// + l == x for every |x| >= 2^-110), and the score is qm rm + ql rh + qh rl
+// + qm rh + qh rm + qh rh; the dropped terms are ~2^-24 of the score.
+//   * The queries are split once by the prologue kernel into three planes
+//     [3][B][Dp]; one TMA box brings a chunk's three planes (3 x 128 queries
+//     x 32 dims, the 64-byte swizzle).
+//   * The rows are staged as they lie in memory (128 bytes of f32 a row and
+//     chunk, 4 bytes read per element and nothing else); the consumer
+//     threads split the chunk into three swizzled bf16 tiles in shared
+//     memory, which the wgmma reads, while the products of the chunk before
+//     run. Two split tiles while a ring of two stages fits beside the lists
+//     (k <= 97), else one (the split then waits for the products).
+//   * 128-row tiles (m64n128k16): each chunk's twelve products (six passes,
+//     two k16 steps, the products of the high parts last) go into a fresh
+//     accumulator, which is added to the tile's running sums in registers
+//     (round to nearest) once the next chunk's products have been issued.
+//     The tensor cores' own additions truncate; summed over a whole row in
+//     one accumulator, the six passes came out several times further from
+//     float64 than the SIMT kernel's f32 FMA; with a fresh sum per chunk
+//     they come out closer (chip_smoke.py phase 3 prints both against
+//     float64 and holds the tensor cores to at most twice the SIMT error).
+//     The two arrays of 64 floats take the registers that one 256-row
+//     accumulator would.
+//
+// The SIMT kernel (scan_f32_kernel, mode 0; flat_topk_cuda(f32_kernel=
+// "simt")) scores a 64 x 64 tile with 4 x 4 register tiles of fmaf over
+// chunks staged in shared memory: the A/B of the f32 instance, on no default
+// path.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -133,7 +164,9 @@ constexpr int MAX_K = nvdb::WARP_LIST_MAX_K;
 #define NVDB_FLAT_ABLATE 0
 #endif
 
-enum Mode { kF32 = 0, kBF16 = 1, kI8 = 2, kI8Q8 = 3 };
+// The C entry's modes: kF32Simt is the SIMT kernel of f32 stores (the A/B);
+// the others are instances of the tensor-core kernel.
+enum Mode { kF32Simt = 0, kBF16 = 1, kI8 = 2, kI8Q8 = 3, kF32 = 4 };
 
 // ---------------------------------------------------------------------------
 // The SIMT path: f32 stores.
@@ -266,34 +299,47 @@ cudaError_t launch_f32(const float* q, const float* v, float* part_vals, int* pa
 // ---------------------------------------------------------------------------
 
 constexpr int TQ = 128;            // queries per CTA: 64 per consumer warpgroup
-constexpr int TN = 256;            // rows per tile: the wgmma's N
-constexpr int CHUNK = 128;         // bytes of the dims per staged chunk and row
+constexpr int CHUNK = 128;         // bytes of a row's dims per staged chunk (bf16, int8)
 constexpr int MAX_STAGES = 4;
 constexpr int NT_TC = 384;         // two consumer warpgroups and the producer's
-constexpr int A_BYTES = TQ * CHUNK;          // the queries' box of a stage
-constexpr int WIDE_BYTES = TN * CHUNK;       // a [TN x 128 B] swizzled row tile
-constexpr int ACC = TN / 2;        // accumulator registers per thread
 constexpr int QCAP = 128;          // candidates a warp queues before it drains
 constexpr int QUEUES_BYTES = 8 * QCAP * 8;   // eight warps' queues
-constexpr int SCALES_BYTES = 2 * TN * 4;     // a tile's row scales, per warpgroup
+constexpr int SPLIT_DIMS = 32;     // f32 stores: dims per chunk (128 bytes of f32 a row)
+constexpr int SPLIT_ROW = 2 * SPLIT_DIMS;    // bytes of a row in one bf16 plane
 
-// Per store type: bytes of the rows' box in a stage, bytes of the widened
-// tiles, dims per chunk, bytes of the filter's own room (the candidate
-// queues and, for int8 stores, each warpgroup's copy of the tile's row
-// scales; with widened tiles both lie over the first of those).
+// Per store type: rows per tile (the wgmma's N), the queries' box of a
+// stage (A_BYTES; A_ROW bytes a query row), the rows' box (B_BYTES), one
+// converted row tile (CVT_ONE: the widened int8 tile, or the f32 chunk's
+// three bf16 planes), dims per chunk, bytes of the filter's own room (the
+// candidate queues and, for int8 stores, each warpgroup's copy of the
+// tile's row scales; with converted tiles both lie over the first of them).
 template <int MODE> struct Cfg;
 template <> struct Cfg<kBF16> {
-  static constexpr int B_BYTES = WIDE_BYTES, CVT_BYTES = 0, Q_DIMS = 64, V_DIMS = 64,
-                       FILTER_BYTES = QUEUES_BYTES;
+  static constexpr int TN = 256, A_ROW = CHUNK, A_BYTES = TQ * CHUNK, B_BYTES = TN * CHUNK,
+                       CVT_ONE = 0, Q_DIMS = 64, V_DIMS = 64, FILTER_BYTES = QUEUES_BYTES;
 };
 template <> struct Cfg<kI8Q8> {
-  static constexpr int B_BYTES = WIDE_BYTES, CVT_BYTES = 0, Q_DIMS = 128, V_DIMS = 128,
-                       FILTER_BYTES = QUEUES_BYTES + SCALES_BYTES;
+  static constexpr int TN = 256, A_ROW = CHUNK, A_BYTES = TQ * CHUNK, B_BYTES = TN * CHUNK,
+                       CVT_ONE = 0, Q_DIMS = 128, V_DIMS = 128,
+                       FILTER_BYTES = QUEUES_BYTES + 2 * TN * 4;
 };
 template <> struct Cfg<kI8> {
-  static constexpr int B_BYTES = TN * 64, CVT_BYTES = 2 * WIDE_BYTES, Q_DIMS = 64,
-                       V_DIMS = 64, FILTER_BYTES = 0;
+  static constexpr int TN = 256, A_ROW = CHUNK, A_BYTES = TQ * CHUNK, B_BYTES = TN * 64,
+                       CVT_ONE = TN * CHUNK, Q_DIMS = 64, V_DIMS = 64, FILTER_BYTES = 0;
 };
+template <> struct Cfg<kF32> {
+  static constexpr int TN = 128, A_ROW = SPLIT_ROW, A_BYTES = 3 * TQ * SPLIT_ROW,
+                       B_BYTES = TN * SPLIT_DIMS * 4, CVT_ONE = 3 * TN * SPLIT_ROW,
+                       Q_DIMS = SPLIT_DIMS, V_DIMS = SPLIT_DIMS, FILTER_BYTES = 0;
+};
+template <int MODE>
+__host__ __device__ constexpr bool has_scales() {
+  return MODE == kI8 || MODE == kI8Q8;
+}
+template <int MODE>
+__host__ __device__ constexpr bool converts() {   // the rows' chunk is converted in shared memory
+  return MODE == kI8 || MODE == kF32;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -340,6 +386,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The same with a third coordinate (c2: the plane of the f32 queries' split).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -363,6 +419,14 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// The same in the 64-byte swizzle (the bf16 planes of f32 stores): rows of
+// 64 bytes, 8-row groups 512 bytes apart; the tile starts on a 512-byte
+// boundary. A step of 32 bytes along K adds 2.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
 #define NVDB_ACC8(c, a, o)                                                           \
   c(a[o]), c(a[o + 1]), c(a[o + 2]), c(a[o + 3]), c(a[o + 4]), c(a[o + 5]),          \
       c(a[o + 6]), c(a[o + 7])
@@ -372,6 +436,14 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
       NVDB_ACC8(c, a, 56), NVDB_ACC8(c, a, 64), NVDB_ACC8(c, a, 72),                 \
       NVDB_ACC8(c, a, 80), NVDB_ACC8(c, a, 88), NVDB_ACC8(c, a, 96),                 \
       NVDB_ACC8(c, a, 104), NVDB_ACC8(c, a, 112), NVDB_ACC8(c, a, 120)
+#define NVDB_ACC64(c, a)                                                             \
+  NVDB_ACC8(c, a, 0), NVDB_ACC8(c, a, 8), NVDB_ACC8(c, a, 16), NVDB_ACC8(c, a, 24),  \
+      NVDB_ACC8(c, a, 32), NVDB_ACC8(c, a, 40), NVDB_ACC8(c, a, 48), NVDB_ACC8(c, a, 56)
+#define NVDB_REGS64                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "         \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "         \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 #define NVDB_REGS128                                                                         \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                  \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "         \
@@ -387,7 +459,7 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
 
 // D[64 x 256] (+)= A[64 x 16] B[16 x 256], bf16 operands, f32 sums; the sums
 // start from zero where accumulate == 0.
-__device__ __forceinline__ void wgmma_tile(float (&d)[ACC], uint64_t da, uint64_t db,
+__device__ __forceinline__ void wgmma_tile(float (&d)[128], uint64_t da, uint64_t db,
                                            int accumulate) {
   asm volatile(
       "{\n"
@@ -400,8 +472,22 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[ACC], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 operands, f32 sums.
+__device__ __forceinline__ void wgmma_tile(float (&d)[64], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " NVDB_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : NVDB_ACC64(NVDB_F, d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 256] (+)= A[64 x 32] B[32 x 256], int8 operands, int32 sums.
-__device__ __forceinline__ void wgmma_tile(int (&d)[ACC], uint64_t da, uint64_t db,
+__device__ __forceinline__ void wgmma_tile(int (&d)[128], uint64_t da, uint64_t db,
                                            int accumulate) {
   asm volatile(
       "{\n"
@@ -416,13 +502,15 @@ __device__ __forceinline__ void wgmma_tile(int (&d)[ACC], uint64_t da, uint64_t 
 
 // Keeps the compiler from reading the accumulators before the wait that
 // precedes this, or from moving their use past the next wgmma.
-__device__ __forceinline__ void acc_fence(float (&d)[ACC]) {
+template <int N>
+__device__ __forceinline__ void acc_fence(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void acc_fence(int (&d)[ACC]) {
+template <int N>
+__device__ __forceinline__ void acc_fence(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Widens 16 int8 codes to bf16 (exact): two 16-byte groups of 8.
@@ -445,6 +533,43 @@ __device__ __forceinline__ void widen_i8x16(const uint4& w, uint4& lo, uint4& hi
   hi = make_uint4(out[4], out[5], out[6], out[7]);
 }
 
+// The three-way bf16 split of two f32 values, round to nearest even at each
+// step: h = bf16(x), m = bf16(x - h), l = bf16((x - h) - m). Both
+// subtractions are exact in f32, and h + m + l == x wherever x's lowest set
+// bit is at or above 2^-133 (bf16's least subnormal): every |x| >= 2^-110.
+__device__ __forceinline__ void split_bf16x3_pair(float x0, float x1, uint32_t& h,
+                                                  uint32_t& m, uint32_t& l) {
+  const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
+  const float r0 = x0 - __low2float(hb), r1 = x1 - __high2float(hb);
+  const __nv_bfloat162 mb = __floats2bfloat162_rn(r0, r1);
+  const __nv_bfloat162 lb =
+      __floats2bfloat162_rn(r0 - __low2float(mb), r1 - __high2float(mb));
+  h = *reinterpret_cast<const uint32_t*>(&hb);
+  m = *reinterpret_cast<const uint32_t*>(&mb);
+  l = *reinterpret_cast<const uint32_t*>(&lb);
+}
+
+// Splits a [rows x 32] f32 chunk, rows of 128 bytes as TMA staged it, into
+// three [rows x 32] bf16 planes (h, m, l; rows of 64 bytes, planes `plane`
+// bytes apart) in the 64-byte swizzle that the wgmma descriptor reads: the
+// 16-byte piece j of row r lies at piece j ^ ((r >> 1) & 3). Thread i of n
+// takes the 16-byte f32 pieces i, i + n, ...: four f32 a piece, a warp reads
+// 512 contiguous bytes and writes 256 contiguous bytes of each plane.
+__device__ __forceinline__ void split_chunk(const unsigned char* src, unsigned char* dst,
+                                           int rows, int plane, int tid, int n) {
+  for (int p = tid; p < rows * 8; p += n) {
+    const float4 x = *reinterpret_cast<const float4*>(src + p * 16);
+    uint2 h, m, l;
+    split_bf16x3_pair(x.x, x.y, h.x, m.x, l.x);
+    split_bf16x3_pair(x.z, x.w, h.y, m.y, l.y);
+    const int row = p >> 3, q = p & 7;
+    const int off = row * SPLIT_ROW + ((((q >> 1) ^ (row >> 1)) & 3) << 4) + (q & 1) * 8;
+    *reinterpret_cast<uint2*>(dst + off) = h;
+    *reinterpret_cast<uint2*>(dst + plane + off) = m;
+    *reinterpret_cast<uint2*>(dst + 2 * plane + off) = l;
+  }
+}
+
 // Sixteen of a thread's accumulators as scores. Accumulator 4 j + e is the
 // score of tile row 8 j + 2 (lane % 4) + (e & 1) for the warp's query
 // lane / 4 (e < 2) or lane / 4 + 8 (e >= 2); group g holds j = 4 g .. 4 g + 3.
@@ -452,8 +577,8 @@ __device__ __forceinline__ void widen_i8x16(const uint4& w, uint4& lo, uint4& hi
 // row's scale (wg_scales: the tile's, in shared memory, zero past n_valid),
 // then (int8 queries) the query's. Returns whether any score reaches its
 // query's threshold value.
-template <int MODE, typename Acc>
-__device__ __forceinline__ bool group_scores(const Acc (&acc)[ACC], int g, int col0,
+template <int MODE, int N, typename Acc>
+__device__ __forceinline__ bool group_scores(const Acc (&acc)[N], int g, int col0,
                                              const float* wg_scales, float qs0, float qs1,
                                              float thv0, float thv1, float (&sc)[16]) {
   bool any = false;
@@ -461,7 +586,7 @@ __device__ __forceinline__ bool group_scores(const Acc (&acc)[ACC], int g, int c
   for (int jj = 0; jj < 4; ++jj) {
     const int j = g * 4 + jj;
     float rs0 = 1.f, rs1 = 1.f;
-    if constexpr (MODE != kBF16) {
+    if constexpr (has_scales<MODE>()) {
       const float2 rs = *reinterpret_cast<const float2*>(wg_scales + j * 8 + col0);
       rs0 = rs.x;
       rs1 = rs.y;
@@ -469,7 +594,7 @@ __device__ __forceinline__ bool group_scores(const Acc (&acc)[ACC], int g, int c
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float v = static_cast<float>(acc[4 * j + e]);
-      if constexpr (MODE != kBF16) v = v * ((e & 1) ? rs1 : rs0);
+      if constexpr (has_scales<MODE>()) v = v * ((e & 1) ? rs1 : rs0);
       if constexpr (MODE == kI8Q8) v = v * ((e & 2) ? qs1 : qs0);
       sc[4 * jj + e] = v;
       any |= v >= ((e & 2) ? thv1 : thv0);
@@ -545,19 +670,31 @@ __device__ __forceinline__ void drain_queue(const uint2* queue, int cnt, int til
   __syncwarp();
 }
 
+// The queries' prologue: the bf16-rounded query (planes = 1: bf16 and int8
+// stores), or its three-way split (planes = 3: f32 stores) as planes
+// [3][B][Dp] of n = B * Dp values each.
 __global__ void round_queries_kernel(const float* __restrict__ q,
-                                     __nv_bfloat16* __restrict__ out, size_t n) {
+                                     __nv_bfloat16* __restrict__ out, size_t n, int planes) {
   const size_t step = (size_t)gridDim.x * blockDim.x;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step)
-    out[i] = __float2bfloat16_rn(q[i]);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
+    const float x = q[i];
+    const __nv_bfloat16 h = __float2bfloat16_rn(x);
+    out[i] = h;
+    if (planes == 3) {
+      const float r = x - __bfloat162float(h);
+      const __nv_bfloat16 m = __float2bfloat16_rn(r);
+      out[n + i] = m;
+      out[2 * n + i] = __float2bfloat16_rn(r - __bfloat162float(m));
+    }
+  }
 }
 
 // The shared memory of scan_wgmma_kernel after its 1024-byte alignment:
-// stages, widened tiles, lists, the warps' candidate queues, barriers, the
+// stages, converted tiles, lists, the warps' candidate queues, barriers, the
 // queues' counters.
 template <int MODE>
 __host__ __device__ constexpr int stage_bytes() {
-  return A_BYTES + Cfg<MODE>::B_BYTES;
+  return Cfg<MODE>::A_BYTES + Cfg<MODE>::B_BYTES;
 }
 
 template <int MODE>
@@ -567,22 +704,25 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                   const float* __restrict__ scales, const float* __restrict__ qscales,
                   float* __restrict__ part_vals, int* __restrict__ part_ids, int B,
                   int n_eff, int k, int S, int n_qblocks, int tiles_per_slice,
-                  int n_tiles, int n_chunks, int n_stages) {
+                  int n_tiles, int n_chunks, int n_stages, int n_cvt) {
   using C = Cfg<MODE>;
   using Acc = typename std::conditional<MODE == kI8Q8, int, float>::type;
   constexpr int STAGE = stage_bytes<MODE>();
+  constexpr int TN = C::TN;
+  constexpr int ACC = TN / 2;   // accumulator registers per thread
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
   unsigned char* cvt = sm + (size_t)n_stages * STAGE;
-  float* lv = reinterpret_cast<float*>(cvt + C::CVT_BYTES);   // [TQ][k]
-  int* li = reinterpret_cast<int*>(lv + TQ * k);              // [TQ][k]
+  float* lv = reinterpret_cast<float*>(cvt + (size_t)n_cvt * C::CVT_ONE);   // [TQ][k]
+  int* li = reinterpret_cast<int*>(lv + TQ * k);                            // [TQ][k]
   // The filter's room: [8 warps][QCAP] candidate queues and (int8 stores)
-  // [2 warpgroups][TN] row scales. With widened tiles it lies over the first
-  // of them: it is in use only between a tile's last product and the next
-  // tile's first barrier, when no thread widens and no wgmma reads.
-  unsigned char* filter_room = MODE == kI8 ? cvt : reinterpret_cast<unsigned char*>(li + TQ * k);
+  // [2 warpgroups][TN] row scales. With converted tiles it lies over the
+  // first of them: it is in use only between a tile's last product and the
+  // next tile's first barrier, when no thread converts and no wgmma reads.
+  unsigned char* filter_room =
+      converts<MODE>() ? cvt : reinterpret_cast<unsigned char*>(li + TQ * k);
   uint2* queues = reinterpret_cast<uint2*>(filter_room);
   float* tile_scales = reinterpret_cast<float*>(filter_room + QUEUES_BYTES);   // [2][TN]
   uint64_t* bars = reinterpret_cast<uint64_t*>(
@@ -620,8 +760,11 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           const uint32_t full = full0 + 8 * stage;
           const uint32_t dst = stage0 + stage * STAGE;
           mbar_expect_tx(full, STAGE);
-          tma_load_2d(dst, &qmap, full, c * C::Q_DIMS, q0);
-          tma_load_2d(dst + A_BYTES, &vmap, full, c * C::V_DIMS, t * TN);
+          if constexpr (MODE == kF32)   // the three planes of the chunk's queries
+            tma_load_3d(dst, &qmap, full, c * C::Q_DIMS, q0, 0);
+          else
+            tma_load_2d(dst, &qmap, full, c * C::Q_DIMS, q0);
+          tma_load_2d(dst + C::A_BYTES, &vmap, full, c * C::V_DIMS, t * TN);
           if (++stage == n_stages) {
             stage = 0;
             phase ^= 1;
@@ -657,50 +800,89 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if (q0 + wq0 + quad < B) qs0 = qscales[q0 + wq0 + quad];
         if (q0 + wq0 + quad + 8 < B) qs1 = qscales[q0 + wq0 + quad + 8];
       }
-      const int n_cons = 128 * n_wg;   // threads that widen (int8 stores)
+      const int n_cons = 128 * n_wg;   // threads that convert the rows' chunk
 
       Acc acc[ACC];
+      // f32 stores: the tile's running sums; acc holds one chunk's
+      float total[MODE == kF32 ? ACC : 1];
       int stage = 0, prev = -1, cb = 0;
       uint32_t phase = 0;
       for (int t = t_begin; t < t_end; ++t) {
         // the tile's row scales, asked for now and needed after its products
         float rs_lo = 0.f, rs_hi = 0.f;
-        if constexpr (MODE != kBF16) {
+        if constexpr (MODE == kF32) {
+#pragma unroll
+          for (int i = 0; i < ACC; ++i) total[i] = 0.f;
+        }
+        if constexpr (has_scales<MODE>()) {
           if (t * TN + wt < n_eff) rs_lo = __ldg(scales + t * TN + wt);
           if (t * TN + 128 + wt < n_eff) rs_hi = __ldg(scales + t * TN + 128 + wt);
         }
         for (int c = 0; c < n_chunks; ++c) {
           mbar_wait(full0 + 8 * stage, phase);
-          const uint32_t a_tile = stage0 + stage * STAGE + wg * 64 * CHUNK;
-          uint32_t b_tile = stage0 + stage * STAGE + A_BYTES;
-          if constexpr (MODE == kI8) {
-            // The products that read this widened tile two chunks ago are
-            // done in this warpgroup (the release below waited for them);
-            // the barrier says the same of the other one.
+          const uint32_t a_tile = stage0 + stage * STAGE + wg * 64 * C::A_ROW;
+          uint32_t b_tile = stage0 + stage * STAGE + C::A_BYTES;
+          if constexpr (converts<MODE>()) {
+            // The products that read this converted tile n_cvt chunks ago
+            // are done in this warpgroup (the release below waited for the
+            // chunk before the last; with one tile, wait for the last); the
+            // barrier says the same of the other one.
+            if (n_cvt == 1) wgmma_wait<0>();
             bar_sync(1, n_cons);
-            const unsigned char* src = sm + (size_t)stage * STAGE + A_BYTES;
-            unsigned char* dstb = cvt + cb * WIDE_BYTES;
-            for (int p = threadIdx.x; p < TN * 4; p += n_cons) {
-              const int row = p >> 2, piece = p & 3;
-              const uint4 wv = *reinterpret_cast<const uint4*>(src + row * 64 + piece * 16);
-              uint4 lo, hi;
-              widen_i8x16(wv, lo, hi);
-              const int sw = row & 7;
-              unsigned char* drow = dstb + row * CHUNK;
-              *reinterpret_cast<uint4*>(drow + (((2 * piece) ^ sw) << 4)) = lo;
-              *reinterpret_cast<uint4*>(drow + (((2 * piece + 1) ^ sw) << 4)) = hi;
+            const unsigned char* src = sm + (size_t)stage * STAGE + C::A_BYTES;
+            unsigned char* dstb = cvt + cb * C::CVT_ONE;
+            if constexpr (MODE == kI8) {
+              for (int p = threadIdx.x; p < TN * 4; p += n_cons) {
+                const int row = p >> 2, piece = p & 3;
+                const uint4 wv = *reinterpret_cast<const uint4*>(src + row * 64 + piece * 16);
+                uint4 lo, hi;
+                widen_i8x16(wv, lo, hi);
+                const int sw = row & 7;
+                unsigned char* drow = dstb + row * CHUNK;
+                *reinterpret_cast<uint4*>(drow + (((2 * piece) ^ sw) << 4)) = lo;
+                *reinterpret_cast<uint4*>(drow + (((2 * piece + 1) ^ sw) << 4)) = hi;
+              }
+            } else {
+              split_chunk(src, dstb, TN, TN * SPLIT_ROW, threadIdx.x, n_cons);
             }
             asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
             bar_sync(2, n_cons);
             b_tile = smem_u32(dstb);
-            cb ^= 1;
+            if (++cb == n_cvt) cb = 0;
           }
-          const uint64_t da = sw128_desc(a_tile), db = sw128_desc(b_tile);
+          if constexpr (MODE == kF32) {
+            if (c > 0) {
+              // the chunk before is done: its sum joins the total, and its
+              // stage is released
+              wgmma_wait<0>();
+              acc_fence(acc);
+#pragma unroll
+              for (int i = 0; i < ACC; ++i) total[i] += acc[i];
+              if (prev >= 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+              prev = -1;
+            }
+          }
           acc_fence(acc);
           wgmma_fence();
+          if constexpr (MODE == kF32) {
+            // The six passes (query plane, row plane) into a fresh sum,
+            // smallest terms first: qm rm, ql rh, qh rl, qm rh, qh rm, then
+            // qh rh; two k16 steps each.
+            constexpr int QA = TQ * SPLIT_ROW, RB = TN * SPLIT_ROW;
+            constexpr int QP[6] = {1, 2, 0, 1, 0, 0}, RP[6] = {1, 0, 2, 0, 1, 0};
+            const uint64_t da = sw64_desc(a_tile), db = sw64_desc(b_tile);
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_tile(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+            for (int i = 0; i < 6; ++i)
+#pragma unroll
+              for (int kk = 0; kk < 2; ++kk)
+                wgmma_tile(acc, da + (QP[i] * QA >> 4) + 2 * kk,
+                           db + (RP[i] * RB >> 4) + 2 * kk, (i | kk) != 0);
+          } else {
+            const uint64_t da = sw128_desc(a_tile), db = sw128_desc(b_tile);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_tile(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+          }
           wgmma_commit();
           if (n_stages == 1) {
             // a ring of one (k = 128 with the widened tiles): no overlap
@@ -722,10 +904,14 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if (prev >= 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
         prev = -1;
         acc_fence(acc);
-        // the queues lie over a widened tile: wait for the other
+        if constexpr (MODE == kF32) {
+#pragma unroll
+          for (int i = 0; i < ACC; ++i) acc[i] += total[i];
+        }
+        // the queues lie over a converted tile: wait for the other
         // warpgroup's last products too
-        if constexpr (MODE == kI8) bar_sync(1, n_cons);
-        if constexpr (MODE != kBF16) {
+        if constexpr (converts<MODE>()) bar_sync(1, n_cons);
+        if constexpr (has_scales<MODE>()) {
           // every warp of the warpgroup is past the last tile's filter: its
           // products above needed all four
           wg_scales[wt] = rs_lo;
@@ -751,7 +937,7 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int g = 0; g < ACC / 16; ++g) {
           float sc[16];
-          const bool any = group_scores<MODE>(acc, g, col0, wg_scales, qs0, qs1, thv0, thv1,
+          const bool any = group_scores<MODE, ACC>(acc, g, col0, wg_scales, qs0, qs1, thv0, thv1,
                                               sc);
           if (!__any_sync(FULL_MASK, any)) continue;
           // which of the sixteen reach their threshold, in this lane and in
@@ -792,7 +978,7 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             for (int g = 0; g < ACC / 16; ++g) {
               if (over || start >= (g + 1) * 16) continue;
               float sc[16];
-              const bool any = group_scores<MODE>(acc, g, col0, wg_scales, qs0, qs1, thv0,
+              const bool any = group_scores<MODE, ACC>(acc, g, col0, wg_scales, qs0, qs1, thv0,
                                                   thv1, sc);
               if (!__any_sync(FULL_MASK, any)) continue;
 #pragma unroll
@@ -873,29 +1059,34 @@ EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// The map of a row-major [rows, Dp] array of 1- or 2-byte elements, read in
-// boxes of box_rows x box_dims; rows and dims past the array read as zero.
+// The map of `planes` row-major [rows, Dp] arrays of 1-, 2- or 4-byte
+// elements, one after the other, read in boxes of box_rows x box_dims (x all
+// the planes); rows and dims past the array read as zero.
 bool encode_map(CUtensorMap* map, const void* base, int elem_bytes, int rows, int Dp,
-                int box_dims, int box_rows, bool swizzle) {
+                int box_dims, int box_rows, CUtensorMapSwizzle swizzle, int planes = 1) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)Dp, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)Dp * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_dims, (cuuint32_t)box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-            2, const_cast<void*>(base), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const cuuint64_t dims[3] = {(cuuint64_t)Dp, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)Dp * elem_bytes,
+                                 (cuuint64_t)rows * Dp * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)box_dims, (cuuint32_t)box_rows, (cuuint32_t)planes};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUtensorMapDataType type = elem_bytes == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                     : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return fn(map, type, planes > 1 ? 3 : 2, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The ring's depth and the kernel's dynamic shared memory at list length k:
-// as many stages (up to MAX_STAGES) as fit beside the lists.
+// The ring's depth, the converted tiles and the kernel's dynamic shared
+// memory at list length k: as many stages (up to MAX_STAGES) as fit beside
+// the lists. The int8 store widens into two tiles; the f32 store splits into
+// two while that leaves a ring of two stages, else into one (k > 121), so
+// that its loads still overlap the products. Fails with
+// cudaErrorInvalidConfiguration where not one stage fits.
 template <int MODE>
-cudaError_t plan_smem(int k, int* n_stages, size_t* smem) {
+cudaError_t plan_smem(int k, int* n_stages, int* n_cvt, size_t* smem) {
   using C = Cfg<MODE>;
   constexpr int STAGE = stage_bytes<MODE>();
   int dev = 0, max_smem = 0;
@@ -903,12 +1094,17 @@ cudaError_t plan_smem(int k, int* n_stages, size_t* smem) {
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return e;
-  const size_t fixed =
-      1024 + (size_t)C::CVT_BYTES + (size_t)TQ * k * 8 + C::FILTER_BYTES + 2 * MAX_STAGES * 8 + 8 * 4;
-  if ((size_t)max_smem < fixed + STAGE) return cudaErrorInvalidConfiguration;
-  const size_t fit = ((size_t)max_smem - fixed) / STAGE;
+  const size_t base =
+      1024 + (size_t)TQ * k * 8 + C::FILTER_BYTES + 2 * MAX_STAGES * 8 + 8 * 4;
+  auto stages_with = [&](int cvt) -> size_t {
+    const size_t fixed = base + (size_t)cvt * C::CVT_ONE;
+    return (size_t)max_smem < fixed ? 0 : ((size_t)max_smem - fixed) / STAGE;
+  };
+  *n_cvt = MODE == kI8 ? 2 : MODE == kF32 ? (stages_with(2) >= 2 ? 2 : 1) : 0;
+  const size_t fit = stages_with(*n_cvt);
+  if (fit < 1) return cudaErrorInvalidConfiguration;
   *n_stages = fit < (size_t)MAX_STAGES ? (int)fit : MAX_STAGES;
-  *smem = fixed + (size_t)*n_stages * STAGE;
+  *smem = base + (size_t)*n_cvt * C::CVT_ONE + (size_t)*n_stages * STAGE;
   return cudaFuncSetAttribute(scan_wgmma_kernel<MODE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
@@ -918,32 +1114,43 @@ cudaError_t launch_wgmma(const void* q, const void* v, const float* scales,
                          const float* qscales, float* part_vals, int* part_ids, int B,
                          int Dp, int Np, int n_eff, int k, int S, cudaStream_t stream) {
   using C = Cfg<MODE>;
-  constexpr int QE = MODE == kI8Q8 ? 1 : 2, VE = MODE == kBF16 ? 2 : 1;
   const int n_qblocks = (B + TQ - 1) / TQ;
   CUtensorMap qmap, vmap;
-  if (!encode_map(&qmap, q, QE, B, Dp, C::Q_DIMS, TQ, true) ||
-      !encode_map(&vmap, v, VE, Np, Dp, C::V_DIMS, TN, MODE != kI8))
-    return cudaErrorInvalidValue;
-  int n_stages = 0;
+  bool ok;
+  if constexpr (MODE == kF32) {
+    // the queries' three bf16 planes [3][B][Dp] in one box; the f32 rows as
+    // they lie in memory (128 bytes a row: no swizzle, the split reads them)
+    ok = encode_map(&qmap, q, 2, B, Dp, C::Q_DIMS, TQ, CU_TENSOR_MAP_SWIZZLE_64B, 3) &&
+         encode_map(&vmap, v, 4, Np, Dp, C::V_DIMS, C::TN, CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {
+    constexpr int QE = MODE == kI8Q8 ? 1 : 2, VE = MODE == kBF16 ? 2 : 1;
+    ok = encode_map(&qmap, q, QE, B, Dp, C::Q_DIMS, TQ, CU_TENSOR_MAP_SWIZZLE_128B) &&
+         encode_map(&vmap, v, VE, Np, Dp, C::V_DIMS, C::TN,
+                    MODE == kI8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  int n_stages = 0, n_cvt = 0;
   size_t smem = 0;
-  cudaError_t e = plan_smem<MODE>(k, &n_stages, &smem);
+  cudaError_t e = plan_smem<MODE>(k, &n_stages, &n_cvt, &smem);
   if (e != cudaSuccess) return e;
 
-  const int n_tiles = (n_eff + TN - 1) / TN;
+  const int n_tiles = (n_eff + C::TN - 1) / C::TN;
   const int tiles_per_slice = (n_tiles + S - 1) / S;
   const int n_chunks = (Dp + C::V_DIMS - 1) / C::V_DIMS;
   scan_wgmma_kernel<MODE><<<n_qblocks * S, NT_TC, smem, stream>>>(
       qmap, vmap, scales, qscales, part_vals, part_ids, B, n_eff, k, S, n_qblocks,
-      tiles_per_slice, n_tiles, n_chunks, n_stages);
+      tiles_per_slice, n_tiles, n_chunks, n_stages, n_cvt);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface (loaded with ctypes). mode: 0 f32 store (SIMT), 1 bf16 store,
-// 2 int8 store with f32 queries, 3 int8 store with int8 queries (qscales
-// given); 1-3 run on the tensor cores. q16 is scratch for the bf16-rounded
-// queries [B, Dp] of modes 1 and 2. Scratch part_vals / part_ids hold
+// C interface (loaded with ctypes). mode: 0 f32 store on the SIMT kernel
+// (the A/B), 1 bf16 store, 2 int8 store with f32 queries, 3 int8 store with
+// int8 queries (qscales given), 4 f32 store on the tensor cores (the
+// three-way bf16 split); 1-4 run on the tensor cores. q16 is scratch for the
+// queries' prologue: the bf16-rounded queries [B, Dp] of modes 1 and 2, the
+// three split planes [3, B, Dp] of mode 4. Scratch part_vals / part_ids hold
 // [B, S, k]; outputs are [B, k]. Every pointer starts on a 16-byte boundary.
 // Returns a cudaError_t (0 on success); the launches are asynchronous on
 // `stream`.
@@ -957,23 +1164,25 @@ extern "C" int nvdb_flat_topk(const void* q, const void* v, const void* scales,
     return (int)cudaErrorInvalidValue;
   if ((mode == kI8 || mode == kI8Q8) && scales == nullptr) return (int)cudaErrorInvalidValue;
   if (mode == kI8Q8 && qscales == nullptr) return (int)cudaErrorInvalidValue;
-  if ((mode == kBF16 || mode == kI8) && q16 == nullptr) return (int)cudaErrorInvalidValue;
+  const bool prologue = mode == kBF16 || mode == kI8 || mode == kF32;
+  if (prologue && q16 == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scales);
   const float* qs = static_cast<const float*>(qscales);
   float* pv = static_cast<float*>(part_vals);
   int* pi = static_cast<int*>(part_ids);
   cudaError_t e;
-  if (mode == kBF16 || mode == kI8) {
+  if (prologue) {
     const size_t n = (size_t)B * Dp;
     const int blocks = n < 256 * 1024 ? (int)((n + 255) / 256) : 1024;
     round_queries_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(q),
-                                                 static_cast<__nv_bfloat16*>(q16), n);
+                                                 static_cast<__nv_bfloat16*>(q16), n,
+                                                 mode == kF32 ? 3 : 1);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   switch (mode) {
-    case kF32:
+    case kF32Simt:
       e = launch_f32(static_cast<const float*>(q), static_cast<const float*>(v), pv, pi, B,
                      Dp, n_eff, k, S, st);
       break;
@@ -985,6 +1194,9 @@ extern "C" int nvdb_flat_topk(const void* q, const void* v, const void* scales,
       break;
     case kI8Q8:
       e = launch_wgmma<kI8Q8>(q, v, sc, qs, pv, pi, B, Dp, Np, n_eff, k, S, st);
+      break;
+    case kF32:
+      e = launch_wgmma<kF32>(q16, v, sc, qs, pv, pi, B, Dp, Np, n_eff, k, S, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,10 +1,14 @@
 """Exact flat-scan top-k: the wrapper of the CUDA kernel ``csrc/flat_topk.cu``
 (the port of ``nvdb_tpu.kernels.flat_scan.pallas_flat_topk``) and its plain
-PyTorch version.
+PyTorch versions.
 
 ``flat_topk_cuda`` launches the kernel on a CUDA tensor and raises on any
 other: the plain version runs only where ``dispatch`` picks it (``auto`` on a
-CPU tensor, or ``torch``).
+CPU tensor, or ``torch``). ``ops.scan_topk`` (true f32, TF32 off) is the
+plain version the kernel is held against; ``split_bf16x3`` and
+``six_pass_scores`` model the f32 instance's decomposition alone, so a test
+can tell the split's error from the kernel's order of summation. Nothing on
+the search path calls them.
 """
 
 from __future__ import annotations
@@ -29,23 +33,60 @@ TENSOR_CORE = "tensor_core"
 _TILING = {SIMT: (64, 64, 2), TENSOR_CORE: (128, 256, 1)}
 _DIM_STEP = 64   # padded dims come in multiples of this
 
-_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MODE_I8Q8 = 3
+# The C entry's mode of each kernel instance.
+_MODES = {"f32_simt": 0, "bf16": 1, "int8": 2, "int8_int8": 3, "f32_tensor_core": 4}
 
-# Launches of the kernel since the last reset: a run can show that its main
-# path went through the kernel. Only flat_topk_cuda's launch adds to it.
+# Launches of the kernel since the last reset, in all and by instance: a run
+# can show that its main path went through the kernel, and which instance
+# scored its f32 stores. Only flat_topk_cuda's launch adds to them.
 LAUNCHES = 0
+LAUNCHES_BY_KERNEL = dict.fromkeys(_MODES, 0)
 
 
 def kernel_for(store_dtype: torch.dtype) -> str:
-    """Which pass-1 kernel scores a store: by store type alone. f32 means
-    exact f32 FMA, so it keeps the SIMT kernel; bf16 and int8 stores (with
-    f32 or int8 queries) are scored on the tensor cores."""
-    if store_dtype == torch.float32:
-        return SIMT
-    if store_dtype in (torch.bfloat16, torch.int8):
+    """Which pass-1 kernel scores a store by default: the tensor-core kernel
+    for every store type. f32 stores are scored there by the three-way bf16
+    split of both operands in six passes, as the TPU's ``Precision.HIGHEST``
+    does (``split_bf16x3``); the SIMT kernel of f32 FMA stays reachable only
+    by ``flat_topk_cuda(f32_kernel="simt")``, as the A/B."""
+    if store_dtype in (torch.float32, torch.bfloat16, torch.int8):
         return TENSOR_CORE
     raise TypeError(f"the flat_topk kernel takes f32, bf16 or int8 stores, not {store_dtype}")
+
+
+def split_bf16x3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three-way bf16 split of an f32 tensor, as the kernel makes it:
+    h = bf16(x), m = bf16(x - h), l = bf16((x - h) - m), each rounded to
+    nearest even, returned as f32 tensors of bf16-exact values. The
+    subtractions are exact, and h + m + l == x wherever x's lowest set bit
+    is at or above 2^-133 (bf16's least subnormal), so for every |x| >=
+    2^-110; below, the split loses at most 2^-133. |x| above bf16's largest
+    finite value (about 3.39e38) rounds to infinity, as on the card."""
+    x = x.to(torch.float32)
+    h = x.to(torch.bfloat16).to(torch.float32)
+    r = x - h
+    m = r.to(torch.bfloat16).to(torch.float32)
+    l = (r - m).to(torch.bfloat16).to(torch.float32)
+    return h, m, l
+
+
+# The six passes of the f32 instance as (query part, row part), in the
+# kernel's order, smallest terms first; the three it drops (m l, l m, l l)
+# are about 2^-24 of the score or smaller.
+SIX_PASSES = ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def six_pass_scores(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """[B, D] x [N, D] -> [B, N] f32 scores by the split of both operands:
+    the sum of the six passes, each an f32 product (TF32 off) of bf16-exact
+    values, in the kernel's order."""
+    ops.no_tf32()
+    qp, rp = split_bf16x3(queries), split_bf16x3(rows)
+    s = None
+    for a, b in SIX_PASSES:
+        p = qp[a] @ rp[b].T
+        s = p if s is None else s + p
+    return s
 
 
 def flat_topk_reference(
@@ -133,12 +174,19 @@ def flat_topk_cuda(
     n_valid: int,
     k: int,
     query_scales: Optional[torch.Tensor] = None,  # [B] f32 (int8 queries only)
+    f32_kernel: str = TENSOR_CORE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k dot-product scan; same contract as ``ops.scan_topk``.
     Returns (vals [B, k] f32, ids [B, k] int32), sorted descending, ties to
-    the larger id, (-inf, -1) where fewer than k rows are valid."""
+    the larger id, (-inf, -1) where fewer than k rows are valid.
+    ``f32_kernel="simt"`` scores an f32 store with the SIMT kernel of f32
+    FMA instead of the tensor cores: the A/B, never a fallback."""
     global LAUNCHES
     require_cuda(vectors, "flat_topk")
+    if f32_kernel not in (SIMT, TENSOR_CORE):
+        raise ValueError(f"f32_kernel is {SIMT!r} or {TENSOR_CORE!r}, not {f32_kernel!r}")
+    if f32_kernel == SIMT and vectors.dtype != torch.float32:
+        raise ValueError("f32_kernel='simt' scores f32 stores only")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
     if vectors.dim() != 2 or queries.dim() != 2:
@@ -146,11 +194,13 @@ def flat_topk_cuda(
     dev = vectors.device
     Np, Dp = vectors.shape
     B = queries.shape[0]
-    kernel = kernel_for(vectors.dtype)
+    kernel = f32_kernel if vectors.dtype == torch.float32 else kernel_for(vectors.dtype)
     check_tma_operand(vectors, "vectors")
     check_tma_operand(queries, "queries")
-    check_tensor(vectors, "vectors", dev, tuple(_MODES), (Np, Dp))
-    mode = _MODES[vectors.dtype]
+    check_tensor(vectors, "vectors", dev, (torch.float32, torch.bfloat16, torch.int8),
+                 (Np, Dp))
+    instance = {torch.float32: f"f32_{kernel}", torch.bfloat16: "bf16",
+                torch.int8: "int8"}[vectors.dtype]
     if vectors.dtype == torch.int8:
         if scales is None:
             raise ValueError("an int8 store needs its per-row scales")
@@ -162,7 +212,7 @@ def flat_topk_cuda(
             raise ValueError("int8 queries need an int8 store")
         check_tensor(queries, "queries", dev, (torch.int8,), (B, Dp))
         check_tensor(query_scales, "query_scales", dev, (torch.float32,), (B,))
-        mode = _MODE_I8Q8
+        instance = "int8_int8"
     else:
         check_tensor(queries, "queries", dev, (torch.float32,), (B, Dp))
 
@@ -173,9 +223,11 @@ def flat_topk_cuda(
     n_eff = max(0, min(int(n_valid), Np))
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     S = slice_count(B, n_eff, n_sm, kernel)
-    # the bf16-rounded queries of a bf16 or int8 store (int8 queries go as they are)
-    q16 = (torch.empty((B, Dp), dtype=torch.bfloat16, device=dev)
-           if kernel == TENSOR_CORE and mode != _MODE_I8Q8 else None)
+    # the queries' prologue: bf16-rounded for a bf16 or int8 store, split
+    # into three bf16 planes for an f32 store (int8 queries go as they are)
+    planes = {"bf16": 1, "int8": 1, "f32_tensor_core": 3}.get(instance)
+    q16 = (torch.empty((planes, B, Dp), dtype=torch.bfloat16, device=dev)
+           if planes else None)
     part_vals = torch.empty((B, S, k), dtype=torch.float32, device=dev)
     part_ids = torch.empty((B, S, k), dtype=torch.int32, device=dev)
 
@@ -188,8 +240,9 @@ def flat_topk_cuda(
                 q16.data_ptr() if q16 is not None else None,
                 part_vals.data_ptr(), part_ids.data_ptr(),
                 vals.data_ptr(), ids.data_ptr(),
-                B, Dp, Np, n_eff, k, S, mode, stream)
+                B, Dp, Np, n_eff, k, S, _MODES[instance], stream)
     if rc != 0:
-        raise RuntimeError(f"flat_topk kernel launch failed: cudaError_t {rc}")
+        raise RuntimeError(f"flat_topk kernel launch failed ({instance}): cudaError_t {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_KERNEL[instance] += 1
     return vals, ids

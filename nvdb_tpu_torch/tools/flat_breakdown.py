@@ -8,7 +8,7 @@ three builds of ``csrc/flat_topk.cu``, two of them measurement builds
 3. ``kernel``: the kernel as the port loads it.
 
     python -m nvdb_tpu_torch.tools.flat_breakdown [--n 1000000] [--d 768]
-        [--batch 512 8] [--k 10] [--dtype bf16|i8] [--qi8] [--iters 10]
+        [--batch 512 8] [--k 10] [--dtype bf16|i8|f32] [--qi8] [--iters 10]
 
 The store is synthesized on the card as ``nvdb_tpu_torch.bench`` does. Each
 build is timed twice in turns with CUDA events over ``--iters`` chained
@@ -36,7 +36,9 @@ def main(argv=None):
     p.add_argument("--d", type=int, default=768)
     p.add_argument("--batch", type=int, nargs="+", default=[512, 8])
     p.add_argument("--k", type=int, default=10)
-    p.add_argument("--dtype", default="bf16", choices=["bf16", "i8"])
+    p.add_argument("--dtype", default="bf16", choices=["bf16", "i8", "f32"],
+                   help="the store type; f32 is the tensor-core instance (three-way bf16 "
+                        "split), whose ring includes the split of each chunk")
     p.add_argument("--qi8", action="store_true", help="with --dtype i8: int8 queries too")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)

@@ -255,12 +255,14 @@ def test_wrapper_cpu_tensor_runs_plain_version(data):
 
 # -- the CUDA wrapper's host side (no card here: routing, grid, argument checks) --
 
-@pytest.mark.parametrize("dtype,kernel", [(torch.float32, flat_scan.SIMT),
+@pytest.mark.parametrize("dtype,kernel", [(torch.float32, flat_scan.TENSOR_CORE),
                                           (torch.bfloat16, flat_scan.TENSOR_CORE),
                                           (torch.int8, flat_scan.TENSOR_CORE)])
 def test_kernel_routing_is_by_store_type(dtype, kernel):
-    """f32 stores keep the SIMT kernel (f32 means exact FMA); bf16 and int8
-    stores, with f32 or int8 queries alike, go to the tensor-core kernel."""
+    """Every store type goes to the tensor-core kernel by default: f32 by
+    the three-way bf16 split in six passes (the TPU's HIGHEST), bf16 and
+    int8 stores with f32 or int8 queries alike; the SIMT kernel of f32 FMA
+    is reachable only by an explicit argument (test_torch_f32_split.py)."""
     assert flat_scan.kernel_for(dtype) == kernel
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions and a float64 numpy
-oracle, on a card (the flat top-k: the SIMT kernel of f32 stores and the
-tensor-core kernel of bf16 and int8 stores). Marked ``gpu``: each test asks its fixture for a
+oracle, on a card (the flat top-k: the tensor-core kernel of every store
+type, f32 by the three-way bf16 split, and the SIMT kernel of f32 FMA as its
+A/B). Marked ``gpu``: each test asks its fixture for a
 card and skips without one. The file imports no JAX, so it also runs where
 JAX is not installed:
 
@@ -155,17 +156,34 @@ def test_wrapper_rejects_bad_input(cuda_device):
         flat_scan.flat_topk_cuda(q, v, torch.ones(1024, device=cuda_device), 1024, 10)
 
 
-# -- the tensor-core flat kernel's edges (bf16 and int8 stores) ------------------
+# -- the tensor-core flat kernel's edges (every store type) ----------------------
 
-TC_DTYPES = ["bf16", "i8", "i8xi8"]
+TC_DTYPES = ["bf16", "i8", "i8xi8", "f32"]
+
+
+def _store(base, q, dtype, device):
+    """(queries, store, scales, query scales) of one store type on the card."""
+    sc = qs = None
+    qt = torch.from_numpy(q).to(device)
+    if dtype == "f32":
+        v = torch.from_numpy(base).to(device)
+    elif dtype == "bf16":
+        v = torch.from_numpy(base).to(torch.bfloat16).to(device)
+    else:
+        codes, scn = vecbin.quantize_i8(base)
+        v, sc = torch.from_numpy(codes).to(device), torch.from_numpy(scn).to(device)
+        if dtype == "i8xi8":
+            qq, qsn = vecbin.quantize_i8(q)
+            qt, qs = torch.from_numpy(qq).to(device), torch.from_numpy(qsn).to(device)
+    return qt, v, sc, qs
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", TC_DTYPES)
-@pytest.mark.parametrize("n_valid", [0, 5, 255, 257])
+@pytest.mark.parametrize("n_valid", [0, 5, 127, 129, 255, 257])
 def test_tensor_core_kernel_few_valid_rows(cuda_device, dtype, n_valid):
     """n_valid = 0, n_valid < k, and an n_valid one row short of and one row
-    past the 256-row tile."""
+    past a row tile (256 rows; 128 for f32 stores)."""
     c = _case(1024, 128, 8, dtype, seed=3)
     q, v, sc, qs = _args(c, cuda_device)
     kv, ki = flat_scan.flat_topk_cuda(q, v, sc, n_valid, 10, query_scales=qs)
@@ -187,17 +205,7 @@ def test_tensor_core_kernel_ties_go_to_larger_id(cuda_device, dtype):
     base[[3, 300, 700], 0] = 1.0
     q = np.zeros((130, 128), np.float32)
     q[:, 0] = 1.0
-    sc = qs = None
-    if dtype == "bf16":
-        v = torch.from_numpy(base).to(torch.bfloat16).to(cuda_device)
-        qt = torch.from_numpy(q).to(cuda_device)
-    else:
-        codes, scn = vecbin.quantize_i8(base)
-        v, sc = torch.from_numpy(codes).to(cuda_device), torch.from_numpy(scn).to(cuda_device)
-        qt = torch.from_numpy(q).to(cuda_device)
-        if dtype == "i8xi8":
-            qq, qsn = vecbin.quantize_i8(q)
-            qt, qs = torch.from_numpy(qq).to(cuda_device), torch.from_numpy(qsn).to(cuda_device)
+    qt, v, sc, qs = _store(base, q, dtype, cuda_device)
     vals, ids = flat_scan.flat_topk_cuda(qt, v, sc, 1000, 6, query_scales=qs)
     pv, pi = flat_scan.flat_topk_reference(qt, v, sc, 1000, 6, query_scales=qs)
     assert ids.cpu().tolist() == [[700, 300, 3, 999, 998, 997]] * 130
@@ -208,11 +216,11 @@ def test_tensor_core_kernel_ties_go_to_larger_id(cuda_device, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", TC_DTYPES)
 @pytest.mark.parametrize("dp", [64, 384, 768])
-@pytest.mark.parametrize("b", [1, 513])
+@pytest.mark.parametrize("b", [1, 129, 513])
 def test_tensor_core_kernel_dims_and_batches(cuda_device, dtype, dp, b):
     """Dp of one chunk, of an odd number of 128-byte int8 chunks, and the
-    main path's; one query, and five query blocks with a ragged last one;
-    k = 128 (the shortest ring)."""
+    main path's; one query, a second query block of one query, and five
+    query blocks with a ragged last one; k = 128 (the shortest ring)."""
     n_pad, n_valid, k = 4096, 4000, 128
     c = _case(n_pad, dp, b, dtype, seed=dp + b)
     q, v, sc, qs = _args(c, cuda_device)
@@ -238,21 +246,57 @@ def test_tensor_core_kernel_zero_fill_does_not_win(cuda_device, dtype, n_rows):
     base = -np.abs(rng.standard_normal((n_rows, 128))).astype(np.float32) - 0.1
     base[300:] = 0.0
     q = np.abs(rng.standard_normal((5, 128))).astype(np.float32) + 0.1
-    sc = qs = None
-    qt = torch.from_numpy(q).to(cuda_device)
-    if dtype == "bf16":
-        v = torch.from_numpy(base).to(torch.bfloat16).to(cuda_device)
-    else:
-        codes, scn = vecbin.quantize_i8(base)
-        v, sc = torch.from_numpy(codes).to(cuda_device), torch.from_numpy(scn).to(cuda_device)
-        if dtype == "i8xi8":
-            qq, qsn = vecbin.quantize_i8(q)
-            qt, qs = torch.from_numpy(qq).to(cuda_device), torch.from_numpy(qsn).to(cuda_device)
+    qt, v, sc, qs = _store(base, q, dtype, cuda_device)
     vals, ids = flat_scan.flat_topk_cuda(qt, v, sc, 300, 10, query_scales=qs)
     pv, pi = flat_scan.flat_topk_reference(qt, v, sc, 300, 10, query_scales=qs)
     assert bool((vals < 0).all()) and bool(((ids >= 0) & (ids < 300)).all())
     np.testing.assert_allclose(vals.cpu().numpy(), pv.cpu().numpy(), atol=1e-5, rtol=1e-5)
     assert np.mean(ids.cpu().numpy() == pi.cpu().numpy()) >= 0.95
+
+
+@pytest.mark.gpu
+def test_f32_tensor_core_every_k(cuda_device):
+    """The f32 instance's shared-memory plan holds for every k in [1, 128]
+    (two split tiles while a ring of two stages fits beside the lists, one
+    above): each k runs and matches the plain version and float64."""
+    n_pad, n_valid, dp, b = 2048, 2000, 128, 70
+    c = _case(n_pad, dp, b, "f32", seed=17)
+    q, v, _, _ = _args(c, cuda_device)
+    for k in range(1, 129):
+        kv, ki = flat_scan.flat_topk_cuda(q, v, None, n_valid, k)
+        pv, _ = flat_scan.flat_topk_reference(q, v, None, n_valid, k)
+        kv, ki = kv.cpu().numpy(), ki.cpu().numpy()
+        _check(kv, ki, c, n_valid, k)
+        np.testing.assert_allclose(kv, pv.cpu().numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k", [(129, 10), (512, 128)])
+def test_f32_tensor_core_against_simt(cuda_device, b, k):
+    """The error gate of chip_smoke.py phase 3 against the SIMT kernel (the
+    A/B) on the same call: the tensor-core values no further from float64
+    than twice the SIMT kernel's, and the same ids wherever the float64
+    scores of the two ids differ by more than 1e-6. Each launch is counted
+    under its own instance."""
+    n_pad, n_valid, dp = 16384, 16000, 768
+    c = _case(n_pad, dp, b, "f32", seed=23)
+    q, v, _, _ = _args(c, cuda_device)
+    before = dict(flat_scan.LAUNCHES_BY_KERNEL)
+    tv, ti = flat_scan.flat_topk_cuda(q, v, None, n_valid, k)
+    sv, si = flat_scan.flat_topk_cuda(q, v, None, n_valid, k, f32_kernel="simt")
+    after = flat_scan.LAUNCHES_BY_KERNEL
+    assert after["f32_tensor_core"] == before["f32_tensor_core"] + 1
+    assert after["f32_simt"] == before["f32_simt"] + 1
+    s64 = c["q_eff"] @ c["store_eff"][:n_valid].T
+    tv, ti, sv, si = (x.cpu().numpy() for x in (tv, ti, sv, si))
+    _check(tv, ti, c, n_valid, k)
+    _check(sv, si, c, n_valid, k)
+    gt = np.take_along_axis(s64, ti.astype(np.int64), axis=1)
+    gs = np.take_along_axis(s64, si.astype(np.int64), axis=1)
+    assert np.abs(tv - gt).max() <= 2.0 * np.abs(sv - gs).max()
+    assert not ((ti != si) & (np.abs(gt - gs) > 1e-6)).any()
+    with pytest.raises(ValueError, match="f32 stores only"):
+        flat_scan.flat_topk_cuda(q, v.to(torch.bfloat16), None, n_valid, k, f32_kernel="simt")
 
 
 # -- the rerank kernel ---------------------------------------------------------
