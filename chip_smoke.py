@@ -31,8 +31,9 @@ then, one phase per line group:
    bytes over the HBM rate or operations over the peak rate of their type,
    whichever is larger; six bf16 passes for the f32 tensor-core instance)
    and time / bound; one library call of the scores alone where there is
-   one (``torch.matmul``, with TF32 off for f32; ``torch._int_mm`` for int8
-   x int8); the headline line of ``nvdb_tpu_torch.bench``;
+   one (``torch.matmul``, with TF32 off for f32, at B = 512 and 8;
+   ``torch._int_mm`` for int8 x int8); the headline line of
+   ``nvdb_tpu_torch.bench``;
 6. ADC kernels vs plain: a random prefix-packed index at the flagship's M =
    96, dsub = 8 and Lcap = 640 (fills below kk, a dead list), B in {1, 8,
    64, 256}, P in {1, 7, 64}, kk in {10, 100, 256, 1024}, an index whose
@@ -117,7 +118,26 @@ then, one phase per line group:
    --pairs 30``, ``convert_bf16`` -> ``dump`` -> ``sanity``; the SIMT
    kernel's ground truth of phase 8's files (the A/B) against ``gt_build``'s
    on the tensor cores, equal except at float64 near-ties. Each sub-step
-   prints its wall time; the launches of phase 14 join the kernels' record.
+   prints its wall time; the launches of phase 14 join the kernels' record;
+15. the dist paths (``nvdb_tpu_torch.dist``) on shards of cuda:0 (views of
+   one store): (a) ``ShardedFlatIndex`` over phase 4's 1M x 768 bf16 store
+   and an int8 store of the same rows at S = 4 and a bf16 store at S = 3,
+   B = 512, k = 10, values bit-equal to ``FlatIndex``'s and ids equal where
+   untied, the two in turns; (b) ``sharded_lloyd_step`` over phase 8's corpus
+   at S = 4 against ``_lloyd_step`` on the valid rows, within 1e-4;
+   (c) ``tools.ivf_eval --force-sharded --shards 1`` on phase 8's index (its
+   recall equal to phase 8's), then ``ShardedIVFPQIndex`` at S = 4 with the f32
+   and the residual-int8 refine store row-sharded (``sharded_refine``):
+   kernels against plain versions and key against dma candidates within
+   0.005, the S = 4 recall beside the single device's, the batch in turns;
+   (d) ``ShardedPartitionIndex`` over phase 11's index at S = 4 (nprobe 32,
+   rerank 50) against its plain path within 0.005, the batch in turns, and
+   IVF-Flat full probing on a small index against the flat kernel; (e) two
+   ranks over gloo (``dist._worker``), two shards of cuda:0 each, each
+   loading its half of phase 4's bench vecbin: both ranks' ids equal and
+   equal to the one-process search; (f) ``dryrun_multichip(4)`` on cuda:0.
+   The launches of the kernels in 15's runs, counted from 0 around each,
+   must all have risen and join the kernels' record.
 
 Files go to ``build/chip_smoke``, which is removed at the end. Each phase
 prints its wall time. Every check raises on failure, so the exit code is
@@ -431,8 +451,7 @@ def phase_tools_bench(torch, dev, work):
         r = float(np.max(ref - got))
         say(f"  recall {recall:.4f} < 1: regret {r:.3e}")
         check(r <= REGRET_TOL, f"tools.bench: regret {r}")
-    remove_files(paths)
-    return launches
+    return launches   # its files stay for phase 15
 
 
 def library_scores_ms(torch, dtype, qi8, q, store, iters):
@@ -493,7 +512,7 @@ def phase_times(torch, dev):
                   + b * store.d_padded * (1 if qi8 else 4) + (b * 4 if qi8 else 0) + b * k * 8)
         ops1 = 2.0 * b * n * store.d_padded
         lib = (library_scores_ms(torch, dtype, qi8, qpool[0], store, iters)
-               if b == 512 or dtype == "bf16" else None)
+               if b == 512 or dtype in ("bf16", "f32") else None)
         rows = [("auto", ops1 * (6 if dtype == "f32" else 1), "int8" if qi8 else "bf16",
                  "six bf16 passes" if dtype == "f32" else None)]
         if dtype == "f32":
@@ -923,15 +942,15 @@ def rerank_residual_cases(torch, dev, base, q_all, rng, nlist=64):
 
 
 def phase_ivf_main_path(torch, dev, work, n=1_000_000, nlist=4096):
-    """Phase 8. Its corpus, queries, ground truth and index stay in ``work``
-    for phase 14; the refine stores go at its end."""
+    """Phase 8. Its corpus, queries, ground truth, index and residual codes
+    stay in ``work`` for phases 14 and 15; the plain int8 store goes at its end."""
     d, nq, k = 768, 1024, 10
     paths = work_paths(work, "ivf", ("base.vecbin", "q.vecbin", "gt.gtbin", "index.npz",
                                      "res.vecbin", "i8.vecbin"))
     try:
         return _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths) + (paths,)
     finally:
-        remove_files({x: paths[x] for x in ("res.vecbin", "i8.vecbin")})
+        remove_files({"i8.vecbin": paths["i8.vecbin"]})
 
 
 def ivf_eval_counted(torch, main, argv, first=True):
@@ -1851,6 +1870,318 @@ def phase_hbm_and_sanity(torch, dev):
     return out
 
 
+DIST_KERNELS = ("adc_tables", "adc_topk", "adc_topk_key", "rerank_topk", "ivf_probe_topk")
+
+
+def dist_counted(total, fn, *args, **kw):
+    """Run ``fn`` with every kernel's launch count set to 0 just before it;
+    add the counts read just after to ``total`` (flat instances as
+    ``flat_topk.<instance>``). Returns what ``fn`` returns."""
+    import torch
+
+    from nvdb_tpu_torch.kernels import adc_scan, flat_scan, ivf_scan, rerank
+
+    flat_reset()
+    adc_scan.LAUNCHES = adc_scan.TABLE_LAUNCHES = adc_scan.KEY_LAUNCHES = 0
+    adc_scan.GATHER_LAUNCHES = rerank.LAUNCHES = ivf_scan.LAUNCHES = 0
+    res = fn(*args, **kw)
+    torch.cuda.synchronize()
+    add_launches(total, {f"flat_topk.{i}": c for i, c in flat_scan.LAUNCHES_BY_KERNEL.items()})
+    add_launches(total, {"adc_tables": adc_scan.TABLE_LAUNCHES, "adc_topk": adc_scan.LAUNCHES,
+                         "adc_topk_key": adc_scan.KEY_LAUNCHES, "rerank_topk": rerank.LAUNCHES,
+                         "ivf_probe_topk": ivf_scan.LAUNCHES})
+    return res
+
+
+def dist_flat(torch, dev, out, n=1_000_000):
+    """15a: phase 4's 1M x 768 store (bf16, then int8 of the same rows) as
+    four views of cuda:0, and a bf16 store padded for three shards (the
+    last one short of valid rows): values bit-equal to FlatIndex's, ids
+    equal wherever the values are not tied; the two in turns."""
+    from nvdb_tpu_torch.bench import synth_queries, synth_store
+    from nvdb_tpu_torch.dist import mesh as meshmod
+    from nvdb_tpu_torch.dist.sharded import ShardedFlatIndex, merge_partials
+    from nvdb_tpu_torch.index.flat import FlatIndex
+    from nvdb_tpu_torch.kernels import dispatch
+    from nvdb_tpu_torch.store import ShardedVectorStore
+
+    d, b, k = 768, 512, 10
+    for dtype, S in (("bf16", 4), ("i8", 4), ("bf16", 3)):
+        store = synth_store(n, d, dtype, dev, seed=0, row_block=4096 * S)
+        q = synth_queries(b, store, seed=1)
+        mesh = meshmod.row_mesh(S, devices=[dev] * S)
+        sh = ShardedVectorStore.from_store(store, mesh)
+        rps = sh.rows_per_shard
+        check(all(v.data_ptr() == store.vectors[s * rps:].data_ptr()
+                  for s, v in enumerate(sh.vectors)), "a shard of cuda:0 is not a view")
+        single, sharded = FlatIndex(store), ShardedFlatIndex(sh)
+        fv, fi = single.search_device(q, k)
+        sv, si = dist_counted(out["launches"], sharded.search_device, q, k)
+        untied = torch.ones_like(sv, dtype=torch.bool)
+        untied[:, 1:] &= sv[:, 1:] != sv[:, :-1]
+        untied[:, :-1] &= sv[:, :-1] != sv[:, 1:]
+        tag = f"{dtype} S={S}"
+        check(torch.equal(sv, fv), f"sharded flat {tag}: values differ from FlatIndex's")
+        check(bool((si[untied] == fi[untied]).all()), f"sharded flat {tag}: ids differ")
+        kern, plain, runs = in_turns(torch, lambda: single.search_device(q, k),
+                                     lambda: sharded.search_device(q, k), 10)
+        say(f"  flat {tag} B={b} k={k} (valid rows by shard {[x.n for x in sh.shards]}): "
+            f"values bit-equal to FlatIndex, ids equal at {int(untied.sum())} untied "
+            f"positions; sharded {kern:.4f} ms {runs['kernel']} | single {plain:.4f} ms "
+            f"{runs['plain']} | ratio {kern / plain:.3f}")
+        out["ms"][f"flat {tag}"] = (kern, plain)
+        if S == 4:
+            # by parts: one shard's scan alone, the merge of the partials alone
+            scales = sh.scales or [None] * S
+            parts = [dispatch.flat_topk(q, v, sc, x.n, k)
+                     for v, sc, x in zip(sh.vectors, scales, sh.shards)]
+            one = cuda_ms(torch, lambda: dispatch.flat_topk(q, sh.vectors[0], scales[0],
+                                                            sh.shards[0].n, k), 10)
+            merge = cuda_ms(torch, lambda: merge_partials([p[0] for p in parts],
+                                                          [p[1] for p in parts], k, mesh), 10)
+            say(f"    by parts: one shard's scan {one:.4f} ms, the merge of {S} x {b} x {k} "
+                f"partials {merge:.4f} ms")
+            out["ms"][f"flat {tag} parts"] = (one, merge)
+        del store, sh, single, sharded, q
+        torch.cuda.empty_cache()
+
+
+def dist_lloyd(torch, dev, base_path, out):
+    """15b: one sharded Lloyd step over phase 8's 1M x 768 f32 corpus on
+    four shards of cuda:0 (padding rows present) against ``_lloyd_step``
+    on the valid rows alone."""
+    from nvdb_tpu_torch.dist import mesh as meshmod
+    from nvdb_tpu_torch.dist.sharded import sharded_lloyd_step
+    from nvdb_tpu_torch.kernels import kmeans
+    from nvdb_tpu_torch.store import ShardedVectorStore, VectorStore
+
+    mesh = meshmod.row_mesh(4, devices=[dev] * 4)
+    store = VectorStore.from_vecbin(base_path, n_shards=4, device=dev)
+    sh = ShardedVectorStore.from_store(store, mesh)
+    cents = store.vectors[:1024].clone()
+    new, obj = sharded_lloyd_step(mesh, sh.vectors, cents, sh.n)
+    sums, counts, obj1 = kmeans._lloyd_step(store.vectors[:store.n][None], cents[None])
+    want = torch.where(counts[0][:, None] > 0.5, sums[0] / torch.clamp(counts[0], min=1.0)[:, None],
+                       cents)
+    err = float((new - want).abs().max())
+    rel = abs(float(obj) - float(obj1[0]) / store.n) / (float(obj1[0]) / store.n)
+    say(f"  Lloyd step, {sh.n} x {sh.d} f32, K {cents.shape[0]}, 4 shards "
+        f"({sh.n_padded - sh.n} padding rows): "
+        f"|centroids - single| {err:.3e}, objective {float(obj):.6f} (rel err {rel:.2e})")
+    check(err <= 1e-4, f"sharded Lloyd step: centroids differ by {err}")
+    check(rel <= 1e-4, f"sharded Lloyd step: objective differs by {rel} relative")
+    del sh, store
+    torch.cuda.empty_cache()
+
+
+def dist_ivfpq(torch, dev, work, p8, ivf8, out):
+    """15c: ``ivf_eval --force-sharded --shards 1`` on phase 8's index (the
+    single-device recall exactly), then ``ShardedIVFPQIndex`` over four
+    shards of cuda:0 with the f32 and the residual-int8 refine store
+    row-sharded: the kernels against their plain versions, key against dma
+    candidates on the same shards, and the batch beside the single-device one."""
+    from nvdb_tpu_torch.dist import mesh as meshmod
+    from nvdb_tpu_torch.dist.sharded_ivf import ShardedIVFPQIndex, sharded_refine
+    from nvdb_tpu_torch.eval.recall import recall_at_k
+    from nvdb_tpu_torch.formats import gtbin, vecbin
+    from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+    from nvdb_tpu_torch.store import ShardedVectorStore, VectorStore
+    from nvdb_tpu_torch.tools import ivf_eval
+    from nvdb_tpu_torch.tools.quantize_i8 import residual_params
+
+    k, nprobe, refine_k, b = 10, 64, 100, 256
+    argv = [p8["index.npz"], p8["base.vecbin"], p8["q.vecbin"], "--gt", p8["gt.gtbin"],
+            "--chained", "--nprobe", str(nprobe), "--refine-k", str(refine_k), "--k", str(k),
+            "--batch-q", str(b), "--device", dev.type, "--force-sharded", "--shards", "1"]
+    res = dist_counted(out["launches"], run_tool, ivf_eval.main, argv, keep=("kind=", "RESULT"))[0]
+    say(f"  ivf_eval --force-sharded --shards 1: recall@10={res['recall']:.4f} (single-device "
+        f"{ivf8['auto']['recall']:.4f}) QPS={res['qps']:.1f}")
+    check(res["kind"] == "ivfpq-sharded1", f"ivf_eval kind {res['kind']}")
+    check(res["recall"] == ivf8["auto"]["recall"],
+          f"force-sharded S=1 recall {res['recall']} != single-device {ivf8['auto']['recall']}")
+
+    idx = IVFPQIndex.load(p8["index.npz"], device=dev)
+    mesh = meshmod.row_mesh(4, devices=[dev] * 4)
+    sh = ShardedIVFPQIndex.from_index(idx, mesh)
+    check(sh.ids_mode() == "key", f"sharded ids_mode {sh.ids_mode()}")
+    queries = vecbin.VecbinFile(p8["q.vecbin"]).rows_f32()
+    gt = np.asarray(gtbin.read_gtbin(p8["gt.gtbin"])[1])
+    dp = idx.centroids.shape[1]
+    qpad = torch.zeros((queries.shape[0], dp), device=dev)
+    qpad[:, :queries.shape[1]] = torch.from_numpy(queries).to(dev)
+    blocks = list(qpad.split(b))
+    f32 = ShardedVectorStore.from_vecbin(p8["base.vecbin"], mesh)
+    r_cents, _, r_list_of = residual_params(p8["index.npz"])
+    res_store = ShardedVectorStore.from_vecbin(p8["res.vecbin"], mesh).attach_residual(
+        r_cents, r_list_of)
+
+    def run(store, backend="auto", counted=True):
+        fn = lambda: np.concatenate([sh.search_device(x, k, nprobe, refine_k=refine_k,
+                                                      refine_store=store, backend=backend)[1]
+                                     .cpu().numpy() for x in blocks])
+        return recall_at_k(dist_counted(out["launches"], fn) if counted else fn(), gt, k)
+
+    rec = {}
+    for name, store in (("f32", f32), ("res_i8", res_store)):
+        rec[name] = run(store)
+        rec[f"{name} plain"] = run(store, "torch", counted=False)
+        gap = abs(rec[name] - rec[f"{name} plain"])
+        say(f"  S=4 IVF-PQ, {name} refine store row-sharded: recall@10 {rec[name]:.4f} with the "
+            f"kernels, {rec[f'{name} plain']:.4f} on their plain versions")
+        check(gap <= RECALL_GAP, f"S=4 {name}: kernel recall vs plain: gap {gap}")
+
+    # key against dma candidates on the same shards, each refined by sharded_refine
+    def refined(for_refine):
+        def fn():
+            ids = []
+            for x in blocks:
+                _, cand = sh.search_device(x, refine_k, nprobe, for_refine=for_refine)
+                ids.append(sharded_refine(mesh, x, cand, f32.vectors, None, k,
+                                          norms2=f32.norms2())[1].cpu().numpy())
+            return recall_at_k(np.concatenate(ids), gt, k)
+        return dist_counted(out["launches"], fn)
+    rec["key"], rec["dma"] = refined(True), refined(False)
+    say(f"  S=4 candidates refined on the shards: key {rec['key']:.4f}, dma {rec['dma']:.4f}")
+    check(abs(rec["key"] - rec["dma"]) <= RECALL_GAP, "S=4 key vs dma recall gap")
+    say(f"  recall@10 at total nprobe {nprobe}: S=4 {rec['f32']:.4f} (per-shard probe sets) "
+        f"against single-device {ivf8['auto']['recall']:.4f}; residual-int8 S=4 "
+        f"{rec['res_i8']:.4f} against {ivf8['res_auto']['recall']:.4f} (no gate)")
+    out["recall"] = rec
+
+    store1 = VectorStore.from_vecbin(p8["base.vecbin"], device=dev)
+    x = blocks[0]
+    kern, plain, runs = in_turns(
+        torch, lambda: idx.search_device(x, k, nprobe, refine_k=refine_k, refine_store=store1),
+        lambda: sh.search_device(x, k, nprobe, refine_k=refine_k, refine_store=f32), 10)
+    say(f"  IVF-PQ batch B={b} nprobe {nprobe} refine {refine_k}: S=4 {kern:.4f} ms "
+        f"{runs['kernel']} | single {plain:.4f} ms {runs['plain']} | ratio {kern / plain:.3f}")
+    out["ms"]["ivfpq B=256"] = (kern, plain)
+    kern, plain, runs = in_turns(
+        torch, lambda: idx.search_device(x, refine_k, nprobe, for_refine=True),
+        lambda: sh.search_device(x, refine_k, nprobe, for_refine=True), 10)
+    say(f"    by parts: the candidates alone (coarse, tables, key scan, merge) S=4 {kern:.4f} "
+        f"ms | single {plain:.4f} ms")
+    out["ms"]["ivfpq B=256 candidates"] = (kern, plain)
+    del idx, sh, f32, res_store, store1, blocks, qpad
+    torch.cuda.empty_cache()
+
+
+def dist_partition(torch, dev, work, out):
+    """15d: phase 11's partition index over four shards of cuda:0 (nprobe
+    32, rerank 50) against its plain sharded path; IVF-Flat full probing on
+    a small index of the hard corpus against the flat kernel."""
+    from nvdb_tpu_torch.dist import mesh as meshmod
+    from nvdb_tpu_torch.dist.sharded_ivf import ShardedIVFFlatIndex, ShardedPartitionIndex
+    from nvdb_tpu_torch.eval.recall import recall_at_k
+    from nvdb_tpu_torch.formats import gtbin, vecbin
+    from nvdb_tpu_torch.index.flat import FlatIndex
+    from nvdb_tpu_torch.index.ivf_flat import IVFFlatIndex
+    from nvdb_tpu_torch.index.partition import PartitionRerankIndex
+    from nvdb_tpu_torch.store import VectorStore
+
+    p11 = work_paths(work, "hard", ("base.vecbin", "q.vecbin", "gt.gtbin", "pr.npz"))
+    base = vecbin.VecbinFile(p11["base.vecbin"]).rows_f32()
+    queries = vecbin.VecbinFile(p11["q.vecbin"]).rows_f32()
+    gt = np.asarray(gtbin.read_gtbin(p11["gt.gtbin"])[1])
+    pr = PartitionRerankIndex.load(p11["pr.npz"], refine_rows=base, device=dev)
+    mesh = meshmod.row_mesh(4, devices=[dev] * 4)
+    sh = ShardedPartitionIndex.from_index(pr, mesh)
+    k, nprobe, rerank_k, b = 10, 32, 50, 64
+    _, ids = dist_counted(out["launches"], sh.search, queries, k, nprobe, rerank_k=rerank_k,
+                          q_chunk=b)
+    _, pids = sh.search(queries, k, nprobe, rerank_k=rerank_k, q_chunk=b, backend="torch")
+    _, sids = pr.search(queries, k, nprobe, rerank_k=rerank_k)
+    r, rp, r1 = (recall_at_k(x, gt, k) for x in (ids, pids, sids))
+    say(f"  S=4 partition nprobe {nprobe} rerank {rerank_k}: recall@10 {r:.4f} with the "
+        f"kernels, {rp:.4f} plain; single-device {r1:.4f} (no gate)")
+    check(abs(r - rp) <= RECALL_GAP, f"S=4 partition: kernel recall {r} vs plain {rp}")
+    out["recall"]["partition"] = (r, rp, r1)
+    q = torch.zeros((b, pr.ivf.centroids.shape[1]), device=dev)
+    q[:, :pr.ivf.d] = torch.from_numpy(queries[:b]).to(dev)
+    kern, plain, runs = in_turns(
+        torch, lambda: pr.search_device(q, k, nprobe, rerank_k=rerank_k),
+        lambda: sh.search_device(q, k, nprobe, rerank_k=rerank_k), 10)
+    say(f"  partition batch B={b}: S=4 {kern:.4f} ms {runs['kernel']} | single {plain:.4f} ms "
+        f"{runs['plain']} | ratio {kern / plain:.3f}")
+    out["ms"]["partition B=64"] = (kern, plain)
+    del pr, sh
+    torch.cuda.empty_cache()
+
+    # a small IVF-Flat index probed in full equals the exact scan
+    rows = base[:65536]
+    ivf = IVFFlatIndex.build(rows, nlist=64, dtype="f32", device=dev)
+    six = ShardedIVFFlatIndex.from_index(ivf, mesh)
+    v, i = dist_counted(out["launches"], six.search, queries[:64], k, six.nlist)
+    fv, fi = FlatIndex(VectorStore.from_numpy(rows, "f32", device=dev)).search(queries[:64], k)
+    err = float(np.abs(v - fv).max())
+    say(f"  IVF-Flat {rows.shape[0]} x {rows.shape[1]} f32 nlist 64, S=4, full probing: "
+        f"|values - flat kernel| "
+        f"{err:.3e}, ids equal at {float(np.mean(i == fi)):.4f} of positions")
+    check(err <= VALUE_ATOL + VALUE_RTOL, f"IVF-Flat full probing vs flat: {err}")
+    ids_near_equal("IVF-Flat full probing vs flat kernel", p11["base.vecbin"], queries[:64],
+                   i, fi)
+    del ivf, six, base
+    torch.cuda.empty_cache()
+
+
+def dist_multiprocess(torch, dev, work, out):
+    """15e: two ranks on localhost over gloo (one card: NCCL refuses two
+    ranks on one device), each with two shards on cuda:0 and its half of
+    phase 4's bench vecbin (``load_sharded``): both ranks' ids equal, and
+    equal to the one-process sharded search over the same four shards."""
+    from nvdb_tpu_torch.dist import _worker
+    from nvdb_tpu_torch.dist import mesh as meshmod
+    from nvdb_tpu_torch.dist.sharded import ShardedFlatIndex
+    from nvdb_tpu_torch.formats import vecbin
+    from nvdb_tpu_torch.store import ShardedVectorStore
+
+    p4 = work_paths(work, "bench", ("base.vecbin", "q.vecbin"))
+    qpath = os.path.join(work, "dist_q.npy")
+    queries = vecbin.VecbinFile(p4["q.vecbin"]).rows_f32()
+    np.save(qpath, queries)
+    k = 10
+    t0 = time.perf_counter()
+    runs = _worker.run_ranks([p4["base.vecbin"], qpath, str(k), work, "--device", str(dev),
+                              "--shards-per-rank", "2", "--row-block", "4096"],
+                             nproc=2, timeout=240)
+    for rank, (rc, text) in enumerate(runs):
+        for line in text.strip().splitlines():
+            say(f"    rank {rank}: {line}")
+        check(rc == 0 and f"OK rank={rank}" in text, f"rank {rank} exited {rc}")
+        check("backend=gloo" in text and "global_devices=4" in text,
+              f"rank {rank}: not a two-process gloo mesh of four shards")
+    ids = [np.load(os.path.join(work, f"ids_{r}.npy")) for r in range(2)]
+    mesh = meshmod.row_mesh(4, devices=[dev] * 4)
+    _, one = ShardedFlatIndex(ShardedVectorStore.from_vecbin(p4["base.vecbin"], mesh,
+                                                             row_block=4096)).search(queries, k)
+    check(np.array_equal(ids[0], ids[1]), "the two ranks' ids differ")
+    check(np.array_equal(ids[0], one), "the ranks' ids differ from the one-process search")
+    say(f"  two ranks ({time.perf_counter() - t0:.1f} s): ids equal to each other and to the "
+        f"one-process sharded search over the same four shards")
+
+
+def phase_dist(torch, dev, work, p8, ivf8):
+    from nvdb_tpu_torch.dist.dryrun import dryrun_multichip
+
+    out = {"launches": {}, "ms": {}}
+    for sub, fn, args in (("a flat", dist_flat, ()),
+                          ("b Lloyd", dist_lloyd, (p8["base.vecbin"],)),
+                          ("c IVF-PQ", dist_ivfpq, (work, p8, ivf8)),
+                          ("d partition and IVF-Flat", dist_partition, (work,)),
+                          ("e two processes", dist_multiprocess, (work,))):
+        say(f"  [15{sub}]")
+        wall(f"15{sub.split()[0]} in all", fn, torch, dev, *args, out)
+    say("  [15f dry run]")
+    wall("15f in all", dist_counted, out["launches"], dryrun_multichip, 4, devices=[dev] * 4)
+    for path, (sharded, single) in out["ms"].items():
+        say(f"  device ms, {path}: sharded {sharded:.4f} against single-device {single:.4f}")
+    out["launches"] = {key: c for key, c in out["launches"].items() if c}
+    say(f"  launches on the dist paths: {out['launches']}")
+    for name in ("flat_topk.bf16", "flat_topk.int8") + DIST_KERNELS:
+        check(out["launches"].get(name, 0) > 0, f"the dist paths did not launch {name}")
+    return out
+
+
 @contextlib.contextmanager
 def phase(title):
     say(title)
@@ -1968,18 +2299,29 @@ def main() -> int:
                    "11's; gt_build (device, chunked, host), slice, search, ab_compare, "
                    "convert_bf16, dump, sanity"):
             b14 = phase_build_side(torch, dev, work, ivf_paths, spilled8, part)
+
+        with phase("[15 dist] shards of cuda:0 (views): flat over phase 4's 1M x 768 bf16 "
+                   "and int8 stores at S = 4 and bf16 at S = 3, B = 512; a Lloyd step at "
+                   "S = 4; IVF-PQ on phase 8's index, ivf_eval --force-sharded --shards 1 and "
+                   "S = 4 with row-sharded f32 and residual-int8 refine stores; partition on "
+                   "phase 11's index at S = 4; IVF-Flat full probing; two ranks over gloo; "
+                   "the dry run"):
+            d15 = phase_dist(torch, dev, work, ivf_paths, ivf)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     say(smi)
     pl = part["launches"]
     bl = b14["launches"]
-    # the flat kernel's launches by instance over phases 4, 8, 11 and 14
+    dl = d15["launches"]
+    # the flat kernel's launches by instance over phases 4, 8, 11, 14 and 15
     flat = add_launches(add_launches(dict(launches), ivf["launches"]["flat_topk"]),
                         pl["flat_topk"])
-    add_launches(flat, {key.split(".", 1)[1]: c for key, c in bl.items()
-                        if key.startswith("flat_topk.")})
-    say(f"flat kernel launches by instance, phases 4, 8, 11 and 14: {flat}")
+    for later in (bl, dl):
+        add_launches(flat, {key.split(".", 1)[1]: c for key, c in later.items()
+                            if key.startswith("flat_topk.")})
+    say(f"flat kernel launches by instance, phases 4, 8, 11, 14 and 15: {flat}")
+    dist = {name: dl.get(name, 0) for name in DIST_KERNELS}
     rows = [
         ("flat_topk", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
          flat.get("bf16", 0) + flat.get("int8", 0) + flat.get("int8_int8", 0),
@@ -1990,21 +2332,23 @@ def main() -> int:
         ("flat_topk_f32_simt", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
          flat.get("f32_simt", 0), max_err["f32_simt"], times["f32 B=512 k=10 simt"]),
         ("adc_tables", "adc_tables", "nvdb_tpu/kernels/pq.py:89",
-         ivf["launches"]["adc_tables"] + bl["adc_tables"], adc["table_err"],
+         ivf["launches"]["adc_tables"] + bl["adc_tables"] + dist["adc_tables"], adc["table_err"],
          ivf_times["adc_tables"]),
         ("adc_topk", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:558",
-         ivf["launches"]["adc_topk"] + bl["adc_topk"], adc["scan_err"], ivf_times["adc_topk"]),
+         ivf["launches"]["adc_topk"] + bl["adc_topk"] + dist["adc_topk"], adc["scan_err"],
+         ivf_times["adc_topk"]),
         # bit for bit their plain version in phase 6, so their error is 0
         ("adc_topk_key", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:691",
-         ivf["launches"]["adc_topk_key"] + bl["adc_topk_key"], 0.0, ivf_times["adc_topk_key"]),
+         ivf["launches"]["adc_topk_key"] + bl["adc_topk_key"] + dist["adc_topk_key"], 0.0,
+         ivf_times["adc_topk_key"]),
         ("adc_topk_gather", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:718",
          ivf["launches"]["adc_topk_gather"], 0.0, ivf_times["adc_topk_gather"]),
         ("rerank_topk", "rerank_topk", "nvdb_tpu/kernels/rerank.py:187",
-         ivf["launches"]["rerank_topk"] + pl["pr"]["rerank_topk"] + bl["rerank_topk"],
-         rerank_err, ivf_times["rerank_topk B=256"]),
+         ivf["launches"]["rerank_topk"] + pl["pr"]["rerank_topk"] + bl["rerank_topk"]
+         + dist["rerank_topk"], rerank_err, ivf_times["rerank_topk B=256"]),
         ("ivf_probe_topk", "ivf_probe_topk", "nvdb_tpu/kernels/ivf_scan.py:111",
-         pl["pr"]["ivf_probe_topk"] + pl["ivfflat"]["ivf_probe_topk"] + bl["ivf_probe_topk"],
-         probe_err, probe_times["partition"]),
+         pl["pr"]["ivf_probe_topk"] + pl["ivfflat"]["ivf_probe_topk"] + bl["ivf_probe_topk"]
+         + dist["ivf_probe_topk"], probe_err, probe_times["partition"]),
         ("hbm_stream", "hbm_stream", "scripts/hbm_probe.py:62",
          sum(hbm["stream_launches"].values()), hbm["stream_err"], hbm["hbm_stream"]),
         ("add1", "add1", "nvdb_tpu/tools/tpu_sanity.py:28", hbm["add1_launches"],

@@ -15,6 +15,9 @@ with exact refine (build, ADC candidates, rerank):
                  with nvcc at first use.
 - ``index``    — ``FlatIndex`` (with the exact-i8 refine mode), exact ground
                  truth, ``IVFPQIndex`` and the IVF helpers it uses.
+- ``dist``     — row-sharded search over a mesh of devices (one process
+                 holding a tensor per shard, or several over
+                 ``torch.distributed``), each shard on the same kernels.
 - ``eval``     — stats, recall and the benchmark harness (numpy only).
 - ``tools``    — the ``bench``, ``ivf_build`` and ``ivf_eval`` CLIs.
 

@@ -1,1 +1,1 @@
-from nvdb_tpu_torch.store.store import VectorStore  # noqa: F401
+from nvdb_tpu_torch.store.store import ShardedVectorStore, VectorStore  # noqa: F401

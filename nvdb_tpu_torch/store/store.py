@@ -9,13 +9,18 @@ and are masked out of every scan by ``n`` (the valid-row count).
 ``norms2`` caches the squared row norms the l2 rerank folds in. A
 residual-int8 store (``attach_residual``) holds int8 codes of each row's
 residual against a coarse centroid: row i = res_cents[res_ids[i]] +
-scales[i] * vectors[i]. Sharding arrives with the slice that uses it.
+scales[i] * vectors[i].
+
+A row-sharded store (``ShardedVectorStore``, the port of a ``VectorStore``
+whose arrays carry a row sharding) holds one ``VectorStore`` per row shard
+of a ``dist.mesh.Mesh``; ``n_shards`` pads the rows to a multiple of
+``row_block * n_shards`` as the JAX package does, so the shards are equal.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,6 +133,7 @@ class VectorStore:
         scales: Optional[np.ndarray] = None,
         row_block: int = DEFAULT_ROW_BLOCK,
         src_dtype_code: Optional[int] = None,
+        n_shards: int = 1,
         *,
         device,
     ) -> "VectorStore":
@@ -135,7 +141,7 @@ class VectorStore:
 
         ``x`` is either raw f32 rows (converted per ``dtype``) or rows already
         in the target encoding (int8 with ``scales``, or bf16 as ``np.uint16``
-        bits).
+        bits). Rows are padded to a multiple of ``row_block * n_shards``.
         """
         code = vecbin.dtype_code(dtype)
         n, d = x.shape
@@ -145,7 +151,7 @@ class VectorStore:
             raise ValueError("int8 rows need their per-row scales")
         store_code = _store_code(code)
 
-        np_pad = round_up(max(n, 1), row_block)
+        np_pad = round_up(max(n, 1), row_block * max(n_shards, 1))
         dp = round_up(d, 128)
         host_dt = (np.int8 if code == vecbin.DTYPE_I8
                    else np.uint16 if x.dtype == np.uint16 else np.float32)
@@ -164,29 +170,39 @@ class VectorStore:
         cls,
         path: str,
         row_block: int = DEFAULT_ROW_BLOCK,
+        n_shards: int = 1,
+        row_range: Optional[Tuple[int, int]] = None,
         *,
         device,
     ) -> "VectorStore":
         """Streamed load: the padded device tensor is filled block by block
         straight from the mmap'd file, so peak host memory is one block of
-        ``_UPLOAD_ROWS`` rows, not a padded copy of the file."""
+        ``_UPLOAD_ROWS`` rows, not a padded copy of the file. Rows are padded
+        to a multiple of ``row_block * n_shards``. ``row_range=(r0, r1)``
+        loads rows [r0, r1) of that padded layout alone (one shard's, read
+        from the file and nothing else of it); the store's ``n`` is then the
+        valid rows among them."""
         f = vecbin.VecbinFile(path)
         code = f.dtype
         store_code = _store_code(code)
         n, d = f.count, f.dim
-        np_pad = round_up(max(n, 1), row_block)
+        np_pad = round_up(max(n, 1), row_block * max(n_shards, 1))
         dp = round_up(d, 128)
+        r0, r1 = row_range if row_range is not None else (0, np_pad)
+        if not 0 <= r0 <= r1 <= np_pad:
+            raise ValueError(f"row range [{r0}, {r1}) outside the {np_pad} padded rows")
+        v0, v1 = min(r0, n), min(r1, n)
 
-        vecs = torch.zeros((np_pad, dp), dtype=_TORCH_BY_CODE[code], device=device)
-        for r0 in range(0, n, _UPLOAD_ROWS):
-            r1 = min(r0 + _UPLOAD_ROWS, n)
-            rows = np.array(f.vectors[r0:r1])  # a writable host copy of the block
-            vecs[r0:r1, :d].copy_(_encode_host(rows, store_code))
+        vecs = torch.zeros((r1 - r0, dp), dtype=_TORCH_BY_CODE[code], device=device)
+        for b0 in range(v0, v1, _UPLOAD_ROWS):
+            b1 = min(b0 + _UPLOAD_ROWS, v1)
+            rows = np.array(f.vectors[b0:b1])  # a writable host copy of the block
+            vecs[b0 - r0:b1 - r0, :d].copy_(_encode_host(rows, store_code))
 
         sc = None
         if store_code == vecbin.DTYPE_I8:
-            sc = _scales_tensor(np.asarray(f.scales), n, np_pad, device)
-        return cls(vecs, sc, n, d, store_code, code)
+            sc = _scales_tensor(np.asarray(f.scales[v0:v1]), v1 - v0, r1 - r0, device)
+        return cls(vecs, sc, v1 - v0, d, store_code, code)
 
     @classmethod
     def from_reference(
@@ -262,3 +278,125 @@ class VectorStore:
         out = np.zeros((q.shape[0], self.d_padded), dtype=np.float32)
         out[:, : q.shape[1]] = q[:, : self.d]
         return out
+
+
+@dataclasses.dataclass
+class ShardedVectorStore:
+    """A store row-sharded over the ``rows`` axis of a ``dist.mesh.Mesh``:
+    one ``VectorStore`` per row shard this process holds, on that row's
+    device. Shard ``s`` holds padded rows [s * rows_per_shard, (s + 1) *
+    rows_per_shard) of the global layout, its ``n`` the valid rows among
+    them; ``n`` is the global count. Each shard caches its own ``norms2``
+    (a residual store's: of its dequantized rows); a residual store's
+    ``res_ids`` are sliced with the rows and its ``res_cents`` are whole on
+    every shard's device, as the JAX package places them."""
+
+    mesh: object
+    shards: List[VectorStore]
+    n: int
+    rows_per_shard: int
+
+    @classmethod
+    def from_store(cls, store: VectorStore, mesh) -> "ShardedVectorStore":
+        """Split a store into the mesh's row shards (``dist.mesh.shard_rows``:
+        views of the store's own tensors when every shard is on its device,
+        copies otherwise). Its padded rows must divide into equal shards."""
+        from nvdb_tpu_torch.dist.mesh import shard_rows
+
+        n_rows = mesh.shape["rows"]
+        if store.n_padded % n_rows != 0:
+            raise ValueError(f"{store.n_padded} padded rows do not split into {n_rows} "
+                             f"equal shards; build the store with n_shards={n_rows}")
+        rps = store.n_padded // n_rows
+        parts = lambda t: [None] * len(mesh.local_rows) if t is None else shard_rows(t, mesh)
+        shards = []
+        for s, v, sc, ri in zip(mesh.local_rows, parts(store.vectors), parts(store.scales),
+                                parts(store.res_ids)):
+            shard = VectorStore(v, sc, min(max(store.n - s * rps, 0), rps), store.d,
+                                store.dtype_code, store.src_dtype_code)
+            if store.is_residual:
+                shard.res_cents = store.res_cents.to(v.device)
+                shard.res_ids = ri
+            shards.append(shard)
+        return cls(mesh, shards, store.n, rps)
+
+    @classmethod
+    def from_numpy(cls, x: np.ndarray, mesh, dtype: str = "f32",
+                   scales: Optional[np.ndarray] = None, row_block: int = DEFAULT_ROW_BLOCK,
+                   src_dtype_code: Optional[int] = None) -> "ShardedVectorStore":
+        """``VectorStore.from_numpy`` padded for the mesh's row shards, built
+        on the host and each shard moved to its device."""
+        store = VectorStore.from_numpy(x, dtype, scales, row_block, src_dtype_code,
+                                       n_shards=mesh.shape["rows"], device="cpu")
+        return cls.from_store(store, mesh)
+
+    @classmethod
+    def from_vecbin(cls, path: str, mesh, row_block: int = DEFAULT_ROW_BLOCK
+                    ) -> "ShardedVectorStore":
+        """Streamed load of the shards this process holds, each straight from
+        its rows of the mmap'd file onto its device: no process reads
+        another's rows or holds the whole matrix."""
+        n_rows = mesh.shape["rows"]
+        f = vecbin.VecbinFile(path)
+        rps = round_up(max(f.count, 1), row_block * n_rows) // n_rows
+        shards = [VectorStore.from_vecbin(path, row_block, n_rows, (s * rps, (s + 1) * rps),
+                                          device=mesh.row_device(s))
+                  for s in mesh.local_rows]
+        return cls(mesh, shards, f.count, rps)
+
+    # -- the VectorStore surface ----------------------------------------------
+
+    @property
+    def vectors(self) -> List[torch.Tensor]:
+        return [s.vectors for s in self.shards]
+
+    @property
+    def scales(self) -> Optional[List[torch.Tensor]]:
+        return None if self.shards[0].scales is None else [s.scales for s in self.shards]
+
+    @property
+    def res_cents(self) -> Optional[List[torch.Tensor]]:
+        return None if not self.is_residual else [s.res_cents for s in self.shards]
+
+    @property
+    def res_ids(self) -> Optional[List[torch.Tensor]]:
+        return None if not self.is_residual else [s.res_ids for s in self.shards]
+
+    @property
+    def is_residual(self) -> bool:
+        return self.shards[0].is_residual
+
+    @property
+    def d(self) -> int:
+        return self.shards[0].d
+
+    @property
+    def dtype_code(self) -> int:
+        return self.shards[0].dtype_code
+
+    @property
+    def n_padded(self) -> int:
+        return self.rows_per_shard * self.mesh.shape["rows"]
+
+    @property
+    def d_padded(self) -> int:
+        return self.shards[0].d_padded
+
+    @property
+    def payload_bytes(self) -> int:
+        return vecbin.payload_and_aux_bytes(self.n, self.d, self.dtype_code)
+
+    def norms2(self) -> List[torch.Tensor]:
+        """Each shard's cached ``VectorStore.norms2``."""
+        return [s.norms2() for s in self.shards]
+
+    def attach_residual(self, cents: np.ndarray, list_of: np.ndarray) -> "ShardedVectorStore":
+        """``VectorStore.attach_residual`` on every shard, with its slice of
+        the rows' list ids."""
+        for s, shard in zip(self.mesh.local_rows, self.shards):
+            r0 = s * self.rows_per_shard
+            shard.attach_residual(cents, list_of[r0:r0 + shard.n])
+        return self
+
+    def pad_queries(self, q: np.ndarray) -> np.ndarray:
+        return self.shards[0].pad_queries(q)

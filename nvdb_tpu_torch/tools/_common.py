@@ -27,6 +27,22 @@ def setup_device(args):
     return torch.device(args.device)
 
 
+def tool_mesh(args, n_rows: int):
+    """The tools' row mesh: ``n_rows`` visible cards, or ``n_rows`` CPU
+    shards with ``--device cpu``. Exits non-zero, naming the shortfall,
+    when there are fewer cards (as the JAX tools' ``row_mesh`` does on one
+    device)."""
+    import torch
+
+    from nvdb_tpu_torch.dist.mesh import row_mesh
+
+    try:
+        return row_mesh(n_rows, devices=([torch.device("cpu")] * n_rows
+                                         if args.device == "cpu" else None))
+    except ValueError as e:
+        fail(str(e))
+
+
 def fail(msg: str, code: int = 1):
     print(f"error: {msg}", file=sys.stderr)
     sys.exit(code)

@@ -8,8 +8,10 @@ Reports Total / Avg / QPS / p50 / p95 / p99 (batch-level when batching),
 bytes_per_query and payload_equiv_bandwidth_GBps (nvdb_bench.cpp:369-425),
 recall@k against a gtbin file, and a machine-parsable RESULT line with the
 JAX package's keys and the device name. Every timed batch ends with the
-copy of its ids to the host. ``--shards N > 1`` (a row-sharded store) is
-not ported yet and exits non-zero.
+copy of its ids to the host. ``--shards N > 1`` row-shards the store over N
+devices (``dist.ShardedFlatIndex``; with ``--device cpu`` N CPU shards) and
+fails by name with fewer visible cards; as in the JAX tool, the query
+quantization and ``--device-queries`` apply to one device only.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from nvdb_tpu_torch.eval.harness import run_benchmark
 from nvdb_tpu_torch.eval.recall import recall_at_k
 from nvdb_tpu_torch.eval.stats import result_line
 from nvdb_tpu_torch.formats import gtbin, vecbin
-from nvdb_tpu_torch.tools._common import fail, make_parser, setup_device
+from nvdb_tpu_torch.tools._common import fail, make_parser, setup_device, tool_mesh
 
 
 def main(argv=None):
@@ -33,7 +35,7 @@ def main(argv=None):
     p.add_argument("--warmup", type=int,
                    default=config.EvalConfig.from_env().warmup)
     p.add_argument("--shards", type=int, default=1,
-                   help=">1: row-shard the store over this many devices (not ported)")
+                   help=">1: row-shard the store over this many devices")
     p.add_argument("--gt", default=None, help="gtbin file for recall@k")
     p.add_argument("--quantize-queries", action="store_true",
                    help="int8 stores: quantize queries to int8 and score "
@@ -46,18 +48,23 @@ def main(argv=None):
                    help="upload the query pool once and slice batches on the device "
                         "(no host-to-device copy in the timed loop)")
     args = p.parse_args(argv)
-    if args.shards > 1:
-        fail("--shards > 1 is not ported yet (dist: ROADMAP.md queue 1 item 4)")
     device = setup_device(args)
 
     from nvdb_tpu_torch.index.flat import FlatIndex
-    from nvdb_tpu_torch.store import VectorStore
+    from nvdb_tpu_torch.store import ShardedVectorStore, VectorStore
 
     qf = vecbin.VecbinFile(args.query)
     queries = qf.rows_f32()
-    store = VectorStore.from_vecbin(args.base, device=device)
-    index = FlatIndex(store, backend=args.backend,
-                      quantize_queries=args.quantize_queries, refine_k=args.refine_k)
+    if args.shards > 1:
+        from nvdb_tpu_torch.dist.sharded import ShardedFlatIndex
+
+        mesh = tool_mesh(args, args.shards)
+        store = ShardedVectorStore.from_vecbin(args.base, mesh)
+        index = ShardedFlatIndex(store, mesh=mesh, backend=args.backend)
+    else:
+        store = VectorStore.from_vecbin(args.base, device=device)
+        index = FlatIndex(store, backend=args.backend,
+                          quantize_queries=args.quantize_queries, refine_k=args.refine_k)
 
     dev_name = "cpu"
     if device.type == "cuda":
@@ -65,10 +72,11 @@ def main(argv=None):
 
         dev_name = torch.cuda.get_device_name(device).replace(" ", "_")
     print(f"N={store.n} dim={store.d} dtype={vecbin.dtype_name(store.dtype_code)} "
-          f"Q={qf.count} k={args.k} backend={args.backend} device={dev_name}")
+          f"Q={qf.count} k={args.k} backend={args.backend} device={dev_name} "
+          f"shards={args.shards}")
 
     search_fn = index.search
-    if args.device_queries:
+    if args.device_queries and args.shards == 1:
         import torch
 
         pool = torch.from_numpy(store.pad_queries(queries)).to(device)

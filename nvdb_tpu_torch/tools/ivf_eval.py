@@ -1,5 +1,5 @@
 """IVF-Flat / IVF-PQ + refine eval harness, the nvdb_ivf_eval analogue (the
-port of ``nvdb_tpu.tools.ivf_eval``, one device).
+port of ``nvdb_tpu.tools.ivf_eval``).
 
     python -m nvdb_tpu_torch.tools.ivf_eval index.npz base.vecbin q.vecbin \\
         --gt gt.gtbin --nprobe 64 --refine-k 100 --k 10 --batch-q 256 \\
@@ -31,9 +31,16 @@ index's ``ids_mode()``, ``key`` on every index ``ivf_build`` makes, for refine
 candidates, and ``dma`` for ADC-only results). ``--residual-refine``: the
 base vecbin holds residual int8 codes of this index
 (``tools.quantize_i8 --residual``); the refine dequantizes them against the
-index's centroids and scores rotated queries. ``--shards`` and
-``--force-sharded`` are not ported yet (they come with dist, ROADMAP.md
-queue 1 item 4) and exit non-zero.
+index's centroids and scores rotated queries.
+
+``--shards S`` (or ``--force-sharded`` at any S, 1 included) splits the
+index's lists over S devices (``dist.ShardedIVFPQIndex`` /
+``ShardedIVFFlatIndex``; with ``--device cpu`` S CPU shards; fewer visible
+cards fail by name): ``nprobe`` is the total over the shards, the refine
+store is row-sharded with the lists so stage B and the chained refine run
+``dist.sharded_refine``, the kind reads ``<kind>-sharded<S>``, and
+``--ids-mode`` is ignored with a warning (each shard takes the index's id
+mode), as in the JAX tool.
 
 With ``NVDB_DBG_DIR`` set, each staged grid point also writes its stage
 spans (``eval.trace.Tracer``: ``ann`` and ``refine``, one sample per batch)
@@ -43,6 +50,7 @@ the JAX package's file and columns.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import time
@@ -54,7 +62,7 @@ from nvdb_tpu_torch.eval.recall import candidate_recall, recall_at_k
 from nvdb_tpu_torch.eval.stats import compute_stats, result_line
 from nvdb_tpu_torch.eval.trace import Tracer
 from nvdb_tpu_torch.formats import gtbin, vecbin
-from nvdb_tpu_torch.tools._common import fail, make_parser, setup_device
+from nvdb_tpu_torch.tools._common import fail, make_parser, setup_device, tool_mesh
 
 
 def main(argv=None):
@@ -89,8 +97,11 @@ def main(argv=None):
                    help="the base vecbin holds residual int8 codes of this index "
                         "(quantize_i8 --residual): the refine adds the centroid back "
                         "and scores rotated queries")
-    p.add_argument("--shards", type=int, default=1)
-    p.add_argument("--force-sharded", action="store_true")
+    p.add_argument("--shards", type=int, default=1,
+                   help=">1: shard the inverted lists over this many devices (nprobe "
+                        "becomes the total over the shards)")
+    p.add_argument("--force-sharded", action="store_true",
+                   help="the sharded path even at --shards 1")
     p.add_argument("--device-queries", action="store_true",
                    help="stage query blocks (and stage-B candidates) on the "
                         "device before the timed loops")
@@ -101,9 +112,6 @@ def main(argv=None):
                    help="with --chained: also fetch every WAVE-th batch for wave "
                         "latency percentiles; 0 disables")
     args = p.parse_args(argv)
-    if args.shards > 1 or args.force_sharded:
-        fail("--shards / --force-sharded are not ported yet (dist: ROADMAP.md queue 1 "
-             "item 4)")
     device = setup_device(args)
 
     import torch
@@ -111,12 +119,20 @@ def main(argv=None):
     from nvdb_tpu_torch.index.ivf_flat import IVFFlatIndex
     from nvdb_tpu_torch.kernels import dispatch
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
-    from nvdb_tpu_torch.store import VectorStore
+    from nvdb_tpu_torch.store import ShardedVectorStore, VectorStore
 
     z = np.load(args.index if args.index.endswith(".npz") else args.index + ".npz")
     is_pq = "codebooks" in z.files
     kind = "ivfpq" if is_pq else "ivfflat"
     idx = (IVFPQIndex if is_pq else IVFFlatIndex).load(args.index, device=device)
+    sharded = args.shards > 1 or args.force_sharded
+    if sharded:
+        from nvdb_tpu_torch.dist import sharded_ivf
+
+        mesh = tool_mesh(args, args.shards)
+        idx = (sharded_ivf.ShardedIVFPQIndex if is_pq
+               else sharded_ivf.ShardedIVFFlatIndex).from_index(idx, mesh)
+        kind = f"{kind}-sharded{args.shards}"
     dev_name = (torch.cuda.get_device_name(device).replace(" ", "_")
                 if device.type == "cuda" else "cpu")
 
@@ -135,7 +151,10 @@ def main(argv=None):
     refine_ks = [0] if args.ann_only else list(args.refine_k)
     refine_store = None
     if max(refine_ks) > 0 and is_pq:
-        refine_store = VectorStore.from_vecbin(args.base, device=device)
+        # sharded: the refine store is sharded with the lists, so the refine
+        # runs sharded (no device holds the whole store)
+        refine_store = (ShardedVectorStore.from_vecbin(args.base, idx.mesh) if sharded
+                        else VectorStore.from_vecbin(args.base, device=device))
         if args.residual_refine:
             # pair the residual codes with this index's centroids and lists
             from nvdb_tpu_torch.tools.quantize_i8 import residual_params
@@ -143,17 +162,18 @@ def main(argv=None):
             r_cents, _, r_list_of = residual_params(args.index)
             refine_store.attach_residual(r_cents, r_list_of)
     refine_path = dispatch.refine_backend(args.ivf_backend, torch.empty(0, device=device))
-    # --ids-mode reaches the IVF-PQ candidate generator only
-    im_kw = {"ids_mode": args.ids_mode} if args.ids_mode and is_pq else {}
+    # --ids-mode reaches the single-device IVF-PQ candidate generator only
+    im_kw = {"ids_mode": args.ids_mode} if args.ids_mode and is_pq and not sharded else {}
     if args.ids_mode and not im_kw:
-        print(f"WARNING: --ids-mode {args.ids_mode} ignored (non-PQ index); RESULT "
-              f"lines will not carry it")
+        print(f"WARNING: --ids-mode {args.ids_mode} ignored "
+              f"({'sharded' if sharded else 'non-PQ'} path resolves ids_mode itself); "
+              f"RESULT lines will not carry it")
 
     print(f"kind={kind} nlist={idx.nlist} lcap={idx.lcap} N={idx.n} d={idx.d} Q={Q} "
           f"k={args.k} index_MB={idx.index_bytes / 1e6:.1f} device={dev_name}")
 
     b = max(args.batch_q, 1)
-    dp = idx.centroids.shape[1]
+    dp = idx.d_padded if sharded else idx.centroids.shape[1]
     n_batches = (Q + b - 1) // b
     qpad = np.zeros((n_batches * b, dp), np.float32)
     qpad[:Q, :queries.shape[1]] = queries
@@ -252,6 +272,13 @@ def main(argv=None):
             norms2 = refine_store.norms2() if args.exact_metric == "l2" else None
             residual = refine_store.is_residual
             rot = idx.rotation if residual else None
+            if sharded:
+                # each shard reranks the candidates whose rows it owns
+                from nvdb_tpu_torch.dist.sharded_ivf import sharded_refine
+
+                refine = functools.partial(sharded_refine, idx.mesh)
+            else:
+                refine = dispatch.exact_refine
 
             def refine_step(block, cblock):
                 q = block if torch.is_tensor(block) else to_dev(block)
@@ -260,7 +287,7 @@ def main(argv=None):
                     # residual codes live in the index's rotated space: rotate
                     # the refine queries (the dot is rotation-invariant)
                     q = _matmul(q, rot)
-                _, i = dispatch.exact_refine(
+                _, i = refine(
                     q, c, refine_store.vectors, refine_store.scales, args.k,
                     metric=args.exact_metric, norms2=norms2, backend=args.ivf_backend,
                     res_cents=refine_store.res_cents if residual else None,

@@ -13,8 +13,12 @@ harness's avg / p99 / QPS). ``--chained``: query blocks staged on the device
 and ``search_device`` (probe + rerank) chained over all of them with one
 fetch at the end; ``--wave W`` also fetches every W-th batch for wave
 latency percentiles. Each point prints a ``RESULT key=value ...`` line with
-the device name; ``main`` returns those records as dicts. ``--shards > 1``
-is not ported yet and exits non-zero.
+the device name; ``main`` returns those records as dicts. ``--shards S >
+1`` splits the built index's partitions over S devices
+(``dist.ShardedPartitionIndex``; with ``--device cpu`` S CPU shards; fewer
+visible cards fail by name), ``nprobe`` the total over the shards, the kind
+``partition-rerank-sharded<S>``; it refuses ``--chained``, the
+single-device serving loop, as the JAX tool does.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from nvdb_tpu_torch.eval.harness import run_benchmark
 from nvdb_tpu_torch.eval.recall import recall_at_k
 from nvdb_tpu_torch.eval.stats import compute_stats, result_line
 from nvdb_tpu_torch.formats import gtbin, vecbin
-from nvdb_tpu_torch.tools._common import fail, make_parser, setup_device
+from nvdb_tpu_torch.tools._common import fail, make_parser, setup_device, tool_mesh
 
 
 def main(argv=None):
@@ -48,7 +52,9 @@ def main(argv=None):
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--tune", type=float, default=None,
                    help="report the smallest nprobe hitting this recall")
-    p.add_argument("--shards", type=int, default=1)
+    p.add_argument("--shards", type=int, default=1,
+                   help=">1: shard the partitions over this many devices (nprobe "
+                        "becomes the total over the shards)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--chained", action="store_true",
                    help="pre-staged device query blocks, batches chained on the "
@@ -57,8 +63,6 @@ def main(argv=None):
                    help="with --chained: fetch every WAVE-th batch for wave latency "
                         "percentiles; 0 disables")
     args = p.parse_args(argv)
-    if args.shards > 1:
-        fail("--shards > 1 is not ported yet (dist: ROADMAP.md queue 1 item 4)")
     device = setup_device(args)
 
     import torch
@@ -100,6 +104,15 @@ def main(argv=None):
                                backend=args.backend)
         print(f"tuned nprobe for recall>={args.tune}: {best}")
 
+    if args.shards > 1:
+        from nvdb_tpu_torch.dist.sharded_ivf import ShardedPartitionIndex
+
+        idx = ShardedPartitionIndex.from_index(idx, tool_mesh(args, args.shards))
+        kind = f"partition-rerank-sharded{args.shards}"
+    if args.chained and args.shards > 1:
+        fail("--chained is the single-device serving loop; use ivf_eval --shards for "
+             "sharded timing")
+
     common = dict(kind=kind, rerank_k=args.rerank_k, Q=Q, k=args.k, dtype=args.dtype,
                   refine_dtype=args.refine_dtype, backend=args.backend, device=dev_name)
     results = []
@@ -110,7 +123,7 @@ def main(argv=None):
 
     b = max(args.batch_q, 1)
     n_batches = (Q + b - 1) // b
-    dp = idx.ivf.centroids.shape[1]
+    dp = idx.ivf.d_padded if args.shards > 1 else idx.ivf.centroids.shape[1]
     qpad = np.zeros((n_batches * b, dp), np.float32)
     qpad[:Q, :queries.shape[1]] = queries
     for np_ in args.nprobe:

@@ -921,3 +921,155 @@ def test_gt_build_on_card_matches_cpu(cuda_device, tmp_path):
         got = np.sort(np.take_along_axis(s64, ids.astype(np.int64), axis=1), axis=1)
         want = np.sort(np.take_along_axis(s64, cpu.astype(np.int64), axis=1), axis=1)
         assert float(np.max(want - got)) <= 1e-5
+
+
+# -- the sharded paths: the kernels on a shard's inputs ------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "i8"])
+def test_flat_kernel_on_shard_views(cuda_device, dtype):
+    """Row views at each shard's offset of one store (as four shards of
+    ``cuda:0`` see it): the kernel on a view equals the kernel on a copy of
+    the same rows bit for bit and the plain version to 1e-5; a shard whose
+    valid row count is 0 returns (-inf, -1) everywhere."""
+    S, rps = 4, 1024
+    c = _case(S * rps, 256, 16, dtype, seed=41)
+    q, v, sc, _ = _args(c, cuda_device)
+    for s in range(S):
+        view = v[s * rps:(s + 1) * rps]
+        vsc = None if sc is None else sc[s * rps:(s + 1) * rps]
+        assert view.data_ptr() == v.data_ptr() + s * rps * v.shape[1] * v.element_size()
+        n_valid = rps - 100 if s < S - 1 else 0
+        kv, ki = flat_scan.flat_topk_cuda(q, view, vsc, n_valid, 10)
+        if n_valid == 0:
+            assert bool((ki == -1).all()) and bool(torch.isneginf(kv).all())
+            continue
+        cv, ci = flat_scan.flat_topk_cuda(q, view.clone(), None if vsc is None else vsc.clone(),
+                                          n_valid, 10)
+        assert torch.equal(kv, cv) and torch.equal(ki, ci)
+        pv, _ = dispatch.flat_topk(q, view, vsc, n_valid, 10, backend="torch")
+        assert torch.allclose(kv, pv, atol=1e-5, rtol=1e-5)
+        assert int(ki.max()) < n_valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "i8"])
+def test_rerank_kernel_on_shard_views(cuda_device, dtype):
+    """The rerank kernel on a shard's view with local ids equals it on the
+    whole store with global ids; candidates all -1 (a shard that owns none)
+    give (-inf, -1)."""
+    from nvdb_tpu_torch.kernels import rerank
+
+    q, cand, store, sc = _rerank_case(dtype, 8, 64, seed=5)
+    q, cand, store = (torch.from_numpy(q).to(cuda_device), torch.from_numpy(cand).to(cuda_device),
+                      store.to(cuda_device))
+    sc = None if sc is None else torch.from_numpy(sc).to(cuda_device)
+    rps, s = 1024, 2
+    lid = cand - s * rps
+    own = (cand >= 0) & (lid >= 0) & (lid < rps)
+    local = torch.where(own, lid, -1).to(torch.int32)
+    glob = torch.where(own, cand, -1).to(torch.int32)
+    view = store[s * rps:(s + 1) * rps]
+    vsc = None if sc is None else sc[s * rps:(s + 1) * rps]
+    for metric in ("l2", "dot"):
+        lv, li = rerank.rerank_topk_cuda(q, local, view, vsc, 10, metric=metric)
+        gv, gi = rerank.rerank_topk_cuda(q, glob, store, sc, 10, metric=metric)
+        assert torch.equal(lv, gv) and torch.equal(torch.where(li >= 0, li + s * rps, -1), gi)
+        nv, ni = rerank.rerank_topk_cuda(q, torch.full_like(local, -1), view, vsc, 10,
+                                         metric=metric)
+        assert bool((ni == -1).all()) and bool(torch.isneginf(nv).all())
+
+
+@pytest.mark.gpu
+def test_probe_and_adc_kernels_on_a_shard_of_padding(cuda_device):
+    """A shard whose lists are all poisoned padding (nlist 42 over 8 shards:
+    the last six lists): the probe kernel and the ADC table, dma and key
+    kernels return (-inf, -1) everywhere and read no row of them."""
+    from nvdb_tpu_torch.dist import mesh as meshmod
+    from nvdb_tpu_torch.dist import sharded_ivf
+    from nvdb_tpu_torch.index.ivf_flat import IVFFlatIndex, _coarse_probes
+    from nvdb_tpu_torch.kernels import adc_scan, ivf_scan
+
+    q, _, packed, sids, _ = _probe_case("bf16", 16, 4, seed=3, nlist=42)
+    idx = IVFFlatIndex(torch.randn((42, 128)).to(cuda_device), packed.to(cuda_device),
+                       sids.to(cuda_device), None, 42 * 160, 128, vecbin.DTYPE_BF16)
+    mesh = meshmod.row_mesh(8, devices=[cuda_device] * 8)
+    sh = sharded_ivf.ShardedIVFFlatIndex.from_index(idx, mesh)
+    last = 7
+    assert bool((sh.slot_ids[last] == -1).all()) and int(sh.fills(last).max()) == 0
+    q = q.to(cuda_device)
+    probes = _coarse_probes(q, sh.centroids[last], sh.slot_ids[last], 6).to(torch.int32)
+    kv, ki = ivf_scan.ivf_probe_topk_cuda(q, probes, sh.packed[last], sh.slot_ids[last], None,
+                                          10, fills=sh.fills(last))
+    assert bool((ki == -1).all()) and bool(torch.isneginf(kv).all())
+
+    idx_pq, q_rot = _ivfpq_on_card(cuda_device, nlist=42)
+    spq = sharded_ivf.ShardedIVFPQIndex.from_index(idx_pq, mesh)
+    assert bool((spq.slot_ids[last] == -1).all()) and spq.ids_mode() == "key"
+    pr = _coarse_probes(q_rot, spq.centroids[last], spq.slot_ids[last], 6).to(torch.int32)
+    fills = spq.fills(last)
+    lut = adc_scan.adc_tables_cuda(q_rot, pr, spq.centroids[last], spq.codebooks[last], fills)
+    for v, i in (adc_scan.adc_topk_cuda(lut, pr, spq.codes[last], spq.slot_ids[last], 50,
+                                        fills=fills),
+                 adc_scan.adc_topk_keys_cuda(lut, pr, spq.codes[last], spq.slot_ids[last], 50,
+                                             fills=fills)):
+        assert bool((i == -1).all()) and bool(torch.isneginf(v).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "f32", "i8"])
+def test_sharded_flat_index_on_one_card_is_flat_index(cuda_device, dtype):
+    """``ShardedFlatIndex`` over four shards of ``cuda:0`` (views of one
+    store, the last one short of valid rows): values bit-equal to
+    ``FlatIndex`` on the same store, ids equal wherever the values are not
+    tied; the flat kernel launches once a shard."""
+    from nvdb_tpu_torch.dist import mesh as meshmod
+    from nvdb_tpu_torch.dist.sharded import ShardedFlatIndex
+    from nvdb_tpu_torch.index.flat import FlatIndex
+    from nvdb_tpu_torch.store import ShardedVectorStore, VectorStore
+
+    base = synth.normalized_gaussian(20000, 200, seed=51)
+    queries = synth.normalized_gaussian(64, 200, seed=52)
+    store = VectorStore.from_numpy(base, dtype, row_block=1024, n_shards=4, device=cuda_device)
+    mesh = meshmod.row_mesh(4, devices=[cuda_device] * 4)
+    sh = ShardedVectorStore.from_store(store, mesh)
+    assert sh.vectors[0].data_ptr() == store.vectors.data_ptr()
+    before = flat_scan.LAUNCHES
+    sv, si = ShardedFlatIndex(sh).search(queries, 10)
+    assert flat_scan.LAUNCHES == before + 4
+    fv, fi = FlatIndex(store).search(queries, 10)
+    np.testing.assert_array_equal(sv, fv)
+    untied = np.ones_like(sv, dtype=bool)
+    untied[:, 1:] &= sv[:, 1:] != sv[:, :-1]
+    untied[:, :-1] &= sv[:, :-1] != sv[:, 1:]
+    assert (si[untied] == fi[untied]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_sharded_ivfpq_and_refine_on_one_card(cuda_device, metric):
+    """Four shards of ``cuda:0``: the sharded IVF-PQ search with a
+    row-sharded refine store runs the table, key and rerank kernels once a
+    shard, and gives the plain path's answer (values to 1e-4 where the ids
+    agree, ids at >= 0.9 of positions)."""
+    from nvdb_tpu_torch.dist import mesh as meshmod
+    from nvdb_tpu_torch.dist import sharded_ivf
+    from nvdb_tpu_torch.kernels import adc_scan, rerank
+    from nvdb_tpu_torch.store import ShardedVectorStore
+
+    idx, q = _ivfpq_on_card(cuda_device)
+    mesh = meshmod.row_mesh(4, devices=[cuda_device] * 4)
+    sh = sharded_ivf.ShardedIVFPQIndex.from_index(idx, mesh)
+    rng = np.random.default_rng(17)
+    rows = rng.standard_normal((idx.n, idx.centroids.shape[1])).astype(np.float32)
+    store = ShardedVectorStore.from_numpy(rows, mesh, "f32", row_block=1024)
+    before = (adc_scan.TABLE_LAUNCHES, adc_scan.KEY_LAUNCHES, rerank.LAUNCHES)
+    kv, ki = sh.search_device(q, 10, 8, refine_k=50, refine_store=store, refine_metric=metric)
+    torch.cuda.synchronize()
+    assert (adc_scan.TABLE_LAUNCHES, adc_scan.KEY_LAUNCHES, rerank.LAUNCHES) == tuple(
+        x + 4 for x in before)
+    pv, pi = sh.search_device(q, 10, 8, refine_k=50, refine_store=store, backend="torch",
+                              refine_metric=metric)
+    same = ki == pi
+    assert float(same.float().mean()) >= 0.9
+    assert torch.allclose(kv[same], pv[same], atol=1e-4, rtol=1e-4)

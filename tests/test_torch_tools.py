@@ -106,10 +106,13 @@ def test_bench_exact_i8_refine_k_matches_jax(files, capsys, extra):
 
 
 def test_bench_shards_not_ported(files, capsys):
-    with pytest.raises(SystemExit) as e:
-        bench.main([files["f32"], files["q"], "5", "--shards", "2", "--device", "cpu"])
-    assert e.value.code != 0
-    assert "not ported" in capsys.readouterr().err
+    """``--shards`` once exited by name; since dist is ported it runs: on two
+    CPU shards, the single-device recall."""
+    args = [files["f32"], files["q"], "5", "--gt", files["gt"], "--batch-q", "8",
+            "--device", "cpu"]
+    single = bench.main(args)
+    sharded = bench.main(args + ["--shards", "2"])
+    assert sharded == single and "shards=2" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("dtype,extra", [("f32", []), ("bf16", []), ("i8", []),
@@ -212,11 +215,14 @@ def test_ivf_eval_torch_backend_on_cpu(ivf_files, capsys):
 
 @pytest.mark.parametrize("argv", [["--shards", "2"], ["--force-sharded"]])
 def test_ivf_eval_unported_flags_exit(ivf_files, capsys, argv):
-    with pytest.raises(SystemExit) as e:
-        ivf_eval.main([ivf_files["idx"], ivf_files["base"], ivf_files["q"],
-                       "--device", "cpu", *argv])
-    assert e.value.code != 0
-    assert "not ported" in capsys.readouterr().err
+    """The flags once exited by name; since dist is ported they run the
+    sharded path on CPU shards."""
+    got = ivf_eval.main([ivf_files["idx"], ivf_files["base"], ivf_files["q"], "--gt",
+                         ivf_files["gt"], "--nprobe", "4", "--refine-k", "40", "--batch-q",
+                         "4", "--device", "cpu", *argv])
+    shards = argv[1] if len(argv) > 1 else "1"
+    assert got[0]["kind"] == f"ivfpq-sharded{shards}" and got[0]["recall"] > 0.5
+    capsys.readouterr()
 
 
 @pytest.fixture(scope="module")
@@ -489,10 +495,16 @@ def test_pr_eval_torch_backend_matches_auto(ivf_files, capsys):
 
 
 def test_pr_eval_shards_not_ported(ivf_files, capsys):
+    """``--shards`` once exited by name; since dist is ported it runs on CPU
+    shards, and refuses ``--chained`` by name as the JAX tool does."""
+    args = [ivf_files["base"], ivf_files["q"], "--gt", ivf_files["gt"], "--nprobe", "8",
+            "--rerank-k", "40", "--shards", "2", "--device", "cpu"]
+    got = pr_eval.main(args)
+    assert got[0]["kind"] == "partition-rerank-sharded2" and got[0]["recall"] > 0.5
     with pytest.raises(SystemExit) as e:
-        pr_eval.main([ivf_files["base"], ivf_files["q"], "--shards", "2", "--device", "cpu"])
+        pr_eval.main(args + ["--chained"])
     assert e.value.code != 0
-    assert "not ported" in capsys.readouterr().err
+    assert "single-device serving loop" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("tool", [hbm_probe, gpu_sanity, flat_breakdown, adc_breakdown])
