@@ -137,7 +137,22 @@ then, one phase per line group:
    loading its half of phase 4's bench vecbin: both ranks' ids equal and
    equal to the one-process search; (f) ``dryrun_multichip(4)`` on cuda:0.
    The launches of the kernels in 15's runs, counted from 0 around each,
-   must all have risen and join the kernels' record.
+   must all have risen and join the kernels' record;
+16. the A/B tools and the recall probes (``nvdb_tpu_torch.tools``), each
+   run's launches counted from 0 around it and joining the kernels' record:
+   ``kernel_ab`` (bf16 and f32 1M x 768, B = 512 and 8, k = 10, arms kernel
+   and library, f32 also simt, 5 pairs, ``--check`` by float64 regret);
+   ``refine_ab`` (bf16 1M x 768, B 8 / 64 / 256, R 50 / 100, ``--check``);
+   ``adc_ab`` gen4 / gen5 / gen6 at the flagship shape (B 256, P 64, M 96,
+   Lcap 640, kk 100) and at the JAX script's defaults (B 64, Lcap 1024), the
+   gen4 and gen6 pairs bit-identical; ``coverage_probe`` (nprobe 16..256)
+   and ``adc_rank_probe`` (nprobe 64, f32 / bf16lut / bf16score) on phase
+   8's index, queries and ground truth, printed beside phase 8's recall as
+   coverage x P(ADC rank <= 100 | covered), and the coverage of the S = 4
+   sharded probe set at nprobe 64; ``multiproc_bench`` at its
+   defaults (one process of two shards of cuda:0 against two gloo ranks),
+   rank 0's recall equal to the one process's. A failed check in a tool
+   exits the run.
 
 Files go to ``build/chip_smoke``, which is removed at the end. Each phase
 prints its wall time. Every check raises on failure, so the exit code is
@@ -1087,8 +1102,9 @@ def key_scan_times(torch, lut, probes, idx, kk, fills, slots, dma):
     list_bytes = int(torch.unique(probes).numel()) * idx.m * idx.lcap
     cbnd, _ = bound_ms(list_bytes + slab_bytes, 0.0, "f32")
     slab = adc_scan.gather_codes(idx.codes, probes)
-    scan_ms = cuda_ms(torch, lambda: gathered_scan(torch, adc_scan, lut, probes, slab, idx, kk,
-                                                   fills), iters=5)
+    scan_ms = cuda_ms(torch, lambda: adc_scan.adc_topk_keys_cuda(
+        lut, probes, idx.codes, idx.slot_ids, kk, fills=fills, gathered=True, slab=slab),
+        iters=5)
     kern, plain, runs = in_turns(
         torch, lambda: adc_scan.adc_topk_keys_reference(
             lut, probes, adc_scan.gather_codes(idx.codes, probes), idx.slot_ids, kk,
@@ -1104,26 +1120,6 @@ def key_scan_times(torch, lut, probes, idx, kk, fills, slots, dma):
                                   index_select_ms=copy_ms, scan_ms=scan_ms)
     del slab
     return out
-
-
-def gathered_scan(torch, adc_scan, lut, probes, slab, idx, kk, fills):
-    """The gather kernel alone over a slab made beforehand (the wrapper
-    makes it on every call): one launch of the C entry point."""
-    b, p = probes.shape
-    nlist, m, lcap = idx.codes.shape
-    stages, tile = adc_scan.scan_plan(kk, m, lcap, key_bytes=4)
-    s_grp = adc_scan.key_groups(adc_scan._probe_groups(b, p, slab.device), p, lcap)
-    part = torch.empty((b, s_grp, kk), dtype=torch.int32, device=slab.device)
-    vals = torch.empty((b, kk), dtype=torch.float32, device=slab.device)
-    ids = torch.empty((b, kk), dtype=torch.int32, device=slab.device)
-    lut16 = lut if lut.dtype == torch.bfloat16 else lut.to(torch.bfloat16)
-    stream = torch.cuda.current_stream(slab.device).cuda_stream
-    rc = adc_scan._keys_lib()(lut16.data_ptr(), probes.data_ptr(), slab.data_ptr(),
-                              idx.slot_ids.data_ptr(), fills.data_ptr(), part.data_ptr(),
-                              vals.data_ptr(), ids.data_ptr(), b, p, m, lcap, nlist, kk, s_grp,
-                              stages, tile, 1, stream)
-    check(rc == 0, f"gather kernel launch failed: cudaError_t {rc}")
-    return vals, ids
 
 
 def phase_ivf_times(torch, dev, idx, store, queries):
@@ -1888,8 +1884,9 @@ def dist_counted(total, fn, *args, **kw):
     torch.cuda.synchronize()
     add_launches(total, {f"flat_topk.{i}": c for i, c in flat_scan.LAUNCHES_BY_KERNEL.items()})
     add_launches(total, {"adc_tables": adc_scan.TABLE_LAUNCHES, "adc_topk": adc_scan.LAUNCHES,
-                         "adc_topk_key": adc_scan.KEY_LAUNCHES, "rerank_topk": rerank.LAUNCHES,
-                         "ivf_probe_topk": ivf_scan.LAUNCHES})
+                         "adc_topk_key": adc_scan.KEY_LAUNCHES,
+                         "adc_topk_gather": adc_scan.GATHER_LAUNCHES,
+                         "rerank_topk": rerank.LAUNCHES, "ivf_probe_topk": ivf_scan.LAUNCHES})
     return res
 
 
@@ -2182,6 +2179,92 @@ def phase_dist(torch, dev, work, p8, ivf8):
     return out
 
 
+# phase 16: each tool's runs, and the kernels each must launch there
+TOOL_KERNELS = {"kernel_ab": ("flat_topk.bf16", "flat_topk.f32_tensor_core",
+                              "flat_topk.f32_simt"),
+                "refine_ab": ("rerank_topk",),
+                "adc_ab": ("adc_topk", "adc_topk_key", "adc_topk_gather"),
+                "coverage_probe": (),
+                "adc_rank_probe": ("adc_tables",),
+                "multiproc_bench": ("adc_tables", "adc_topk_key", "rerank_topk")}
+ADC_AB_SHAPES = (("flagship", ["--b", "256", "--p", "64", "--m", "96", "--lcap", "640",
+                               "--k", "100"]),
+                 ("JAX defaults", []))
+
+
+def tools_counted(out, tool, main, argv, keep=("RESULT",)):
+    """One tool run with every count set to 0 just before it; its counts
+    join ``out[tool]``. Returns what the tool's ``main`` returns."""
+    counts = out.setdefault(tool, {})
+    return dist_counted(counts, run_tool, main, argv, keep=keep)
+
+
+def phase_tools_ab(torch, dev, p8, ivf8):
+    """Phase 16: the A/B tools and the recall probes at the flagship shapes,
+    each run's launches counted from 0 (``TOOL_KERNELS``); a failed check in
+    a tool exits the run."""
+    from nvdb_tpu_torch.tools import (adc_ab, adc_rank_probe, coverage_probe, kernel_ab,
+                                      multiproc_bench, refine_ab)
+
+    launches = {}
+    for dtype, arms in (("bf16", "kernel,library"), ("f32", "kernel,simt,library")):
+        wall(f"16a kernel_ab {dtype}", tools_counted, launches, "kernel_ab", kernel_ab.main,
+             ["--dtype", dtype, "--batches", "512,8", "--ks", "10", "--arms", arms,
+              "--pairs", "5", "--iters", "10", "--check"])
+    torch.cuda.empty_cache()
+    wall("16b refine_ab bf16", tools_counted, launches, "refine_ab", refine_ab.main,
+         ["--batches", "8,64,256", "--rs", "50,100", "--pairs", "5", "--chain", "20",
+          "--check"])
+    torch.cuda.empty_cache()
+    for shape, flags in ADC_AB_SHAPES:
+        for mode in ("gen4", "gen5", "gen6"):
+            wall(f"16c adc_ab {mode} ({shape})", tools_counted, launches, "adc_ab",
+                 adc_ab.main, ["--mode", mode, "--pairs", "5", "--chain", "10"] + flags)
+        torch.cuda.empty_cache()
+    files = [p8["index.npz"], p8["q.vecbin"], p8["gt.gtbin"]]
+    cov, _ = wall("16d coverage_probe", tools_counted, launches, "coverage_probe",
+                  coverage_probe.main, files + ["--nprobe", "16", "32", "64", "128", "256"],
+                  keep=("N=", "nprobe=", "gt-list"))
+    cov4, _ = wall("16d coverage_probe --shards 4", tools_counted, launches, "coverage_probe",
+                   coverage_probe.main, files + ["--nprobe", "64", "--shards", "4"],
+                   keep=("nprobe=",))
+    rank = {}
+    for mode in ("f32", "bf16lut", "bf16score"):
+        rank[mode], _ = wall(f"16e adc_rank_probe {mode}", tools_counted, launches,
+                             "adc_rank_probe", adc_rank_probe.main,
+                             files + ["--nprobe", "64", "--rk", "10", "32", "64", "100", "128",
+                                      "256", "1024", "--score-mode", mode],
+                             keep=("FINAL",))
+        torch.cuda.empty_cache()
+    for mode in ("bf16lut", "bf16score"):
+        gap = max(abs(rank[mode][r] - rank["f32"][r]) for r in rank["f32"])
+        say(f"  adc_rank_probe {mode} against f32: largest gap {gap:.4f}")
+    measured = ivf8["auto"]["recall"]
+    c64, r100 = cov["coverage"][64], rank["f32"][100]
+    say(f"  IVF-PQ recall@10 split at nprobe 64, refine 100: placed {cov['placed']:.6f}, "
+        f"coverage@64 {c64:.4f}, ADC top-100 recall {r100:.4f} (f32; bf16lut "
+        f"{rank['bf16lut'][100]:.4f}, bf16score {rank['bf16score'][100]:.4f}), P(ADC rank <= 100 "
+        f"| covered) {r100 / c64:.4f}; ivf_eval measured {measured:.4f}; coverage@64 of the "
+        f"S = 4 probe set (16 a shard) {cov4['coverage'][64]:.4f}")
+    check(r100 <= c64 + 1e-9, f"ADC top-100 recall {r100} above the coverage {c64}")
+    recs, _ = wall("16f multiproc_bench", tools_counted, launches, "multiproc_bench",
+                   multiproc_bench.main, [])
+    a, b = recs
+    check(a["recall"] == b["recall"], f"multiproc_bench: rank 0's recall {b['recall']} != "
+                                      f"one process's {a['recall']}")
+    say(f"  multiproc_bench: ms/query 1proc {a['total_avg_ms']} 2proc {b['total_avg_ms']}, "
+        f"recall {a['recall']} both")
+    for tool, names in TOOL_KERNELS.items():
+        for name in names:
+            check(launches[tool].get(name, 0) > 0, f"{tool} did not launch {name}")
+    total = {}
+    for counts in launches.values():
+        add_launches(total, counts)
+    total = {name: c for name, c in total.items() if c}
+    say(f"  launches in phase 16: {total}")
+    return {"launches": total}
+
+
 @contextlib.contextmanager
 def phase(title):
     say(title)
@@ -2307,6 +2390,12 @@ def main() -> int:
                    "phase 11's index at S = 4; IVF-Flat full probing; two ranks over gloo; "
                    "the dry run"):
             d15 = phase_dist(torch, dev, work, ivf_paths, ivf)
+
+        with phase("[16 A/B tools and recall probes] kernel_ab bf16 and f32 1M x 768 B = 512 "
+                   "and 8; refine_ab bf16 1M x 768 B 8/64/256 R 50/100; adc_ab gen4/gen5/gen6 "
+                   "at the flagship shape and the JAX defaults; coverage_probe and "
+                   "adc_rank_probe on phase 8's index; multiproc_bench, two gloo ranks"):
+            t16 = phase_tools_ab(torch, dev, ivf_paths, ivf)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2314,14 +2403,17 @@ def main() -> int:
     pl = part["launches"]
     bl = b14["launches"]
     dl = d15["launches"]
+    tl = t16["launches"]
     # the flat kernel's launches by instance over phases 4, 8, 11, 14 and 15
     flat = add_launches(add_launches(dict(launches), ivf["launches"]["flat_topk"]),
                         pl["flat_topk"])
-    for later in (bl, dl):
+    for later in (bl, dl, tl):
         add_launches(flat, {key.split(".", 1)[1]: c for key, c in later.items()
                             if key.startswith("flat_topk.")})
-    say(f"flat kernel launches by instance, phases 4, 8, 11, 14 and 15: {flat}")
-    dist = {name: dl.get(name, 0) for name in DIST_KERNELS}
+    say(f"flat kernel launches by instance, phases 4, 8, 11, 14, 15 and 16: {flat}")
+    # the dist paths' and the tools' launches of the other kernels
+    dist = {name: dl.get(name, 0) + tl.get(name, 0)
+            for name in DIST_KERNELS + ("adc_topk_gather",)}
     rows = [
         ("flat_topk", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
          flat.get("bf16", 0) + flat.get("int8", 0) + flat.get("int8_int8", 0),
@@ -2342,7 +2434,8 @@ def main() -> int:
          ivf["launches"]["adc_topk_key"] + bl["adc_topk_key"] + dist["adc_topk_key"], 0.0,
          ivf_times["adc_topk_key"]),
         ("adc_topk_gather", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:718",
-         ivf["launches"]["adc_topk_gather"], 0.0, ivf_times["adc_topk_gather"]),
+         ivf["launches"]["adc_topk_gather"] + dist["adc_topk_gather"], 0.0,
+         ivf_times["adc_topk_gather"]),
         ("rerank_topk", "rerank_topk", "nvdb_tpu/kernels/rerank.py:187",
          ivf["launches"]["rerank_topk"] + pl["pr"]["rerank_topk"] + bl["rerank_topk"]
          + dist["rerank_topk"], rerank_err, ivf_times["rerank_topk B=256"]),

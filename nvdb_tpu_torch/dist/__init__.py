@@ -14,7 +14,8 @@ same answer.
                     ``ShardedFlatIndex``.
 - ``sharded_ivf`` — ``ShardedIVFFlatIndex``, ``ShardedIVFPQIndex``,
                     ``ShardedPartitionIndex``, ``sharded_refine``.
-- ``multihost``   — ``init_from_env``, ``global_row_mesh``, ``load_sharded``,
+- ``multihost``   — ``init_from_env``, ``joined``, ``local_device``,
+                    ``global_row_mesh``, ``load_sharded``, ``from_rank0``,
                     ``process_summary``.
 - ``dryrun``      — ``dryrun_multichip``: one step of each on tiny shapes.
 """

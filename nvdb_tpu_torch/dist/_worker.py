@@ -10,7 +10,8 @@ Each rank joins the group, builds the global row mesh from its own
 file (``load_sharded``), searches every query with ``ShardedFlatIndex``
 and writes its ids to ``OUT_DIR/ids_<rank>.npy``. It prints
 ``process_summary``, the rows it loaded and ``OK rank=<rank>``.
-``run_ranks`` starts the ranks on localhost and waits for them.
+``run_ranks`` starts the ranks (of this worker or of a tool) on localhost
+and waits for them.
 """
 
 from __future__ import annotations
@@ -27,10 +28,13 @@ import torch
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def run_ranks(argv, nproc: int = 2, timeout: float = 120.0) -> list:
-    """Start ``nproc`` ranks of this worker with ``argv`` on a localhost
-    coordinator; wait for each at most ``timeout`` seconds, killing every
-    rank if one runs over. Returns [(exit code, output)] by rank."""
+def run_ranks(argv, nproc: int = 2, timeout: float = 120.0,
+              module: str = "nvdb_tpu_torch.dist._worker") -> list:
+    """Start ``nproc`` ranks of ``module`` (default this worker; a tool's
+    module joins the same way, in ``tools._common.setup_device``) with
+    ``argv`` on a localhost coordinator; wait for each at most ``timeout``
+    seconds, killing every rank if one runs over. Returns [(exit code,
+    output)] by rank, stdout and stderr together."""
     with socket.socket() as sock:   # a free localhost port for the coordinator
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -39,9 +43,9 @@ def run_ranks(argv, nproc: int = 2, timeout: float = 120.0) -> list:
         env = dict(os.environ, NVDB_COORD=f"localhost:{port}", NVDB_NPROC=str(nproc),
                    NVDB_PROC_ID=str(rank))
         env["PYTHONPATH"] = _ROOT + os.pathsep + env.get("PYTHONPATH", "")
-        procs.append(subprocess.Popen([sys.executable, "-m", "nvdb_tpu_torch.dist._worker",
-                                       *argv], env=env, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True))
+        procs.append(subprocess.Popen([sys.executable, "-m", module, *argv], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
     out = []
     try:
         for p in procs:

@@ -14,6 +14,8 @@ the same answer.
   it does nothing; a second call is harmless. The JAX package's
   ``NVDB_MULTIHOST=1`` asks a TPU pod's runtime for its topology and has no
   meaning here.
+- The tools join in ``tools._common.setup_device``, as the JAX tools do in
+  ``setup_jax``; their ``--shards`` mesh then spans the processes.
 - The backend follows one rule (``choose_backend``): ``nccl`` when every
   process on this host has a card of its own (at least as many visible
   cards as local processes: ``LOCAL_WORLD_SIZE`` where a launcher sets it,
@@ -40,7 +42,8 @@ def _dist():
     return dist
 
 
-def _initialized() -> bool:
+def joined() -> bool:
+    """Whether this process is in a process group."""
     dist = _dist()
     return dist.is_available() and dist.is_initialized()
 
@@ -59,9 +62,11 @@ def choose_backend(local_nproc: int) -> str:
     return "gloo"
 
 
-def init_from_env() -> bool:
-    """Join the process group the env names; True if this process is in one."""
-    if _initialized():
+def init_from_env(backend: Optional[str] = None) -> bool:
+    """Join the process group the env names; True if this process is in one.
+    ``backend``: the group's backend (default ``choose_backend``; ``gloo``
+    for a run on the CPU, whose partials never touch a card)."""
+    if joined():
         return True
     coord = os.environ.get("NVDB_COORD")
     nproc = os.environ.get("NVDB_NPROC")
@@ -69,12 +74,22 @@ def init_from_env() -> bool:
     if not (coord and nproc and proc_id is not None):
         return False
     local, local_rank = _local_procs(int(nproc))
-    backend = choose_backend(local)
+    backend = backend or choose_backend(local)
     if backend == "nccl":
         torch.cuda.set_device(local_rank)
     _dist().init_process_group(backend, init_method=f"tcp://{coord}",
                                world_size=int(nproc), rank=int(proc_id))
     return True
+
+
+def local_device() -> torch.device:
+    """This process's card: ``cuda:<local rank>``, shared round-robin when
+    the host has fewer cards than processes (as under ``gloo``)."""
+    n = torch.cuda.device_count()
+    if n == 0:
+        raise ValueError("no CUDA devices visible")
+    world = _dist().get_world_size() if joined() else 1
+    return torch.device("cuda", _local_procs(world)[1] % n)
 
 
 def _default_devices() -> Optional[list]:
@@ -83,11 +98,11 @@ def _default_devices() -> Optional[list]:
     its processes (shared when there are fewer cards than processes, as
     under ``gloo``)."""
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if not _initialized() or n == 0:
+    if not joined() or n == 0:
         return None
     local, local_rank = _local_procs(_dist().get_world_size())
     if n < local:
-        return [torch.device("cuda", local_rank % n)]
+        return [local_device()]
     per = n // local
     return [torch.device("cuda", local_rank * per + i) for i in range(per)]
 
@@ -98,7 +113,7 @@ def global_row_mesh(n_q: int = 1, devices: Optional[Sequence] = None) -> mesh_li
     card) make its rows, numbered after those of the lower ranks. Every
     process must bring as many devices."""
     local = mesh_lib.row_mesh(None, n_q, _default_devices() if devices is None else devices)
-    if not _initialized():
+    if not joined():
         return local
     dist = _dist()
     backend = dist.get_backend()
@@ -112,6 +127,17 @@ def global_row_mesh(n_q: int = 1, devices: Optional[Sequence] = None) -> mesh_li
     L = counts[0]
     return mesh_lib.Mesh(local.devices, row_offset=dist.get_rank() * L,
                          n_rows=L * len(counts), backend=backend)
+
+
+def from_rank0(obj):
+    """Rank 0's ``obj`` on every process (``broadcast_object_list``; its
+    tensors come back on the devices they were pickled from), ``obj``
+    itself outside a group."""
+    if not joined():
+        return obj
+    box = [obj if _dist().get_rank() == 0 else None]
+    _dist().broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def load_sharded(path: str, mesh: Optional[mesh_lib.Mesh] = None,
@@ -128,7 +154,7 @@ def process_summary(mesh: Optional[mesh_lib.Mesh] = None) -> str:
     devices and all of them (the mesh's when one is given, else the visible
     cards), and the process-group backend."""
     dist = _dist()
-    multi = _initialized()
+    multi = joined()
     rank, world = (dist.get_rank(), dist.get_world_size()) if multi else (0, 1)
     if mesh is not None:
         local = len(mesh.devices) * mesh.shape[mesh_lib.QUERIES]

@@ -312,12 +312,14 @@ def adc_topk_keys_cuda(
     k: int,
     fills: Optional[torch.Tensor] = None,  # [nlist] int32 (list_fills), cached by callers
     gathered: bool = False,
+    slab: Optional[torch.Tensor] = None,   # gathered: gather_codes(codes, probes), made before
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The key kernel, or with ``gathered`` the gather kernel over
     ``gather_codes(codes, probes)`` (1.007 GB at B = 256, P = 64, M = 96,
-    Lcap = 640; made whole, not in chunks). The contract of
-    ``adc_topk_keys_reference``; the caller guarantees a prefix-packed index
-    with unique ids. Returns (vals [B, k] f32, ids [B, k] int32)."""
+    Lcap = 640; made whole, not in chunks, unless the caller passes it as
+    ``slab``). The contract of ``adc_topk_keys_reference``; the caller
+    guarantees a prefix-packed index with unique ids. Returns (vals [B, k]
+    f32, ids [B, k] int32)."""
     global KEY_LAUNCHES, GATHER_LAUNCHES
     require_cuda(codes, "adc_topk_keys")
     if not 1 <= k <= MAX_K:
@@ -349,7 +351,11 @@ def adc_topk_keys_cuda(
         ids.fill_(-1)
         return vals, ids
     S = key_groups(_probe_groups(B, P, dev), P, L)
-    src = gather_codes(codes, probes) if gathered else codes
+    if slab is not None:
+        if not gathered:
+            raise ValueError("a slab goes with gathered=True")
+        check_tensor(slab, "slab", dev, (torch.uint8,), (B * P, M, L))
+    src = (slab if slab is not None else gather_codes(codes, probes)) if gathered else codes
     part_keys = torch.empty((B, S, k), dtype=torch.int32, device=dev)
     fn = _keys_lib()
     with torch.cuda.device(dev):

@@ -97,6 +97,23 @@ def exact_refine(
     if rb == "torch":
         return rerank.rerank_topk_reference(queries, cand_ids, vectors, scales, k,
                                             norms2=norms2, metric=metric, **res)
+    return oracle_refine(queries, cand_ids, vectors, scales, k, metric=metric, **res)
+
+
+def oracle_refine(
+    queries: torch.Tensor,            # [B, Dp] f32
+    cand_ids: torch.Tensor,           # [B, R] int32 (-1 padded)
+    vectors: torch.Tensor,            # [Np, Dp] store payload
+    scales: Optional[torch.Tensor],   # [Np] f32 | None
+    k: int,
+    metric: str = "dot",
+    res_cents: Optional[torch.Tensor] = None,
+    res_ids: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's jnp refine (``_refine_block(backend="jnp")``): the
+    candidate rows gathered into a [B, R, Dp] f32 slab, dequantized, and
+    ``ops.exact_rerank``. ``exact_refine`` takes it for CPU tensors under
+    ``auto``; ``tools.refine_ab`` times it on the card's tensors."""
     safe = torch.clamp(cand_ids, min=0).long()
     rows = vectors[safe].to(torch.float32)
     if scales is not None:

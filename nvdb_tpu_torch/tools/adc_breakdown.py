@@ -25,6 +25,7 @@ from __future__ import annotations
 import argparse
 
 from nvdb_tpu_torch.eval.stats import result_line
+from nvdb_tpu_torch.tools import _ab
 from nvdb_tpu_torch.tools._common import fail
 
 BUILDS = (("staging", ("NVDB_ADC_ABLATE=1",)), ("lookups", ("NVDB_ADC_ABLATE=2",)),
@@ -62,12 +63,10 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         fail("no CUDA device: the breakdown is measured on a GPU only")
-    from nvdb_tpu_torch.bench import power_limit_w
     from nvdb_tpu_torch.kernels import _build, adc_scan
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    name = torch.cuda.get_device_name(dev).replace(" ", "_")
-    plim = power_limit_w(dev)
+    dev_kv = _ab.device_fields(dev)
     entries = {}
     for build, defines in BUILDS:
         fn = _build.load("adc_topk", defines).nvdb_adc_topk
@@ -108,7 +107,7 @@ def main(argv=None):
                 rec = dict(build=build, batch=b, ms=sum(runs[build]) / 2,
                            ms_runs="/".join(f"{x:.4f}" for x in runs[build]),
                            nprobe=args.nprobe, m=args.m, lcap=args.lcap, kk=args.kk,
-                           live_share=round(live, 4), device=name, power_limit_w=plim)
+                           live_share=round(live, 4), **dev_kv)
                 print(result_line(**rec), flush=True)
                 results.append(rec)
             del lut, probes

@@ -10,7 +10,9 @@ recall@k against a gtbin file, and a machine-parsable RESULT line with the
 JAX package's keys and the device name. Every timed batch ends with the
 copy of its ids to the host. ``--shards N > 1`` row-shards the store over N
 devices (``dist.ShardedFlatIndex``; with ``--device cpu`` N CPU shards) and
-fails by name with fewer visible cards; as in the JAX tool, the query
+fails by name with fewer visible cards; in a process group
+(``NVDB_COORD`` / ``NVDB_NPROC`` / ``NVDB_PROC_ID``) the shards span the
+processes, each loading only its rows. As in the JAX tool, the query
 quantization and ``--device-queries`` apply to one device only.
 """
 

@@ -23,6 +23,7 @@ import argparse
 import ctypes
 
 from nvdb_tpu_torch.eval.stats import result_line
+from nvdb_tpu_torch.tools import _ab
 from nvdb_tpu_torch.tools._common import fail
 
 BUILDS = (("ring", ("NVDB_FLAT_ABLATE=1",)), ("compares", ("NVDB_FLAT_ABLATE=2",)),
@@ -48,12 +49,11 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         fail("no CUDA device: the breakdown is measured on a GPU only")
-    from nvdb_tpu_torch.bench import power_limit_w, synth_queries, synth_store, time_scan
+    from nvdb_tpu_torch.bench import synth_queries, synth_store, time_scan
     from nvdb_tpu_torch.kernels import _build, flat_scan
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    name = torch.cuda.get_device_name(dev).replace(" ", "_")
-    plim = power_limit_w(dev)
+    dev_kv = _ab.device_fields(dev)
     entries = {}
     for build, defines in BUILDS:
         fn = _build.load("flat_topk", defines).nvdb_flat_topk
@@ -78,7 +78,7 @@ def main(argv=None):
                 rec = dict(build=build, batch=b, ms=sum(runs[build]) / 2,
                            ms_runs="/".join(f"{x:.4f}" for x in runs[build]),
                            dtype=("i8xi8" if args.qi8 else args.dtype), n=args.n, d=args.d,
-                           k=args.k, device=name, power_limit_w=plim)
+                           k=args.k, **dev_kv)
                 print(result_line(**rec), flush=True)
                 results.append(rec)
     finally:

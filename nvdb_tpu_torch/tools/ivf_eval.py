@@ -40,7 +40,11 @@ cards fail by name): ``nprobe`` is the total over the shards, the refine
 store is row-sharded with the lists so stage B and the chained refine run
 ``dist.sharded_refine``, the kind reads ``<kind>-sharded<S>``, and
 ``--ids-mode`` is ignored with a warning (each shard takes the index's id
-mode), as in the JAX tool.
+mode), as in the JAX tool. ``--one-device`` puts the S shards on this
+process's one card. In a process group (``NVDB_COORD`` / ``NVDB_NPROC`` /
+``NVDB_PROC_ID``, joined in ``tools._common.setup_device``) the S shards
+span the processes, each loading only its rows of the refine store, and
+every process ends with the same result.
 
 With ``NVDB_DBG_DIR`` set, each staged grid point also writes its stage
 spans (``eval.trace.Tracer``: ``ann`` and ``refine``, one sample per batch)
@@ -102,6 +106,9 @@ def main(argv=None):
                         "becomes the total over the shards)")
     p.add_argument("--force-sharded", action="store_true",
                    help="the sharded path even at --shards 1")
+    p.add_argument("--one-device", action="store_true",
+                   help="with --shards: every shard on this process's one card (views of "
+                        "one index), as on a machine of one card")
     p.add_argument("--device-queries", action="store_true",
                    help="stage query blocks (and stage-B candidates) on the "
                         "device before the timed loops")

@@ -18,7 +18,9 @@ the device name; ``main`` returns those records as dicts. ``--shards S >
 (``dist.ShardedPartitionIndex``; with ``--device cpu`` S CPU shards; fewer
 visible cards fail by name), ``nprobe`` the total over the shards, the kind
 ``partition-rerank-sharded<S>``; it refuses ``--chained``, the
-single-device serving loop, as the JAX tool does.
+single-device serving loop, as the JAX tool does. In a process group
+(``NVDB_COORD`` / ``NVDB_NPROC`` / ``NVDB_PROC_ID``) the shards span the
+processes, and every process serves rank 0's build.
 """
 
 from __future__ import annotations
@@ -105,9 +107,15 @@ def main(argv=None):
         print(f"tuned nprobe for recall>={args.tune}: {best}")
 
     if args.shards > 1:
+        from nvdb_tpu_torch.dist import multihost
         from nvdb_tpu_torch.dist.sharded_ivf import ShardedPartitionIndex
 
-        idx = ShardedPartitionIndex.from_index(idx, tool_mesh(args, args.shards))
+        mesh = tool_mesh(args, args.shards)
+        if mesh.backend is not None:
+            # every process serves rank 0's partitions: a build on a card
+            # is not bit-reproducible, and each process keeps only its lists
+            idx = multihost.from_rank0(idx)
+        idx = ShardedPartitionIndex.from_index(idx, mesh)
         kind = f"partition-rerank-sharded{args.shards}"
     if args.chained and args.shards > 1:
         fail("--chained is the single-device serving loop; use ivf_eval --shards for "

@@ -1073,3 +1073,107 @@ def test_sharded_ivfpq_and_refine_on_one_card(cuda_device, metric):
     same = ki == pi
     assert float(same.float().mean()) >= 0.9
     assert torch.allclose(kv[same], pv[same], atol=1e-4, rtol=1e-4)
+
+
+# -- the A/B tools and the probes on the card -----------------------------------
+
+def _tool(main, argv):
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    return buf.getvalue(), out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["gen4", "gen6"])
+def test_adc_ab_pairs_bit_identical(cuda_device, mode):
+    """gen4 (full width against the live prefix) and gen6 (key against the
+    gather kernel, the slab made inside the arm and beforehand): each pair
+    bit-identical, which the tool checks before timing (it exits 1 if not)."""
+    from nvdb_tpu_torch.tools import adc_ab
+
+    _, recs = _tool(adc_ab.main, ["--mode", mode, "--nlist", "512", "--lcap", "256",
+                                  "--b", "16", "--pairs", "2", "--chain", "2"])
+    assert recs and all(r["id_match"] == 1.0 for r in recs)
+    assert all(r["device"] != "cpu" and r["power_limit_w"] is not None for r in recs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,arms", [("bf16", "kernel,library,plain"),
+                                        ("f32", "kernel,simt,library,plain"),
+                                        ("i8", "kernel,plain")])
+def test_kernel_ab_check_on_card(cuda_device, dtype, arms):
+    from nvdb_tpu_torch.tools import kernel_ab
+
+    text, recs = _tool(kernel_ab.main, ["--n", "70001", "--dtype", dtype, "--batches", "37,8",
+                                        "--ks", "10,64", "--arms", arms, "--iters", "2",
+                                        "--pairs", "2", "--check"])
+    assert len(recs) == 4 * len(arms.split(",")) and text.count("# check arm=") == len(recs)
+
+
+@pytest.mark.gpu
+def test_refine_ab_check_on_card(cuda_device):
+    from nvdb_tpu_torch.tools import refine_ab
+
+    for dtype in ("bf16", "i8"):
+        _, recs = _tool(refine_ab.main, ["--n", "50000", "--dtype", dtype, "--batches", "8,64",
+                                         "--rs", "50,100", "--pairs", "2", "--chain", "2",
+                                         "--check"])
+        assert len(recs) == 4 and all(r["cuda_ms"] > 0 for r in recs)
+
+
+@pytest.mark.gpu
+def test_adc_rank_probe_tables_kernel_matches_plain_tables(cuda_device, tmp_path):
+    """bf16lut with the serving path's table kernel against the same probe
+    with the plain tables (``--backend torch``): within 0.002."""
+    from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+    from nvdb_tpu_torch.formats import gtbin
+    from nvdb_tpu_torch.tools import adc_rank_probe
+
+    n, d = 20000, 128
+    base = synth.clustered(n, d, n_clusters=32, seed=3)
+    q, _ = synth.sample_queries(base, 64, seed=4, perturb=0.05)
+    vecbin.write_vecbin(str(tmp_path / "q.vecbin"), q)
+    s64 = q.astype(np.float64) @ base.astype(np.float64).T
+    gtbin.write_gtbin(str(tmp_path / "gt.gtbin"),
+                      np.argsort(-s64, axis=1)[:, :10].astype(np.int32), dim=d, N=n)
+    IVFPQIndex.build(base, nlist=64, m=16, use_opq=False, train_size=n, n_iters=4, seed=1,
+                     device=cuda_device).save(str(tmp_path / "idx.npz"))
+    argv = [str(tmp_path / n_) for n_ in ("idx.npz", "q.vecbin", "gt.gtbin")]
+    argv += ["--nprobe", "8", "--rk", "16", "64", "--score-mode", "bf16lut"]
+    _, card = _tool(adc_rank_probe.main, argv)
+    _, plain = _tool(adc_rank_probe.main, argv + ["--backend", "torch"])
+    assert all(abs(card[r] - plain[r]) <= 0.002 for r in (16, 64)), (card, plain)
+
+
+@pytest.mark.gpu
+def test_tool_mesh_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
+    """Two ranks of ``tools.bench --shards 2`` on cuda:0 (gloo: NCCL refuses
+    two ranks on one card), each with one shard: recall 1 against the
+    one-process ids."""
+    from nvdb_tpu_torch.dist import _worker
+    from nvdb_tpu_torch.dist import mesh as meshmod
+    from nvdb_tpu_torch.dist.sharded import ShardedFlatIndex
+    from nvdb_tpu_torch.formats import gtbin
+    from nvdb_tpu_torch.store import ShardedVectorStore
+
+    n, d = 9000, 64
+    base = synth.clustered(n, d, n_clusters=16, seed=5)
+    q, _ = synth.sample_queries(base, 16, seed=6, perturb=0.05)
+    vecbin.write_vecbin(str(tmp_path / "base.vecbin"), base)
+    vecbin.write_vecbin(str(tmp_path / "q.vecbin"), q)
+    mesh = meshmod.row_mesh(2, devices=[torch.device("cuda", 0)] * 2)
+    _, ids = ShardedFlatIndex(ShardedVectorStore.from_vecbin(str(tmp_path / "base.vecbin"),
+                                                             mesh)).search(q, 10)
+    gtbin.write_gtbin(str(tmp_path / "one.gtbin"), ids.astype(np.int32), dim=d, N=n)
+    runs = _worker.run_ranks([str(tmp_path / "base.vecbin"), str(tmp_path / "q.vecbin"), "10",
+                              "--gt", str(tmp_path / "one.gtbin"), "--shards", "2",
+                              "--batch-q", "8"], nproc=2, timeout=240,
+                             module="nvdb_tpu_torch.tools.bench")
+    for rank, (rc, out) in enumerate(runs):
+        assert rc == 0, out
+        assert f"process {rank}/2" in out and "backend=gloo" in out and "global_devices=2" in out
+        assert "recall=1.000000" in out, out
