@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the CUDA kernels from the
-sources in the checkout (one ``nvcc`` per source, all started together),
-then, one phase per line group:
+sources in the checkout (one ``nvcc`` per source, and two measurement builds
+of the probe source, all started together), then, one phase per line group:
 
 1. device: the card, ``nvidia-smi``'s name and power limit, torch and CUDA;
 2. build: build seconds and each kernel's ptxas register / spill line;
@@ -72,15 +72,20 @@ then, one phase per line group:
    the dma scan, the key scan, the gather wrapper and its two parts (the
    slab copy and the scan of the slab), the rerank wrapper at B = 256 and
    B = 8 (R = 100, k = 10, the 1M x 768 bf16 store), each kernel against
-   its plain version in turns and beside its bound; the rerank kernel
+   its plain version in turns and beside its bound (the scans' bytes count
+   each distinct probed list's live codes once, and the tables once; the
+   bytes as probed are printed beside them); the rerank kernel
    alone (100 launches in one CUDA graph); the whole ``search_device``,
    whose operators are recorded to show that no f32 table and no bf16 copy
    of one is made, against its plain versions and, in turns, with dma
    candidates in place of the key ones;
-10. IVF probe kernel vs plain and a float64 oracle: random packed indexes
-   of f32 / bf16 / int8 payloads at Lcap 384 and 992 (lists full, with
-   holes, filled below k, dead), B in {1, 8, 64, 256}, P in {1, 7, 32, 64},
-   k in {1, 10, 50, 128};
+10. IVF probe kernel vs plain and a float64 oracle, both layouts (list-major,
+   the default, and the query-major A/B): random packed indexes of f32 /
+   bf16 / int8 payloads at Lcap 384 and 992 (lists full, with holes, filled
+   below k, dead), B in {1, 8, 64, 256}, P in {1, 7, 32, 64}, k in {1, 10,
+   50, 128}, and B = 256 with every query on one list, each query probing a
+   list twice, and holes with out-of-range probes; the list-major grouping
+   pass against its plain version;
 11. the partition main path at its published width: the 1M x 768 "hard"
    corpus of ``tools.synth --hard 48 --seed 1`` and 1,000 sampled queries,
    ground truth by the flat kernel, ``tools.pr_eval --chained --nprobe 16
@@ -89,14 +94,22 @@ then, one phase per line group:
    ``--backend torch``; ``tools.pr_build`` -> ``tools.pr_search``; then
    ``tools.ivf_build --kind ivfflat --nlist 4096 --dtype bf16`` ->
    ``tools.ivf_eval --chained --nprobe 64 --batch-q 256`` on both paths;
-12. times: the probe kernel against its plain version in turns on the
-   partition index (B = 64, P = 32, Lcap 992, k = 50) and the IVF-Flat
-   index (B = 256, P = 64, k = 10), and the partition batch by stage;
+12. times: the list-major probe kernel against its plain version and
+   against the query-major A/B, in turns, on the partition index (B = 64, P
+   = 32, Lcap 992, k = 50) and the IVF-Flat index (B = 256, P = 64, k = 10)
+   and at B = 8 and 1, with each layout's device time (20 calls in a CUDA
+   graph); the bounds count each distinct probed list once (the bytes as
+   probed, the distinct lists and the queries a list printed beside); the
+   list-major plan's chunk widths and CTAs a SM; the call by pass (two
+   measurement builds, ``NVDB_PROBE_ABLATE``, that stop after pass 0 and
+   after pass 1); one call captured in a CUDA graph and replayed against an
+   eager call; the partition and IVF-Flat batches by stage;
 13. ``tools.hbm_probe`` (the stream and ring kernels against ``torch.amax``
    over 1M x 768 bf16: the card's HBM ceiling, which phase 12's rates are
    read against) and ``tools.gpu_sanity`` (the add1 kernel); add1 and
    ``x + 1`` are timed as 100 launches captured in one CUDA graph, so the
-   figure is the device's and not the Python wrapper's;
+   figure is the device's and not the Python wrapper's; the probe kernel's
+   rate of distinct bytes against the ceiling;
 14. the build side and the data tools on phase 8's and phase 11's files:
    (a) ``tools.ivf_build --repack-from`` of phase 8's index at the published
    settings (pad 4.0, 8 spill candidates) and with ``--replicas 2
@@ -162,7 +175,8 @@ last lines are ``nvidia-smi``'s name and power limit, the flat kernel's
 launches by instance, the kernels' JSON record (launches on the main paths,
 error, ms, plain ms, bound ms and what sets it, the library call's ms where
 there is one; the flat kernel has three rows: bf16 / int8, f32 on the
-tensor cores, f32 on the SIMT kernel), and ``{"ok": true, "device": {...}}``.
+tensor cores, f32 on the SIMT kernel; the probe kernel two: list-major and
+the query-major A/B), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -381,6 +395,17 @@ def flat_counts(tag, f32=False):
         check(counts.get("f32_tensor_core", 0) > 0 and "f32_simt" not in counts,
               f"{tag}: the f32 store did not go to the tensor-core instance alone")
     return counts
+
+
+def probe_launches(tag):
+    """The probe kernel's launches since ``ivf_scan.reset_launches()``, all
+    of them list-major: no path takes the query-major A/B by itself."""
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    check(ivf_scan.LAUNCHES_BY_LAYOUT["list"] == ivf_scan.LAUNCHES,
+          f"{tag}: the query-major probe kernel ran on a path "
+          f"({ivf_scan.LAUNCHES_BY_LAYOUT})")
+    return ivf_scan.LAUNCHES
 
 
 def phase_main_path(torch, dev):
@@ -1071,19 +1096,22 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
     return idx, store, queries, out
 
 
-def key_scan_times(torch, lut, probes, idx, kk, fills, slots, dma):
+def key_scan_times(torch, lut, probes, idx, kk, fills, rows, dma):
     """The key kernel, the gather kernel's two parts (the slab copy, then
     the scan over the slab) and the whole gather wrapper at the flagship
     shape, each against its plain version in turns, beside their bounds;
-    the key result checked against the dma kernel's on the same tables."""
+    the key result checked against the dma kernel's on the same tables.
+    ``rows``: the distinct probed lists' live slots."""
     from nvdb_tpu_torch.kernels import adc_scan
 
     out = {}
     args = (lut, probes, idx.codes, idx.slot_ids, kk)
     b, p = probes.shape
-    # bytes: the live slots' codes, the bf16 tables, the probes, the result
-    # (no slot ids: the winners' ids are read in pass 2, kk per query)
-    nbytes = slots * idx.m + lut.numel() * 2 + probes.numel() * 4 + b * kk * 12
+    slots = int(fills[probes.long()].sum())
+    # bytes: each distinct probed list's live codes once, the bf16 tables, the
+    # probes, the result (no slot ids: the winners' ids are read in pass 2, kk
+    # per query); operations: every (query, probe) pair's lookups
+    nbytes = rows * idx.m + lut.numel() * 2 + probes.numel() * 4 + b * kk * 12
     bnd, by = bound_ms(nbytes, float(slots) * idx.m, "f32")
     kern, plain, runs = in_turns(
         torch, lambda: adc_scan.adc_topk_keys_reference(*args, fills=fills),
@@ -1124,7 +1152,7 @@ def key_scan_times(torch, lut, probes, idx, kk, fills, slots, dma):
 
 def phase_ivf_times(torch, dev, idx, store, queries):
     from nvdb_tpu_torch.index.ivf_flat import _coarse_probes
-    from nvdb_tpu_torch.kernels import adc_scan, ops, rerank
+    from nvdb_tpu_torch.kernels import adc_scan, ivf_scan, ops, rerank
 
     out = {}
     b, nprobe, kk = 256, min(64, idx.nlist), 100
@@ -1179,18 +1207,22 @@ def phase_ivf_times(torch, dev, idx, store, queries):
     say(f"  ADC B={b} P={nprobe} M={idx.m} Lcap={idx.lcap} kk={kk} (live share of "
         f"probed slots {live_share:.3f}): kernel {kern:.4f} ms {runs['kernel']} | plain "
         f"{plain:.4f} ms {runs['plain']}")
-    # bytes: the live slots' codes and ids, the bf16 tables, the probes, the result
-    slots = int(fills[probes.long()].sum())
-    nbytes = slots * (idx.m + 4) + lut.numel() * 2 + probes.numel() * 4 + b * kk * 8
+    # bytes: each distinct probed list's live codes and ids once, the bf16
+    # tables (an input, read once), the probes, the result; operations: a
+    # lookup and an add for every live slot of every (query, probe) pair
+    pb = ivf_scan.probe_bytes(probes, fills, idx.m, idx.nlist)
+    slots = pb["as_probed"] // idx.m
+    nbytes = pb["rows"] * (idx.m + 4) + lut.numel() * 2 + probes.numel() * 4 + b * kk * 8
     bnd, by = bound_ms(nbytes, float(slots) * idx.m, "f32")
-    say(f"    bound {bnd:.4f} ms ({by}: {nbytes / 1e9:.4f} GB, {slots} live slots) "
-        f"time / bound {kern / bnd:.2f}")
+    say(f"    bound {bnd:.4f} ms ({by}: {nbytes / 1e9:.4f} GB: {pb['rows']} live slots of "
+        f"{pb['lists']} distinct lists; as probed {slots} slots, "
+        f"{pb['as_probed'] / 1e9:.4f} GB of codes) time / bound {kern / bnd:.2f}")
     out["adc_topk"] = dict(ms=kern, plain_ms=plain, bound_ms=bnd, bound_by=by)
     kv, cand = adc_scan.adc_topk_cuda(*args, fills=fills)
     pv, pi = adc_scan.adc_topk_reference(*args)
     err, _ = check_adc(torch, "flagship scan", kv, cand, pv, pi)
     say(f"    scan on the kernel's tables vs plain on the same tables: max_abs_err={err:.3e}")
-    out.update(key_scan_times(torch, lut, probes, idx, kk, fills, slots, (kv, cand)))
+    out.update(key_scan_times(torch, lut, probes, idx, kk, fills, pb["rows"], (kv, cand)))
     cand = cand.contiguous()
     del lut, kv, pv, pi
 
@@ -1311,11 +1343,13 @@ def probe_regret(torch, q, probes, packed, slot_ids, scales, ids, k):
     c = max(1, (512 << 20) // (p * lcap * dp * 8))
     for s in range(0, b, c):
         pr = probes[s:s + c].long()
+        ok = (pr >= 0) & (pr < nlist)   # a probe outside [0, nlist) is an empty list
+        pr = torch.where(ok, pr, 0)
         slabs = packed[pr].double()
         if scales is not None:
             slabs *= scales[pr].double()[..., None]
         s64 = torch.einsum("cd,cpld->cpl", q64[s:s + c], slabs).reshape(pr.shape[0], -1)
-        sids = slot_ids[pr].reshape(pr.shape[0], -1)
+        sids = torch.where(ok[..., None], slot_ids[pr], -1).reshape(pr.shape[0], -1)
         s64 = torch.where(sids >= 0, s64, float("-inf"))
         ref = torch.topk(s64, k, dim=1).values
         got_ids = ids[s:s + c].long()
@@ -1334,45 +1368,102 @@ PROBE_SHAPES = [(1, 1, 1), (1, 32, 128), (8, 7, 10), (8, 64, 50), (64, 32, 50), 
                 (256, 64, 10), (256, 1, 128)]     # (B, P, k)
 
 
+def probe_special_cases(rng, b=256, p=8):
+    """(name, probes, k) of the cases a list-major grouping must get right:
+    every query on one full list (list 3: B / 8 chunks of it at the default
+    plan); each query probing one list twice (both copies score, as in the
+    plain version); every query on the list with holes (list 2) and on
+    out-of-range ids."""
+    one = np.full((b, 1), 3, np.int64)
+    twice = probe_table(rng, b, p)
+    twice[:, 3] = twice[:, 2]   # columns 0 and 1 are the dead list and the short one
+    holes = probe_table(rng, b, p)
+    holes[:, 0], holes[:, 2], holes[:, 3] = 2, -1, PROBE_LISTS + 5
+    return [("every query on list 3", one, 10), ("one list probed twice", twice, 50),
+            ("holes and out-of-range probes", holes, 128)]
+
+
+def check_probe(torch, tag, q, probes, packed, slot_ids, scales, k, kv, ki, pv, pi):
+    """The kernel's (kv, ki) against the plain version's (pv, pi) and the
+    float64 oracle, and no id twice in a row where no list is probed twice;
+    returns (|kernel - plain| at most, regret, id agreement)."""
+    fin = ki >= 0
+    check(tuple(ki.shape) == (q.shape[0], k), f"{tag}: shape")
+    check(bool((fin == (pi >= 0)).all()), f"{tag}: filler slots differ from plain")
+    check(bool(torch.isfinite(kv[fin]).all()), f"{tag}: non-finite values")
+    check(bool(torch.isneginf(kv[~fin]).all()), f"{tag}: filler is not (-inf, -1)")
+    check(bool((kv[:, 1:] <= kv[:, :-1]).all()), f"{tag}: values not sorted")
+    for row, pr in zip(ki.cpu().numpy(), probes.cpu().numpy()):
+        live = row[row >= 0]
+        if len(set(pr.tolist())) == len(pr):
+            check(len(set(live.tolist())) == len(live), f"{tag}: duplicate ids")
+    err = float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(bool(torch.allclose(kv[fin], pv[fin], atol=VALUE_ATOL, rtol=VALUE_RTOL)),
+          f"{tag}: values differ from plain by {err}")
+    agree = float((ki == pi).float().mean())
+    check(agree >= ID_AGREE_MIN, f"{tag}: id agreement {agree} < {ID_AGREE_MIN}")
+    r = probe_regret(torch, q, probes, packed, slot_ids, scales, ki, k)
+    check(r <= REGRET_TOL, f"{tag}: regret {r} > {REGRET_TOL}")
+    return err, r, agree
+
+
+def check_grouping(torch, tag, probes, fills):
+    """The CUDA grouping pass against ``group_pairs_reference``: the same
+    items (in any order) and, within each list, the same pairs."""
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    order, items = ivf_scan.group_pairs_cuda(probes, fills, 32)
+    want_order, want_items = ivf_scan.group_pairs_reference(probes, fills, 32)
+    key = lambda t: t[torch.argsort(t[:, 0].long() * (1 << 32) + t[:, 1].long())].cpu()
+    items, want_items = key(items), key(want_items)
+    check(torch.equal(items, want_items), f"{tag}: grouping items differ from the plain pass")
+    order, want_order = order.cpu(), want_order.cpu()
+    for lst in torch.unique(items[:, 0]).tolist():
+        mine = items[items[:, 0] == lst]
+        s0, n = int(mine[0, 1]), int(mine[:, 2].sum())
+        check(sorted(order[s0:s0 + n].tolist()) == want_order[s0:s0 + n].tolist(),
+              f"{tag}: list {lst}'s pairs differ from the plain pass")
+    return int(items.shape[0])
+
+
 def phase_probe_vs_plain(torch, dev, dp=768, lcaps=(384, 992), shapes=PROBE_SHAPES):
+    """Both layouts of the probe kernel (list-major, the default, and the
+    query-major A/B) against the plain version and the float64 oracle at
+    every shape and at the special cases; the grouping pass against its
+    plain version."""
     from nvdb_tpu_torch.kernels import ivf_scan
 
     rng = np.random.default_rng(51)
     g = torch.Generator(device=dev).manual_seed(52)
     qall = torch.randn((max(b for b, _, _ in shapes), dp), generator=g, device=dev)
     qall /= qall.norm(dim=1, keepdim=True)
-    max_err = 0.0
+    max_err = {"list": 0.0, "query": 0.0}
     for dtype in ("f32", "bf16", "i8"):
         for lcap in lcaps:
             packed, slot_ids, scales = probe_index(torch, dev, dtype, lcap,
                                                    seed=lcap + len(dtype), dp=dp)
-            for b, p, k in shapes:
-                probes = torch.from_numpy(probe_table(rng, b, p)).to(dev)
-                q = qall[:b].contiguous()
-                kv, ki = ivf_scan.ivf_probe_topk_cuda(q, probes, packed, slot_ids, scales, k)
-                torch.cuda.synchronize(dev)
+            fills = ivf_scan.list_fills(slot_ids)
+            cases = [(f"B={b} P={p}", probe_table(rng, b, p), k) for b, p, k in shapes]
+            cases += probe_special_cases(rng)
+            for name, probes_np, k in cases:
+                probes = torch.from_numpy(probes_np).to(dev)
+                q = qall[:probes.shape[0]].contiguous()
                 pv, pi = ivf_scan.ivf_probe_topk_reference(q, probes, packed, slot_ids,
                                                            scales, k)
-                tag = f"{dtype} Lcap={lcap} B={b} P={p} k={k}"
-                fin = ki >= 0
-                check(tuple(ki.shape) == (b, k), f"{tag}: shape")
-                check(bool((fin == (pi >= 0)).all()), f"{tag}: filler slots differ from plain")
-                check(bool(torch.isfinite(kv[fin]).all()), f"{tag}: non-finite values")
-                check(bool(torch.isneginf(kv[~fin]).all()), f"{tag}: filler is not (-inf, -1)")
-                check(bool((kv[:, 1:] <= kv[:, :-1]).all()), f"{tag}: values not sorted")
-                for row in ki.cpu().numpy():
-                    live = row[row >= 0]
-                    check(len(set(live.tolist())) == len(live), f"{tag}: duplicate ids")
-                err = float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) else 0.0
-                check(bool(torch.allclose(kv[fin], pv[fin], atol=VALUE_ATOL, rtol=VALUE_RTOL)),
-                      f"{tag}: values differ from plain by {err}")
-                agree = float((ki == pi).float().mean())
-                check(agree >= ID_AGREE_MIN, f"{tag}: id agreement {agree} < {ID_AGREE_MIN}")
-                r = probe_regret(torch, q, probes, packed, slot_ids, scales, ki, k)
-                check(r <= REGRET_TOL, f"{tag}: regret {r} > {REGRET_TOL}")
-                max_err = max(max_err, err)
-                say(f"  {tag}: regret={r:.3e} max_abs_err={err:.3e} id_agree={agree:.4f} "
-                    f"filled={float(fin.float().mean()):.3f}")
+                line = []
+                for layout in ivf_scan.LAYOUTS:
+                    kv, ki = ivf_scan.ivf_probe_topk_cuda(q, probes, packed, slot_ids, scales, k,
+                                                          fills=fills, layout=layout)
+                    torch.cuda.synchronize(dev)
+                    tag = f"{dtype} Lcap={lcap} {name} k={k} {layout}-major"
+                    err, r, agree = check_probe(torch, tag, q, probes, packed, slot_ids, scales,
+                                                k, kv, ki, pv, pi)
+                    max_err[layout] = max(max_err[layout], err)
+                    line.append(f"{layout}: regret={r:.3e} max_abs_err={err:.3e} "
+                                f"id_agree={agree:.4f}")
+                n_items = check_grouping(torch, f"{dtype} Lcap={lcap} {name}",
+                                         probes.to(torch.int32), fills)
+                say(f"  {dtype} Lcap={lcap} {name} k={k} ({n_items} items): " + " | ".join(line))
             del packed, slot_ids, scales
     torch.cuda.empty_cache()
     return max_err
@@ -1414,13 +1505,13 @@ def phase_partition_main_path(torch, dev, work, n=1_000_000, d=768, nq=1000, fla
                "--batch-q", "64", "--wave", "4", "--device", dev.type]
     for backend in ("auto", "torch"):
         if backend == "auto":
-            ivf_scan.LAUNCHES = 0
+            ivf_scan.reset_launches()
             rerank.LAUNCHES = 0
         t0 = time.perf_counter()
         res = run_tool(pr_eval.main, pr_args + ["--backend", backend],
                        keep=("partitions=", "RESULT"))
         if backend == "auto":
-            out["launches"]["pr"] = {"ivf_probe_topk": ivf_scan.LAUNCHES,
+            out["launches"]["pr"] = {"ivf_probe_topk": probe_launches("pr_eval"),
                                      "rerank_topk": rerank.LAUNCHES}
         out[f"pr_{backend}"] = {r["nprobe"]: r for r in res}
         say(f"  pr_eval --backend {backend} ({time.perf_counter() - t0:.1f} s): " + "; ".join(
@@ -1464,10 +1555,10 @@ def phase_partition_main_path(torch, dev, work, n=1_000_000, d=768, nq=1000, fla
                str(k), "--batch-q", "256", "--device", dev.type]
     for backend in ("auto", "torch"):
         if backend == "auto":
-            ivf_scan.LAUNCHES = 0
+            ivf_scan.reset_launches()
         res = run_tool(ivf_eval.main, ev_args + ["--ivf-backend", backend])[0]
         if backend == "auto":
-            out["launches"]["ivfflat"] = {"ivf_probe_topk": ivf_scan.LAUNCHES}
+            out["launches"]["ivfflat"] = {"ivf_probe_topk": probe_launches("ivf_eval ivfflat")}
         out[f"flat_{backend}"] = res
         say(f"  ivf_eval ivfflat --ivf-backend {backend}: recall@10={res['recall']:.4f} "
             f"QPS={res['qps']:.1f}")
@@ -1479,59 +1570,157 @@ def phase_partition_main_path(torch, dev, work, n=1_000_000, d=768, nq=1000, fla
     return pidx, fidx, base, queries, out
 
 
+PROBE_TIMES = (("partition", 64, 32, 50), ("ivfflat", 256, 64, 10),
+               ("partition B=8", 8, 32, 50), ("ivfflat B=8", 8, 64, 10),
+               ("partition B=1", 1, 32, 50), ("ivfflat B=1", 1, 64, 10))   # (case, B, P, k)
+
+
+def probe_graph_check(torch, fn):
+    """Capture ``fn`` (one probe call) in a CUDA graph, replay it, and hold
+    the replay's result to an eager call's, bit for bit: a host sync or a
+    count read back in the wrapper would fail the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gv, gi = fn()
+    graph.replay()
+    ev, ei = fn()
+    torch.cuda.synchronize()
+    check(torch.equal(gv, ev) and torch.equal(gi, ei),
+          "the probe kernel replayed from a CUDA graph differs from an eager call")
+
+
 def phase_probe_times(torch, dev, pidx, fidx, base, queries):
+    """The list-major probe kernel against the query-major A/B and the plain
+    version, in turns, on the partition and IVF-Flat indexes at their
+    batches and at B = 8 and 1; each beside its bound by distinct bytes and
+    the bytes as probed; the device time of each layout alone (a CUDA graph
+    of 20 calls); one call captured in a CUDA graph and replayed; the
+    partition and IVF-Flat batches by stage."""
     from nvdb_tpu_torch.index.ivf_flat import _coarse_probes
     from nvdb_tpu_torch.index.partition import PartitionRerankIndex
-    from nvdb_tpu_torch.kernels import dispatch, ivf_scan
+    from nvdb_tpu_torch.kernels import _build, dispatch, ivf_scan
     from nvdb_tpu_torch.store import VectorStore
 
     out = {}
-    for name, ivf, b, nprobe, k in (("partition", pidx.ivf, 64, 32, 50),
-                                    ("ivfflat", fidx, 256, 64, 10)):
+    ivf_scan.reset_launches()
+    for name, b, nprobe, k in PROBE_TIMES:
+        ivf = pidx.ivf if name.startswith("partition") else fidx
         q = torch.zeros((b, ivf.centroids.shape[1]), device=dev)
         q[:, :ivf.d] = torch.from_numpy(queries[:b]).to(dev)
-        probes = _coarse_probes(q, ivf.centroids, ivf.slot_ids, nprobe)
+        probes = _coarse_probes(q, ivf.centroids, ivf.slot_ids, nprobe).to(torch.int32)
         fills = ivf.fills()
         args = (q, probes, ivf.packed, ivf.slot_ids, ivf.slot_scales, k)
+        lst = lambda: ivf_scan.ivf_probe_topk_cuda(*args, fills=fills)
+        qry = lambda: ivf_scan.ivf_probe_topk_cuda(*args, fills=fills, layout="query")
         kern, plain, runs = in_turns(
-            torch, lambda: ivf_scan.ivf_probe_topk_reference(*args),
-            lambda: ivf_scan.ivf_probe_topk_cuda(*args, fills=fills), iters=10)
-        row_bytes = ivf.packed.shape[2] * ivf.packed.element_size()
-        live = int(fills[probes].sum()) * row_bytes
-        slabs = b * nprobe * ivf.lcap * row_bytes
-        say(f"  probe {name} B={b} P={nprobe} Lcap={ivf.lcap} k={k}: kernel {kern:.4f} ms "
-            f"{runs['kernel']} | plain {plain:.4f} ms {runs['plain']} | live rows "
-            f"{live / 1e9:.4f} GB of {slabs / 1e9:.4f} GB of slabs: kernel "
-            f"{live / kern / 1e6:.1f} GB/s")
-        # bytes: the live rows and their ids, the queries, the probes, the result
-        live_rows = live // row_bytes
-        nbytes = live + live_rows * 4 + q.numel() * 4 + probes.numel() * 8 + b * k * 8
-        bnd, by = bound_ms(nbytes, 2.0 * live_rows * ivf.packed.shape[2], "f32")
-        say(f"    bound {bnd:.4f} ms ({by}: {nbytes / 1e9:.4f} GB) time / bound {kern / bnd:.2f}")
-        out[name] = dict(ms=kern, plain_ms=plain, bytes=live, bound_ms=bnd, bound_by=by)
-
-    # the partition batch by stage (B = 64, nprobe 32, rerank 50 over f32)
+            torch, lambda: ivf_scan.ivf_probe_topk_reference(*args), lst, iters=10)
+        lm, qm, ab = in_turns(torch, qry, lst, iters=10)
+        g_list, g_query = graph_ms(torch, lst, launches=20), graph_ms(torch, qry, launches=20)
+        dp = ivf.packed.shape[2]
+        row_bytes = dp * ivf.packed.element_size() + (4 if ivf.slot_scales is not None else 0)
+        pb = ivf_scan.probe_bytes(probes, fills, row_bytes, ivf.nlist, dp, k)
+        # operations: a multiply-add for each dim of each live row of each pair
+        ops = 2.0 * dp * pb["as_probed"] / row_bytes
+        kind = "f32" if ivf.packed.dtype == torch.float32 else "bf16"
+        bnd, by = bound_ms(pb["distinct"], ops, kind)
+        per_list = pb["pairs"] / max(1, pb["lists"])
+        say(f"  probe {name} B={b} P={nprobe} Lcap={ivf.lcap} k={k}: list-major {kern:.4f} ms "
+            f"{runs['kernel']} | plain {plain:.4f} ms {runs['plain']}")
+        say(f"    in turns: list-major {lm:.4f} ms {ab['kernel']} | query-major {qm:.4f} ms "
+            f"{ab['plain']} | device time, 20 calls in a CUDA graph: list-major {g_list:.4f} "
+            f"ms, query-major {g_query:.4f} ms")
+        say(f"    bytes: distinct {pb['distinct'] / 1e9:.4f} GB ({pb['lists']} distinct lists, "
+            f"{per_list:.2f} queries a probed list), as probed {pb['as_probed'] / 1e9:.4f} GB; "
+            f"bound {bnd:.4f} ms ({by}) time / bound: list-major {lm / bnd:.2f} "
+            f"(device {g_list / bnd:.2f}), query-major {qm / bnd:.2f} (device "
+            f"{g_query / bnd:.2f})")
+        out[name] = dict(ms=lm, plain_ms=plain, query_ms=qm, graph_ms=g_list,
+                         query_graph_ms=g_query, bytes=pb["distinct"],
+                         as_probed=pb["as_probed"], lists=pb["lists"], bound_ms=bnd,
+                         bound_by=by)
+    out["query launches"] = ivf_scan.LAUNCHES_BY_LAYOUT["query"]
+    # the list-major plan's knobs: queries a chunk and CTAs a SM (device time)
+    defaults = (ivf_scan._LIST_NQ_MAX, ivf_scan._LIST_PLAN_CTAS)
+    for name, b, nprobe, k in PROBE_TIMES[:2]:
+        ivf = pidx.ivf if name.startswith("partition") else fidx
+        q = torch.zeros((b, ivf.centroids.shape[1]), device=dev)
+        q[:, :ivf.d] = torch.from_numpy(queries[:b]).to(dev)
+        probes = _coarse_probes(q, ivf.centroids, ivf.slot_ids, nprobe).to(torch.int32)
+        fills = ivf.fills()
+        sweep = []
+        for nq_max, ctas in ((8, 3), (8, 2), (16, 3), (16, 2), (32, 2), (32, 3)):
+            ivf_scan._LIST_NQ_MAX, ivf_scan._LIST_PLAN_CTAS = nq_max, ctas
+            plan = ivf_scan._list_plan(ivf_scan._MODES[ivf.packed.dtype], ivf.packed.shape[2],
+                                       k, dev.index or 0, nq_max, ctas,
+                                       ivf_scan._LIST_MAX_STAGES)
+            ms = graph_ms(torch, lambda: ivf_scan.ivf_probe_topk_cuda(
+                q, probes, ivf.packed, ivf.slot_ids, ivf.slot_scales, k, fills=fills),
+                launches=20)
+            sweep.append(f"{nq_max}/{ctas} (plan {plan[0]} queries, {plan[1]} stages) {ms:.4f}")
+        ivf_scan._LIST_NQ_MAX, ivf_scan._LIST_PLAN_CTAS = defaults
+        say(f"  list-major {name}, device ms by queries a chunk at most / CTAs a SM: "
+            + "; ".join(sweep) + f" (default {defaults[0]}/{defaults[1]})")
+        # the call by passes: measurement builds that stop after pass 0 and
+        # after pass 1 (their results are wrong by design), device ms
+        split = {}
+        port_lib = ivf_scan._lib
+        try:
+            for part, defines in PROBE_ABLATIONS:
+                lib = ivf_scan.bind(_build.load("ivf_probe_topk", defines))
+                ivf_scan._lib = lambda lib=lib: lib
+                split[part] = graph_ms(torch, lambda: ivf_scan.ivf_probe_topk_cuda(
+                    q, probes, ivf.packed, ivf.slot_ids, ivf.slot_scales, k, fills=fills),
+                    launches=20)
+        finally:
+            ivf_scan._lib = port_lib
+        whole = graph_ms(torch, lambda: ivf_scan.ivf_probe_topk_cuda(
+            q, probes, ivf.packed, ivf.slot_ids, ivf.slot_scales, k, fills=fills),
+            launches=20)
+        say(f"  list-major {name}, device ms by pass: pass 0 (grouping) {split['pass 0']:.4f}, "
+            f"pass 1 (scoring) {split['passes 0 + 1'] - split['pass 0']:.4f}, pass 2 (merge) "
+            f"{whole - split['passes 0 + 1']:.4f}; the whole call {whole:.4f}")
+        out[name]["by_pass"] = dict(split, whole=whole)
     ivf = pidx.ivf
-    store = VectorStore.from_numpy(base, "f32", device=dev)
-    pr = PartitionRerankIndex(ivf=ivf, refine_store=store)
     q = torch.zeros((64, ivf.centroids.shape[1]), device=dev)
     q[:, :ivf.d] = torch.from_numpy(queries[:64]).to(dev)
     probes = _coarse_probes(q, ivf.centroids, ivf.slot_ids, 32)
     fills = ivf.fills()
+    probe_graph_check(torch, lambda: ivf_scan.ivf_probe_topk_cuda(
+        q, probes, ivf.packed, ivf.slot_ids, None, 50, fills=fills))
+    say("  one partition probe call (B=64, k 50) captured in a CUDA graph and replayed: "
+        "equal to an eager call bit for bit")
+
+    # the partition batch by stage (B = 64, nprobe 32, rerank 50 over f32)
+    store = VectorStore.from_numpy(base, "f32", device=dev)
+    pr = PartitionRerankIndex(ivf=ivf, refine_store=store)
     cid = ivf_scan.ivf_probe_topk_cuda(q, probes, ivf.packed, ivf.slot_ids, None, 50,
                                        fills=fills)[1]
+    fq = torch.zeros((256, fidx.centroids.shape[1]), device=dev)
+    fq[:, :fidx.d] = torch.from_numpy(queries[:256]).to(dev)
+    fprobes = _coarse_probes(fq, fidx.centroids, fidx.slot_ids, 64)
+    ffills = fidx.fills()
     stages = {
-        "coarse probes (plain torch)": lambda: _coarse_probes(q, ivf.centroids, ivf.slot_ids,
-                                                              32),
-        "probe kernel (k 50)": lambda: ivf_scan.ivf_probe_topk_cuda(
+        "partition B=64 coarse probes (plain torch)": lambda: _coarse_probes(
+            q, ivf.centroids, ivf.slot_ids, 32),
+        "partition B=64 probe kernel (k 50)": lambda: ivf_scan.ivf_probe_topk_cuda(
             q, probes, ivf.packed, ivf.slot_ids, None, 50, fills=fills),
-        "rerank kernel (R 50, f32)": lambda: dispatch.exact_refine(
+        "partition B=64 rerank kernel (R 50, f32)": lambda: dispatch.exact_refine(
             q, cid, store.vectors, None, 10, metric="dot"),
-        "whole search_device": lambda: pr.search_device(q, 10, 32, rerank_k=50),
+        "partition B=64 whole search_device": lambda: pr.search_device(q, 10, 32, rerank_k=50),
+        "ivfflat B=256 coarse probes (plain torch)": lambda: _coarse_probes(
+            fq, fidx.centroids, fidx.slot_ids, 64),
+        "ivfflat B=256 probe kernel (k 10)": lambda: ivf_scan.ivf_probe_topk_cuda(
+            fq, fprobes, fidx.packed, fidx.slot_ids, None, 10, fills=ffills),
+        "ivfflat B=256 whole search_device": lambda: fidx.search_device(fq, 10, 64),
     }
     for stage, fn in stages.items():
         ms = cuda_ms(torch, fn, iters=20)
-        say(f"  partition B=64 stage {stage}: {ms:.4f} ms")
+        say(f"  stage {stage}: {ms:.4f} ms")
         out[f"stage {stage}"] = ms
     del store, pr
     torch.cuda.empty_cache()
@@ -1693,11 +1882,12 @@ def build_side_ivfflat(torch, dev, work, part, nlist=4096):
     for name, index, backend in (("refined", paths["refined.npz"], "auto"),
                                  ("repacked", paths["flat_rep.npz"], "auto"),
                                  ("repacked", paths["flat_rep.npz"], "torch")):
-        ivf_scan.LAUNCHES = 0
+        ivf_scan.reset_launches()
         res = run_tool(ivf_eval.main, [index, *ev, "--ivf-backend", backend])[0]
         if backend == "auto":
-            check(ivf_scan.LAUNCHES > 0, f"ivf_eval {name}: did not launch ivf_probe_topk")
-            out["launches"]["ivf_probe_topk"] += ivf_scan.LAUNCHES
+            n = probe_launches(f"ivf_eval {name}")
+            check(n > 0, f"ivf_eval {name}: did not launch ivf_probe_topk")
+            out["launches"]["ivf_probe_topk"] += n
         out[(name, backend)] = res
     rk, rt = out[("repacked", "auto")]["recall"], out[("repacked", "torch")]["recall"]
     check(abs(rk - rt) <= RECALL_GAP, f"repacked ivfflat: kernel recall {rk} vs plain {rt}")
@@ -1879,14 +2069,16 @@ def dist_counted(total, fn, *args, **kw):
 
     flat_reset()
     adc_scan.LAUNCHES = adc_scan.TABLE_LAUNCHES = adc_scan.KEY_LAUNCHES = 0
-    adc_scan.GATHER_LAUNCHES = rerank.LAUNCHES = ivf_scan.LAUNCHES = 0
+    adc_scan.GATHER_LAUNCHES = rerank.LAUNCHES = 0
+    ivf_scan.reset_launches()
     res = fn(*args, **kw)
     torch.cuda.synchronize()
     add_launches(total, {f"flat_topk.{i}": c for i, c in flat_scan.LAUNCHES_BY_KERNEL.items()})
     add_launches(total, {"adc_tables": adc_scan.TABLE_LAUNCHES, "adc_topk": adc_scan.LAUNCHES,
                          "adc_topk_key": adc_scan.KEY_LAUNCHES,
                          "adc_topk_gather": adc_scan.GATHER_LAUNCHES,
-                         "rerank_topk": rerank.LAUNCHES, "ivf_probe_topk": ivf_scan.LAUNCHES})
+                         "rerank_topk": rerank.LAUNCHES,
+                         "ivf_probe_topk": probe_launches("dist")})
     return res
 
 
@@ -2273,15 +2465,23 @@ def phase(title):
     say(f"  ({time.perf_counter() - t0:.1f} s)")
 
 
+# measurement builds of the probe source (phase 12's split of a call)
+PROBE_ABLATIONS = (("pass 0", ("NVDB_PROBE_ABLATE=1",)), ("passes 0 + 1", ("NVDB_PROBE_ABLATE=2",)))
+
+
 def build_all(torch):
-    """Build every kernel library, one nvcc per source, all started
-    together."""
+    """Build every kernel library and the probe's measurement builds, one
+    nvcc each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nvdb_tpu_torch.kernels import _build
 
-    with ThreadPoolExecutor(len(KERNELS)) as ex:
-        return dict(zip(KERNELS, ex.map(_build.build, KERNELS)))
+    jobs = [(name, ()) for name in KERNELS] + [
+        ("ivf_probe_topk", defines) for _, defines in PROBE_ABLATIONS]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        infos = list(ex.map(lambda job: _build.build(*job), jobs))
+    return {(name if not defines else f"{name} {' '.join(defines)}"): info
+            for (name, defines), info in zip(jobs, infos)}
 
 
 def main() -> int:
@@ -2302,7 +2502,7 @@ def main() -> int:
     infos = build_all(torch)
     say(f"[2 build] {len(infos)} libraries in {time.perf_counter() - t0:.2f} s wall")
     for name, info in infos.items():
-        say(f"  {name}.cu: {info['seconds']:.2f} s (cached={info['cached']})")
+        say(f"  {name}: {info['seconds']:.2f} s (cached={info['cached']})")
         for line in info["log"].splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 say(f"    {line.strip()}")
@@ -2374,7 +2574,8 @@ def main() -> int:
             for name in ("partition", "ivfflat"):
                 t = probe_times[name]
                 gbps = t["bytes"] / t["ms"] / 1e6
-                say(f"  probe {name}: {gbps:.1f} GB/s = {gbps / ceiling:.3f} of the ceiling")
+                say(f"  probe {name} (list-major): {gbps:.1f} GB/s of distinct bytes = "
+                    f"{gbps / ceiling:.3f} of the ceiling")
 
         with phase("[14 build side and data tools] IVF-PQ repacked (pad 4.0, S 8) and "
                    "replicated (R 2, pad 2.0) from phase 8's index, nprobe 16/32/64 refine "
@@ -2441,7 +2642,12 @@ def main() -> int:
          + dist["rerank_topk"], rerank_err, ivf_times["rerank_topk B=256"]),
         ("ivf_probe_topk", "ivf_probe_topk", "nvdb_tpu/kernels/ivf_scan.py:111",
          pl["pr"]["ivf_probe_topk"] + pl["ivfflat"]["ivf_probe_topk"] + bl["ivf_probe_topk"]
-         + dist["ivf_probe_topk"], probe_err, probe_times["partition"]),
+         + dist["ivf_probe_topk"], probe_err["list"], probe_times["partition"]),
+        # the query-major A/B, on no path: its launches are phase 12's, in turns
+        # with the list-major kernel
+        ("ivf_probe_topk_query", "ivf_probe_topk", "nvdb_tpu/kernels/ivf_scan.py:111",
+         probe_times["query launches"], probe_err["query"],
+         dict(probe_times["partition"], ms=probe_times["partition"]["query_ms"])),
         ("hbm_stream", "hbm_stream", "scripts/hbm_probe.py:62",
          sum(hbm["stream_launches"].values()), hbm["stream_err"], hbm["hbm_stream"]),
         ("add1", "add1", "nvdb_tpu/tools/tpu_sanity.py:28", hbm["add1_launches"],

@@ -239,7 +239,7 @@ def _refine(mesh: meshmod.Mesh, queries: torch.Tensor, cand: torch.Tensor, store
     sharded = _row_sharded_over(store, mesh)
     first = store.vectors[0] if sharded else store.vectors
     norms2 = (store.norms2()
-              if metric == "l2" and dispatch.refine_backend(backend, first) != "oracle"
+              if metric == "l2" and dispatch.refine_path(backend, first) != "oracle"
               else None)
     res = dict(res_cents=store.res_cents, res_ids=store.res_ids)
     if sharded:
@@ -351,6 +351,7 @@ class ShardedIVFPQIndex:
                                        backend=backend, dedup=self.replicas,
                                        fills=self.fills(li) if cuda else None,
                                        terms=self.coarse_terms(li), ids_mode=mode)
+            dispatch.check_finite(f"IVF-PQ ADC candidate scores (shard {li})", v, i)
             pv.append(v)
             pi.append(i)
         # a replicated row's copies can surface from several shards

@@ -378,11 +378,13 @@ class IVFPQIndex:
         mode = ids_mode or (self.ids_mode() if (refine_k > 0 or for_refine) else "dma")
         q_rot = _matmul(queries, self.rotation) if self.rotation is not None else queries
         path = dispatch.refine_backend(backend, self.codes)
+        dispatch.check_finite("IVF-PQ queries", q_rot)
         v, i = _ivfpq_search_block(q_rot, self.centroids, self.codebooks, self.codes,
                                    self.slot_ids, kk, nprobe, self.m, backend=backend,
                                    dedup=self.replicas,
                                    fills=self.fills() if path == "cuda" else None,
                                    terms=self.coarse_terms(), ids_mode=mode)
+        dispatch.check_finite("IVF-PQ ADC candidate scores", v, i)
         if refine_k > 0:
             if refine_store is None:
                 raise ValueError("refine_k > 0 requires refine_store")
@@ -393,7 +395,9 @@ class IVFPQIndex:
                 q_rot if residual else queries, i[:, :refine_k], refine_store.vectors,
                 refine_store.scales, k, metric=refine_metric, backend=backend,
                 norms2=(refine_store.norms2()
-                        if refine_metric == "l2" and path != "oracle" else None),
+                        if refine_metric == "l2"
+                        and dispatch.refine_path(backend, refine_store.vectors) != "oracle"
+                        else None),
                 res_cents=refine_store.res_cents if residual else None,
                 res_ids=refine_store.res_ids if residual else None)
         return v[:, :k], i[:, :k]

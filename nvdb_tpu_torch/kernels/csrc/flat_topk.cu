@@ -144,14 +144,30 @@
 
 #include <type_traits>
 
+#include "hopper_common.cuh"
 #include "topk_common.cuh"
 
 namespace {
 
+using nvdb::acc_fence;
+using nvdb::bar_sync;
 using nvdb::better;
+using nvdb::encode_tiled_fn;
+using nvdb::EncodeTiledFn;
 using nvdb::FULL_MASK;
+using nvdb::mbar_arrive;
+using nvdb::mbar_expect_tx;
+using nvdb::mbar_init;
+using nvdb::mbar_wait;
+using nvdb::smem_u32;
+using nvdb::sw128_desc;
+using nvdb::tma_load_2d;
 using nvdb::warp_insert;
 using nvdb::warp_offer;
+using nvdb::wgmma_commit;
+using nvdb::wgmma_fence;
+using nvdb::wgmma_wait;
+using nvdb::widen_i8x16;
 
 constexpr int MAX_K = nvdb::WARP_LIST_MAX_K;
 
@@ -341,51 +357,6 @@ __host__ __device__ constexpr bool converts() {   // the rows' chunk is converte
   return MODE == kI8 || MODE == kF32;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Waits until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA load of the map's box at (c0 = dim, c1 = row) into shared memory;
-// the bytes are counted on the mbarrier.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // The same with a third coordinate (c2: the plane of the f32 queries' split).
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1, int c2) {
@@ -394,29 +365,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// The shared-memory descriptor of a K-major operand tile in the 128-byte
-// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart; the tile
-// starts on a 1024-byte boundary. A step of 32 bytes along K adds 2.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 // The same in the 64-byte swizzle (the bf16 planes of f32 stores): rows of
@@ -500,37 +448,11 @@ __device__ __forceinline__ void wgmma_tile(int (&d)[128], uint64_t da, uint64_t 
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// Keeps the compiler from reading the accumulators before the wait that
-// precedes this, or from moving their use past the next wgmma.
-template <int N>
-__device__ __forceinline__ void acc_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+// nvdb::acc_fence for the int32 accumulators of int8 x int8.
 template <int N>
 __device__ __forceinline__ void acc_fence(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// Widens 16 int8 codes to bf16 (exact): two 16-byte groups of 8.
-__device__ __forceinline__ void widen_i8x16(const uint4& w, uint4& lo, uint4& hi) {
-  const uint32_t in[4] = {w.x, w.y, w.z, w.w};
-  uint32_t out[8];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const uint32_t u = in[e];
-    const float f0 = static_cast<float>(static_cast<int>(u << 24) >> 24);
-    const float f1 = static_cast<float>(static_cast<int>(u << 16) >> 24);
-    const float f2 = static_cast<float>(static_cast<int>(u << 8) >> 24);
-    const float f3 = static_cast<float>(static_cast<int>(u) >> 24);
-    const __nv_bfloat162 a = __floats2bfloat162_rn(f0, f1);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(f2, f3);
-    out[2 * e] = *reinterpret_cast<const uint32_t*>(&a);
-    out[2 * e + 1] = *reinterpret_cast<const uint32_t*>(&b);
-  }
-  lo = make_uint4(out[0], out[1], out[2], out[3]);
-  hi = make_uint4(out[4], out[5], out[6], out[7]);
 }
 
 // The three-way bf16 split of two f32 values, round to nearest even at each
@@ -1031,32 +953,6 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query,
-// so the library links nothing but the runtime.
-EncodeTiledFn encode_tiled_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult st;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &st);
-#else
-    cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &st);
-#endif
-    if (e != cudaSuccess || st != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
 }
 
 // The map of `planes` row-major [rows, Dp] arrays of 1-, 2- or 4-byte

@@ -7,10 +7,19 @@ A/B switch); ``"cuda"`` calls the kernel's wrapper, which launches the
 kernel on a CUDA tensor or raises. ``NVDB_FORCE_TORCH=1`` (or the JAX
 package's name for it, ``NVDB_FORCE_JNP=1``) makes ``auto`` resolve to
 ``torch`` everywhere: ``refine_backend`` is the one place that resolves it.
-The kernel takes any batch size, so the TPU-tuned 512-query split of the JAX
-dispatch is not carried over, nor is the refine crossover ``B*R <= 3200``,
-which is about TPU block DMAs: on a CUDA tensor the refine takes its kernel
-at every size."""
+``NVDB_REFINE_BACKEND=jnp|pallas`` (the JAX package's names) forces the
+refine alone under ``auto``: ``jnp`` the oracle refine (``oracle_refine``,
+the JAX package's jnp path), ``pallas`` the rerank kernel; the scan keeps
+its own backend (``refine_path``). The kernel takes any batch size, so the
+TPU-tuned 512-query split of the JAX dispatch is not carried over, nor is
+the refine crossover ``B*R <= 3200``, which is about TPU block DMAs: on a
+CUDA tensor the refine takes its kernel at every size.
+
+``DEBUG_NANS`` (the tools' ``--debug-nans``, the counterpart of
+``jax_debug_nans``) makes each seam check its queries and payload on the way
+in and its scores on the way out (``check_finite``), and exit naming the
+first stage that holds a NaN or an infinity. Each check reads its tensor
+back to the host."""
 
 from __future__ import annotations
 
@@ -23,6 +32,37 @@ from nvdb_tpu_torch.kernels import flat_scan, ivf_scan, ops, rerank
 
 BACKENDS = ("auto", "cuda", "torch")
 FORCE_ENV = ("NVDB_FORCE_TORCH", "NVDB_FORCE_JNP")
+REFINE_ENV = "NVDB_REFINE_BACKEND"
+_REFINE_FORCED = {"jnp": "oracle", "pallas": "cuda"}   # the JAX names -> the port's paths
+DEBUG_NANS = False   # set by the tools' --debug-nans (tools._common.setup_device)
+
+
+class NonFiniteError(SystemExit):
+    """A ``DEBUG_NANS`` check found a NaN or an infinity: exits the tool
+    with the stage's name, as ``jax_debug_nans`` stops the JAX tools."""
+
+
+def check_finite(stage: str, values: torch.Tensor,
+                 ids: Optional[torch.Tensor] = None) -> None:
+    """Under ``DEBUG_NANS``: raise ``NonFiniteError`` naming ``stage`` if
+    ``values`` holds a NaN or an infinity. With ``ids``, a top-k result: its
+    filler slots (-inf, -1) are no fault."""
+    if not DEBUG_NANS or values.dtype in (torch.int8, torch.uint8, torch.int32, torch.int64):
+        return
+    bad = ~torch.isfinite(values)
+    if ids is not None:
+        bad &= ids >= 0
+    if bool(bad.any()):
+        raise NonFiniteError(f"error: --debug-nans: non-finite values in {stage}")
+
+
+def _check_inputs(seam: str, queries: torch.Tensor, payload: torch.Tensor,
+                  scales: Optional[torch.Tensor]) -> None:
+    if DEBUG_NANS:
+        check_finite(f"{seam} queries", queries)
+        check_finite(f"{seam} payload", payload)
+        if scales is not None:
+            check_finite(f"{seam} scales", scales)
 
 
 def forced_torch() -> bool:
@@ -47,14 +87,18 @@ def flat_topk(
     as it runs plain jnp in the JAX package: it serves exact ground truth on
     un-normalized corpora, not the serving scan."""
     path = refine_backend(backend, vectors)
+    _check_inputs("flat_topk", queries, vectors, scales)
     if metric == "l2" or path != "cuda":
-        return ops.scan_topk(queries, vectors, scales, n_valid, k,
+        v, i = ops.scan_topk(queries, vectors, scales, n_valid, k,
                              row_block=row_block, query_scales=query_scales,
                              metric=metric)
-    if metric != "dot":
+    elif metric != "dot":
         raise ValueError(f"unknown metric {metric!r}")
-    return flat_scan.flat_topk_cuda(queries, vectors, scales, n_valid, k,
-                                    query_scales=query_scales)
+    else:
+        v, i = flat_scan.flat_topk_cuda(queries, vectors, scales, n_valid, k,
+                                        query_scales=query_scales)
+    check_finite("flat_topk scores", v, i)
+    return v, i
 
 
 def refine_backend(backend: str, tensor: torch.Tensor) -> str:
@@ -62,7 +106,12 @@ def refine_backend(backend: str, tensor: torch.Tensor) -> str:
     IVF-PQ ADC and the IVF probe alike: ``"cuda"`` (the kernel), ``"torch"``
     (the kernel's plain version) or ``"oracle"`` (the JAX package's jnp
     path, which ``auto`` runs on the CPU: for the refine, gathered rows and
-    ``ops.exact_rerank``). Under ``forced_torch()`` ``auto`` is ``"torch"``."""
+    ``ops.exact_rerank``). Under ``forced_torch()`` ``auto`` is ``"torch"``.
+
+    Not the signature of the JAX package's ``dispatch.refine_backend(batch,
+    refine_k) -> "jnp" | "pallas"``, which picks the refine by a TPU-measured
+    crossover; the port has no crossover (``tools.refine_ab``), and the
+    refine's own override is ``refine_path``."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "auto":
@@ -70,6 +119,17 @@ def refine_backend(backend: str, tensor: torch.Tensor) -> str:
             return "torch"
         return "cuda" if tensor.is_cuda else "oracle"
     return backend
+
+
+def refine_path(backend: str, tensor: torch.Tensor) -> str:
+    """The refine's path: ``refine_backend``'s, except that under ``auto``
+    ``NVDB_REFINE_BACKEND=jnp`` takes the oracle refine and ``=pallas`` the
+    rerank kernel (which raises on a CPU tensor), as the variable forces the
+    refine of the JAX package; other values are ignored, as there."""
+    forced = _REFINE_FORCED.get(os.environ.get(REFINE_ENV, ""))
+    if backend == "auto" and forced is not None:
+        return forced
+    return refine_backend(backend, tensor)
 
 
 def exact_refine(
@@ -88,16 +148,20 @@ def exact_refine(
     every refine call (the exact-i8 flat mode, the IVF-PQ refine, the
     partition index's rerank). Residual-int8 stores: pass res_cents /
     res_ids, and queries in the space of the store's centroids."""
-    rb = refine_backend(backend, vectors)
+    rb = refine_path(backend, vectors)
     cand_ids = cand_ids.to(torch.int32).contiguous()
     res = dict(res_cents=res_cents, res_ids=res_ids)
+    _check_inputs("exact_refine", queries, vectors, scales)
     if rb == "cuda":
-        return rerank.rerank_topk_cuda(queries.contiguous(), cand_ids, vectors, scales,
+        v, i = rerank.rerank_topk_cuda(queries.contiguous(), cand_ids, vectors, scales,
                                        k, norms2=norms2, metric=metric, **res)
-    if rb == "torch":
-        return rerank.rerank_topk_reference(queries, cand_ids, vectors, scales, k,
+    elif rb == "torch":
+        v, i = rerank.rerank_topk_reference(queries, cand_ids, vectors, scales, k,
                                             norms2=norms2, metric=metric, **res)
-    return oracle_refine(queries, cand_ids, vectors, scales, k, metric=metric, **res)
+    else:
+        v, i = oracle_refine(queries, cand_ids, vectors, scales, k, metric=metric, **res)
+    check_finite("exact_refine scores", v, i)
+    return v, i
 
 
 def oracle_refine(
@@ -138,9 +202,13 @@ def ivf_probe_topk(
     package's ``_ivf_search_block``: the plain version in one unchunked
     gather of the probed slabs [B, P, Lcap, Dp] and one batched product."""
     path = refine_backend(backend, packed)
+    _check_inputs("ivf_probe_topk", queries, packed, slot_scales)
     if path == "cuda":
-        return ivf_scan.ivf_probe_topk_cuda(queries.contiguous(), probes, packed, slot_ids,
+        v, i = ivf_scan.ivf_probe_topk_cuda(queries.contiguous(), probes, packed, slot_ids,
                                             slot_scales, k, fills=fills)
-    q_chunk = None if path == "torch" else max(1, queries.shape[0])
-    return ivf_scan.ivf_probe_topk_reference(queries, probes, packed, slot_ids, slot_scales,
-                                             k, q_chunk=q_chunk)
+    else:
+        q_chunk = None if path == "torch" else max(1, queries.shape[0])
+        v, i = ivf_scan.ivf_probe_topk_reference(queries, probes, packed, slot_ids,
+                                                 slot_scales, k, q_chunk=q_chunk)
+    check_finite("ivf_probe_topk scores", v, i)
+    return v, i

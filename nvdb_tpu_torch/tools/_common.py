@@ -11,15 +11,22 @@ def make_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="device that holds the store (default cuda; without a "
                         "card the tool fails unless cpu is asked for)")
+    p.add_argument("--cpu", dest="device", action="store_const", const="cpu",
+                   help="the same as --device cpu (the JAX tools' name)")
     p.add_argument("--backend", default="auto", choices=["auto", "cuda", "torch"],
                    help="scan backend (auto: the CUDA kernel on a card, plain "
                         "torch on the CPU; torch: plain torch anywhere)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="check every query, payload and score tensor at the kernel "
+                        "seams and exit non-zero naming the first stage that holds a "
+                        "NaN or an infinity (the counterpart of jax_debug_nans)")
     return p
 
 
 def setup_device(args):
     """The torch device the tool runs on. Exits non-zero when CUDA is asked
     for and there is no card: a measurement never falls back to the CPU.
+    Sets ``dispatch.DEBUG_NANS`` from ``--debug-nans``.
 
     Multi-process entry, as the JAX tools' ``setup_jax``: a no-op unless
     ``NVDB_COORD`` / ``NVDB_NPROC`` / ``NVDB_PROC_ID`` are set; the tool
@@ -29,7 +36,9 @@ def setup_device(args):
     import torch
 
     from nvdb_tpu_torch.dist import multihost
+    from nvdb_tpu_torch.kernels import dispatch
 
+    dispatch.DEBUG_NANS = bool(getattr(args, "debug_nans", False))
     if args.device == "cuda" and not torch.cuda.is_available():
         fail("no CUDA device; pass --device cpu to run on the CPU")
     if multihost.init_from_env(backend="gloo" if args.device == "cpu" else None):

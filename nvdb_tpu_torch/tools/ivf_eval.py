@@ -18,8 +18,9 @@ Two ways to run each (nprobe, refine_k) grid point, as in the JAX package:
   also fetches every W-th batch for wave latency percentiles.
 
 Each grid point prints a ``RESULT key=value ...`` line with the keys of the
-JAX package's tool, ``refine_backend`` being the path ``--ivf-backend``
-resolves to (cuda, torch or oracle) and ``ids_mode`` present when
+JAX package's tool, ``refine_backend`` being the path the refine takes
+(cuda, torch or oracle: ``--ivf-backend``'s, or ``NVDB_REFINE_BACKEND``'s
+under auto) and ``ids_mode`` present when
 ``--ids-mode`` is given, plus the device name; ``main`` returns those
 records as dicts. Every timed batch ends in a copy to the host, so times
 include the device work. The index kind is read from the ``.npz``; an
@@ -168,7 +169,7 @@ def main(argv=None):
 
             r_cents, _, r_list_of = residual_params(args.index)
             refine_store.attach_residual(r_cents, r_list_of)
-    refine_path = dispatch.refine_backend(args.ivf_backend, torch.empty(0, device=device))
+    refine_path = dispatch.refine_path(args.ivf_backend, torch.empty(0, device=device))
     # --ids-mode reaches the single-device IVF-PQ candidate generator only
     im_kw = {"ids_mode": args.ids_mode} if args.ids_mode and is_pq and not sharded else {}
     if args.ids_mode and not im_kw:

@@ -12,16 +12,17 @@ Dp; pair it with the same index (``VectorStore.attach_residual``,
 ``ivf_eval --residual-refine``) and score it with rotated queries. The
 arithmetic is numpy's on the host (the rotation one f32 product per chunk),
 as the JAX tool's numpy fallback, so the file is byte-equal to that tool's.
+The tools' common flags (``--device``, ``--cpu``, ``--backend``,
+``--debug-nans``) are accepted, as the JAX tool accepts its own, and change
+nothing: no kernel runs here.
 """
 
 from __future__ import annotations
 
-import argparse
-
 import numpy as np
 
 from nvdb_tpu_torch.formats import vecbin
-from nvdb_tpu_torch.tools._common import fail
+from nvdb_tpu_torch.tools._common import fail, make_parser
 
 CHUNK = 262144
 
@@ -43,8 +44,7 @@ def residual_params(index_path: str):
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__,
-                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p = make_parser(__doc__)
     p.add_argument("src")
     p.add_argument("out")
     p.add_argument("--residual", default=None, metavar="INDEX",

@@ -752,6 +752,174 @@ def test_probe_kernel_rejects_bad_input(cuda_device):
         ivf_scan.ivf_probe_topk_cuda(q.double(), probes, packed, sids, sc, 10)
 
 
+# the list-major layout (the default) and the query-major A/B, at the shapes
+# of chip_smoke.py's phase 10
+PROBE_SHAPES = [(1, 1, 1), (1, 32, 128), (8, 7, 10), (8, 64, 50), (64, 32, 50), (64, 7, 128),
+                (256, 64, 10), (256, 1, 128)]     # (B, P, k)
+
+
+def _probe_index(dtype, lcap, seed, nlist=80, dp=768):
+    """A random packed index of unit rows (padding slots too, so a missed
+    mask shows): lists full or partly filled, list 0 dead, list 1 three
+    live slots, list 2 a hole every 7th slot."""
+    rng = np.random.default_rng(seed)
+    rows = rng.standard_normal((nlist, lcap, dp)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=-1, keepdims=True)
+    slot_ids = np.full((nlist, lcap), -1, np.int32)
+    perm = rng.permutation(nlist * lcap).astype(np.int32)
+    for li in range(nlist):
+        f = lcap if li % 4 == 3 else int(rng.integers(0, lcap + 1))
+        slot_ids[li, :f] = perm[li * lcap:li * lcap + f]
+    slot_ids[0] = -1
+    slot_ids[1, 3:] = -1
+    slot_ids[2, ::7] = -1
+    sc = None
+    if dtype == "f32":
+        packed = torch.from_numpy(rows)
+    elif dtype == "bf16":
+        packed = vecbin.bf16_bits_to_torch(vecbin.to_bf16(rows.reshape(-1, dp))).reshape(
+            nlist, lcap, dp)
+    else:
+        codes, s = vecbin.quantize_i8(rows.reshape(-1, dp))
+        packed = torch.from_numpy(codes.reshape(nlist, lcap, dp))
+        sc = torch.from_numpy(s.reshape(nlist, lcap))
+    return packed, torch.from_numpy(slot_ids), sc
+
+
+def _probe_table(rng, b, p, nlist=80):
+    fixed = [0, 1] if p >= 2 else []
+    return np.stack([np.r_[fixed, rng.choice(np.arange(2, nlist), p - len(fixed),
+                                             replace=False)] for _ in range(b)]).astype(np.int32)
+
+
+def _check_probe_layouts(cuda_device, q, probes, packed, sids, sc, k):
+    """Both layouts against the plain version; each other's values to the
+    same tolerance. Returns the list-major result."""
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    args = [x.to(cuda_device) if x is not None else None for x in (q, probes, packed, sids, sc)]
+    pv, pi = (x.cpu().numpy() for x in ivf_scan.ivf_probe_topk_reference(*args, k))
+    got = {}
+    for layout in ivf_scan.LAYOUTS:
+        before = dict(ivf_scan.LAUNCHES_BY_LAYOUT)
+        kv, ki = ivf_scan.ivf_probe_topk_cuda(*args, k, layout=layout)
+        torch.cuda.synchronize()
+        assert ivf_scan.LAUNCHES_BY_LAYOUT[layout] == before[layout] + 1
+        kv, ki = kv.cpu().numpy(), ki.cpu().numpy()
+        assert ((ki >= 0) == (pi >= 0)).all()
+        np.testing.assert_allclose(kv, pv, atol=1e-5, rtol=1e-5)
+        assert np.mean(ki == pi) >= 0.99
+        for row, vals in zip(ki, kv):
+            assert np.all(np.diff(vals[np.isfinite(vals)]) <= 0)
+            assert np.isneginf(vals[row < 0]).all()
+        got[layout] = (kv, ki)
+    np.testing.assert_allclose(got["list"][0], got["query"][0], atol=1e-5, rtol=1e-5)
+    return got["list"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "i8"])
+@pytest.mark.parametrize("lcap", [384, 992])
+def test_probe_list_major_matches_plain(cuda_device, dtype, lcap):
+    """The list-major kernel and the query-major A/B against the plain
+    version at every shape of chip_smoke's phase 10."""
+    packed, sids, sc = _probe_index(dtype, lcap, seed=lcap + len(dtype))
+    rng = np.random.default_rng(lcap)
+    for b, p, k in PROBE_SHAPES:
+        q = torch.from_numpy(rng.standard_normal((b, 768)).astype(np.float32))
+        _, ki = _check_probe_layouts(cuda_device, q, torch.from_numpy(_probe_table(rng, b, p)),
+                                     packed, sids, sc, k)
+        for row in ki:
+            live = row[row >= 0]
+            assert len(set(live.tolist())) == len(live)   # distinct lists: no id twice
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "i8"])
+def test_probe_list_major_edge_cases(cuda_device, dtype):
+    """B = 256 with every query on one full list (eight chunks of it); a
+    query that probes one list twice (both copies score, as in the plain
+    version); B = 1, P = 1; k = 128; holes inside a list, a dead list and
+    out-of-range probes."""
+    packed, sids, sc = _probe_index(dtype, 384, seed=7)
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.standard_normal((256, 768)).astype(np.float32))
+    _check_probe_layouts(cuda_device, q, torch.full((256, 1), 3, dtype=torch.int32), packed,
+                         sids, sc, 10)
+    twice = _probe_table(rng, 256, 8)
+    twice[:, 3] = twice[:, 2]
+    _, ki = _check_probe_layouts(cuda_device, q, torch.from_numpy(twice), packed, sids, sc, 50)
+    assert any(len(set(r[r >= 0].tolist())) < (r >= 0).sum() for r in ki)   # ids twice
+    _check_probe_layouts(cuda_device, q[:1], torch.tensor([[5]], dtype=torch.int32), packed,
+                         sids, sc, 1)
+    holes = _probe_table(rng, 64, 6)
+    holes[:, 0], holes[:, 2], holes[:, 3] = 2, -1, 10 ** 6
+    _check_probe_layouts(cuda_device, q[:64], torch.from_numpy(holes), packed, sids, sc, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,p,nlist,q_chunk", [(1, 1, 10, 32), (8, 7, 30, 8), (256, 64, 100, 32),
+                                               (64, 32, 4096, 16), (256, 1, 3, 32)])
+def test_probe_grouping_matches_plain(cuda_device, b, p, nlist, q_chunk):
+    """The kernel's pass 0 against group_pairs_reference: the same items (in
+    its own order) and each list's pairs (in the atomics' order)."""
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    rng = np.random.default_rng(b + p)
+    probes = torch.from_numpy(rng.integers(-2, nlist + 2, (b, p)).astype(np.int32))
+    fills = torch.from_numpy(rng.integers(0, 3, nlist).astype(np.int32))
+    order, items = ivf_scan.group_pairs_cuda(probes.to(cuda_device), fills.to(cuda_device),
+                                             q_chunk)
+    want_order, want_items = ivf_scan.group_pairs_reference(probes, fills, q_chunk)
+    key = lambda t: t[torch.argsort(t[:, 0].long() * (1 << 32) + t[:, 1].long())]
+    items = key(items.cpu())
+    assert torch.equal(items, key(want_items))
+    order = order.cpu()
+    for lst in torch.unique(items[:, 0]).tolist():
+        mine = items[items[:, 0] == lst]
+        start, cnt = int(mine[0, 1]), int(mine[:, 2].sum())
+        assert sorted(order[start:start + cnt].tolist()) == \
+            want_order[start:start + cnt].tolist()
+
+
+@pytest.mark.gpu
+def test_probe_list_major_in_a_cuda_graph(cuda_device):
+    """The list-major wrapper has no host sync: a call captured in a CUDA
+    graph replays to the eager result, bit for bit."""
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    packed, sids, _ = _probe_index("bf16", 384, seed=3)
+    rng = np.random.default_rng(4)
+    args = (torch.from_numpy(rng.standard_normal((64, 768)).astype(np.float32)).to(cuda_device),
+            torch.from_numpy(_probe_table(rng, 64, 16)).to(cuda_device), packed.to(cuda_device),
+            sids.to(cuda_device), None, 50)
+    fills = ivf_scan.list_fills(args[3])
+    fn = lambda: ivf_scan.ivf_probe_topk_cuda(*args, fills=fills)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gv, gi = fn()
+    graph.replay()
+    ev, ei = fn()
+    torch.cuda.synchronize()
+    assert torch.equal(gv, ev) and torch.equal(gi, ei)
+
+
+@pytest.mark.gpu
+def test_probe_layout_is_checked(cuda_device):
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    q, probes, packed, sids, _ = _probe_case("f32", 4, 3, seed=9)
+    with pytest.raises(ValueError, match="layout"):
+        ivf_scan.ivf_probe_topk_cuda(q.to(cuda_device), probes.to(cuda_device),
+                                     packed.to(cuda_device), sids.to(cuda_device), None, 5,
+                                     layout="rows")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("metric", ["dot", "l2"])
 def test_rerank_kernel_residual_fold(cuda_device, metric):

@@ -531,3 +531,66 @@ def test_ivf_build_defaults_match_jax(ivf_files, tmp_path, capsys):
     assert "codebooks" not in np.load(ours).files
     assert (t.dtype_code, t.lcap, t.nlist) == (j.dtype_code, j.lcap, j.nlist)
     assert t.dtype_code == jvecbin.DTYPE_F32 and t.lcap == 576   # round_up(3000 / 8 * 1.5, 32)
+
+
+# -- the JAX tools' platform flags (--cpu, --backend, --debug-nans) ----------
+
+_TOOLS = ("ab_compare", "bench", "convert_bf16", "dump", "embed", "gt_build", "ivf_build",
+          "ivf_eval", "make_query", "pr_build", "pr_eval", "pr_search", "quantize_i8",
+          "sanity", "search", "slice", "synth")
+# the port's own flags: its device choice, and a few options the JAX tools lack
+_PORT_ONLY = {"--device", "-h", "--help"}
+_PORT_EXTRAS = {"ivf_eval": {"--one-device"}, "pr_eval": {"--seed"}}
+
+
+def _all_flags(main, monkeypatch):
+    """Every option string of the parser ``main`` builds."""
+    seen = {}
+
+    def stop(self, args=None, namespace=None):
+        seen["parser"] = self
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", stop)
+    with pytest.raises(_Parsed):
+        main(["x"])
+    monkeypatch.undo()
+    return {o for a in seen["parser"]._actions for o in a.option_strings}
+
+
+@pytest.mark.parametrize("tool", _TOOLS)
+def test_tool_flags_match_jax_with_platform_flags(tool, monkeypatch):
+    """Each of the 17 CLIs takes every flag of its JAX counterpart, the JAX
+    tools' ``--cpu``, ``--backend`` and ``--debug-nans`` included; beyond
+    them only ``--device`` and the options named in ``_PORT_EXTRAS``."""
+    import importlib
+
+    ours = _all_flags(importlib.import_module(f"nvdb_tpu_torch.tools.{tool}").main, monkeypatch)
+    theirs = _all_flags(importlib.import_module(f"nvdb_tpu.tools.{tool}").main, monkeypatch)
+    assert {"--cpu", "--backend", "--debug-nans"} <= ours
+    assert ours - _PORT_ONLY - _PORT_EXTRAS.get(tool, set()) == theirs - {"-h", "--help"}
+
+
+def test_cpu_flag_is_device_cpu(files, capsys):
+    """A JAX command line (``--cpu``) runs the port on the CPU, as
+    ``--device cpu`` does."""
+    args = [files["f32"], files["q"], "5", "--gt", files["gt"], "--batch-q", "8"]
+    assert bench.main(args + ["--cpu"]) == bench.main(args + ["--device", "cpu"]) == 1.0
+    assert "device=cpu" in capsys.readouterr().out
+
+
+def test_debug_nans_names_the_stage(files, tmp_path, capsys, monkeypatch):
+    """``--debug-nans`` on a store with a NaN row exits non-zero naming the
+    first stage that is not finite; a clean store passes the checks."""
+    from nvdb_tpu_torch.kernels import dispatch
+
+    monkeypatch.setattr(dispatch, "DEBUG_NANS", False)
+    base = vecbin.VecbinFile(files["f32"]).rows_f32()
+    base[17] = np.nan
+    bad = str(tmp_path / "nan.vecbin")
+    vecbin.write_vecbin(bad, base)
+    with pytest.raises(SystemExit) as e:
+        bench.main([bad, files["q"], "5", "--batch-q", "8", "--device", "cpu", "--debug-nans"])
+    assert e.value.code != 0 and "flat_topk payload" in str(e.value.code)
+    assert bench.main([files["f32"], files["q"], "5", "--gt", files["gt"], "--batch-q", "8",
+                       "--device", "cpu", "--debug-nans"]) == 1.0
