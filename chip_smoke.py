@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the CUDA kernels from the
-sources in the checkout (one ``nvcc`` per source, and two measurement builds
-of the probe source, all started together), then, one phase per line group:
+sources in the checkout (one ``nvcc`` per source, two measurement builds of
+the probe source and three of the ADC source, all started together), then,
+one phase per line group:
 
 1. device: the card, ``nvidia-smi``'s name and power limit, torch and CUDA;
 2. build: build seconds and each kernel's ptxas register / spill line;
@@ -47,7 +48,13 @@ of the probe source, all started together), then, one phase per line group:
    kernels bit for bit their plain version and each other, every key-mode
    value its id's ADC score truncated to bf16, every dma candidate above
    the key result's last value in it, and the ids shared with the dma
-   kernel's at >= 0.95 over the phase;
+   kernel's at >= 0.95 over the phase; the fused key scan (the key mode's
+   default) bit for bit the key kernel and its plain version on the table
+   kernel's tables in every case without shared ids, and on edge shapes:
+   the flagship shape with a list every query probes and probes out of
+   range, dsub 4 / 16 and the any-dsub instance (3 and 6), M 340 (as wide as
+   the key kernel takes), lists of two tiles (Lcap 2048), fewer live lanes
+   than kk, chunks of 1, 8 and 32 queries;
 7. rerank kernel vs plain and a float64 oracle: f32 / bf16 / int8 stores x
    l2 / dot, B in {1, 8, 256}, R in {10, 100, 256}, k in {1, 10, 100}, with
    padding ids and a repeated id, and a residual-int8 store; every call is
@@ -59,14 +66,16 @@ of the probe source, all started together), then, one phase per line group:
    ground truth by the flat kernel,
    ``tools.ivf_build --kind ivfpq --nlist 4096 --pq-m 96 --opq``, then
    ``tools.ivf_eval --chained --nprobe 64 --refine-k 100 --k 10 --batch-q
-   256`` four ways, each with the IVF-PQ launch counts reset just before and
-   read just after: ``auto`` (key-mode candidates), ``--ids-mode dma``,
-   ``--ids-mode gather`` and ``--ivf-backend torch``; then ``tools.quantize_i8
-   --residual`` of the same base against the index and ``ivf_eval
-   --residual-refine`` with the kernels and with ``--ivf-backend torch``,
-   and, for reference, a plain int8 store of the same bytes; recall@10 and
-   QPS of each, auto within 0.005 of torch and of dma, gather equal to
-   auto, the residual pair within 0.005;
+   256`` five ways, each with the IVF-PQ launch counts reset just before and
+   read just after: ``auto`` (key-mode candidates by the fused key scan, no
+   table kernel), ``--key-scan tables`` (the table kernel and the key
+   kernel, the A/B), ``--ids-mode dma``, ``--ids-mode gather`` and
+   ``--ivf-backend torch``; then ``tools.quantize_i8 --residual`` of the
+   same base against the index and ``ivf_eval --residual-refine`` with the
+   kernels and with ``--ivf-backend torch``, and, for reference, a plain
+   int8 store of the same bytes; recall@10 and QPS of each, auto within
+   0.005 of torch and of dma, the A/B and gather equal to auto, the residual
+   pair within 0.005;
 9. times at B = 256, P = 64, M = 96, Lcap = 640, kk = 100 on the built index,
    each alone: rotation + coarse ranking (plain torch), the table kernel,
    the dma scan, the key scan, the gather wrapper and its two parts (the
@@ -75,9 +84,17 @@ of the probe source, all started together), then, one phase per line group:
    its plain version in turns and beside its bound (the scans' bytes count
    each distinct probed list's live codes once, and the tables once; the
    bytes as probed are printed beside them); the rerank kernel
-   alone (100 launches in one CUDA graph); the whole ``search_device``,
-   whose operators are recorded to show that no f32 table and no bf16 copy
-   of one is made, against its plain versions and, in turns, with dma
+   alone (100 launches in one CUDA graph); the fused key scan at B = 256,
+   8 and 1 against the two kernels it replaces (the table kernel, then the
+   key scan), in turns, eagerly and as device time (calls in a CUDA graph),
+   beside its bound (operations: the tables' FLOPs and the lookups' adds),
+   the codebook bytes its CTAs pull from L2 and its lookups, its plain
+   version, a sweep of its chunk width (1 / 4 / 8 / 16 / 32 queries), the
+   call by pass (measurement builds, ``NVDB_ADC_ABLATE`` 3 / 4 / 5) and one
+   call replayed from a CUDA graph; the whole ``search_device``, whose
+   operators are recorded to show that the key path makes no tensor the
+   size of the tables, with its peak device memory, against its plain
+   versions and, in turns, with the two-kernel key path and with dma
    candidates in place of the key ones;
 10. IVF probe kernel vs plain and a float64 oracle, both layouts (list-major,
    the default, and the query-major A/B): random packed indexes of f32 /
@@ -139,7 +156,8 @@ of the probe source, all started together), then, one phase per line group:
    untied, the two in turns; (b) ``sharded_lloyd_step`` over phase 8's corpus
    at S = 4 against ``_lloyd_step`` on the valid rows, within 1e-4;
    (c) ``tools.ivf_eval --force-sharded --shards 1`` on phase 8's index (its
-   recall equal to phase 8's), then ``ShardedIVFPQIndex`` at S = 4 with the f32
+   recall equal to phase 8's), then ``ShardedIVFPQIndex`` at S = 4 (each
+   shard's key candidates by the fused key scan) with the f32
    and the residual-int8 refine store row-sharded (``sharded_refine``):
    kernels against plain versions and key against dma candidates within
    0.005, the S = 4 recall beside the single device's, the batch in turns;
@@ -176,7 +194,8 @@ launches by instance, the kernels' JSON record (launches on the main paths,
 error, ms, plain ms, bound ms and what sets it, the library call's ms where
 there is one; the flat kernel has three rows: bf16 / int8, f32 on the
 tensor cores, f32 on the SIMT kernel; the probe kernel two: list-major and
-the query-major A/B), and ``{"ok": true, "device": {...}}``.
+the query-major A/B; the ADC scans four: dma, key, gather and the fused key
+scan), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -792,10 +811,61 @@ def check_tables(torch, tag, got, want, live):
     return equal, worst
 
 
+def check_fused(torch, tag, q_rot, probes, cents, codebooks, codes, slot_ids, kk, fills, lut,
+                nq_max=None):
+    """The fused key scan bit for bit (values and ids) the key mode's plain
+    scan and the key kernel on the table kernel's tables ``lut``."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    fv, fi = adc_scan.adc_fused_keys_cuda(q_rot, probes, cents, codebooks, codes, slot_ids, kk,
+                                          fills=fills, nq_max=nq_max)
+    torch.cuda.synchronize()
+    pv, pi = adc_scan.adc_topk_keys_reference(lut, probes, codes, slot_ids, kk, fills=fills)
+    check(torch.equal(fv, pv) and torch.equal(fi, pi),
+          f"{tag}: the fused key scan differs from the key mode's plain scan")
+    kv, ki = adc_scan.adc_topk_keys_cuda(lut, probes, codes, slot_ids, kk, fills=fills)
+    check(torch.equal(fv, kv) and torch.equal(fi, ki),
+          f"{tag}: the fused key scan differs from the key kernel")
+    return float((fi >= 0).float().mean())
+
+
+# (B, P, nlist, M, dsub, Lcap, kk, kind) of phase 6's fused edge cases; kind:
+# "hot" every query probes one list, "bad" probes out of range, "scarce" at
+# most 12 rows a list
+FUSED_CASES = ((256, 64, 512, 96, 8, 640, 100, "hot bad"), (64, 16, 128, 32, 4, 640, 1024, ""),
+               (8, 7, 64, 48, 16, 640, 100, "bad"), (8, 7, 64, 32, 6, 640, 100, ""),
+               (8, 4, 40, 12, 3, 256, 10, "hot"), (4, 8, 40, 340, 8, 128, 100, ""),
+               (1, 64, 128, 96, 8, 640, 1024, "scarce"), (16, 8, 40, 16, 8, 2048, 100, "bad"),
+               (1, 1, 16, 96, 8, 640, 10, ""))
+
+
+def fused_edge_case(torch, dev, b, p, nlist, m, dsub, lcap, kind, seed):
+    """A random prefix-packed index (list 3 dead) and the geometry of its
+    tables for ``FUSED_CASES``."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, (nlist, m, lcap)).astype(np.uint8)
+    slot_ids = np.full((nlist, lcap), -1, np.int32)
+    perm = rng.permutation(nlist * lcap).astype(np.int32)
+    for li in range(nlist):
+        scarce = "scarce" in kind
+        f = int(rng.integers(0, 13 if scarce else lcap + 1)) if li % 4 or scarce else lcap
+        slot_ids[li, :f] = perm[li * lcap:li * lcap + f]
+    slot_ids[3] = -1
+    probes = np.stack([rng.choice(nlist, p, replace=False) for _ in range(b)]).astype(np.int32)
+    if "hot" in kind:
+        for r in range(b):
+            probes[r] = [5] + [x for x in probes[r] if x != 5][:p - 1]
+    if "bad" in kind:
+        probes[0, 0], probes[-1, -1] = -1, nlist + 2
+    q_rot, cents, codebooks = table_inputs(torch, dev, b, nlist, m, dsub, seed)
+    t = lambda x: torch.from_numpy(x).to(dev)
+    return q_rot, t(probes), cents, codebooks, t(codes), t(slot_ids)
+
+
 def phase_adc_vs_plain(torch, dev):
     from nvdb_tpu_torch.kernels import adc_scan
 
-    out = {"scan_err": 0.0, "table_err": 0.0, "table_equal": 1.0}
+    out = {"scan_err": 0.0, "table_err": 0.0, "table_equal": 1.0, "fused_cases": 0}
     cases = [(b, p, kk, "") for b in (1, 8, 64, 256) for p in (1, 7, 64)
              for kk in (10, 100, 256, 1024)] + [(8, 7, 100, "dup"), (64, 64, 1024, "dup"),
                                                 (8, 64, 1024, "scarce")]
@@ -834,12 +904,32 @@ def phase_adc_vs_plain(torch, dev):
                 shared += sh
                 dma_ids += dn
                 msg += f" key=gather=plain overlap(dma)={sh / max(1, dn):.3f}"
+        if not dup:
+            check_fused(torch, tag, q_rot, probes, cents, codebooks, codes, slot_ids, kk, fills,
+                        lut)
+            out["fused_cases"] += 1
+            msg += " | fused = key on the kernel's tables"
         msg += f" filled={float((ki >= 0).float().mean()):.3f}"
         say(msg)
         del lut, lut32, probes, codes, slot_ids
     out["key_overlap"] = shared / max(1, dma_ids)
     say(f"  key / gather vs dma: id overlap {out['key_overlap']:.4f} over all cases "
         f"(gate {KEY_OVERLAP_MIN})")
+    # the fused key scan's edge shapes, at the plan's chunk and at 1 and 32
+    for i, (b, p, nlist, m, dsub, lcap, kk, kind) in enumerate(FUSED_CASES):
+        args = fused_edge_case(torch, dev, b, p, nlist, m, dsub, lcap, kind, seed=1000 + i)
+        fills = adc_scan.list_fills(args[5])
+        lut = adc_scan.adc_tables_cuda(*args[:4], fills)
+        for nq in (None, 1, 32):
+            filled = check_fused(torch, f"fused B={b} P={p} M={m} dsub={dsub} Lcap={lcap} "
+                                 f"kk={kk} {kind} nq<={nq}", *args, kk, fills, lut, nq_max=nq)
+            out["fused_cases"] += 1
+        say(f"  fused B={b} P={p} M={m} dsub={dsub} Lcap={lcap} kk={kk} {kind or '-'}: bit for "
+            f"bit the key kernel and its plain version at chunks of <= 8 / 1 / 32 queries, "
+            f"filled={filled:.3f}")
+        del args, lut
+    say(f"  fused key scan: {out['fused_cases']} calls bit for bit the key kernel on the table "
+        f"kernel's tables")
     check(out["key_overlap"] >= KEY_OVERLAP_MIN,
           f"key-mode ids overlap the dma kernel's at {out['key_overlap']} < {KEY_OVERLAP_MIN}")
     torch.cuda.empty_cache()
@@ -993,19 +1083,33 @@ def phase_ivf_main_path(torch, dev, work, n=1_000_000, nlist=4096):
         remove_files({"i8.vecbin": paths["i8.vecbin"]})
 
 
+def adc_reset():
+    """Every ADC launch counter (tables, the dma, key, gather and fused scans) to 0."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    adc_scan.LAUNCHES = adc_scan.TABLE_LAUNCHES = adc_scan.KEY_LAUNCHES = 0
+    adc_scan.GATHER_LAUNCHES = adc_scan.FUSED_LAUNCHES = 0
+
+
+def adc_counts():
+    """The ADC launch counters by the kernels' record names."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    return {"adc_tables": adc_scan.TABLE_LAUNCHES, "adc_topk": adc_scan.LAUNCHES,
+            "adc_topk_key": adc_scan.KEY_LAUNCHES, "adc_topk_gather": adc_scan.GATHER_LAUNCHES,
+            "adc_fused_key": adc_scan.FUSED_LAUNCHES}
+
+
 def ivf_eval_counted(torch, main, argv, first=True):
     """One ``ivf_eval`` run with every IVF-PQ launch counter set to 0 just
     before it; returns (its first RESULT record, or all of them unless
     ``first``, and the counts just after)."""
-    from nvdb_tpu_torch.kernels import adc_scan, rerank
+    from nvdb_tpu_torch.kernels import rerank
 
-    adc_scan.LAUNCHES = adc_scan.TABLE_LAUNCHES = 0
-    adc_scan.KEY_LAUNCHES = adc_scan.GATHER_LAUNCHES = 0
+    adc_reset()
     rerank.LAUNCHES = 0
     res = run_tool(main, argv, keep=("kind=", "RESULT"))
-    return res[0] if first else res, {"adc_tables": adc_scan.TABLE_LAUNCHES, "adc_topk": adc_scan.LAUNCHES,
-                 "adc_topk_key": adc_scan.KEY_LAUNCHES,
-                 "adc_topk_gather": adc_scan.GATHER_LAUNCHES, "rerank_topk": rerank.LAUNCHES}
+    return res[0] if first else res, dict(adc_counts(), rerank_topk=rerank.LAUNCHES)
 
 
 def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
@@ -1044,9 +1148,10 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
                  "--k", str(k), "--batch-q", "256", "--device", dev.type]
     # (name, extra flags, the launch counters the run must raise); each run's
     # counters are set to 0 just before it and read just after
-    runs = [("auto", [], ("adc_tables", "adc_topk_key", "rerank_topk")),
-            ("dma", ["--ids-mode", "dma"], ("adc_topk",)),
-            ("gather", ["--ids-mode", "gather"], ("adc_topk_gather",)),
+    runs = [("auto", [], ("adc_fused_key", "rerank_topk")),
+            ("tables", ["--key-scan", "tables"], ("adc_tables", "adc_topk_key")),
+            ("dma", ["--ids-mode", "dma"], ("adc_tables", "adc_topk")),
+            ("gather", ["--ids-mode", "gather"], ("adc_tables", "adc_topk_gather")),
             ("torch", ["--ivf-backend", "torch"], ())]
     out = {"launches": {"flat_topk": gt_launches}}
     for name, extra, counted in runs:
@@ -1055,9 +1160,14 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
             check(launches[c] > 0, f"ivf_eval {name}: the IVF-PQ main path did not "
                                    f"launch {c}")
             out["launches"][c] = out["launches"].get(c, 0) + launches[c]
-        say(f"  ivf_eval {' '.join(extra) or '(auto: key candidates)'}: recall@10="
+        say(f"  ivf_eval {' '.join(extra) or '(auto: key candidates, fused)'}: recall@10="
             f"{res['recall']:.4f} QPS={res['qps']:.1f} launches {launches}")
         out[name] = res
+        if name == "auto":
+            check(launches["adc_tables"] == 0 and launches["adc_topk_key"] == 0,
+                  f"the key path ran the table or key kernel beside the fused scan: {launches}")
+    check(out["tables"]["recall"] == out["auto"]["recall"],
+          f"two-kernel key recall {out['tables']['recall']} != fused {out['auto']['recall']}")
     for a, b in (("auto", "torch"), ("auto", "dma")):
         gap = abs(out[a]["recall"] - out[b]["recall"])
         check(gap <= RECALL_GAP, f"recall@10 {a} {out[a]['recall']} vs {b} "
@@ -1073,7 +1183,7 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
                                 paths["index.npz"]], keep=("wrote",))
     say(f"  quantize_i8 --residual: {time.perf_counter() - t0:.1f} s")
     res_args = [paths["index.npz"], paths["res.vecbin"]] + eval_args[2:] + ["--residual-refine"]
-    for name, extra, counted in (("res_auto", [], ("adc_topk_key", "rerank_topk")),
+    for name, extra, counted in (("res_auto", [], ("adc_fused_key", "rerank_topk")),
                                  ("res_torch", ["--ivf-backend", "torch"], ())):
         res, launches = ivf_eval_counted(torch, ivf_eval.main, res_args + extra)
         for c in counted:
@@ -1148,6 +1258,108 @@ def key_scan_times(torch, lut, probes, idx, kk, fills, rows, dma):
                                   index_select_ms=copy_ms, scan_ms=scan_ms)
     del slab
     return out
+
+
+# measurement builds of adc_topk.cu for phase 9's split of a fused call
+FUSED_ABLATIONS = (("tables", ("NVDB_ADC_ABLATE=3",)), ("lookups", ("NVDB_ADC_ABLATE=4",)),
+                   ("selection", ("NVDB_ADC_ABLATE=5",)))
+
+
+def graph_turns(torch, plain, kern, launches=10):
+    """plain, kernel, kernel, plain, each as ``launches`` calls in one CUDA
+    graph (device ms a call); returns (kernel ms, plain ms, runs)."""
+    runs = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        runs[name].append(graph_ms(torch, plain if name == "plain" else kern,
+                                   launches=launches, replays=5))
+    return sum(runs["kernel"]) / 2, sum(runs["plain"]) / 2, runs
+
+
+def fused_times(torch, dev, idx, q_rot, probes, kk, fills):
+    """The fused key scan against the two kernels it replaces (the table
+    kernel, then the key scan) at B = 256, 8 and 1, its bound, codebook L2
+    bytes and lookups, its plain version, the chunk sweep, the call by pass
+    and a call replayed from a CUDA graph."""
+    from nvdb_tpu_torch.kernels import _build, adc_scan, ivf_scan
+
+    dsub = idx.codebooks.shape[2]
+    dp = idx.centroids.shape[1]
+    index = dev.index or 0
+    out = {}
+    for b in (256, 8, 1):
+        qb, pb_ = q_rot[:b].contiguous(), probes[:b].contiguous()
+        args = (qb, pb_, idx.centroids, idx.codebooks, idx.codes, idx.slot_ids, kk)
+        fused = lambda: adc_scan.adc_fused_keys_cuda(*args, fills=fills)
+        two = lambda: adc_scan.adc_topk_keys_cuda(
+            adc_scan.adc_tables_cuda(qb, pb_, idx.centroids, idx.codebooks, fills), pb_,
+            idx.codes, idx.slot_ids, kk, fills=fills)
+        kern, two_ms, runs = in_turns(torch, two, fused, iters=10)
+        gk, gt, gruns = graph_turns(torch, two, fused)
+        fv, fi = fused()
+        tv, ti = two()
+        check(torch.equal(fv, tv) and torch.equal(fi, ti),
+              f"fused B={b}: differs from the two-kernel key path on the flagship index")
+        # bytes: each distinct probed list's live codes once, the queries, the
+        # distinct probed centroids, the codebooks, the probes, the result;
+        # operations: every live pair's table entries (2 dsub + 4 FLOP each)
+        # and every lookup's add, at the f32 rate
+        pb = ivf_scan.probe_bytes(pb_, fills, idx.m, idx.nlist)
+        lookups = pb["as_probed"]
+        nbytes = (pb["rows"] * idx.m + b * dp * 4 + pb["lists"] * dp * 4
+                  + idx.codebooks.numel() * 4 + pb_.numel() * 4 + b * kk * 8)
+        flops = float(pb["pairs"]) * idx.m * 256 * (2 * dsub + 4) + lookups
+        bnd, by = bound_ms(nbytes, flops, "f32")
+        nq_max = adc_scan.FUSED_NQ_MAX if b >= adc_scan.FUSED_CHUNK_MIN_BATCH else 1
+        nq = adc_scan.fused_plan(idx.m, dsub, nq_max, index)
+        items = ivf_scan.group_pairs_reference(pb_, fills, nq)[1]
+        tiles = -(-idx.lcap // adc_scan.FUSED_TILE)
+        cb_bytes = int(items.shape[0]) * tiles * idx.codebooks.numel() * 4
+        say(f"  fused key scan B={b} P={probes.shape[1]} kk={kk} (chunks of {nq}, "
+            f"{items.shape[0]} items on {pb['lists']} lists): {kern:.4f} ms {runs['kernel']} | "
+            f"tables + key scan {two_ms:.4f} ms {runs['plain']} | device time (10 calls in a "
+            f"CUDA graph) fused {gk:.4f} {gruns['kernel']}, two kernels {gt:.4f} "
+            f"{gruns['plain']}; bit for bit equal")
+        say(f"    bound {bnd:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e9:.4f} GB) "
+            f"time / bound {kern / bnd:.2f} (device {gk / bnd:.2f}); {lookups / 1e9:.3f} G "
+            f"lookups into shared memory; codebook bytes from L2 {cb_bytes / 1e9:.3f} GB")
+        out[b] = dict(ms=kern, two_ms=two_ms, device_ms=gk, two_device_ms=gt, bound_ms=bnd,
+                      bound_by=by, lookups=lookups, codebook_bytes=cb_bytes, nq=nq,
+                      items=int(items.shape[0]))
+    qb, pb_ = q_rot, probes
+    args = (qb, pb_, idx.centroids, idx.codebooks, idx.codes, idx.slot_ids, kk)
+    plain = cuda_ms(torch, lambda: adc_scan.adc_fused_keys_reference(*args, fills=fills),
+                    iters=2)
+    say(f"  fused key scan B=256: plain version (adc_tables_reference, then "
+        f"adc_topk_keys_reference) {plain:.4f} ms")
+    sweep = {nq: graph_ms(torch, lambda nq=nq: adc_scan.adc_fused_keys_cuda(
+        *args, fills=fills, nq_max=nq), launches=10, replays=5) for nq in (1, 4, 8, 16, 32)}
+    say("  fused key scan B=256, device ms by the widest chunk the plan may take: " + "; ".join(
+        f"{nq} {ms:.4f}" for nq, ms in sweep.items())
+        + f" (default {adc_scan.FUSED_NQ_MAX})")
+    # the call by pass: measurement builds that stop after building the
+    # tables, after the lookups and before the merge (wrong by design)
+    split = {}
+    port_lib = adc_scan._fused_lib
+    try:
+        for part, defines in FUSED_ABLATIONS:
+            lib = adc_scan.bind_fused(_build.load("adc_topk", defines))
+            adc_scan._fused_lib = lambda lib=lib: lib
+            split[part] = graph_ms(torch, lambda: adc_scan.adc_fused_keys_cuda(
+                *args, fills=fills), launches=10, replays=5)
+    finally:
+        adc_scan._fused_lib = port_lib
+    whole = graph_ms(torch, lambda: adc_scan.adc_fused_keys_cuda(*args, fills=fills),
+                     launches=10, replays=5)
+    say(f"  fused key scan B=256 by part (device ms): pass 0, staging and tables "
+        f"{split['tables']:.4f}, lookups {split['lookups'] - split['tables']:.4f}, selection "
+        f"{split['selection'] - split['lookups']:.4f}, merge {whole - split['selection']:.4f}; "
+        f"the whole call {whole:.4f}")
+    graph_replay_check(torch, lambda: adc_scan.adc_fused_keys_cuda(*args, fills=fills))
+    say("  one fused call (B=256) captured in a CUDA graph and replayed: equal to an eager "
+        "call bit for bit")
+    res = dict(out[256], plain_ms=plain, sweep=sweep, by_part=dict(split, whole=whole),
+               by_batch=out)
+    return {"adc_fused_key": res}
 
 
 def phase_ivf_times(torch, dev, idx, store, queries):
@@ -1225,9 +1437,10 @@ def phase_ivf_times(torch, dev, idx, store, queries):
     out.update(key_scan_times(torch, lut, probes, idx, kk, fills, pb["rows"], (kv, cand)))
     cand = cand.contiguous()
     del lut, kv, pv, pi
+    out.update(fused_times(torch, dev, idx, q_rot, probes, kk, fills))
 
-    # the whole batch, its operators recorded: nothing the size of the
-    # tables but the one bf16 tensor the table kernel fills
+    # the whole batch, its operators recorded: on the key path (the fused
+    # key scan) nothing the size of the tables
     table_elems = b * nprobe * idx.m * 256
     search = lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store)
     search()          # the store computes and caches its norms on the first refine
@@ -1235,17 +1448,17 @@ def phase_ivf_times(torch, dev, idx, store, queries):
     big = [(name, shape, dt) for name, outs in ops_seen for shape, dt in outs
            if int(np.prod(shape)) >= table_elems]
     say(f"  search_device dispatches {len(ops_seen)} torch operators; table-sized results: {big}")
-    check(len(big) == 1 and "empty" in big[0][0] and big[0][2] == torch.bfloat16,
-          f"the kernel path made table-sized tensors beside the bf16 tables: {big}")
+    check(big == [], f"the key path made table-sized tensors: {big}")
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     base_mem = torch.cuda.memory_allocated(dev)
     search()
     torch.cuda.synchronize(dev)
     peak = torch.cuda.max_memory_allocated(dev) - base_mem
-    say(f"    peak device memory of one batch: {peak / 1e9:.4f} GB (bf16 tables "
-        f"{table_elems * 2 / 1e9:.4f} GB; an f32 table would be {table_elems * 4 / 1e9:.4f})")
-    check(peak < table_elems * 4, "the kernel path allocated as much as an f32 table")
+    say(f"    peak device memory of one batch: {peak / 1e9:.4f} GB (the bf16 tables the key "
+        f"path no longer makes: {table_elems * 2 / 1e9:.4f} GB)")
+    check(peak < table_elems * 2 / 10, "the key path allocated a tenth of the bf16 tables")
+    out["whole search_device"] = dict(peak_gb=peak / 1e9)
     whole_ms, whole_plain, runs = in_turns(
         torch, lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
                                          backend="torch"), search, iters=5)
@@ -1255,11 +1468,16 @@ def phase_ivf_times(torch, dev, idx, store, queries):
     refine_bnd, _ = bound_ms(int((cand >= 0).sum()) * (dp * 4 + 8) + b * dp * 4 + b * 10 * 8,
                              2.0 * cand.numel() * dp, "f32")
     whole_bnd = refine_bnd + sum(out[name]["bound_ms"] for name in (
-        "rotation + coarse ranking", "adc_tables", "adc_topk"))
+        "rotation + coarse ranking", "adc_fused_key"))
     say(f"  whole search_device B={b}: kernels {whole_ms:.4f} ms {runs['kernel']} | plain "
         f"versions {whole_plain:.4f} ms {runs['plain']} | bound {whole_bnd:.4f} ms (the sum of "
         f"its stages' bounds) time / bound {whole_ms / whole_bnd:.2f}")
-    out["whole search_device"] = dict(ms=whole_ms, plain_ms=whole_plain, bound_ms=whole_bnd)
+    out["whole search_device"].update(ms=whole_ms, plain_ms=whole_plain, bound_ms=whole_bnd)
+    fused_ms, two_ms, runs = in_turns(
+        torch, lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
+                                         key_scan="tables"), search, iters=5)
+    say(f"  whole search_device B={b}: fused key scan (auto) {fused_ms:.4f} ms {runs['kernel']} "
+        f"| table kernel + key scan {two_ms:.4f} ms {runs['plain']}")
     key_ms, dma_ms, runs = in_turns(
         torch, lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
                                          ids_mode="dma"), search, iters=5)
@@ -1575,10 +1793,11 @@ PROBE_TIMES = (("partition", 64, 32, 50), ("ivfflat", 256, 64, 10),
                ("partition B=1", 1, 32, 50), ("ivfflat B=1", 1, 64, 10))   # (case, B, P, k)
 
 
-def probe_graph_check(torch, fn):
-    """Capture ``fn`` (one probe call) in a CUDA graph, replay it, and hold
-    the replay's result to an eager call's, bit for bit: a host sync or a
-    count read back in the wrapper would fail the capture."""
+def graph_replay_check(torch, fn):
+    """Capture ``fn`` (one call of a list-major kernel: the probe kernel or
+    the fused key scan) in a CUDA graph, replay it, and hold the replay's
+    result to an eager call's, bit for bit: a host sync or a count read back
+    in the wrapper would fail the capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -1591,7 +1810,7 @@ def probe_graph_check(torch, fn):
     ev, ei = fn()
     torch.cuda.synchronize()
     check(torch.equal(gv, ev) and torch.equal(gi, ei),
-          "the probe kernel replayed from a CUDA graph differs from an eager call")
+          "a call replayed from a CUDA graph differs from an eager call")
 
 
 def phase_probe_times(torch, dev, pidx, fidx, base, queries):
@@ -1690,7 +1909,7 @@ def phase_probe_times(torch, dev, pidx, fidx, base, queries):
     q[:, :ivf.d] = torch.from_numpy(queries[:64]).to(dev)
     probes = _coarse_probes(q, ivf.centroids, ivf.slot_ids, 32)
     fills = ivf.fills()
-    probe_graph_check(torch, lambda: ivf_scan.ivf_probe_topk_cuda(
+    graph_replay_check(torch, lambda: ivf_scan.ivf_probe_topk_cuda(
         q, probes, ivf.packed, ivf.slot_ids, None, 50, fills=fills))
     say("  one partition probe call (B=64, k 50) captured in a CUDA graph and replayed: "
         "equal to an eager call bit for bit")
@@ -1815,8 +2034,8 @@ def build_side_ivfpq(torch, dev, work, p8, spilled8):
     ev = [p8["base.vecbin"], p8["q.vecbin"], "--gt", p8["gt.gtbin"], "--chained", "--nprobe",
           "16", "32", "64", "--refine-k", "50", "--k", "10", "--batch-q", "256",
           "--device", dev.type]
-    runs = [("phase 8 index", p8["index.npz"], [], ("adc_tables", "adc_topk_key", "rerank_topk")),
-            ("repacked", paths["rep1.npz"], [], ("adc_tables", "adc_topk_key", "rerank_topk")),
+    runs = [("phase 8 index", p8["index.npz"], [], ("adc_fused_key", "rerank_topk")),
+            ("repacked", paths["rep1.npz"], [], ("adc_fused_key", "rerank_topk")),
             ("repacked", paths["rep1.npz"], ["--ivf-backend", "torch"], ()),
             ("replicated", paths["rep2.npz"], [], ("adc_tables", "adc_topk", "rerank_topk")),
             ("replicated", paths["rep2.npz"], ["--ivf-backend", "torch"], ())]
@@ -2056,7 +2275,7 @@ def phase_hbm_and_sanity(torch, dev):
     return out
 
 
-DIST_KERNELS = ("adc_tables", "adc_topk", "adc_topk_key", "rerank_topk", "ivf_probe_topk")
+DIST_KERNELS = ("adc_tables", "adc_topk", "adc_fused_key", "rerank_topk", "ivf_probe_topk")
 
 
 def dist_counted(total, fn, *args, **kw):
@@ -2065,20 +2284,17 @@ def dist_counted(total, fn, *args, **kw):
     ``flat_topk.<instance>``). Returns what ``fn`` returns."""
     import torch
 
-    from nvdb_tpu_torch.kernels import adc_scan, flat_scan, ivf_scan, rerank
+    from nvdb_tpu_torch.kernels import flat_scan, ivf_scan, rerank
 
     flat_reset()
-    adc_scan.LAUNCHES = adc_scan.TABLE_LAUNCHES = adc_scan.KEY_LAUNCHES = 0
-    adc_scan.GATHER_LAUNCHES = rerank.LAUNCHES = 0
+    adc_reset()
+    rerank.LAUNCHES = 0
     ivf_scan.reset_launches()
     res = fn(*args, **kw)
     torch.cuda.synchronize()
     add_launches(total, {f"flat_topk.{i}": c for i, c in flat_scan.LAUNCHES_BY_KERNEL.items()})
-    add_launches(total, {"adc_tables": adc_scan.TABLE_LAUNCHES, "adc_topk": adc_scan.LAUNCHES,
-                         "adc_topk_key": adc_scan.KEY_LAUNCHES,
-                         "adc_topk_gather": adc_scan.GATHER_LAUNCHES,
-                         "rerank_topk": rerank.LAUNCHES,
-                         "ivf_probe_topk": probe_launches("dist")})
+    add_launches(total, dict(adc_counts(), rerank_topk=rerank.LAUNCHES,
+                             ivf_probe_topk=probe_launches("dist")))
     return res
 
 
@@ -2248,7 +2464,7 @@ def dist_ivfpq(torch, dev, work, p8, ivf8, out):
     kern, plain, runs = in_turns(
         torch, lambda: idx.search_device(x, refine_k, nprobe, for_refine=True),
         lambda: sh.search_device(x, refine_k, nprobe, for_refine=True), 10)
-    say(f"    by parts: the candidates alone (coarse, tables, key scan, merge) S=4 {kern:.4f} "
+    say(f"    by parts: the candidates alone (coarse, fused key scan) S=4 {kern:.4f} "
         f"ms | single {plain:.4f} ms")
     out["ms"]["ivfpq B=256 candidates"] = (kern, plain)
     del idx, sh, f32, res_store, store1, blocks, qpad
@@ -2378,7 +2594,7 @@ TOOL_KERNELS = {"kernel_ab": ("flat_topk.bf16", "flat_topk.f32_tensor_core",
                 "adc_ab": ("adc_topk", "adc_topk_key", "adc_topk_gather"),
                 "coverage_probe": (),
                 "adc_rank_probe": ("adc_tables",),
-                "multiproc_bench": ("adc_tables", "adc_topk_key", "rerank_topk")}
+                "multiproc_bench": ("adc_fused_key", "rerank_topk")}
 ADC_AB_SHAPES = (("flagship", ["--b", "256", "--p", "64", "--m", "96", "--lcap", "640",
                                "--k", "100"]),
                  ("JAX defaults", []))
@@ -2470,14 +2686,15 @@ PROBE_ABLATIONS = (("pass 0", ("NVDB_PROBE_ABLATE=1",)), ("passes 0 + 1", ("NVDB
 
 
 def build_all(torch):
-    """Build every kernel library and the probe's measurement builds, one
-    nvcc each, all started together."""
+    """Build every kernel library and the measurement builds of the probe
+    and ADC sources, one nvcc each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nvdb_tpu_torch.kernels import _build
 
     jobs = [(name, ()) for name in KERNELS] + [
-        ("ivf_probe_topk", defines) for _, defines in PROBE_ABLATIONS]
+        ("ivf_probe_topk", defines) for _, defines in PROBE_ABLATIONS] + [
+        ("adc_topk", defines) for _, defines in FUSED_ABLATIONS]
     with ThreadPoolExecutor(len(jobs)) as ex:
         infos = list(ex.map(lambda job: _build.build(*job), jobs))
     return {(name if not defines else f"{name} {' '.join(defines)}"): info
@@ -2614,7 +2831,7 @@ def main() -> int:
     say(f"flat kernel launches by instance, phases 4, 8, 11, 14, 15 and 16: {flat}")
     # the dist paths' and the tools' launches of the other kernels
     dist = {name: dl.get(name, 0) + tl.get(name, 0)
-            for name in DIST_KERNELS + ("adc_topk_gather",)}
+            for name in DIST_KERNELS + ("adc_topk_key", "adc_topk_gather")}
     rows = [
         ("flat_topk", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
          flat.get("bf16", 0) + flat.get("int8", 0) + flat.get("int8_int8", 0),
@@ -2625,18 +2842,27 @@ def main() -> int:
         ("flat_topk_f32_simt", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
          flat.get("f32_simt", 0), max_err["f32_simt"], times["f32 B=512 k=10 simt"]),
         ("adc_tables", "adc_tables", "nvdb_tpu/kernels/pq.py:89",
-         ivf["launches"]["adc_tables"] + bl["adc_tables"] + dist["adc_tables"], adc["table_err"],
+         ivf["launches"]["adc_tables"] + bl.get("adc_tables", 0) + dist["adc_tables"],
+         adc["table_err"],
          ivf_times["adc_tables"]),
         ("adc_topk", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:558",
          ivf["launches"]["adc_topk"] + bl["adc_topk"] + dist["adc_topk"], adc["scan_err"],
          ivf_times["adc_topk"]),
         # bit for bit their plain version in phase 6, so their error is 0
         ("adc_topk_key", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:691",
-         ivf["launches"]["adc_topk_key"] + bl["adc_topk_key"] + dist["adc_topk_key"], 0.0,
+         ivf["launches"]["adc_topk_key"] + bl.get("adc_topk_key", 0) + dist["adc_topk_key"],
+         0.0,
          ivf_times["adc_topk_key"]),
         ("adc_topk_gather", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:718",
          ivf["launches"]["adc_topk_gather"] + dist["adc_topk_gather"], 0.0,
          ivf_times["adc_topk_gather"]),
+        # the key mode of the IVF-PQ path: the key kernel's TPU counterpart and
+        # the tables (nvdb_tpu/kernels/pq.py:89) in one kernel; bit for bit
+        # the key kernel on the table kernel's tables in phase 6, so its error is 0
+        ("adc_fused_key", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:691",
+         ivf["launches"]["adc_fused_key"] + bl.get("adc_fused_key", 0) + dist["adc_fused_key"],
+         0.0,
+         ivf_times["adc_fused_key"]),
         ("rerank_topk", "rerank_topk", "nvdb_tpu/kernels/rerank.py:187",
          ivf["launches"]["rerank_topk"] + pl["pr"]["rerank_topk"] + bl["rerank_topk"]
          + dist["rerank_topk"], rerank_err, ivf_times["rerank_topk B=256"]),

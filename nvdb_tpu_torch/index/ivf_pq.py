@@ -7,10 +7,12 @@ ids ``[nlist, Lcap]`` int32 (-1 padding). All geometry lives in the OPQ-
 rotated space; queries are rotated once at search time. Codes encode the
 rotated residual against the list each row is packed in.
 
-Search is coarse probe -> bf16 ADC tables (the ``adc_tables`` kernel) -> ADC
-candidate top-kk (the ``adc_topk`` kernels, in the id mode the JAX package
-picks) -> exact refine against the flat store or a residual-int8 store (the
-``rerank_topk`` kernel), all on one device. ``.npz`` files are plain numpy
+Search is coarse probe -> ADC candidate top-kk in the id mode the JAX
+package picks (the key mode: the fused key scan of ``adc_topk``, which
+builds the bf16 ADC tables in shared memory; dma and gather: the
+``adc_tables`` kernel, then the ``adc_topk`` kernels) -> exact refine
+against the flat store or a residual-int8 store (the ``rerank_topk``
+kernel), all on one device. ``.npz`` files are plain numpy
 and byte-compatible with the JAX package's, so an index built by either
 package loads in the other.
 
@@ -34,6 +36,10 @@ from nvdb_tpu_torch.index.ivf_flat import (_coarse_probes, _host_chunked, _pack_
 from nvdb_tpu_torch.kernels import adc_scan, dispatch, kmeans, ops, pq
 from nvdb_tpu_torch.utils import round_up
 
+# The key mode's candidate generators on the kernel path: the fused key scan
+# (the default) and the table kernel followed by the key scan (the A/B).
+KEY_SCANS = ("fused", "tables")
+
 
 def _ivfpq_search_block(
     q_rot: torch.Tensor,       # [B, Dp] rotated queries
@@ -49,27 +55,39 @@ def _ivfpq_search_block(
     fills: Optional[torch.Tensor] = None,  # [nlist] int32 (kernel path)
     terms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cached coarse_terms
     ids_mode: str = "dma",     # "key" / "gather": prefix-packed, replicas == 1 only
+    key_scan: str = "fused",   # key mode: "fused", or "tables" (the two-kernel A/B)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Coarse probes, ADC tables and the ADC candidate top-k of one batch.
-    The kernel path writes the bf16 tables in one pass (``adc_tables_cuda``)
-    and scans them (``adc_topk_cuda``, or ``adc_topk_keys_cuda`` in the key
-    and gather modes): no f32 table exists on it. The ``torch`` path runs
-    the same modes' plain versions; the oracle path, the JAX package's jnp
-    block, ignores ``ids_mode`` as that block does."""
+    The kernel path's key mode is the fused key scan (``adc_fused_keys_cuda``:
+    the tables built in shared memory, none in device memory); the dma and
+    gather modes, and the key mode with ``key_scan="tables"``, write the bf16
+    tables in one pass (``adc_tables_cuda``) and scan them (``adc_topk_cuda``,
+    or ``adc_topk_keys_cuda``): no f32 table exists on it. The ``torch`` path
+    runs the same modes' plain versions; the oracle path, the JAX package's
+    jnp block, ignores ``ids_mode`` as that block does."""
+    if key_scan not in KEY_SCANS:
+        raise ValueError(f"key_scan must be one of {KEY_SCANS}, got {key_scan!r}")
     B = q_rot.shape[0]
     probes = _coarse_probes(q_rot, centroids, slot_ids, nprobe, terms=terms)  # [B, P]
     path = dispatch.refine_backend(backend, codes)
     keyed = ids_mode in ("key", "gather")
+    fused = ids_mode == "key" and key_scan == "fused"
     if path == "cuda":
-        probes = probes.to(torch.int32)       # once, for both kernels
+        probes = probes.to(torch.int32)       # once, for every kernel
         if fills is None:
             fills = adc_scan.list_fills(slot_ids)
+        if fused:
+            return adc_scan.adc_fused_keys_cuda(q_rot.contiguous(), probes, centroids,
+                                                codebooks, codes, slot_ids, k, fills=fills)
         lut = adc_scan.adc_tables_cuda(q_rot.contiguous(), probes, centroids, codebooks,
                                        fills)
         if keyed:
             return adc_scan.adc_topk_keys_cuda(lut, probes, codes, slot_ids, k, fills=fills,
                                                gathered=ids_mode == "gather")
         return adc_scan.adc_topk_cuda(lut, probes, codes, slot_ids, k, fills=fills)
+    if path == "torch" and fused:
+        return adc_scan.adc_fused_keys_reference(q_rot, probes, centroids, codebooks, codes,
+                                                 slot_ids, k, fills=fills)
     residuals = q_rot[:, None, :] - centroids[probes]                # [B, P, Dp]
     lut = pq.adc_lut(residuals.reshape(B * nprobe, -1), codebooks, m)
     lut = lut.reshape(B, nprobe, m, pq.KSUB)                         # [B, P, M, 256]
@@ -341,7 +359,7 @@ class IVFPQIndex:
     def search_device(self, queries: torch.Tensor, k: int, nprobe: int,
                       refine_k: int = 0, refine_store=None, backend: str = "auto",
                       for_refine: bool = False, refine_metric: str = "l2",
-                      ids_mode: Optional[str] = None,
+                      ids_mode: Optional[str] = None, key_scan: str = "fused",
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Padded on-device queries [B, Dp] in, device tensors out: coarse ->
         ADC -> optional exact refine against ``refine_store`` (a
@@ -360,7 +378,10 @@ class IVFPQIndex:
         'dma', whose ranking is exact f32). 'key' and 'gather' rank at bf16
         granularity and need a prefix-packed index with replicas == 1. The
         cuda and torch paths run the mode; the oracle path keeps the jnp
-        semantics, as the JAX package's jnp backend does."""
+        semantics, as the JAX package's jnp backend does. ``key_scan``: the
+        key mode's generator, ``fused`` (one fused kernel) or ``tables``
+        (the table kernel, then the key kernel: the A/B arm, bit for bit the
+        same candidates)."""
         if ids_mode not in (None, "dma", "key", "gather"):
             raise ValueError(f"ids_mode must be 'dma', 'key' or 'gather', got {ids_mode!r}")
         # the key modes derive ids from list and lane, right only on a
@@ -383,7 +404,8 @@ class IVFPQIndex:
                                    self.slot_ids, kk, nprobe, self.m, backend=backend,
                                    dedup=self.replicas,
                                    fills=self.fills() if path == "cuda" else None,
-                                   terms=self.coarse_terms(), ids_mode=mode)
+                                   terms=self.coarse_terms(), ids_mode=mode,
+                                   key_scan=key_scan)
         dispatch.check_finite("IVF-PQ ADC candidate scores", v, i)
         if refine_k > 0:
             if refine_store is None:

@@ -22,6 +22,14 @@ summed in f32 over m in order, and return the top kk (kk <= 1024) with
 - ``gather`` (``adc_topk_keys_cuda(..., gathered=True)``): the key mode over
   the slab ``gather_codes(codes, probes)`` [B * P, M, Lcap] of the probed
   lists, bit for bit the key mode's result.
+- fused key scan (``adc_fused_keys_cuda``, ``adc_fused_keys_reference``):
+  the key mode from the rotated queries, probes, centroids and codebooks,
+  bit for bit ``adc_topk_keys_cuda`` on ``adc_tables_cuda``'s tables, with
+  each pair's tables built in shared memory, list-major (the pairs grouped
+  by list, each probed list read once for a chunk of queries); the key mode
+  of the IVF-PQ path. ``adc_topk_keys_listmajor_reference`` is the key
+  mode's plain scan walked the same way, bit for bit
+  ``adc_topk_keys_reference``.
 
 The TPU kernel's nibble one-hot matmul works around the TPU's lack of a
 fast gather and is not carried over. The ``*_cuda`` wrappers launch their
@@ -453,3 +461,205 @@ def adc_tables_cuda(
         raise RuntimeError(f"adc_tables kernel launch failed: cudaError_t {rc}")
     TABLE_LAUNCHES += 1
     return lut
+
+
+# -- the fused key scan ----------------------------------------------------------
+
+# Launches of the fused key scan; only adc_fused_keys_cuda's launch adds to it.
+FUSED_LAUNCHES = 0
+# The widest query chunk the fused scan's plan may take, and the batch below
+# which it takes one query a chunk (few pairs then share a list, and a wide
+# chunk's registers cost more than its shared codebook reads save);
+# chip_smoke.py phase 9 sweeps 1 / 4 / 8 / 16 / 32 (PERF.md).
+FUSED_NQ_MAX = 8
+FUSED_CHUNK_MIN_BATCH = 32
+FUSED_TILE = 1024        # lanes a fused CTA takes (four a thread): a list's tiles are CTAs
+
+
+def _mono16_score(m: torch.Tensor) -> torch.Tensor:
+    """f32 truncated scores of 16 monotone bits (``_mono16``'s inverse)."""
+    h = torch.where(m >= 0x8000, m & 0x7FFF, ~m & 0xFFFF)
+    return (h << 16).to(torch.int32).view(torch.float32)
+
+
+def adc_topk_keys_listmajor_reference(
+    lut: torch.Tensor,        # [B, P, M, 256] f32 or bf16 ADC tables
+    probes: torch.Tensor,     # [B, P] int probed list ids
+    codes: torch.Tensor,      # [nlist, M, Lcap] uint8
+    slot_ids: torch.Tensor,   # [nlist, Lcap] int32, prefix-packed, unique ids
+    k: int,
+    fills: Optional[torch.Tensor] = None,  # [nlist] int32 (list_fills)
+    q_chunk: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The key mode computed the way the fused kernel's passes walk it, bit
+    for bit ``adc_topk_keys_reference``: the pairs grouped by list into
+    items of at most ``q_chunk`` (``ivf_scan.group_pairs_reference``), each
+    item's list read once for its pairs, each pair's top-k keys
+    (mono16(truncated score) << 16 | lane) kept as its partial list, then
+    each query's P partials merged with p put back in the coordinate. The
+    CPU witness of the item bookkeeping the kernel relies on."""
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    B, P = probes.shape
+    L = codes.shape[2]
+    if fills is None:
+        fills = list_fills(slot_ids)
+    lut = lut.to(torch.bfloat16).to(torch.float32)
+    order, items = ivf_scan.group_pairs_reference(probes, fills, q_chunk)
+    part = torch.zeros((B * P, k), dtype=torch.int64, device=codes.device)  # 0: empty
+    for lst, first, cnt in items.tolist():
+        pairs = order[first:first + cnt].long()
+        b, p = pairs // P, pairs % P
+        fill = int(fills[lst])
+        c = codes[lst, :, :fill].long()                                # [M, fill]
+        acc = torch.zeros((cnt, fill), dtype=torch.float32, device=codes.device)
+        for m in range(c.shape[0]):
+            acc += lut[b, p, m][:, c[m]]
+        trunc = (((-acc) + 0.0).view(torch.int32) & -65536).view(torch.float32)
+        key = (_mono16(trunc) << 16) | torch.arange(fill, device=codes.device)
+        top = torch.topk(key, min(k, fill), dim=1).values
+        part[pairs, :top.shape[1]] = top
+    # the merge: each key widened to mono16 << 32 | (p * Lcap + lane)
+    part = part.reshape(B, P, k)
+    p_of = torch.arange(P, device=codes.device)[None, :, None]
+    wide = torch.where(part > 0, ((part >> 16) << 32) | (p_of * L + (part & 0xFFFF)), -1)
+    top = torch.topk(wide.reshape(B, -1), min(k, P * k), dim=1).values
+    hit = top >= 0
+    cd = top & 0xFFFFFFFF
+    li = torch.gather(probes.long(), 1, torch.where(hit, cd // L, 0))
+    ids = torch.where(hit, slot_ids[li, torch.where(hit, cd % L, 0)], -1).to(torch.int32)
+    vals = torch.where(hit, _mono16_score(top >> 32), ops.NEG_INF)
+    return vals, ids
+
+
+def adc_fused_keys_reference(
+    q_rot: torch.Tensor,       # [B, Dp] f32 rotated queries
+    probes: torch.Tensor,      # [B, P] int probed list ids
+    centroids: torch.Tensor,   # [nlist, Dp] f32
+    codebooks: torch.Tensor,   # [M, 256, dsub] f32
+    codes: torch.Tensor,       # [nlist, M, Lcap] uint8
+    slot_ids: torch.Tensor,    # [nlist, Lcap] int32, prefix-packed, unique ids
+    k: int,
+    fills: Optional[torch.Tensor] = None,  # [nlist] int32 (list_fills)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the fused key scan: the key mode's plain scan
+    on the plain tables, ``adc_topk_keys_reference(adc_tables_reference(...))``."""
+    if fills is None:
+        fills = list_fills(slot_ids)
+    lut = adc_tables_reference(q_rot, probes, centroids, codebooks, fills)
+    return adc_topk_keys_reference(lut, probes, codes, slot_ids, k, fills=fills)
+
+
+def bind_fused(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the fused scan's C entries on a build of ``csrc/adc_topk.cu``
+    (the port's, or a measurement build of the same source)."""
+    # 11 pointers, B, P, Dp, M, dsub, nlist, Lcap, kk, nq, U, stream
+    lib.nvdb_adc_fused_keys.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + \
+        [ctypes.c_void_p]
+    lib.nvdb_adc_fused_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.nvdb_adc_fused_keys, lib.nvdb_adc_fused_plan):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _fused_lib():
+    """The fused scan's C entries (the library of ``_lib``), built at first call."""
+    from nvdb_tpu_torch.kernels import _build
+
+    return bind_fused(_build.load("adc_topk"))
+
+
+@functools.cache
+def fused_plan(m: int, dsub: int, nq_max: int, device_index: int) -> int:
+    """Queries a chunk of the fused scan: the widest of 32, 16, 8, 4 and 1
+    at most ``nq_max`` whose residuals and tables fit a CTA's shared memory.
+    Raises, naming the shape, where not even one query's do."""
+    nq = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = _fused_lib().nvdb_adc_fused_plan(m, dsub, nq_max, ctypes.byref(nq))
+    if rc != 0:
+        raise ValueError(f"adc_fused_keys: one query's residual and tables at M={m}, "
+                         f"dsub={dsub} exceed a CTA's shared memory (cudaError_t {rc})")
+    return nq.value
+
+
+def adc_fused_keys_cuda(
+    q_rot: torch.Tensor,       # [B, Dp] f32 rotated queries
+    probes: torch.Tensor,      # [B, P] int32 probed list ids
+    centroids: torch.Tensor,   # [nlist, Dp] f32
+    codebooks: torch.Tensor,   # [M, 256, dsub] f32, M * dsub == Dp
+    codes: torch.Tensor,       # [nlist, M, Lcap] uint8
+    slot_ids: torch.Tensor,    # [nlist, Lcap] int32, prefix-packed, unique ids
+    k: int,
+    fills: Optional[torch.Tensor] = None,  # [nlist] int32 (list_fills), cached by callers
+    nq_max: Optional[int] = None,          # the plan's widest chunk (None: by the batch)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused key scan: bit for bit ``adc_topk_keys_cuda(adc_tables_cuda(
+    q_rot, probes, centroids, codebooks, fills), probes, codes, slot_ids,
+    k, fills=fills)``, with each pair's tables built in shared memory and no
+    [B, P, M, 256] tensor; the contract of ``adc_fused_keys_reference`` up
+    to the table kernel's rare one-step entry. The caller guarantees a
+    prefix-packed index with unique ids. Returns (vals [B, k] f32, ids [B,
+    k] int32). No host sync: the launches can be captured in a CUDA graph."""
+    global FUSED_LAUNCHES
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    require_cuda(codes, "adc_fused_keys")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    if (q_rot.dim() != 2 or probes.dim() != 2 or centroids.dim() != 2 or codebooks.dim() != 3
+            or codes.dim() != 3):
+        raise ValueError("q_rot [B, Dp], probes [B, P], centroids [nlist, Dp], codebooks "
+                         "[M, 256, dsub], codes [nlist, M, Lcap]")
+    dev = codes.device
+    nlist, M, L = codes.shape
+    B, Dp = q_rot.shape
+    P = probes.shape[1]
+    dsub = codebooks.shape[2]
+    if tuple(codebooks.shape[:2]) != (M, pq.KSUB) or M * dsub != Dp:
+        raise ValueError(f"codebooks {tuple(codebooks.shape)} do not split dim {Dp} into the "
+                         f"codes' {M} subspaces of {pq.KSUB} codewords")
+    key_groups(1, P, L)   # raises on a list wider than a 16-bit lane
+    if P * L >= 1 << 31:
+        raise ValueError(f"P={P} probes of {L} lanes exceed a 31-bit coordinate")
+    probes = probes.to(torch.int32).contiguous()
+    if fills is None:
+        fills = list_fills(slot_ids)
+    check_tensor(q_rot, "q_rot", dev, (torch.float32,), (B, Dp))
+    check_tensor(probes, "probes", dev, (torch.int32,), (B, P))
+    check_tensor(centroids, "centroids", dev, (torch.float32,), (nlist, Dp))
+    check_tensor(codebooks, "codebooks", dev, (torch.float32,), (M, pq.KSUB, dsub))
+    check_tensor(codes, "codes", dev, (torch.uint8,), (nlist, M, L))
+    check_tensor(slot_ids, "slot_ids", dev, (torch.int32,), (nlist, L))
+    check_tensor(fills, "fills", dev, (torch.int32,), (nlist,))
+
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0 or P == 0:
+        vals.fill_(ops.NEG_INF)
+        ids.fill_(-1)
+        return vals, ids
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if nq_max is None:
+        nq_max = FUSED_NQ_MAX if B >= FUSED_CHUNK_MIN_BATCH else 1
+    nq = fused_plan(M, dsub, nq_max, index)
+    U = ivf_scan.max_items(B * P, nlist, nq)
+    scratch = torch.empty(ivf_scan.group_scratch_ints(nlist, B * P, U), dtype=torch.int32,
+                          device=dev)
+    # the partial lists [B, P, tiles, k] and each one's threshold [B, P, tiles]
+    part_keys = torch.empty(B * P * cdiv(L, FUSED_TILE) * (k + 1), dtype=torch.int32,
+                            device=dev)
+    with torch.cuda.device(index):
+        stream = torch.cuda.current_stream(index).cuda_stream
+        rc = _fused_lib().nvdb_adc_fused_keys(
+            q_rot.data_ptr(), probes.data_ptr(), centroids.data_ptr(), codebooks.data_ptr(),
+            codes.data_ptr(), slot_ids.data_ptr(), fills.data_ptr(), scratch.data_ptr(),
+            part_keys.data_ptr(), vals.data_ptr(), ids.data_ptr(), B, P, Dp, M, dsub, nlist, L,
+            k, nq, U, stream)
+    if rc != 0:
+        raise RuntimeError(f"adc_fused_keys kernel launch failed: cudaError_t {rc}")
+    FUSED_LAUNCHES += 1
+    return vals, ids

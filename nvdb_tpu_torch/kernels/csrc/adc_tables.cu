@@ -5,7 +5,8 @@
 //   res = q_rot[b] - centroids[probes[b, p]]   (one rounded f32 subtraction),
 //   r2 = |res_m|^2, dot = res_m . cb[m, j], c2 = |cb[m, j]|^2,
 // all in f32 with FMA (never TF32), the three terms combined in the order
-// written, each step rounded. That is nvdb_tpu/kernels/pq.py:89 adc_lut
+// written, each step rounded (adc_table_math.cuh, which the fused key scan
+// of adc_topk.cu shares, so the two give the same bits). That is nvdb_tpu/kernels/pq.py:89 adc_lut
 // followed by the bf16 cast of nvdb_tpu/index/ivf_pq.py:73; the JAX package
 // leaves both to XLA, so this kernel replaces no Pallas kernel. It replaces
 // the port's plain route (pq.adc_lut, then .to(bfloat16)), which wrote a
@@ -39,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "adc_table_math.cuh"
+
 namespace {
 
 constexpr int NT = 256;     // threads per CTA
@@ -53,16 +56,6 @@ __device__ __forceinline__ int live_list(const int* __restrict__ probes,
                                          int nlist) {
   const int li = probes[pair];
   return (li >= 0 && li < nlist && fills[li] > 0) ? li : -1;
-}
-
-__device__ __forceinline__ float entry(float r2, float dot, float c2) {
-  return __fadd_rn(__fsub_rn(r2, __fmul_rn(2.0f, dot)), c2);
-}
-
-// Two f32 values rounded to bf16 (nearest even), the first at the lower address.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 template <int DSUB>
@@ -80,12 +73,9 @@ adc_tables_kernel(const float* __restrict__ q_rot, const int* __restrict__ probe
   float cbr[CW][DSUB], c2[CW];
 #pragma unroll
   for (int e = 0; e < CW; ++e) {
-    c2[e] = 0.f;
 #pragma unroll
-    for (int d = 0; d < DSUB; ++d) {
-      cbr[e][d] = cb[((size_t)m * 256 + j0 + e) * DSUB + d];
-      c2[e] = fmaf(cbr[e][d], cbr[e][d], c2[e]);
-    }
+    for (int d = 0; d < DSUB; ++d) cbr[e][d] = cb[((size_t)m * 256 + j0 + e) * DSUB + d];
+    c2[e] = nvdb::fma_chain<DSUB>(cbr[e], cbr[e]);
   }
 
   for (int base = blockIdx.y * T; base < n_pairs; base += gridDim.y * T) {
@@ -112,22 +102,16 @@ adc_tables_kernel(const float* __restrict__ q_rot, const int* __restrict__ probe
     for (int t = 0; t < nt; ++t) {
       uint4 out = make_uint4(0u, 0u, 0u, 0u);
       if (__shfl_sync(FULL_MASK, li, t) >= 0) {  // the same for the whole warp
-        float r[DSUB], r2 = 0.f;
+        float r[DSUB];
 #pragma unroll
-        for (int d = 0; d < DSUB; ++d) {
-          r[d] = __shfl_sync(FULL_MASK, res[d], t);
-          r2 = fmaf(r[d], r[d], r2);
-        }
+        for (int d = 0; d < DSUB; ++d) r[d] = __shfl_sync(FULL_MASK, res[d], t);
+        const float r2 = nvdb::fma_chain<DSUB>(r, r);
         float v[CW];
 #pragma unroll
-        for (int e = 0; e < CW; ++e) {
-          float dot = 0.f;
-#pragma unroll
-          for (int d = 0; d < DSUB; ++d) dot = fmaf(r[d], cbr[e][d], dot);
-          v[e] = entry(r2, dot, c2[e]);
-        }
-        out = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                         pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+        for (int e = 0; e < CW; ++e)
+          v[e] = nvdb::adc_entry(r2, nvdb::fma_chain<DSUB>(r, cbr[e]), c2[e]);
+        out = make_uint4(nvdb::pack_bf16(v[0], v[1]), nvdb::pack_bf16(v[2], v[3]),
+                         nvdb::pack_bf16(v[4], v[5]), nvdb::pack_bf16(v[6], v[7]));
       }
       *reinterpret_cast<uint4*>(lut + ((size_t)(base + t) * M + m) * 256 + j0) = out;
     }
@@ -156,13 +140,8 @@ adc_tables_any_kernel(const float* __restrict__ q_rot, const int* __restrict__ p
   for (int m = 0; m < M; ++m) {
     const float* r = res_any + m * dsub;
     const float* w = cb + ((size_t)m * 256 + j) * dsub;
-    float r2 = 0.f, dot = 0.f, c2 = 0.f;
-    for (int d = 0; d < dsub; ++d) {
-      r2 = fmaf(r[d], r[d], r2);
-      dot = fmaf(r[d], w[d], dot);
-      c2 = fmaf(w[d], w[d], c2);
-    }
-    out[m * 256 + j] = __float2bfloat16_rn(entry(r2, dot, c2));
+    const float r2 = nvdb::fma_chain_n(r, r, dsub), c2 = nvdb::fma_chain_n(w, w, dsub);
+    out[m * 256 + j] = __float2bfloat16_rn(nvdb::adc_entry(r2, nvdb::fma_chain_n(r, w, dsub), c2));
   }
 }
 

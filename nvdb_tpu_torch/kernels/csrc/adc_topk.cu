@@ -28,6 +28,15 @@
 //     a slab [B * P, M, Lcap] of the probed lists' codes that the caller
 //     gathered: step (b, p) reads slab row b * P + p instead of list
 //     probes[b, p]. Bit for bit the key mode's result.
+//   * fused key scan (nvdb_adc_fused_keys; the key mode of the IVF-PQ
+//     path, replacing the TPU kernel's key mode above and the tables the
+//     JAX package leaves to XLA, nvdb_tpu/kernels/pq.py:89 adc_lut and the
+//     bf16 cast at nvdb_tpu/index/ivf_pq.py:73). It takes the rotated
+//     queries, the probes, centroids and codebooks in place of the tables
+//     and gives bit for bit the key mode's result on adc_tables.cu's
+//     tables: it computes each entry with the same arithmetic
+//     (adc_table_math.cuh), sums the entries in f32 over m in the same
+//     order and keys them the same way. No [B, P, M, 256] table exists.
 // The TPU kernel builds a nibble one-hot and multiplies it on the MXU
 // because a TPU has no fast gather (adc_scan.py:12-18), and its key and
 // gather modes exist to spare the TPU's scalar core one DMA a list and
@@ -85,19 +94,71 @@
 //   Pass 2, one CTA per query, folds the S partial lists with the same
 //   append-and-compact. dma (adc_merge_kernel): it also removes duplicates
 //   found by different CTAs and writes (score, id). key and gather
-//   (adc_merge_keys_kernel): each 32-bit key widens to mono16 << 32 |
-//   (group base + coordinate), so the merge ranks by the same total order;
-//   the winners' coordinates decode to (p, lane), and the CTA reads
-//   slot_ids[probes[b, p], lane] for each of them.
+//   (adc_merge_keys_kernel, 1024 keys loaded at once): each 32-bit key
+//   widens to mono16 << 32 | (group base + coordinate), so the merge ranks
+//   by the same total order; the winners' coordinates decode to (p, lane),
+//   and the CTA reads slot_ids[probes[b, p], lane] for each of them.
 //
-// NVDB_ADC_ABLATE (measurement builds of tools.adc_breakdown, wrong by
-// design): 1 stages every step and scores nothing; 2 also looks up and
-// sums every slot but keeps no candidate.
+// The fused key scan. Two kernels fed a batch of 256 queries at nprobe 64,
+// M 96, dsub 8: the table kernel writes 0.805 GB of bf16 tables and the
+// key scan reads them back, 0.48 ms of device memory at 3.35 TB/s whatever
+// either does, and building a pair's tables inside a query-major scan
+// would pull the 786 KB of codebooks through L2 once a pair (12.9 GB). So
+// the fused scan is list-major, and the tables live in shared memory.
+//   Pass 0 (nvdb::group_pairs_kernel, group_pairs.cuh, shared with
+//   ivf_probe_topk.cu): the pairs are grouped by list into items of at
+//   most nq pairs, the longest lists first; pass 1's grid is sized from
+//   shapes and nothing is read back to the host.
+//   Pass 1 (adc_fused_kernel<DSUB, NQ>): one CTA of 256 threads per (item,
+//   tile of 1024 lanes of its list). It stages each pair's residual (one
+//   rounded subtraction a coordinate) and its squared norm per subspace in
+//   shared memory, a subspace's slices of the pairs side by side, then walks
+//   the subspaces in order. At step m, thread j builds entry j of subspace
+//   m + 2's table of each pair from codeword j (registers, loaded two steps
+//   ahead) into one of four buffers [256][nq] bf16 (a codeword's entries of
+//   the pairs side by side), while subspace m's are looked up: each lane's
+//   code byte (a ring of code rows in shared memory, each copied 14
+//   subspaces ahead by cp.async) is read once, and one 16-byte load fetches
+//   its entries for eight pairs, added in f32 to per-(pair, lane)
+//   accumulators in registers. A buffer is read two steps after it is
+//   written, so one barrier serves two steps. A subspace's 8 KB codebook
+//   slice is read once for the item's nq pairs, and a lane's code once for
+//   them. A thread owns lanes t, t + 256, ..., which spreads a list's ragged
+//   end over all warps. Then each pair keys its live lanes as the key mode
+//   does (mono16 of the truncated score << 16 | lane). A tile with more live
+//   lanes than kk selects each pair's kk best keys by a radix select, eight
+//   bits a pass from the top (a histogram a pair in shared memory, then one
+//   warp a pair walks the bins), never by a sort; the selected keys go to
+//   the pair's partial list [b, p, tile] in any order (the wrapper's memset
+//   leaves the rest 0), and the pair's kk-th key, a lower bound of the
+//   query's kk-th, beside it.
+//   Pass 2 (adc_merge_keys_kernel, with tiles partials a probe) merges each
+//   query's P x T partial lists as the key mode's pass 2 merges its groups,
+//   appending only keys at or above the largest of their lower bounds.
+//   What bounds it on an H100: operations. The tables are ~6.4 GFLOP of f32
+//   FMA at the flagship (dsub products, the norms and the combination for
+//   every entry of every live pair), 0.1 ms at 67 TFLOP/s, against ~30 MB
+//   of distinct codes, queries, centroids and codebooks; beside them come
+//   the ~0.8 G lookups into shared memory, which have no data-sheet rate.
+//   The chunk width nq is the wrapper's plan (the widest that fits shared
+//   memory, at most the chosen maximum; chip_smoke.py phase 9 sweeps it):
+//   wider chunks read the codebooks fewer times but keep more accumulators,
+//   and where few pairs share a list (small batches) one pair a chunk wins.
+//
+// NVDB_ADC_ABLATE (measurement builds of tools.adc_breakdown and
+// chip_smoke.py phase 9, wrong by design): 1 stages every step and scores
+// nothing; 2 also looks up and sums every slot but keeps no candidate; 3:
+// the fused scan stages and builds its tables and looks nothing up; 4: it
+// also looks up and sums, but selects and writes no candidate; 5: it runs
+// passes 0 and 1 and no merge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "adc_table_math.cuh"
+#include "group_pairs.cuh"
 
 #ifndef NVDB_ADC_ABLATE
 #define NVDB_ADC_ABLATE 0
@@ -659,15 +720,29 @@ adc_merge_kernel(const unsigned long long* __restrict__ part_keys,
   }
 }
 
-// Pass 2 of the key modes: group s's keys widen to mono16 << 32 | (s * per
-// * Lcap + coordinate), the whole probe range's (score desc, coordinate
-// desc) order; the kk winners decode to (p, lane) and their row ids are
-// read from slot_ids[probes[b, p], lane].
+constexpr int MERGE_U = 4;   // keys a pass-2 thread of the key modes loads at once
+
+// Pass 2 of the key modes. Query b's S partial lists of kk 32-bit keys
+// (mono16 << 16 | coordinate, 0 empty, in any order) are read as one run,
+// NC * MERGE_U keys at a time; partial s holds the probes from (s / tiles)
+// * per on (the key kernel: tiles 1, a probe group of `per` probes a
+// partial; the fused scan: tiles partials a probe, per 1), so each key
+// widens to mono16 << 32 | ((s / tiles) * per * Lcap + coordinate), the
+// whole probe range's (score desc, coordinate desc) order; the kk winners
+// decode to (p, lane) and their row ids are read from slot_ids[probes[b,
+// p], lane].
+__device__ __forceinline__ unsigned long long widen_key(unsigned key, int s, int per,
+                                                        int tiles, int Lcap) {
+  const unsigned base = (unsigned)((s / tiles) * per * Lcap);
+  return ((unsigned long long)(key >> 16) << 32) | (base + (key & 0xffffu));
+}
+
 __global__ void __launch_bounds__(NC)
-adc_merge_keys_kernel(const unsigned* __restrict__ part_keys, const int* __restrict__ probes,
+adc_merge_keys_kernel(const unsigned* __restrict__ part_keys,
+                      const unsigned* __restrict__ part_thr, const int* __restrict__ probes,
                       const int* __restrict__ slot_ids, float* __restrict__ out_vals,
                       int* __restrict__ out_ids, int P, int Lcap, int kk, int S, int per,
-                      int cap) {
+                      int tiles, int cap) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned long long* buf = reinterpret_cast<unsigned long long*>(smem);
   __shared__ int n_sh;
@@ -678,16 +753,32 @@ adc_merge_keys_kernel(const unsigned* __restrict__ part_keys, const int* __restr
     theta_sh = 0ull;
   }
   __syncthreads();
-  TopK<unsigned long long, false> top{buf, &n_sh, &theta_sh, cap, kk};
-  for (int s = 0; s < S; ++s) {
-    if (n_sh + kk > cap) top.compact();
-    const unsigned* src = part_keys + ((size_t)b * S + s) * kk;
-    const unsigned base = (unsigned)(s * per * Lcap);
-    for (int j = threadIdx.x; j < kk; j += NC) {
-      const unsigned key = src[j];
-      if (key != 0u)
-        top.append(((unsigned long long)(key >> 16) << 32) | (base + (key & 0xffffu)));
+  if (part_thr != nullptr) {
+    // a partial list's kk-th key bounds the query's kk-th from below: keys
+    // under the largest bound never rank
+    unsigned long long lo = 0ull;
+    for (int s = threadIdx.x; s < S; s += NC) {
+      const unsigned t = part_thr[(size_t)b * S + s];
+      if (t != 0u) lo = max(lo, widen_key(t, s, per, tiles, Lcap));
     }
+    if (lo != 0ull) atomicMax(&theta_sh, lo - 1ull);
+    __syncthreads();
+  }
+  TopK<unsigned long long, false> top{buf, &n_sh, &theta_sh, cap, kk};
+  const int total = S * kk;
+  const unsigned* src = part_keys + (size_t)b * total;
+  for (int c0 = 0; c0 < total; c0 += NC * MERGE_U) {
+    unsigned key[MERGE_U];
+#pragma unroll
+    for (int u = 0; u < MERGE_U; ++u) {
+      const int i = c0 + u * NC + (int)threadIdx.x;
+      key[u] = i < total ? src[i] : 0u;
+    }
+    if (n_sh + NC * MERGE_U > cap) top.compact();
+#pragma unroll
+    for (int u = 0; u < MERGE_U; ++u)
+      if (key[u] != 0u)
+        top.append(widen_key(key[u], (c0 + u * NC + (int)threadIdx.x) / kk, per, tiles, Lcap));
     __syncthreads();
   }
   top.compact();
@@ -711,6 +802,22 @@ int pow2_at_least(int x) {
   int c = 1;
   while (c < x) c <<= 1;
   return c;
+}
+
+// Pass 2 of the key modes on `st`; its buffer holds the kk kept keys and a
+// whole load of every thread.
+cudaError_t launch_merge_keys(const void* part_keys, const unsigned* part_thr, const void* probes,
+                              const void* slot_ids, void* out_vals, void* out_ids, int B, int P,
+                              int Lcap, int kk, int S, int per, int tiles, cudaStream_t st) {
+  const size_t smem = (size_t)pow2_at_least(kk + NC * MERGE_U) * 8;
+  cudaError_t e = cudaFuncSetAttribute(adc_merge_keys_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  adc_merge_keys_kernel<<<B, NC, smem, st>>>(
+      static_cast<const unsigned*>(part_keys), part_thr, static_cast<const int*>(probes),
+      static_cast<const int*>(slot_ids), static_cast<float*>(out_vals),
+      static_cast<int*>(out_ids), P, Lcap, kk, S, per, tiles, (int)(smem / 8));
+  return cudaGetLastError();
 }
 
 // The checks and the pass-1 launch shared by the modes. Returns a
@@ -741,6 +848,506 @@ int launch_partial(const void* lut, const void* probes, const void* codes, const
       cap1, stages, tile);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// The fused key scan (nvdb_adc_fused_keys; see the note at the top).
+// ---------------------------------------------------------------------------
+
+constexpr int FT = 256;                  // threads of a fused CTA: thread j builds codeword j
+constexpr int FW = FT / 32;
+constexpr int F_LPT = 4;                 // lanes of a tile a thread owns: t, t + FT, ...
+constexpr int F_TILE = FT * F_LPT;       // lanes a CTA takes: a list's tiles are CTAs
+constexpr int F_RING = 16;               // code rows a CTA holds: a row's copy starts 14
+                                         // subspaces before it is read
+constexpr int F_CTAS = 3;                // CTAs a SM the instances of up to 8 pairs are built
+                                         // for: 80 registers a thread, no spill at dsub 8
+constexpr int F_MAX_DEVICES = 64;        // the per-device cache of launch_fused
+constexpr int F_STATIC_SMEM = 1024;      // room the plan leaves for the static shared memory
+static_assert(FT == 256, "one thread a codeword of a subspace");
+
+// Dynamic shared memory of a fused CTA of nq pairs: the residuals [nq][M *
+// dsub] f32, their squared norms r2 [nq][M] f32, four table buffers
+// [4][256][nq] bf16 (which the selection reuses as histograms [nq][256]
+// int) and a ring of code rows [F_RING][F_TILE] u8.
+__host__ __device__ inline size_t fused_smem_bytes(int nq, int M, int dsub) {
+  return (size_t)nq * ((size_t)M * dsub * 4 + (size_t)M * 4 + 4 * 256 * 2) +
+         (size_t)F_RING * F_TILE;
+}
+
+// One asynchronous 4-byte copy global -> shared (cp.async); of `bytes` (0
+// or 4) read, the rest zero-filled.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// DSUB floats from p (16-byte aligned where DSUB % 4 == 0) into registers.
+template <int DSUB>
+__device__ __forceinline__ void load_slice(float (&x)[DSUB], const float* p) {
+  if constexpr (DSUB % 4 == 0) {
+#pragma unroll
+    for (int d4 = 0; d4 < DSUB / 4; ++d4) {
+      const float4 v = reinterpret_cast<const float4*>(p)[d4];
+      x[4 * d4] = v.x;
+      x[4 * d4 + 1] = v.y;
+      x[4 * d4 + 2] = v.z;
+      x[4 * d4 + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < DSUB; ++d) x[d] = p[d];
+  }
+}
+
+// Subspace m's table entries of the CTA's pairs i0 .. i0 + K - 1 into tab
+// [256][NQ] (a codeword's entries of the pairs side by side): thread j
+// writes them to row j, codeword j being w (registers for a fixed dsub, the
+// codebook itself for DSUB 0) with squared norm c2; the K entries are
+// independent chains, so they overlap. xs: the pairs' residual slices of
+// subspace m, [NQ][dsub] from pair i0 on; r2: their squared norms, [NQ].
+// The arithmetic of adc_tables.cu, from adc_table_math.cuh.
+template <int DSUB, int NQ, int K>
+__device__ __forceinline__ void fused_tables(unsigned short* tab, const float* xs,
+                                             const float* r2, const float* w, float c2, int i0,
+                                             int dsub) {
+  float v[K];
+  float r2v[K];
+  if constexpr (K == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(r2);
+    r2v[0] = t.x;
+    r2v[1] = t.y;
+    r2v[2] = t.z;
+    r2v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < K; ++u) r2v[u] = r2[u];
+  }
+  if constexpr (DSUB > 0) {
+    float x[K][DSUB];
+#pragma unroll
+    for (int u = 0; u < K; ++u) load_slice<DSUB>(x[u], xs + u * DSUB);
+#pragma unroll
+    for (int u = 0; u < K; ++u) v[u] = nvdb::adc_entry(r2v[u], nvdb::fma_chain<DSUB>(x[u], w), c2);
+  } else {
+#pragma unroll
+    for (int u = 0; u < K; ++u)
+      v[u] = nvdb::adc_entry(r2v[u], nvdb::fma_chain_n(xs + u * dsub, w, dsub), c2);
+  }
+  unsigned short* row = tab + threadIdx.x * NQ + i0;
+  if constexpr (K == 4) {
+    *reinterpret_cast<uint2*>(row) =
+        make_uint2(nvdb::pack_bf16(v[0], v[1]), nvdb::pack_bf16(v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int u = 0; u < K; ++u) row[u] = nvdb::bf16_bits(v[u]);
+  }
+}
+
+// Adds the table entries of pairs i0 .. i0 + W - 1 at each live lane's
+// code to the lane's sums: one shared-memory load of W bf16 a lane, for the
+// n_slots lane slots the tile fills.
+template <int NQ, int W>
+__device__ __forceinline__ void fused_lookup(float (&acc)[NQ][F_LPT], const unsigned short* tab,
+                                             const uint32_t (&code)[F_LPT],
+                                             const bool (&live)[F_LPT], int i0, int n_slots) {
+#pragma unroll
+  for (int r = 0; r < F_LPT; ++r) {
+    if (r >= n_slots) break;
+    uint32_t e[(W + 1) / 2];
+    const unsigned short* row = tab + code[r] * NQ + i0;
+    if constexpr (W == 8) {
+      const uint4 x = live[r] ? *reinterpret_cast<const uint4*>(row) : make_uint4(0, 0, 0, 0);
+      e[0] = x.x;
+      e[1] = x.y;
+      e[2] = x.z;
+      e[3] = x.w;
+    } else if constexpr (W == 4) {
+      const uint2 x = live[r] ? *reinterpret_cast<const uint2*>(row) : make_uint2(0, 0);
+      e[0] = x.x;
+      e[1] = x.y;
+    } else if constexpr (W == 2) {
+      e[0] = live[r] ? *reinterpret_cast<const uint32_t*>(row) : 0u;
+    } else {
+      e[0] = live[r] ? (uint32_t)*row : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < W; ++u)
+      acc[i0 + u][r] += __uint_as_float(u & 1 ? e[u / 2] & 0xffff0000u : e[u / 2] << 16);
+  }
+}
+
+// Pass 1 of the fused scan: one CTA per (item, lane tile). DSUB 0: any dsub.
+template <int DSUB, int NQ>
+__global__ void __launch_bounds__(FT, NQ <= 8 ? F_CTAS : NQ <= 16 ? 2 : 1)
+adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cents,
+                 const float* __restrict__ cb, const uint8_t* __restrict__ codes,
+                 const int* __restrict__ fills, const int* __restrict__ order,
+                 const int4* __restrict__ items, const int* __restrict__ n_items,
+                 unsigned* __restrict__ part_keys, unsigned* __restrict__ part_thr, int P,
+                 int Dp, int M, int dsub_any, int Lcap, int kk) {
+  constexpr int DS = DSUB > 0 ? DSUB : 1;   // the register codeword of a fixed dsub
+  const int dsub = DSUB > 0 ? DSUB : dsub_any;
+  if ((int)blockIdx.x >= *n_items) return;   // the grid holds the most items there can be
+  const int4 item = items[blockIdx.x];
+  const int lst = item.x, start = item.y, nq = item.z;
+  const int l0 = blockIdx.y * F_TILE, l1 = min(min(fills[lst], Lcap), l0 + F_TILE);
+  if (l0 >= l1) return;                      // the list ends before this tile
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Md = M * dsub;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* res = reinterpret_cast<float*>(smem);                              // [M][NQ][dsub]
+  float* r2s = res + (size_t)NQ * Md;                                       // [M][NQ]
+  unsigned short* tabs = reinterpret_cast<unsigned short*>(r2s + NQ * M);  // [4][256][NQ]
+  int* hist = reinterpret_cast<int*>(tabs);                                 // [NQ][256]
+  unsigned char* crow = reinterpret_cast<unsigned char*>(tabs + 4 * NQ * 256);
+  // code rows: thread t copies lanes l0 + 4 t .. l0 + 4 t + 3 of each (a
+  // whole tile between the threads), one copy group a row; a row's copy
+  // starts F_RING - 2 subspaces before it is read
+  const bool copies = l0 + 4 * tid < Lcap;
+  const uint8_t* csrc = codes + (size_t)lst * M * Lcap + l0 + 4 * tid;
+  const uint32_t cdst = smem_u32(crow) + 4 * tid;
+  auto copy_row = [&](int m) {
+    if (m < M)
+      cp_async4(cdst + (m % F_RING) * F_TILE, copies ? csrc + (size_t)m * Lcap : codes,
+                copies ? 4 : 0);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int m = 0; m < F_RING - 2; ++m) copy_row(m);
+  __shared__ int pair_of[NQ];
+  __shared__ unsigned sel_prefix[NQ];   // the kk-th key's bits found so far
+  __shared__ int sel_need[NQ];          // keys still to take under that prefix
+  __shared__ int sel_done[NQ];          // the prefix is the threshold
+  __shared__ int sel_count[NQ];         // keys written
+
+  if (tid < NQ) {
+    pair_of[tid] = tid < nq ? order[start + tid] : 0;
+    sel_prefix[tid] = 0u;
+    sel_need[tid] = kk;
+    sel_done[tid] = tid < nq ? 0 : 1;
+    sel_count[tid] = 0;
+  }
+  __syncthreads();
+  // each pair's residual, one rounded subtraction a coordinate, then its
+  // squared norm per subspace; a subspace's slices of the pairs side by side
+  const float* cl = cents + (size_t)lst * Dp;
+  for (int i = 0; i < nq; ++i) {
+    const float* qb = q_rot + (size_t)(pair_of[i] / P) * Dp;
+    for (int c = tid; c < Md; c += FT)
+      res[((size_t)(c / dsub) * NQ + i) * dsub + c % dsub] = __fsub_rn(qb[c], cl[c]);
+  }
+  __syncthreads();
+  for (int x = tid; x < nq * M; x += FT) {
+    const int m = x / nq, i = x - m * nq;
+    const float* r = res + ((size_t)m * NQ + i) * dsub;
+    if constexpr (DSUB > 0) {
+      float v[DSUB];
+      load_slice<DSUB>(v, r);
+      r2s[m * NQ + i] = nvdb::fma_chain<DSUB>(v, v);
+    } else {
+      r2s[m * NQ + i] = nvdb::fma_chain_n(r, r, dsub);
+    }
+  }
+
+  // this thread's lanes of the tile; the lane slots any thread fills
+  const int n_slots = (l1 - l0 + FT - 1) / FT;
+  int lane_of[F_LPT];
+  bool live[F_LPT];
+#pragma unroll
+  for (int r = 0; r < F_LPT; ++r) {
+    lane_of[r] = l0 + tid + FT * r;
+    live[r] = lane_of[r] < l1;
+  }
+  float acc[NQ][F_LPT];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+#pragma unroll
+    for (int r = 0; r < F_LPT; ++r) acc[i][r] = 0.f;
+
+  // codeword j of subspace m: registers (fixed dsub; two sets, for even and
+  // odd subspaces, each loaded two subspaces before its build) or the
+  // codebook row
+  float w_even[DS], w_odd[DS];
+  auto load_codeword = [&](int m, float (&w)[DS]) {
+    if constexpr (DSUB > 0) {
+      const float* src = cb + ((size_t)m * 256 + tid) * DSUB;
+      if constexpr (DSUB % 4 == 0) {
+#pragma unroll
+        for (int d4 = 0; d4 < DSUB / 4; ++d4) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(src) + d4);
+          w[4 * d4] = v.x;
+          w[4 * d4 + 1] = v.y;
+          w[4 * d4 + 2] = v.z;
+          w[4 * d4 + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int d = 0; d < DSUB; ++d) w[d] = __ldg(src + d);
+      }
+    }
+  };
+  auto build = [&](int m, const float (&w)[DS]) {
+    unsigned short* tab = tabs + (m & 3) * NQ * 256;
+    const float* wp = w;
+    float c2;
+    if constexpr (DSUB > 0) {
+      c2 = nvdb::fma_chain<DSUB>(w, w);
+    } else {
+      wp = cb + ((size_t)m * 256 + tid) * dsub;
+      c2 = nvdb::fma_chain_n(wp, wp, dsub);
+    }
+    const float* xs = res + (size_t)m * NQ * dsub;
+    const float* r2 = r2s + m * NQ;
+    int i = 0;
+    if constexpr (NQ >= 4) {
+      for (; i + 4 <= nq; i += 4)
+        fused_tables<DSUB, NQ, 4>(tab, xs + i * dsub, r2 + i, wp, c2, i, dsub);
+    }
+    for (; i < nq; ++i) fused_tables<DSUB, NQ, 1>(tab, xs + i * dsub, r2 + i, wp, c2, i, dsub);
+  };
+  // step m: builds m + 2's tables while m's are looked up, each lane's code
+  // read once for the nq pairs; a barrier every second step suffices (a
+  // table buffer is read two steps after it is written and written two
+  // steps after it is read; a code row's slot is refilled two steps after
+  // it is read, and each thread's copies of the rows of the next two steps
+  // have landed before the barrier)
+  auto step = [&](int m, float (&w)[DS]) {
+    copy_row(m + F_RING - 2);
+    if (m + 2 < M) {
+      build(m + 2, w);
+      if (m + 4 < M) load_codeword(m + 4, w);
+    }
+#if NVDB_ADC_ABLATE != 3
+    uint32_t cur[F_LPT] = {};
+    const unsigned char* row = crow + (m % F_RING) * F_TILE + tid;
+#pragma unroll
+    for (int r = 0; r < F_LPT; ++r) {
+      if (r >= n_slots) break;
+      cur[r] = live[r] ? row[FT * r] : 0u;
+    }
+    // eight pairs' entries of a lane's code in one load (fewer for the last)
+    const unsigned short* ta = tabs + (m & 3) * NQ * 256;
+    constexpr int CW = NQ < 8 ? NQ : 8;
+#pragma unroll
+    for (int i0 = 0; i0 < NQ; i0 += CW) {
+      const int rem = nq - i0;
+      if (rem <= 0) break;
+      if constexpr (CW == 8) {
+        if (rem > 4) {
+          fused_lookup<NQ, 8>(acc, ta, cur, live, i0, n_slots);
+          continue;
+        }
+      }
+      if constexpr (CW >= 4) {
+        if (rem > 2) {
+          fused_lookup<NQ, 4>(acc, ta, cur, live, i0, n_slots);
+          continue;
+        }
+      }
+      if constexpr (CW >= 2) {
+        if (rem > 1) {
+          fused_lookup<NQ, 2>(acc, ta, cur, live, i0, n_slots);
+          continue;
+        }
+      }
+      fused_lookup<NQ, 1>(acc, ta, cur, live, i0, n_slots);
+    }
+#endif
+    if (m & 1) {
+      cp_async_wait<F_RING - 4>();
+      __syncthreads();
+    }
+  };
+  load_codeword(0, w_even);
+  if (M > 1) load_codeword(1, w_odd);
+  __syncthreads();   // the residuals' norms are written
+  build(0, w_even);
+  if (M > 1) build(1, w_odd);
+  if (M > 2) load_codeword(2, w_even);
+  if (M > 3) load_codeword(3, w_odd);
+  cp_async_wait<F_RING - 4>();   // this thread's copies of rows 0 and 1 have landed
+  __syncthreads();
+  // subspace by subspace, in order, through four table buffers
+  for (int m = 0; m < M; m += 2) {
+    step(m, w_even);
+    if (m + 1 < M) step(m + 1, w_odd);
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every lookup is done: the buffers become histograms
+
+  // the keys of the key mode: mono16(truncated score) << 16 | lane
+  unsigned key[NQ][F_LPT];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+#pragma unroll
+    for (int r = 0; r < F_LPT; ++r)
+      key[i][r] = (i < nq && live[r]) ? make_key16(-acc[i][r], lane_of[r]) : 0u;
+#if NVDB_ADC_ABLATE == 3 || NVDB_ADC_ABLATE == 4
+  // measurement builds: keep the sums alive, select nothing
+  float sink = 0.f;
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+#pragma unroll
+    for (int r = 0; r < F_LPT; ++r) sink += acc[i][r];
+  if (sink == -1234.5f) part_keys[0] = 1u;
+  return;
+#endif
+  const int T = gridDim.y;
+  const int n_live = l1 - l0;
+  if (n_live <= kk) {
+    // every live lane is a candidate (part_thr stays 0: no bound)
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      if (i >= nq) break;
+      unsigned* out = part_keys + ((size_t)pair_of[i] * T + blockIdx.y) * kk;
+#pragma unroll
+      for (int r = 0; r < F_LPT; ++r)
+        if (live[r]) out[lane_of[r] - l0] = key[i][r];
+    }
+    return;
+  }
+
+  // Radix select of each pair's kk-th key, eight bits a pass from the top:
+  // histogram the keys that share the prefix found so far, then one warp a
+  // pair walks the bins from the top.
+  // Keys are unique, so exactly kk keys are at or above the result.
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int x = tid; x < NQ * 256; x += FT) hist[x] = 0;
+    __syncthreads();
+    const unsigned hi = shift == 24 ? 0u : 0xffffffffu << (shift + 8);
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      if (i >= nq) break;
+      if (sel_done[i]) continue;
+      const unsigned pre = sel_prefix[i] & hi;
+#pragma unroll
+      for (int r = 0; r < F_LPT; ++r) {
+        const unsigned k = key[i][r];
+        const bool ok = k != 0u && (k & hi) == pre;
+        const unsigned bin = (k >> shift) & 255u;
+        const unsigned okm = __ballot_sync(FULL_MASK, ok);
+        if (okm == 0u) continue;
+        // the lanes in the first one's bin (most, as keys cluster) add at once
+        const int ldr = __ffs(okm) - 1;
+        const unsigned lb = __shfl_sync(FULL_MASK, bin, ldr);
+        const unsigned same = __ballot_sync(FULL_MASK, ok && bin == lb);
+        if (lane == ldr) atomicAdd(&hist[i * 256 + lb], __popc(same));
+        if (ok && bin != lb) atomicAdd(&hist[i * 256 + bin], 1);
+      }
+    }
+    __syncthreads();
+    for (int i = warp; i < nq; i += FW) {
+      if (sel_done[i]) continue;
+      // lane L holds bins 255 - 8 L .. 248 - 8 L, the top first
+      const int* h = hist + i * 256;
+      int c[8], sum = 0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        c[e] = h[255 - 8 * lane - e];
+        sum += c[e];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(FULL_MASK, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const int need = sel_need[i];
+      const unsigned who = __ballot_sync(FULL_MASK, incl - sum < need && need <= incl);
+      if (lane == __ffs(who) - 1) {
+        int run = incl - sum, bin = -1, cnt = 0;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (bin < 0 && run + c[e] >= need) {
+            bin = 255 - 8 * lane - e;
+            cnt = c[e];
+          }
+          if (bin < 0) run += c[e];
+        }
+        sel_prefix[i] |= (unsigned)bin << shift;
+        sel_need[i] = need - run;
+        sel_done[i] = (need - run == cnt || shift == 0) ? 1 : 0;
+      }
+    }
+    __syncthreads();
+  }
+  // each pair's keys at or above its threshold, in any order, and the
+  // threshold: the pair's kk-th key, a lower bound of the query's kk-th
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    if (i >= nq) break;
+    const unsigned thr = sel_prefix[i];
+    unsigned* out = part_keys + ((size_t)pair_of[i] * T + blockIdx.y) * kk;
+    if (tid == 0) part_thr[(size_t)pair_of[i] * T + blockIdx.y] = thr;
+#pragma unroll
+    for (int r = 0; r < F_LPT; ++r) {
+      const unsigned k = key[i][r];
+      const bool take = k != 0u && k >= thr;
+      const unsigned bal = __ballot_sync(FULL_MASK, take);
+      if (bal == 0u) continue;
+      const int src = __ffs(bal) - 1;
+      int base = lane == src ? atomicAdd(&sel_count[i], __popc(bal)) : 0;
+      base = __shfl_sync(FULL_MASK, base, src);
+      if (take) out[base + __popc(bal & ((1u << lane) - 1u))] = k;
+    }
+  }
+}
+
+template <int DSUB, int NQ>
+cudaError_t launch_fused(const float* q, const float* ce, const float* cb, const uint8_t* codes,
+                         const int* fills, const int* order, const int4* items,
+                         const int* n_items, unsigned* part, unsigned* thr, int P, int Dp,
+                         int M, int dsub, int Lcap, int kk, int U, int T, int dev,
+                         cudaStream_t st) {
+  // the instance's shared-memory allowance, raised on a device only when a
+  // call needs more than it was last given there (host time per call)
+  static size_t allowed[F_MAX_DEVICES] = {};
+  const size_t smem = fused_smem_bytes(NQ, M, dsub);
+  if (dev >= F_MAX_DEVICES || smem > allowed[dev]) {
+    cudaError_t e = cudaFuncSetAttribute(adc_fused_kernel<DSUB, NQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    if (dev < F_MAX_DEVICES) allowed[dev] = smem;
+  }
+  adc_fused_kernel<DSUB, NQ><<<dim3(U, T), FT, smem, st>>>(q, ce, cb, codes, fills, order, items,
+                                                           n_items, part, thr, P, Dp, M, dsub,
+                                                           Lcap, kk);
+  return cudaGetLastError();
+}
+
+template <int DSUB>
+cudaError_t launch_fused_nq(int nq, const float* q, const float* ce, const float* cb,
+                            const uint8_t* codes, const int* fills, const int* order,
+                            const int4* items, const int* n_items, unsigned* part, unsigned* thr,
+                            int P, int Dp, int M, int dsub, int Lcap, int kk, int U, int T,
+                            int dev, cudaStream_t st) {
+#define NVDB_FUSED_ARGS q, ce, cb, codes, fills, order, items, n_items, part, thr, P, Dp, M, \
+                        dsub, Lcap, kk, U, T, dev, st
+  switch (nq) {
+    case 1: return launch_fused<DSUB, 1>(NVDB_FUSED_ARGS);
+    case 4: return launch_fused<DSUB, 4>(NVDB_FUSED_ARGS);
+    case 8: return launch_fused<DSUB, 8>(NVDB_FUSED_ARGS);
+    case 16: return launch_fused<DSUB, 16>(NVDB_FUSED_ARGS);
+    case 32: return launch_fused<DSUB, 32>(NVDB_FUSED_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+#undef NVDB_FUSED_ARGS
+}
+
+// The chunk widths the fused scan is built for, the widest first.
+constexpr int F_WIDTHS[5] = {32, 16, 8, 4, 1};
 
 }  // namespace
 
@@ -791,13 +1398,92 @@ extern "C" int nvdb_adc_topk_keys(const void* lut, const void* probes, const voi
               : launch_partial<KEY>(lut, probes, codes, slot_ids, fills, part_keys, B, P, M,
                                     Lcap, nlist, kk, S, stages, tile, st, &cap2);
   if (e != 0) return e;
-  const size_t smem2 = (size_t)cap2 * 8;
-  cudaError_t ce = cudaFuncSetAttribute(adc_merge_keys_kernel,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-  if (ce != cudaSuccess) return (int)ce;
-  adc_merge_keys_kernel<<<B, NC, smem2, st>>>(
-      static_cast<const unsigned*>(part_keys), static_cast<const int*>(probes),
-      static_cast<const int*>(slot_ids), static_cast<float*>(out_vals),
-      static_cast<int*>(out_ids), P, Lcap, kk, S, (P + S - 1) / S, cap2);
-  return (int)cudaGetLastError();
+  return (int)launch_merge_keys(part_keys, nullptr, probes, slot_ids, out_vals, out_ids, B, P,
+                                Lcap, kk, S, (P + S - 1) / S, 1, st);
+}
+
+// The fused key scan's chunk width: the widest of 32, 16, 8, 4, 1 queries
+// at most nq_max whose CTA fits the device's shared memory at M subspaces
+// of dsub. Returns a cudaError_t; cudaErrorInvalidConfiguration where not
+// even one query fits.
+extern "C" int nvdb_adc_fused_plan(int M, int dsub, int nq_max, int* nq) {
+  if (M < 1 || dsub < 1 || nq_max < 1) return (int)cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  for (int w : F_WIDTHS) {
+    if (w > nq_max) continue;
+    if (fused_smem_bytes(w, M, dsub) + F_STATIC_SMEM <= (size_t)optin) {
+      *nq = w;
+      return 0;
+    }
+  }
+  return (int)cudaErrorInvalidConfiguration;
+}
+
+// The fused key scan: the key mode's result (nvdb_adc_topk_keys on the
+// tables of nvdb_adc_tables) with no table in device memory. q_rot [B, Dp]
+// f32, probes [B, P] int32, centroids [nlist, Dp] f32, codebooks [M, 256,
+// dsub] f32 (M * dsub <= Dp), codes [nlist, M, Lcap] uint8, slot_ids [nlist,
+// Lcap] int32 (prefix-packed, unique ids; Lcap a multiple of 4), fills
+// [nlist] int32; iscratch the int32 scratch of pass 0 (nvdb::items_offset(nlist, B * P) + 4 U
+// ints); part_keys the uint32 scratch of B * P * T * (kk + 1) with T =
+// ceil(Lcap / 1024): the partial lists [B, P, T, kk], then each one's
+// threshold [B, P, T]; outputs [B, kk]. nq: queries a chunk
+// (nvdb_adc_fused_plan), U: pass 1's grid in items (at least the most items
+// B * P pairs can make). Returns a cudaError_t (0 on success); the launches
+// are asynchronous on `stream`, and nothing is read back.
+extern "C" int nvdb_adc_fused_keys(const void* q_rot, const void* probes, const void* centroids,
+                                   const void* codebooks, const void* codes,
+                                   const void* slot_ids, const void* fills, void* iscratch,
+                                   void* part_keys, void* out_vals, void* out_ids, int B, int P,
+                                   int Dp, int M, int dsub, int nlist, int Lcap, int kk, int nq,
+                                   int U, void* stream) {
+  if (B < 1 || P < 1 || M < 1 || dsub < 1 || (long long)M * dsub > Dp || nlist < 1 ||
+      Lcap < 4 || Lcap % 4 != 0 || Lcap > COORD_SPAN || (long long)P * Lcap >= (1ll << 31) ||
+      kk < 1 || kk > MAX_KK || U < 1 || (long long)B * P > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int T = (Lcap + F_TILE - 1) / F_TILE;
+  const long long S = (long long)P * T;
+  if (S * (kk + 1) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  // every partial list starts empty and unbounded: the pairs no CTA scans
+  // (a dead or out-of-range probe, a tile past the list's end) keep none
+  e = cudaMemsetAsync(part_keys, 0, (size_t)B * S * (kk + 1) * sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  const int BP = B * P;
+  int* is = static_cast<int*>(iscratch);
+  int* counts = is;
+  int* order = is + nlist;
+  int* n_items = order + BP;
+  int4* items = reinterpret_cast<int4*>(is + nvdb::items_offset(nlist, BP));
+  const int* pr = static_cast<const int*>(probes);
+  const int* fi = static_cast<const int*>(fills);
+  e = nvdb::launch_group(pr, fi, counts, order, items, n_items, nullptr, nullptr, BP, nlist,
+                         Lcap, nq, 1, 1, st);
+  if (e != cudaSuccess) return (int)e;
+  const float* q = static_cast<const float*>(q_rot);
+  const float* ce = static_cast<const float*>(centroids);
+  const float* cb = static_cast<const float*>(codebooks);
+  const uint8_t* cd = static_cast<const uint8_t*>(codes);
+  unsigned* part = static_cast<unsigned*>(part_keys);
+  unsigned* thr = part + (size_t)B * S * kk;
+#define NVDB_FUSED_ARGS nq, q, ce, cb, cd, fi, order, items, n_items, part, thr, P, Dp, M, dsub, \
+                        Lcap, kk, U, T, dev, st
+  switch (dsub) {
+    case 4: e = launch_fused_nq<4>(NVDB_FUSED_ARGS); break;
+    case 8: e = launch_fused_nq<8>(NVDB_FUSED_ARGS); break;
+    case 12: e = launch_fused_nq<12>(NVDB_FUSED_ARGS); break;
+    case 16: e = launch_fused_nq<16>(NVDB_FUSED_ARGS); break;
+    default: e = launch_fused_nq<0>(NVDB_FUSED_ARGS); break;
+  }
+#undef NVDB_FUSED_ARGS
+  if (e != cudaSuccess || NVDB_ADC_ABLATE == 5) return (int)e;
+  return (int)launch_merge_keys(part_keys, thr, probes, slot_ids, out_vals, out_ids, B, P, Lcap,
+                                kk, (int)S, 1, T, st);
 }

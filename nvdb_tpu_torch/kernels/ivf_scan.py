@@ -244,8 +244,9 @@ def max_items(pairs: int, nlist: int, nq: int) -> int:
     return max(1, min(pairs, pairs // nq + min(nlist, pairs)))
 
 
-def _scratch_ints(nlist: int, pairs: int, items: int) -> int:
-    """Length of the int32 scratch: counts, order, n_items, then items of 4
+def group_scratch_ints(nlist: int, pairs: int, items: int) -> int:
+    """Length of the int32 scratch of pass 0 (``group_pairs.cuh``, shared
+    with the fused ADC key scan): counts, order, n_items, then items of 4
     ints from a 16-byte boundary (``items_offset`` in the source)."""
     return round_up(nlist + pairs + 1, 4) + 4 * items
 
@@ -263,7 +264,7 @@ def group_pairs_cuda(probes: torch.Tensor, fills: torch.Tensor, q_chunk: int,
     probes = probes.to(torch.int32).contiguous()
     check_tensor(fills, "fills", dev, (torch.int32,), (nlist,))
     cap = max_items(B * P, nlist, q_chunk)
-    scratch = torch.empty(_scratch_ints(nlist, B * P, cap), dtype=torch.int32, device=dev)
+    scratch = torch.empty(group_scratch_ints(nlist, B * P, cap), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().nvdb_ivf_group_pairs(probes.data_ptr(), fills.data_ptr(), scratch.data_ptr(),
                                          B, P, nlist, lcap if lcap is not None else 1 << 30,
@@ -344,7 +345,7 @@ def ivf_probe_topk_cuda(
             R = list_ranges(B, P, L, _sm_count(index))
             U = max_items(B * P, nlist, nq)
             # one int32 allocation: pass 0's scratch, then the partial lists' ids
-            head = _scratch_ints(nlist, B * P, U)
+            head = group_scratch_ints(nlist, B * P, U)
             scratch = torch.empty(head + B * P * R * k, dtype=torch.int32, device=dev)
             part_vals = torch.empty((B, P * R, k), dtype=torch.float32, device=dev)
             rc = lib.nvdb_ivf_probe_topk_list(

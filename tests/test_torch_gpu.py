@@ -506,11 +506,13 @@ def test_tables_kernel_rejects_bad_input(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("replicas", [1, 2])
-def test_ivfpq_kernel_path_makes_no_f32_table(cuda_device, replicas):
-    """``IVFPQIndex.search_device`` on a CUDA index: one table launch and one
-    scan launch, and no tensor the size of the tables but the bf16 one the
-    table kernel fills; its candidates are the plain path's."""
+@pytest.mark.parametrize("replicas,mode", [(1, "key"), (1, "dma"), (2, "dma")])
+def test_ivfpq_kernel_path_makes_no_f32_table(cuda_device, replicas, mode):
+    """``IVFPQIndex.search_device`` on a CUDA index. The key mode: one
+    launch of the fused key scan, no table kernel and no tensor the size of
+    the tables. The dma mode: one table launch and one scan launch, and no
+    tensor the size of the tables but the bf16 one the table kernel fills.
+    The candidates are the plain path's."""
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
     from nvdb_tpu_torch.kernels import adc_scan
 
@@ -521,14 +523,21 @@ def test_ivfpq_kernel_path_makes_no_f32_table(cuda_device, replicas):
     q_rot, _, cents, cb, _ = _table_case(b, p, nlist, m, 8, seed=12, device=cuda_device)
     idx = IVFPQIndex(rotation=None, centroids=cents, codebooks=cb, codes=codes,
                      slot_ids=slot_ids, n=nlist * lcap, d=m * 8, m=m, replicas=replicas)
-    t0, s0 = adc_scan.TABLE_LAUNCHES, adc_scan.LAUNCHES
-    (kv, ki), ops_seen = _dispatched_ops(lambda: idx.search_device(q_rot, k, p))
+    before = (adc_scan.TABLE_LAUNCHES, adc_scan.LAUNCHES, adc_scan.KEY_LAUNCHES,
+              adc_scan.FUSED_LAUNCHES)
+    (kv, ki), ops_seen = _dispatched_ops(lambda: idx.search_device(q_rot, k, p, ids_mode=mode))
     torch.cuda.synchronize()
-    assert (adc_scan.TABLE_LAUNCHES, adc_scan.LAUNCHES) == (t0 + 1, s0 + 1)
+    after = (adc_scan.TABLE_LAUNCHES, adc_scan.LAUNCHES, adc_scan.KEY_LAUNCHES,
+             adc_scan.FUSED_LAUNCHES)
     big = [(name, shape, dt) for name, outs in ops_seen for shape, dt in outs
            if int(np.prod(shape)) >= b * p * m * 256]
-    assert len(big) == 1 and "empty" in big[0][0] and big[0][2] == torch.bfloat16
-    pv, pi = idx.search_device(q_rot, k, p, backend="torch")
+    if mode == "key":
+        assert tuple(a - c for a, c in zip(after, before)) == (0, 0, 0, 1)
+        assert big == []
+    else:
+        assert tuple(a - c for a, c in zip(after, before)) == (1, 1, 0, 0)
+        assert len(big) == 1 and "empty" in big[0][0] and big[0][2] == torch.bfloat16
+    pv, pi = idx.search_device(q_rot, k, p, backend="torch", ids_mode=mode)
     kv, ki, pv, pi = (x.cpu().numpy() for x in (kv, ki, pv, pi))
     # the kernel's tables differ from the plain ones in a rare entry by one
     # bf16 step, 2^-8 of that entry
@@ -609,6 +618,128 @@ def test_adc_key_kernels_scarce_dead_and_bad_input(cuda_device):
         adc_scan.adc_topk_keys_cuda(lut.cpu(), probes.cpu(), codes.cpu(), slot_ids.cpu(), 10)
 
 
+# -- the fused ADC key scan ---------------------------------------------------------
+
+def _fused_case(b, p, nlist, m, dsub, lcap, seed, device, hot=False, bad=False,
+                scarce=False):
+    """A prefix-packed index (list 3 dead) with the geometry the tables are
+    built from; ``hot``: every query probes list 5; ``bad``: an
+    out-of-range probe at each end; ``scarce``: at most 12 rows a list."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, (nlist, m, lcap)).astype(np.uint8)
+    slot_ids = np.full((nlist, lcap), -1, np.int32)
+    perm = rng.permutation(nlist * lcap).astype(np.int32)
+    for li in range(nlist):
+        f = int(rng.integers(0, 13 if scarce else lcap + 1)) if li % 4 or scarce else lcap
+        slot_ids[li, :f] = perm[li * lcap:li * lcap + f]
+    slot_ids[3] = -1
+    probes = np.stack([rng.choice(nlist, p, replace=False) for _ in range(b)]).astype(np.int32)
+    if hot:
+        for r in range(b):
+            probes[r] = [5] + [x for x in probes[r] if x != 5][:p - 1]
+    if bad:
+        probes[0, 0], probes[-1, -1] = -1, nlist + 2
+    q_rot, _, cents, cb, _ = _table_case(b, p, nlist, m, dsub, seed=seed, device=device)
+    t = lambda x: torch.from_numpy(x).to(device)
+    return q_rot, t(probes), cents, cb, t(codes), t(slot_ids)
+
+
+def _fused_check(q_rot, probes, cents, cb, codes, slot_ids, kk, nq_max=None):
+    """The fused scan bit for bit the key mode's plain scan on the table
+    kernel's tables and the two-kernel key path; one launch on its counter."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    fills = adc_scan.list_fills(slot_ids)
+    lut = adc_scan.adc_tables_cuda(q_rot, probes, cents, cb, fills)
+    pv, pi = adc_scan.adc_topk_keys_reference(lut, probes, codes, slot_ids, kk, fills=fills)
+    kv, ki = adc_scan.adc_topk_keys_cuda(lut, probes, codes, slot_ids, kk, fills=fills)
+    before = adc_scan.FUSED_LAUNCHES
+    fv, fi = adc_scan.adc_fused_keys_cuda(q_rot, probes, cents, cb, codes, slot_ids, kk,
+                                          fills=fills, nq_max=nq_max)
+    torch.cuda.synchronize()
+    assert adc_scan.FUSED_LAUNCHES == before + 1
+    assert torch.equal(fv, pv) and torch.equal(fi, pi)
+    assert torch.equal(fv, kv) and torch.equal(fi, ki)
+    return fv, fi
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,p", [(1, 1), (8, 7), (64, 32)])
+@pytest.mark.parametrize("kk", [10, 100, 1024])
+@pytest.mark.parametrize("nq_max", [1, 8, 32])
+def test_fused_key_scan_matches_the_key_path(cuda_device, b, p, kk, nq_max):
+    _fused_check(*_fused_case(b, p, 64, 16, 8, 640, seed=b + p + kk, device=cuda_device,
+                              hot=True, bad=True), kk, nq_max=nq_max)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,dsub,lcap", [(32, 4, 256), (24, 12, 320), (8, 16, 1024),
+                                         (12, 3, 256), (10, 8, 2048), (340, 8, 128)])
+def test_fused_key_scan_dsub_instances_and_widths(cuda_device, m, dsub, lcap):
+    """Register codewords (dsub 4, 12, 16), the any-dsub instance (3), an M
+    off a multiple of 8 with lists of two tiles (Lcap 2048), and an M as
+    wide as the key kernel takes."""
+    _fused_check(*_fused_case(16, 8, 40, m, dsub, lcap, seed=m * dsub, device=cuda_device,
+                              bad=True), 100)
+
+
+@pytest.mark.gpu
+def test_fused_key_scan_scarce_lists_and_ties(cuda_device):
+    """Fewer live lanes than kk (at most 12 rows a list), and a hot list
+    every query probes, split into items of the plan's chunk."""
+    fv, fi = _fused_check(*_fused_case(64, 16, 40, 16, 8, 256, seed=3, device=cuda_device,
+                                       hot=True, scarce=True), 1024)
+    assert bool((fi[:, -1] == -1).all()) and bool(torch.isneginf(fv[:, -1]).all())
+    _fused_check(*_fused_case(256, 4, 12, 16, 8, 640, seed=4, device=cuda_device, hot=True),
+                 100)
+
+
+@pytest.mark.gpu
+def test_fused_key_scan_in_a_cuda_graph(cuda_device):
+    """No host sync: a captured call replays to the eager call's result."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    args = _fused_case(32, 16, 40, 16, 8, 640, seed=5, device=cuda_device)
+    want = adc_scan.adc_fused_keys_cuda(*args, 100)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        adc_scan.adc_fused_keys_cuda(*args, 100)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = adc_scan.adc_fused_keys_cuda(*args, 100)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_fused_key_scan_rejects_bad_input(cuda_device):
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    q, probes, cents, cb, codes, slot_ids = _fused_case(4, 3, 20, 16, 8, 256, seed=6,
+                                                        device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        adc_scan.adc_fused_keys_cuda(*(x.cpu() for x in (q, probes, cents, cb, codes,
+                                                         slot_ids)), 10)
+    with pytest.raises(ValueError, match="outside"):
+        adc_scan.adc_fused_keys_cuda(q, probes, cents, cb, codes, slot_ids, 1025)
+    with pytest.raises(TypeError):
+        adc_scan.adc_fused_keys_cuda(q.double(), probes, cents, cb, codes, slot_ids, 10)
+    with pytest.raises(ValueError, match="subspaces"):
+        adc_scan.adc_fused_keys_cuda(q, probes, cents, cb[:8].contiguous(), codes, slot_ids,
+                                     10)
+    with pytest.raises(ValueError, match="16-bit"):
+        adc_scan.adc_fused_keys_cuda(
+            q[:1], probes[:1, :1], cents, cb,
+            torch.zeros((20, 16, 65552), dtype=torch.uint8, device=cuda_device),
+            torch.zeros((20, 65552), dtype=torch.int32, device=cuda_device), 10)
+    with pytest.raises(ValueError, match="shared memory"):
+        # one query's residual (M x dsub f32) past a CTA's shared memory
+        adc_scan.fused_plan(4096, 16, 8, cuda_device.index or 0)
+
+
 def _ivfpq_on_card(cuda_device, replicas=1, b=16, p=8, nlist=40, m=16, lcap=256):
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
 
@@ -634,10 +765,10 @@ def test_ivfpq_key_mode_on_a_replicated_index_raises(cuda_device):
 @pytest.mark.parametrize("metric", ["l2", "dot"])
 def test_ivfpq_residual_refine_through_the_kernels(cuda_device, metric):
     """``search_device`` with a residual-int8 refine store on a CUDA index:
-    the table, key and rerank kernels launch once each, and the result is
-    the plain path's: ids at >= 0.9 of positions (a rare table entry one
-    bf16 step off may change a candidate), values where the ids agree to
-    1e-4."""
+    the fused key scan and the rerank kernel launch once each (no table
+    kernel, no key kernel), and the result is the plain path's: ids at >=
+    0.9 of positions (a rare table entry one bf16 step off may change a
+    candidate), values where the ids agree to 1e-4."""
     from nvdb_tpu_torch.kernels import adc_scan, rerank
     from nvdb_tpu_torch.store import VectorStore
 
@@ -650,12 +781,13 @@ def test_ivfpq_residual_refine_through_the_kernels(cuda_device, metric):
     codes, sc = vecbin.quantize_i8(rows - cents[list_of])
     store = VectorStore.from_numpy(codes, "i8", scales=sc, device=cuda_device)
     store.attach_residual(cents, list_of)
-    before = (adc_scan.TABLE_LAUNCHES, adc_scan.KEY_LAUNCHES, rerank.LAUNCHES)
+    counts = lambda: (adc_scan.TABLE_LAUNCHES, adc_scan.KEY_LAUNCHES,
+                      adc_scan.FUSED_LAUNCHES, rerank.LAUNCHES)
+    before = counts()
     kv, ki = idx.search_device(q, 10, 8, refine_k=50, refine_store=store,
                                refine_metric=metric)
     torch.cuda.synchronize()
-    assert (adc_scan.TABLE_LAUNCHES, adc_scan.KEY_LAUNCHES, rerank.LAUNCHES) == tuple(
-        x + 1 for x in before)
+    assert tuple(a - c for a, c in zip(counts(), before)) == (0, 0, 1, 1)
     pv, pi = idx.search_device(q, 10, 8, refine_k=50, refine_store=store, backend="torch",
                                refine_metric=metric)
     same = ki == pi
@@ -1217,9 +1349,10 @@ def test_sharded_flat_index_on_one_card_is_flat_index(cuda_device, dtype):
 @pytest.mark.parametrize("metric", ["l2", "dot"])
 def test_sharded_ivfpq_and_refine_on_one_card(cuda_device, metric):
     """Four shards of ``cuda:0``: the sharded IVF-PQ search with a
-    row-sharded refine store runs the table, key and rerank kernels once a
-    shard, and gives the plain path's answer (values to 1e-4 where the ids
-    agree, ids at >= 0.9 of positions)."""
+    row-sharded refine store runs the fused key scan and the rerank kernel
+    once a shard (no table kernel, no key kernel), and gives the plain
+    path's answer (values to 1e-4 where the ids agree, ids at >= 0.9 of
+    positions)."""
     from nvdb_tpu_torch.dist import mesh as meshmod
     from nvdb_tpu_torch.dist import sharded_ivf
     from nvdb_tpu_torch.kernels import adc_scan, rerank
@@ -1231,11 +1364,12 @@ def test_sharded_ivfpq_and_refine_on_one_card(cuda_device, metric):
     rng = np.random.default_rng(17)
     rows = rng.standard_normal((idx.n, idx.centroids.shape[1])).astype(np.float32)
     store = ShardedVectorStore.from_numpy(rows, mesh, "f32", row_block=1024)
-    before = (adc_scan.TABLE_LAUNCHES, adc_scan.KEY_LAUNCHES, rerank.LAUNCHES)
+    counts = lambda: (adc_scan.TABLE_LAUNCHES, adc_scan.KEY_LAUNCHES,
+                      adc_scan.FUSED_LAUNCHES, rerank.LAUNCHES)
+    before = counts()
     kv, ki = sh.search_device(q, 10, 8, refine_k=50, refine_store=store, refine_metric=metric)
     torch.cuda.synchronize()
-    assert (adc_scan.TABLE_LAUNCHES, adc_scan.KEY_LAUNCHES, rerank.LAUNCHES) == tuple(
-        x + 4 for x in before)
+    assert tuple(a - c for a, c in zip(counts(), before)) == (0, 0, 4, 4)
     pv, pi = sh.search_device(q, 10, 8, refine_k=50, refine_store=store, backend="torch",
                               refine_metric=metric)
     same = ki == pi
