@@ -48,9 +48,10 @@ one phase per line group:
    kernels bit for bit their plain version and each other, every key-mode
    value its id's ADC score truncated to bf16, every dma candidate above
    the key result's last value in it, and the ids shared with the dma
-   kernel's at >= 0.95 over the phase; the fused key scan (the key mode's
-   default) bit for bit the key kernel and its plain version on the table
-   kernel's tables in every case without shared ids, and on edge shapes:
+   kernel's at >= 0.95 over the phase; the fused key scan (the key and
+   gather modes' default) bit for bit the key kernel and its plain version
+   on the table kernel's tables in every case without shared ids, and on
+   edge shapes:
    the flagship shape with a list every query probes and probes out of
    range, dsub 4 / 16 and the any-dsub instance (3 and 6), M 340 (as wide as
    the key kernel takes), lists of two tiles (Lcap 2048), fewer live lanes
@@ -66,16 +67,20 @@ one phase per line group:
    ground truth by the flat kernel,
    ``tools.ivf_build --kind ivfpq --nlist 4096 --pq-m 96 --opq``, then
    ``tools.ivf_eval --chained --nprobe 64 --refine-k 100 --k 10 --batch-q
-   256`` five ways, each with the IVF-PQ launch counts reset just before and
+   256`` six ways, each with the IVF-PQ launch counts reset just before and
    read just after: ``auto`` (key-mode candidates by the fused key scan, no
    table kernel), ``--key-scan tables`` (the table kernel and the key
-   kernel, the A/B), ``--ids-mode dma``, ``--ids-mode gather`` and
-   ``--ivf-backend torch``; then ``tools.quantize_i8 --residual`` of the
-   same base against the index and ``ivf_eval --residual-refine`` with the
-   kernels and with ``--ivf-backend torch``, and, for reference, a plain
-   int8 store of the same bytes; recall@10 and QPS of each, auto within
-   0.005 of torch and of dma, the A/B and gather equal to auto, the residual
-   pair within 0.005;
+   kernel, the A/B), ``--ids-mode dma``, ``--ids-mode gather`` (the fused
+   key scan reading the probed lists in place, no other ADC kernel; its
+   launches are the gather site's, ``adc_fused_gather``), ``--ids-mode
+   gather --key-scan tables`` (the table kernel and the kernel over the
+   gathered code slab, the gather site's A/B) and ``--ivf-backend torch``;
+   then ``tools.quantize_i8 --residual`` of the same base against the index
+   and ``ivf_eval --residual-refine`` with the kernels and with
+   ``--ivf-backend torch``, and, for reference, a plain int8 store of the
+   same bytes; recall@10 and QPS of each, auto within 0.005 of torch and of
+   dma, the A/Bs and both gather runs equal to auto, the residual pair
+   within 0.005;
 9. times at B = 256, P = 64, M = 96, Lcap = 640, kk = 100 on the built index,
    each alone: rotation + coarse ranking (plain torch), the table kernel,
    the dma scan, the key scan, the gather wrapper and its two parts (the
@@ -91,11 +96,17 @@ one phase per line group:
    the codebook bytes its CTAs pull from L2 and its lookups, its plain
    version, a sweep of its chunk width (1 / 4 / 8 / 16 / 32 queries), the
    call by pass (measurement builds, ``NVDB_ADC_ABLATE`` 3 / 4 / 5) and one
-   call replayed from a CUDA graph; the whole ``search_device``, whose
-   operators are recorded to show that the key path makes no tensor the
-   size of the tables, with its peak device memory, against its plain
-   versions and, in turns, with the two-kernel key path and with dma
-   candidates in place of the key ones;
+   call replayed from a CUDA graph; the gather site's route (the fused key
+   scan) at B = 256, 8 and 1 against the slab route it replaces (the table
+   kernel, the slab copy and the scan of the slab), in turns, eagerly and
+   as device time, bit for bit, with each route's peak device memory; the
+   whole ``search_device``, whose operators are recorded to show that the
+   key path makes no tensor the size of the tables, with its peak device
+   memory, against its plain versions and, in turns, with the two-kernel
+   key path and with dma candidates in place of the key ones; the whole
+   gather batch likewise (no tensor the size of the tables or the slab; bit
+   for bit the slab route's and the key batch's) against its slab route,
+   with the peak memory of each;
 10. IVF probe kernel vs plain and a float64 oracle, both layouts (list-major,
    the default, and the query-major A/B): random packed indexes of f32 /
    bf16 / int8 payloads at Lcap 384 and 992 (lists full, with holes, filled
@@ -194,8 +205,9 @@ launches by instance, the kernels' JSON record (launches on the main paths,
 error, ms, plain ms, bound ms and what sets it, the library call's ms where
 there is one; the flat kernel has three rows: bf16 / int8, f32 on the
 tensor cores, f32 on the SIMT kernel; the probe kernel two: list-major and
-the query-major A/B; the ADC scans four: dma, key, gather and the fused key
-scan), and ``{"ok": true, "device": {...}}``.
+the query-major A/B; the ADC scans five: dma, the key kernel and the slab
+gather kernel (the A/Bs), and the fused key scan at the key site and at the
+gather site), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -908,7 +920,7 @@ def phase_adc_vs_plain(torch, dev):
             check_fused(torch, tag, q_rot, probes, cents, codebooks, codes, slot_ids, kk, fills,
                         lut)
             out["fused_cases"] += 1
-            msg += " | fused = key on the kernel's tables"
+            msg += " | fused (key and gather sites) = key on the kernel's tables"
         msg += f" filled={float((ki >= 0).float().mean()):.3f}"
         say(msg)
         del lut, lut32, probes, codes, slot_ids
@@ -1103,13 +1115,18 @@ def adc_counts():
 def ivf_eval_counted(torch, main, argv, first=True):
     """One ``ivf_eval`` run with every IVF-PQ launch counter set to 0 just
     before it; returns (its first RESULT record, or all of them unless
-    ``first``, and the counts just after)."""
+    ``first``, and the counts just after). In a run of ``--ids-mode
+    gather`` the fused key scan serves the gather site, so its launches
+    count as ``adc_fused_gather`` (the gather site's row of the record)."""
     from nvdb_tpu_torch.kernels import rerank
 
     adc_reset()
     rerank.LAUNCHES = 0
     res = run_tool(main, argv, keep=("kind=", "RESULT"))
-    return res[0] if first else res, dict(adc_counts(), rerank_topk=rerank.LAUNCHES)
+    counts = dict(adc_counts(), rerank_topk=rerank.LAUNCHES, adc_fused_gather=0)
+    if "--ids-mode" in argv and argv[argv.index("--ids-mode") + 1] == "gather":
+        counts["adc_fused_gather"], counts["adc_fused_key"] = counts["adc_fused_key"], 0
+    return res[0] if first else res, counts
 
 
 def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
@@ -1151,7 +1168,9 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
     runs = [("auto", [], ("adc_fused_key", "rerank_topk")),
             ("tables", ["--key-scan", "tables"], ("adc_tables", "adc_topk_key")),
             ("dma", ["--ids-mode", "dma"], ("adc_tables", "adc_topk")),
-            ("gather", ["--ids-mode", "gather"], ("adc_tables", "adc_topk_gather")),
+            ("gather", ["--ids-mode", "gather"], ("adc_fused_gather", "rerank_topk")),
+            ("gather_tables", ["--ids-mode", "gather", "--key-scan", "tables"],
+             ("adc_tables", "adc_topk_gather")),
             ("torch", ["--ivf-backend", "torch"], ())]
     out = {"launches": {"flat_topk": gt_launches}}
     for name, extra, counted in runs:
@@ -1163,17 +1182,20 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
         say(f"  ivf_eval {' '.join(extra) or '(auto: key candidates, fused)'}: recall@10="
             f"{res['recall']:.4f} QPS={res['qps']:.1f} launches {launches}")
         out[name] = res
-        if name == "auto":
-            check(launches["adc_tables"] == 0 and launches["adc_topk_key"] == 0,
-                  f"the key path ran the table or key kernel beside the fused scan: {launches}")
+        if name in ("auto", "gather"):
+            others = {c: launches[c] for c in ("adc_tables", "adc_topk", "adc_topk_key",
+                                               "adc_topk_gather")}
+            check(not any(others.values()), f"the {name} path ran another ADC kernel beside "
+                                             f"the fused scan: {launches}")
     check(out["tables"]["recall"] == out["auto"]["recall"],
           f"two-kernel key recall {out['tables']['recall']} != fused {out['auto']['recall']}")
     for a, b in (("auto", "torch"), ("auto", "dma")):
         gap = abs(out[a]["recall"] - out[b]["recall"])
         check(gap <= RECALL_GAP, f"recall@10 {a} {out[a]['recall']} vs {b} "
                                  f"{out[b]['recall']}: gap {gap} > {RECALL_GAP}")
-    check(out["gather"]["recall"] == out["auto"]["recall"],
-          f"gather recall {out['gather']['recall']} != key {out['auto']['recall']}")
+    for name in ("gather", "gather_tables"):
+        check(out[name]["recall"] == out["auto"]["recall"],
+              f"{name} recall {out[name]['recall']} != key {out['auto']['recall']}")
     check(out["auto"]["recall"] >= 0.5, f"recall@10 {out['auto']['recall']} < 0.5")
 
     # the residual-int8 refine of the JAX package's flagship: residual codes
@@ -1275,17 +1297,32 @@ def graph_turns(torch, plain, kern, launches=10):
     return sum(runs["kernel"]) / 2, sum(runs["plain"]) / 2, runs
 
 
+def peak_gb(torch, dev, fn):
+    """GB of device memory one call of ``fn`` holds at its peak above what
+    was allocated before it."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+
 def fused_times(torch, dev, idx, q_rot, probes, kk, fills):
-    """The fused key scan against the two kernels it replaces (the table
-    kernel, then the key scan) at B = 256, 8 and 1, its bound, codebook L2
-    bytes and lookups, its plain version, the chunk sweep, the call by pass
-    and a call replayed from a CUDA graph."""
+    """The fused key scan at B = 256, 8 and 1: at the key site against the
+    two kernels it replaces (the table kernel, then the key scan), and at
+    the gather site against the slab route it replaces (the table kernel,
+    then the gather wrapper: the ``index_select`` of the slab and the scan
+    over it) with each route's peak device memory over one call; in turns,
+    eagerly and as device time (calls in a CUDA graph), bit for bit. Its
+    bound, codebook L2 bytes and lookups, its plain version, the chunk
+    sweep, the call by pass and a call replayed from a CUDA graph."""
     from nvdb_tpu_torch.kernels import _build, adc_scan, ivf_scan
 
     dsub = idx.codebooks.shape[2]
     dp = idx.centroids.shape[1]
     index = dev.index or 0
-    out = {}
+    out, gather = {}, {}
     for b in (256, 8, 1):
         qb, pb_ = q_rot[:b].contiguous(), probes[:b].contiguous()
         args = (qb, pb_, idx.centroids, idx.codebooks, idx.codes, idx.slot_ids, kk)
@@ -1293,12 +1330,19 @@ def fused_times(torch, dev, idx, q_rot, probes, kk, fills):
         two = lambda: adc_scan.adc_topk_keys_cuda(
             adc_scan.adc_tables_cuda(qb, pb_, idx.centroids, idx.codebooks, fills), pb_,
             idx.codes, idx.slot_ids, kk, fills=fills)
+        slab = lambda: adc_scan.adc_topk_keys_cuda(
+            adc_scan.adc_tables_cuda(qb, pb_, idx.centroids, idx.codebooks, fills), pb_,
+            idx.codes, idx.slot_ids, kk, fills=fills, gathered=True)
         kern, two_ms, runs = in_turns(torch, two, fused, iters=10)
         gk, gt, gruns = graph_turns(torch, two, fused)
         fv, fi = fused()
         tv, ti = two()
         check(torch.equal(fv, tv) and torch.equal(fi, ti),
               f"fused B={b}: differs from the two-kernel key path on the flagship index")
+        tv, ti = slab()
+        check(torch.equal(fv, tv) and torch.equal(fi, ti),
+              f"fused B={b}: differs from the gather site's slab route on the flagship index")
+        del fv, fi, tv, ti
         # bytes: each distinct probed list's live codes once, the queries, the
         # distinct probed centroids, the codebooks, the probes, the result;
         # operations: every live pair's table entries (2 dsub + 4 FLOP each)
@@ -1325,12 +1369,25 @@ def fused_times(torch, dev, idx, q_rot, probes, kk, fills):
         out[b] = dict(ms=kern, two_ms=two_ms, device_ms=gk, two_device_ms=gt, bound_ms=bnd,
                       bound_by=by, lookups=lookups, codebook_bytes=cb_bytes, nq=nq,
                       items=int(items.shape[0]))
+        # the gather site: the same call in turns with the slab route
+        kern, slab_ms, runs = in_turns(torch, slab, fused, iters=10)
+        gk, gs, gruns = graph_turns(torch, slab, fused)
+        peak, slab_peak = peak_gb(torch, dev, fused), peak_gb(torch, dev, slab)
+        say(f"  gather site B={b}: fused (lists read in place) {kern:.4f} ms {runs['kernel']} | "
+            f"slab route (tables + index_select + scan of the slab) {slab_ms:.4f} ms "
+            f"{runs['plain']} | device time fused {gk:.4f} {gruns['kernel']}, slab route "
+            f"{gs:.4f} {gruns['plain']}; bit for bit equal")
+        say(f"    bound {bnd:.4f} ms ({by}) time / bound {kern / bnd:.2f} (device "
+            f"{gk / bnd:.2f}); peak device memory of one call: fused {peak:.4f} GB, slab "
+            f"route {slab_peak:.4f} GB")
+        gather[b] = dict(ms=kern, slab_ms=slab_ms, device_ms=gk, slab_device_ms=gs,
+                         bound_ms=bnd, bound_by=by, peak_gb=peak, slab_peak_gb=slab_peak)
     qb, pb_ = q_rot, probes
     args = (qb, pb_, idx.centroids, idx.codebooks, idx.codes, idx.slot_ids, kk)
     plain = cuda_ms(torch, lambda: adc_scan.adc_fused_keys_reference(*args, fills=fills),
                     iters=2)
     say(f"  fused key scan B=256: plain version (adc_tables_reference, then "
-        f"adc_topk_keys_reference) {plain:.4f} ms")
+        f"adc_topk_keys_reference; the key and gather sites') {plain:.4f} ms")
     sweep = {nq: graph_ms(torch, lambda nq=nq: adc_scan.adc_fused_keys_cuda(
         *args, fills=fills, nq_max=nq), launches=10, replays=5) for nq in (1, 4, 8, 16, 32)}
     say("  fused key scan B=256, device ms by the widest chunk the plan may take: " + "; ".join(
@@ -1359,7 +1416,8 @@ def fused_times(torch, dev, idx, q_rot, probes, kk, fills):
         "call bit for bit")
     res = dict(out[256], plain_ms=plain, sweep=sweep, by_part=dict(split, whole=whole),
                by_batch=out)
-    return {"adc_fused_key": res}
+    return {"adc_fused_key": res,
+            "adc_fused_gather": dict(gather[256], plain_ms=plain, by_batch=gather)}
 
 
 def phase_ivf_times(torch, dev, idx, store, queries):
@@ -1449,16 +1507,11 @@ def phase_ivf_times(torch, dev, idx, store, queries):
            if int(np.prod(shape)) >= table_elems]
     say(f"  search_device dispatches {len(ops_seen)} torch operators; table-sized results: {big}")
     check(big == [], f"the key path made table-sized tensors: {big}")
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    base_mem = torch.cuda.memory_allocated(dev)
-    search()
-    torch.cuda.synchronize(dev)
-    peak = torch.cuda.max_memory_allocated(dev) - base_mem
-    say(f"    peak device memory of one batch: {peak / 1e9:.4f} GB (the bf16 tables the key "
+    peak = peak_gb(torch, dev, search)
+    say(f"    peak device memory of one batch: {peak:.4f} GB (the bf16 tables the key "
         f"path no longer makes: {table_elems * 2 / 1e9:.4f} GB)")
-    check(peak < table_elems * 2 / 10, "the key path allocated a tenth of the bf16 tables")
-    out["whole search_device"] = dict(peak_gb=peak / 1e9)
+    check(peak < table_elems * 2 / 1e10, "the key path allocated a tenth of the bf16 tables")
+    out["whole search_device"] = dict(peak_gb=peak)
     whole_ms, whole_plain, runs = in_turns(
         torch, lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
                                          backend="torch"), search, iters=5)
@@ -1483,6 +1536,28 @@ def phase_ivf_times(torch, dev, idx, store, queries):
                                          ids_mode="dma"), search, iters=5)
     say(f"  whole search_device B={b}: key candidates (auto) {key_ms:.4f} ms {runs['kernel']} | "
         f"dma candidates {dma_ms:.4f} ms {runs['plain']}")
+    # the gather batch: the fused key scan, with no code slab and no tables
+    gather = lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
+                                       ids_mode="gather")
+    gather_slab = lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
+                                            ids_mode="gather", key_scan="tables")
+    (gv, gi), ops_seen = dispatched_ops(torch, gather)
+    big = [(name, shape, dt) for name, outs in ops_seen for shape, dt in outs
+           if int(np.prod(shape)) >= table_elems]
+    check(big == [], f"the gather path made table- or slab-sized tensors: {big}")
+    sv, si = gather_slab()
+    kv, ki = search()
+    check(torch.equal(gv, sv) and torch.equal(gi, si) and torch.equal(gv, kv)
+          and torch.equal(gi, ki), "gather batch: differs from the slab route or the key batch")
+    peak, slab_peak = peak_gb(torch, dev, gather), peak_gb(torch, dev, gather_slab)
+    check(peak < table_elems * 2 / 1e10, "the gather path allocated a tenth of the bf16 tables")
+    g_ms, slab_ms, runs = in_turns(torch, gather_slab, gather, iters=5)
+    say(f"  whole search_device B={b} ids_mode=gather: fused key scan (lists read in place) "
+        f"{g_ms:.4f} ms {runs['kernel']}, peak {peak:.4f} GB | slab route (key_scan=tables) "
+        f"{slab_ms:.4f} ms {runs['plain']}, peak {slab_peak:.4f} GB; results bit for bit the "
+        f"slab route's and the key batch's")
+    out["whole search_device gather"] = dict(ms=g_ms, slab_ms=slab_ms, peak_gb=peak,
+                                             slab_peak_gb=slab_peak)
 
     st16 = store.vectors.to(torch.bfloat16)
     n2 = rerank.store_norms2(st16)
@@ -2757,8 +2832,8 @@ def main() -> int:
             rerank_err = phase_rerank_vs_plain(torch, dev)
 
         with phase("[8 IVF-PQ main path] 1M x 768, nlist 4096, m 96, OPQ; nprobe 64, "
-                   "refine 100: auto (key), dma, gather, torch; then the residual-int8 "
-                   "refine on both paths"):
+                   "refine 100: auto (key), the key A/B, dma, gather, the gather A/B, torch; "
+                   "then the residual-int8 refine on both paths"):
             idx, store, queries, ivf, ivf_paths = phase_ivf_main_path(torch, dev, work)
             spilled8 = idx.n_spilled
 
@@ -2853,6 +2928,12 @@ def main() -> int:
          ivf["launches"]["adc_topk_key"] + bl.get("adc_topk_key", 0) + dist["adc_topk_key"],
          0.0,
          ivf_times["adc_topk_key"]),
+        # the gather site: the fused key scan reads each probed list in place;
+        # bit for bit the key kernel, the slab kernel and their plain version in
+        # phases 6 and 9, so its error is 0. Its launches are phase 8's gather run's
+        ("adc_fused_gather", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:718",
+         ivf["launches"]["adc_fused_gather"], 0.0, ivf_times["adc_fused_gather"]),
+        # the gather site's A/B: the kernel over the gathered code slab
         ("adc_topk_gather", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:718",
          ivf["launches"]["adc_topk_gather"] + dist["adc_topk_gather"], 0.0,
          ivf_times["adc_topk_gather"]),

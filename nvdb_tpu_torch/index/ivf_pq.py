@@ -8,9 +8,10 @@ rotated space; queries are rotated once at search time. Codes encode the
 rotated residual against the list each row is packed in.
 
 Search is coarse probe -> ADC candidate top-kk in the id mode the JAX
-package picks (the key mode: the fused key scan of ``adc_topk``, which
-builds the bf16 ADC tables in shared memory; dma and gather: the
-``adc_tables`` kernel, then the ``adc_topk`` kernels) -> exact refine
+package picks (the key and gather modes: the fused key scan of
+``adc_topk``, which builds the bf16 ADC tables in shared memory and reads
+the probed lists in place; dma: the ``adc_tables`` kernel, then the
+``adc_topk`` kernel) -> exact refine
 against the flat store or a residual-int8 store (the ``rerank_topk``
 kernel), all on one device. ``.npz`` files are plain numpy
 and byte-compatible with the JAX package's, so an index built by either
@@ -36,8 +37,9 @@ from nvdb_tpu_torch.index.ivf_flat import (_coarse_probes, _host_chunked, _pack_
 from nvdb_tpu_torch.kernels import adc_scan, dispatch, kmeans, ops, pq
 from nvdb_tpu_torch.utils import round_up
 
-# The key mode's candidate generators on the kernel path: the fused key scan
-# (the default) and the table kernel followed by the key scan (the A/B).
+# The key and gather modes' candidate generators on the kernel path: the fused
+# key scan (the default) and the table kernel followed by the key scan, or by
+# the scan of the gathered code slab (the A/B).
 KEY_SCANS = ("fused", "tables")
 
 
@@ -55,23 +57,28 @@ def _ivfpq_search_block(
     fills: Optional[torch.Tensor] = None,  # [nlist] int32 (kernel path)
     terms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cached coarse_terms
     ids_mode: str = "dma",     # "key" / "gather": prefix-packed, replicas == 1 only
-    key_scan: str = "fused",   # key mode: "fused", or "tables" (the two-kernel A/B)
+    key_scan: str = "fused",   # key / gather: "fused", or "tables" (the two-kernel A/B)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Coarse probes, ADC tables and the ADC candidate top-k of one batch.
-    The kernel path's key mode is the fused key scan (``adc_fused_keys_cuda``:
-    the tables built in shared memory, none in device memory); the dma and
-    gather modes, and the key mode with ``key_scan="tables"``, write the bf16
-    tables in one pass (``adc_tables_cuda``) and scan them (``adc_topk_cuda``,
-    or ``adc_topk_keys_cuda``): no f32 table exists on it. The ``torch`` path
-    runs the same modes' plain versions; the oracle path, the JAX package's
-    jnp block, ignores ``ids_mode`` as that block does."""
+    The kernel path's key and gather modes are the fused key scan
+    (``adc_fused_keys_cuda``: the tables built in shared memory, none in
+    device memory, each probed list's codes read in place from ``codes``; the
+    gather mode's result is the key mode's bit for bit, so no code slab is
+    made). The dma mode, and the key and gather modes with
+    ``key_scan="tables"``, write the bf16 tables in one pass
+    (``adc_tables_cuda``) and scan them (``adc_topk_cuda``, or
+    ``adc_topk_keys_cuda``, over ``gather_codes``' slab in the gather mode):
+    no f32 table exists on it. A shape the fused scan cannot plan raises
+    (``adc_scan.fused_plan``). The ``torch`` path runs the same routes'
+    plain versions; the oracle path, the JAX package's jnp block, ignores
+    ``ids_mode`` as that block does."""
     if key_scan not in KEY_SCANS:
         raise ValueError(f"key_scan must be one of {KEY_SCANS}, got {key_scan!r}")
     B = q_rot.shape[0]
     probes = _coarse_probes(q_rot, centroids, slot_ids, nprobe, terms=terms)  # [B, P]
     path = dispatch.refine_backend(backend, codes)
     keyed = ids_mode in ("key", "gather")
-    fused = ids_mode == "key" and key_scan == "fused"
+    fused = keyed and key_scan == "fused"
     if path == "cuda":
         probes = probes.to(torch.int32)       # once, for every kernel
         if fills is None:
@@ -379,9 +386,11 @@ class IVFPQIndex:
         granularity and need a prefix-packed index with replicas == 1. The
         cuda and torch paths run the mode; the oracle path keeps the jnp
         semantics, as the JAX package's jnp backend does. ``key_scan``: the
-        key mode's generator, ``fused`` (one fused kernel) or ``tables``
-        (the table kernel, then the key kernel: the A/B arm, bit for bit the
-        same candidates)."""
+        key and gather modes' generator, ``fused`` (one fused kernel that
+        reads each probed list in place; the gather mode is then the key
+        mode) or ``tables`` (the table kernel, then the key kernel, or in the
+        gather mode the kernel over the gathered code slab: the A/B arm, bit
+        for bit the same candidates)."""
         if ids_mode not in (None, "dma", "key", "gather"):
             raise ValueError(f"ids_mode must be 'dma', 'key' or 'gather', got {ids_mode!r}")
         # the key modes derive ids from list and lane, right only on a

@@ -19,16 +19,21 @@ summed in f32 over m in order, and return the top kk (kk <= 1024) with
   desc, coordinate desc), coordinate = p * Lcap + lane; the winners' ids are
   read from ``slot_ids[probes[b, p], lane]`` and returned beside their
   truncated scores.
-- ``gather`` (``adc_topk_keys_cuda(..., gathered=True)``): the key mode over
-  the slab ``gather_codes(codes, probes)`` [B * P, M, Lcap] of the probed
-  lists, bit for bit the key mode's result.
+- ``gather``: the key mode's result bit for bit. The TPU kernel scans a
+  slab of the probed lists that XLA gathers first, because the TPU paid
+  for each per-list DMA it issued; on the card each probed list's codes are
+  one contiguous block of ``codes`` that a CTA copies itself, so the IVF-PQ
+  path's gather mode is the fused key scan below, which reads the lists in
+  place. The slab route stays as its A/B: ``adc_topk_keys_cuda(...,
+  gathered=True)``, the key mode over ``gather_codes(codes, probes)`` [B *
+  P, M, Lcap].
 - fused key scan (``adc_fused_keys_cuda``, ``adc_fused_keys_reference``):
   the key mode from the rotated queries, probes, centroids and codebooks,
   bit for bit ``adc_topk_keys_cuda`` on ``adc_tables_cuda``'s tables, with
   each pair's tables built in shared memory, list-major (the pairs grouped
-  by list, each probed list read once for a chunk of queries); the key mode
-  of the IVF-PQ path. ``adc_topk_keys_listmajor_reference`` is the key
-  mode's plain scan walked the same way, bit for bit
+  by list, each probed list read once for a chunk of queries); the key and
+  gather modes of the IVF-PQ path. ``adc_topk_keys_listmajor_reference`` is
+  the key mode's plain scan walked the same way, bit for bit
   ``adc_topk_keys_reference``.
 
 The TPU kernel's nibble one-hot matmul works around the TPU's lack of a
@@ -58,8 +63,9 @@ _SMEM_LIMIT = 227 * 1024 - 1024   # a CTA's shared memory, less the kernel's sta
 LAUNCHES = 0
 # Launches of the table kernel; only adc_tables_cuda's launch adds to it.
 TABLE_LAUNCHES = 0
-# Launches of the key and gather kernels; only adc_topk_keys_cuda's launch
-# adds to them, to the one of its mode.
+# Launches of the key kernel and of its gather instance over the code slab
+# (the gather mode's A/B); only adc_topk_keys_cuda's launch adds to them, to
+# the one of its mode.
 KEY_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 # Key modes: a probe group's coordinates fit 16 bits of a candidate key.
@@ -228,11 +234,11 @@ def adc_topk_cuda(
 
 
 def gather_codes(codes: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
-    """The gather mode's slab: the probed lists' codes [B * P, M, Lcap], row
-    b * P + p holding list probes[b, p] (list 0 for a probe out of range,
-    which no mode reads). The counterpart of the XLA gather of the TPU
-    kernel (``adc_scan.py:699``); at B = 256, P = 64, M = 96, Lcap = 640 it
-    is 1.007 GB."""
+    """The slab of the gather mode's A/B route: the probed lists' codes [B *
+    P, M, Lcap], row b * P + p holding list probes[b, p] (list 0 for a probe
+    out of range, which no mode reads). The counterpart of the XLA gather of
+    the TPU kernel (``adc_scan.py:699``); at B = 256, P = 64, M = 96, Lcap =
+    640 it is 1.007 GB."""
     flat = probes.reshape(-1).long()
     flat = torch.where((flat >= 0) & (flat < codes.shape[0]), flat, 0)
     return codes.index_select(0, flat)
@@ -465,7 +471,8 @@ def adc_tables_cuda(
 
 # -- the fused key scan ----------------------------------------------------------
 
-# Launches of the fused key scan; only adc_fused_keys_cuda's launch adds to it.
+# Launches of the fused key scan (the key and gather modes); only
+# adc_fused_keys_cuda's launch adds to it.
 FUSED_LAUNCHES = 0
 # The widest query chunk the fused scan's plan may take, and the batch below
 # which it takes one query a chunk (few pairs then share a list, and a wide

@@ -757,8 +757,93 @@ def test_ivfpq_key_mode_on_a_replicated_index_raises(cuda_device):
     idx, q = _ivfpq_on_card(cuda_device, replicas=2)
     assert idx.ids_mode() == "dma"
     for mode in ("key", "gather"):
-        with pytest.raises(ValueError, match="replicas == 1"):
-            idx.search_device(q, 10, 8, ids_mode=mode)
+        for key_scan in ("fused", "tables"):
+            with pytest.raises(ValueError, match="replicas == 1"):
+                idx.search_device(q, 10, 8, ids_mode=mode, key_scan=key_scan)
+
+
+def _adc_launches():
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    return (adc_scan.TABLE_LAUNCHES, adc_scan.LAUNCHES, adc_scan.KEY_LAUNCHES,
+            adc_scan.GATHER_LAUNCHES, adc_scan.FUSED_LAUNCHES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kk", [10, 300])
+@pytest.mark.parametrize("b", [256, 8, 1])
+def test_ivfpq_gather_mode_reads_lists_in_place(cuda_device, b, kk):
+    """``search_device(ids_mode="gather")`` on a CUDA index at P = 7 (not a
+    multiple of the TPU kernel's 4 lists a step): one launch of the fused
+    key scan, and no table, dma, key or gather kernel, no ``index_select``
+    and no tensor the size of the tables or of the code slab. Its values and
+    ids are bit for bit the slab arm's (``key_scan="tables"``), the key
+    mode's, and the plain scans' (the key mode's and the slab's) on the
+    table kernel's tables; the torch path's within a bf16 step of a rare
+    table entry."""
+    from nvdb_tpu_torch.index.ivf_flat import _coarse_probes
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    p = 7
+    idx, q = _ivfpq_on_card(cuda_device, b=b, p=p)
+    before = _adc_launches()
+    (gv, gi), ops_seen = _dispatched_ops(
+        lambda: idx.search_device(q, kk, p, ids_mode="gather"))
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(_adc_launches(), before)) == (0, 0, 0, 0, 1)
+    assert not any("index_select" in name for name, _ in ops_seen)
+    big = [(name, shape) for name, outs in ops_seen for shape, _ in outs
+           if int(np.prod(shape)) >= b * p * idx.m * min(256, idx.lcap)]
+    assert big == []
+    before = _adc_launches()
+    tv, ti = idx.search_device(q, kk, p, ids_mode="gather", key_scan="tables")
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(_adc_launches(), before)) == (1, 0, 0, 1, 0)
+    kv, ki = idx.search_device(q, kk, p, ids_mode="key")
+    probes = _coarse_probes(q, idx.centroids, idx.slot_ids, p,
+                            terms=idx.coarse_terms()).to(torch.int32)
+    fills = idx.fills()
+    lut = adc_scan.adc_tables_cuda(q, probes, idx.centroids, idx.codebooks, fills)
+    pv, pi = adc_scan.adc_topk_keys_reference(lut, probes, idx.codes, idx.slot_ids, kk,
+                                              fills=fills)
+    sv, si = adc_scan.adc_topk_keys_reference(lut, probes,
+                                              adc_scan.gather_codes(idx.codes, probes),
+                                              idx.slot_ids, kk, fills=fills, gathered=True)
+    assert tuple(gv.shape) == tuple(gi.shape) == (b, kk)
+    for v, i in ((tv, ti), (kv, ki), (pv, pi), (sv, si)):
+        assert torch.equal(gv, v) and torch.equal(gi, i)
+    cv, ci = idx.search_device(q, kk, p, backend="torch", ids_mode="gather")
+    gv, gi, cv, ci = (x.cpu().numpy() for x in (gv, gi, cv, ci))
+    live = np.isfinite(cv)
+    assert (np.isfinite(gv) == live).all()
+    np.testing.assert_allclose(gv[live], cv[live], atol=2.0 ** -8 * float(np.abs(cv[live]).max()),
+                               rtol=0)
+    for x, y in zip(gi, ci):
+        assert len(set(x.tolist()) & set(y.tolist())) >= int(0.9 * len(set(y.tolist())))
+
+
+@pytest.mark.gpu
+def test_ivfpq_gather_mode_refuses_a_shape_the_fused_scan_cannot_plan(cuda_device):
+    """One query's residual and tables past a CTA's shared memory (M 4096,
+    dsub 16): the gather mode raises by name, as the key mode does, and
+    launches no kernel; it does not take the slab route."""
+    from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+
+    nlist, m, dsub, lcap = 4, 4096, 16, 16
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    cents = torch.randn((nlist, m * dsub), generator=g, device=cuda_device)
+    cb = torch.randn((m, 256, dsub), generator=g, device=cuda_device)
+    codes = torch.zeros((nlist, m, lcap), dtype=torch.uint8, device=cuda_device)
+    slot_ids = torch.arange(nlist * lcap, dtype=torch.int32,
+                            device=cuda_device).reshape(nlist, lcap)
+    idx = IVFPQIndex(rotation=None, centroids=cents, codebooks=cb, codes=codes,
+                     slot_ids=slot_ids, n=nlist * lcap, d=m * dsub, m=m)
+    before = _adc_launches()
+    for mode in ("key", "gather"):
+        with pytest.raises(ValueError, match="shared memory"):
+            idx.search_device(cents[:2].contiguous(), 10, 2, ids_mode=mode)
+    torch.cuda.synchronize()
+    assert _adc_launches() == before
 
 
 @pytest.mark.gpu

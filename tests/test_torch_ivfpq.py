@@ -2,6 +2,8 @@
 sizes of test_adc_scan.py (6000 x 128, nlist 16, m 16, B 8): an index built
 by JAX, saved and loaded by the port (and back); the plain version of the
 ADC kernel against ``pallas_adc_topk(ids_mode="dma")`` in interpret mode;
+the gather mode's route (the fused plain version, the key mode's result bit
+for bit; the slab as its A/B) and its parity with the JAX gather path;
 ``search_device`` with refine; a replicated index; the port's own build;
 the deterministic helpers bit for bit.
 
@@ -331,6 +333,91 @@ def test_scan_plan_fits_shared_memory():
         adc_scan.scan_plan(10, 400, 640)
 
 
+def _record_adc_routes(monkeypatch):
+    """Record each plain ADC route ``search_device`` reaches: "fused"
+    (``adc_fused_keys_reference``), "key", "gather" (the key mode's plain
+    scan over ``codes``, or over the gathered slab) and "dma"."""
+    calls = []
+    real_fused = adc_scan.adc_fused_keys_reference
+    real_keys, real_dma = adc_scan.adc_topk_keys_reference, adc_scan.adc_topk_reference
+    monkeypatch.setattr(adc_scan, "adc_fused_keys_reference",
+                        lambda *a, **kw: calls.append("fused") or real_fused(*a, **kw))
+    monkeypatch.setattr(adc_scan, "adc_topk_keys_reference",
+                        lambda *a, **kw: calls.append("gather" if kw.get("gathered") else "key")
+                        or real_keys(*a, **kw))
+    monkeypatch.setattr(adc_scan, "adc_topk_reference",
+                        lambda *a, **kw: calls.append("dma") or real_dma(*a, **kw))
+    return calls
+
+
+def _queries(world, b, seed):
+    """b padded queries near rows of the corpus (seeded)."""
+    rng = np.random.default_rng(seed)
+    rows = world["base"][rng.choice(N, b, replace=False)]
+    qp = np.zeros((b, 128), np.float32)
+    qp[:, :D] = rows + 0.05 * rng.standard_normal(rows.shape).astype(np.float32)
+    return qp
+
+
+GATHER_NPROBE = 6      # not a multiple of the Pallas kernel's 4 lists a grid step
+
+
+@pytest.mark.parametrize("kk", [10, 100])
+@pytest.mark.parametrize("b", [1, 5, 16])
+def test_gather_mode_reads_lists_in_place(world, monkeypatch, b, kk):
+    """The torch path's gather mode is the fused plain version (no code
+    slab), bit for bit the key mode's values and ids; with
+    ``key_scan="tables"`` it is the plain scan over the gathered slab, with
+    the same result."""
+    t = _port_of(world["j"])
+    qp = torch.from_numpy(_queries(world, b, seed=b * 7 + kk))
+    calls = _record_adc_routes(monkeypatch)
+    gv, gi = t.search_device(qp, kk, GATHER_NPROBE, backend="torch", ids_mode="gather")
+    assert calls == ["fused", "key"]
+    calls.clear()
+    kv, ki = t.search_device(qp, kk, GATHER_NPROBE, backend="torch", ids_mode="key")
+    assert calls == ["fused", "key"]
+    calls.clear()
+    sv, si = t.search_device(qp, kk, GATHER_NPROBE, backend="torch", ids_mode="gather",
+                             key_scan="tables")
+    assert calls == ["gather"]
+    assert tuple(gv.shape) == tuple(gi.shape) == (b, kk)
+    for v, i in ((kv, ki), (sv, si)):
+        assert torch.equal(gv, v) and torch.equal(gi, i)
+    assert bool((gi >= 0).all())
+
+
+def _bf16_ordered(x):
+    """Truncated f32 scores as ordered integers of their 16 high bits."""
+    bits = x.astype(np.float32).view(np.int32).astype(np.int64) >> 16
+    return np.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+@pytest.mark.parametrize("kk", [10, 100])
+def test_gather_mode_matches_jax_pallas(world, kk):
+    """``search_device(ids_mode="gather")`` on the torch path (the fused
+    plain version) against the JAX ``search_device(ids_mode="gather")``, its
+    Pallas gather kernel in interpret mode, on the same index and queries at
+    an nprobe the Pallas kernel pads to its grid step. Tolerance, as the key
+    tests state it: the tables are computed by another product and the
+    Pallas kernel sums them in another order, so a truncated score may sit
+    one bf16 step off: sorted values within one bf16 step, ids shared at >=
+    0.95 kk per row, live positions equal."""
+    j = world["j"]
+    t = _port_of(j)
+    qp = _queries(world, B, seed=kk)
+    jv, ji = j.search_device(jnp.asarray(qp), kk, GATHER_NPROBE, backend="pallas",
+                             ids_mode="gather")
+    tv, ti = t.search_device(torch.from_numpy(qp), kk, GATHER_NPROBE, backend="torch",
+                             ids_mode="gather")
+    tv, ti, jv, ji = tv.numpy(), ti.numpy(), np.asarray(jv), np.asarray(ji)
+    assert ((ti >= 0) == (ji >= 0)).all()
+    for a, c in zip(ti, ji):
+        assert len(set(a.tolist()) & set(c.tolist())) >= int(0.95 * kk)
+    steps = np.abs(_bf16_ordered(np.sort(tv, 1)) - _bf16_ordered(np.sort(jv, 1)))
+    assert steps[np.sort(ti >= 0, 1)].max() <= 1
+
+
 @pytest.mark.parametrize("mode", ["key", "gather"])
 def test_key_modes_run(world, mode):
     """The key and gather modes run on the torch path: the same candidates
@@ -355,13 +442,7 @@ def test_ids_mode_resolution_and_guard(world, monkeypatch):
     raise the JAX package's ValueError; the oracle path ignores the mode."""
     t = _port_of(world["j"])
     assert t.ids_mode() == "key" == world["j"].ids_mode()
-    calls = []
-    real_keys, real_dma = adc_scan.adc_topk_keys_reference, adc_scan.adc_topk_reference
-    monkeypatch.setattr(adc_scan, "adc_topk_keys_reference",
-                        lambda *a, **kw: calls.append("gather" if kw.get("gathered") else "key")
-                        or real_keys(*a, **kw))
-    monkeypatch.setattr(adc_scan, "adc_topk_reference",
-                        lambda *a, **kw: calls.append("dma") or real_dma(*a, **kw))
+    calls = _record_adc_routes(monkeypatch)
     qp = torch.zeros((2, 128))
     qp[:, :D] = torch.from_numpy(world["q"][:2])
     store = world["store"]
@@ -371,7 +452,10 @@ def test_ids_mode_resolution_and_guard(world, monkeypatch):
     t.search_device(qp, 10, 4, refine_k=20, refine_store=store, backend="torch",
                     ids_mode="dma")
     t.search_device(qp, 10, 4, backend="torch", ids_mode="gather")
-    assert calls == ["dma", "key", "key", "dma", "gather"]
+    t.search_device(qp, 10, 4, backend="torch", ids_mode="gather", key_scan="tables")
+    # the fused plain version runs the key mode's plain scan on its tables;
+    # the gather mode reads the lists in place unless the slab A/B is asked for
+    assert calls == ["dma", "fused", "key", "fused", "key", "dma", "fused", "key", "gather"]
     calls.clear()
     t.search_device(qp, 10, 4, refine_k=20, refine_store=store, ids_mode="key")
     assert calls == []                                   # auto on the CPU: the jnp path
