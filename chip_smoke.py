@@ -55,7 +55,12 @@ one phase per line group:
    the flagship shape with a list every query probes and probes out of
    range, dsub 4 / 16 and the any-dsub instance (3 and 6), M 340 (as wide as
    the key kernel takes), lists of two tiles (Lcap 2048), fewer live lanes
-   than kk, chunks of 1, 8 and 32 queries;
+   than kk, chunks of 1, 8 and 32 queries; the fused dma scan (the dma
+   mode's default) bit for bit the staged route (the dma kernel on the table
+   kernel's tables) and the dma scan's plain version in every case, those
+   with shared ids and, at B = 1 / 8 / 256, kk 10 / 100 / 1024, lists with
+   holes that hold ids twice (with the same codes and with others), no id
+   twice in a row, and on the edge shapes at chunks of 1, 4 and 8;
 7. rerank kernel vs plain and a float64 oracle: f32 / bf16 / int8 stores x
    l2 / dot, B in {1, 8, 256}, R in {10, 100, 256}, k in {1, 10, 100}, with
    padding ids and a repeated id, and a residual-int8 store; every call is
@@ -67,10 +72,12 @@ one phase per line group:
    ground truth by the flat kernel,
    ``tools.ivf_build --kind ivfpq --nlist 4096 --pq-m 96 --opq``, then
    ``tools.ivf_eval --chained --nprobe 64 --refine-k 100 --k 10 --batch-q
-   256`` six ways, each with the IVF-PQ launch counts reset just before and
+   256`` seven ways, each with the IVF-PQ launch counts reset just before and
    read just after: ``auto`` (key-mode candidates by the fused key scan, no
    table kernel), ``--key-scan tables`` (the table kernel and the key
-   kernel, the A/B), ``--ids-mode dma``, ``--ids-mode gather`` (the fused
+   kernel, the A/B), ``--ids-mode dma`` (the fused dma scan, no other ADC
+   kernel), ``--ids-mode dma --key-scan tables`` (the table kernel and the
+   staged dma scan, its A/B, recall equal), ``--ids-mode gather`` (the fused
    key scan reading the probed lists in place, no other ADC kernel; its
    launches are the gather site's, ``adc_fused_gather``), ``--ids-mode
    gather --key-scan tables`` (the table kernel and the kernel over the
@@ -96,7 +103,15 @@ one phase per line group:
    the codebook bytes its CTAs pull from L2 and its lookups, its plain
    version, a sweep of its chunk width (1 / 4 / 8 / 16 / 32 queries), the
    call by pass (measurement builds, ``NVDB_ADC_ABLATE`` 3 / 4 / 5) and one
-   call replayed from a CUDA graph; the gather site's route (the fused key
+   call replayed from a CUDA graph; the fused dma scan at kk 100 and 10 and
+   B = 256, 8 and 1 against the staged route it replaces (the table kernel,
+   then the staged dma scan), in turns, eagerly and as device time, bit for
+   bit, with each route's peak device memory (at most 0.05 GB for the fused
+   call at B = 256), beside its bound, its plain version, the cost of its
+   repeated-id check and one call replayed from a CUDA graph; the whole dma
+   batch and an ADC-only batch on the fused dma scan alone (no table kernel,
+   nothing table-sized), bit for bit and in turns with the staged route,
+   with the peak memory of each; the gather site's route (the fused key
    scan) at B = 256, 8 and 1 against the slab route it replaces (the table
    kernel, the slab copy and the scan of the slab), in turns, eagerly and
    as device time, bit for bit, with each route's peak device memory; the
@@ -145,8 +160,11 @@ one phase per line group:
    --refine-k 50 --batch-q 256`` on phase 8's index, the repacked and the
    replicated one, with the kernels and (repacked, replicated) with
    ``--ivf-backend torch``: fewer spilled rows than phase 8's, the replicated
-   index on the dma kernel with no id twice in any query's candidates,
-   kernel recall within 0.005 of the plain path's at each nprobe;
+   index's candidates, an ADC-only search of the repacked index and the
+   refine candidates of a copy of it with holes on the fused dma scan (no
+   table kernel) with no id twice in any query's candidates, no table
+   kernel in any ``ivf_eval`` run, kernel recall within 0.005 of the plain
+   path's at each nprobe;
    (b) ``ivf_build --kind ivfflat --nlist 4096 --dtype bf16 --corpus-refine 2``
    on phase 11's hard corpus (its dead lists against phase 11's quantizer's,
    no more) and ``--repack-from`` phase 11's IVF-Flat index (pad 2.0, 8
@@ -205,9 +223,10 @@ launches by instance, the kernels' JSON record (launches on the main paths,
 error, ms, plain ms, bound ms and what sets it, the library call's ms where
 there is one; the flat kernel has three rows: bf16 / int8, f32 on the
 tensor cores, f32 on the SIMT kernel; the probe kernel two: list-major and
-the query-major A/B; the ADC scans five: dma, the key kernel and the slab
-gather kernel (the A/Bs), and the fused key scan at the key site and at the
-gather site), and ``{"ok": true, "device": {...}}``.
+the query-major A/B; the ADC scans six: the staged dma scan, the key kernel
+and the slab gather kernel (the A/Bs), the fused key scan at the key site
+and at the gather site, and the fused dma scan at the dma site), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -694,10 +713,15 @@ def table_inputs(torch, dev, b, nlist, m, dsub, seed):
     return q_rot.contiguous(), cents, codebooks
 
 
-def adc_case(torch, dev, b, p, seed, nlist=128, m=96, lcap=640, dup=False, scarce=False):
+def adc_case(torch, dev, b, p, seed, nlist=128, m=96, lcap=640, dup=False, scarce=False,
+             holes=False):
     """A random prefix-packed index (lists of varied fill, one empty), its
     tables and probes; ``dup``: lists 1 and 2 hold the same ids; ``scarce``:
-    every list holds at most 12 rows."""
+    every list holds at most 12 rows; ``holes``: slots freed below lists'
+    fills, and lists 5 and 6 holding some of their ids twice (list 5 with
+    the same codes, as two copies of a row in one list have), 60 other rows
+    of list 5 with the codes of 60 more (tied scores), every query probing
+    list 5."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 256, (nlist, m, lcap)).astype(np.uint8)
     slot_ids = np.full((nlist, lcap), -1, np.int32)
@@ -710,9 +734,18 @@ def adc_case(torch, dev, b, p, seed, nlist=128, m=96, lcap=640, dup=False, scarc
     slot_ids[3] = -1
     if dup:
         slot_ids[2] = slot_ids[1]
+    if holes:
+        slot_ids[5, 1::3] = -1
+        slot_ids[7, :300:2] = -1
+        slot_ids[5, :60] = slot_ids[5, 100:160]
+        codes[5, :, :60] = codes[5, :, 100:160]
+        codes[5, :, 160:220] = codes[5, :, 220:280]     # other ids: tied scores
+        slot_ids[6, 1:61:2] = slot_ids[6, 200:230]
     probes = np.stack([rng.choice(nlist, p, replace=False) for _ in range(b)]).astype(np.int32)
     if dup:
         probes[:, :2] = [1, 2]
+    if holes:
+        probes[:, 0] = 5
     g = torch.Generator(device=dev).manual_seed(seed)
     lut = torch.rand((b, p, m, 256), generator=g, device=dev) * 4.0
     t = lambda x: torch.from_numpy(x).to(dev)
@@ -823,6 +856,32 @@ def check_tables(torch, tag, got, want, live):
     return equal, worst
 
 
+def check_fused_dma(torch, tag, q_rot, probes, cents, codebooks, codes, slot_ids, kk, fills,
+                    lut, nq_max=None):
+    """The fused dma scan bit for bit (values and ids) the staged route (the
+    dma kernel on the table kernel's tables ``lut``) and the dma scan's plain
+    version on ``lut`` (out-of-range probes sent to the dead list 3), each id
+    once a row. Returns its largest |value - plain value|."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    fv, fi = adc_scan.adc_fused_topk_cuda(q_rot, probes, cents, codebooks, codes, slot_ids, kk,
+                                          fills=fills, nq_max=nq_max)
+    torch.cuda.synchronize()
+    sv, si = adc_scan.adc_topk_cuda(lut, probes, codes, slot_ids, kk, fills=fills)
+    check(torch.equal(fv, sv) and torch.equal(fi, si),
+          f"{tag}: the fused dma scan differs from the staged route")
+    ok = (probes >= 0) & (probes < codes.shape[0])
+    pv, pi = adc_scan.adc_topk_reference(lut, torch.where(ok, probes, 3), codes, slot_ids, kk)
+    check(torch.equal(fi, pi), f"{tag}: the fused dma scan's ids differ from the plain scan's")
+    fin = fi >= 0
+    err = float((fv[fin] - pv[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(err == 0.0, f"{tag}: the fused dma scan's values differ from the plain scan's by {err}")
+    for row in fi.cpu().numpy():
+        live = row[row >= 0]
+        check(len(set(live.tolist())) == len(live), f"{tag}: the fused dma scan repeats an id")
+    return err
+
+
 def check_fused(torch, tag, q_rot, probes, cents, codebooks, codes, slot_ids, kk, fills, lut,
                 nq_max=None):
     """The fused key scan bit for bit (values and ids) the key mode's plain
@@ -877,15 +936,18 @@ def fused_edge_case(torch, dev, b, p, nlist, m, dsub, lcap, kind, seed):
 def phase_adc_vs_plain(torch, dev):
     from nvdb_tpu_torch.kernels import adc_scan
 
-    out = {"scan_err": 0.0, "table_err": 0.0, "table_equal": 1.0, "fused_cases": 0}
+    out = {"scan_err": 0.0, "table_err": 0.0, "table_equal": 1.0, "fused_cases": 0,
+           "fused_dma_cases": 0, "fused_dma_err": 0.0}
     cases = [(b, p, kk, "") for b in (1, 8, 64, 256) for p in (1, 7, 64)
              for kk in (10, 100, 256, 1024)] + [(8, 7, 100, "dup"), (64, 64, 1024, "dup"),
-                                                (8, 64, 1024, "scarce")]
+                                                (8, 64, 1024, "scarce")] + [
+        (b, 64, kk, "holes") for b in (1, 8, 256) for kk in (10, 100, 1024)]
     shared = dma_ids = 0
     for b, p, kk, kind in cases:
-        dup = kind == "dup"
-        lut32, probes, codes, slot_ids = adc_case(torch, dev, b, p, seed=b * 131 + p, dup=dup,
-                                                  scarce=kind == "scarce")
+        dup = kind in ("dup", "holes")     # not prefix-packed with unique ids: dma only
+        lut32, probes, codes, slot_ids = adc_case(torch, dev, b, p, seed=b * 131 + p,
+                                                  dup=kind == "dup", scarce=kind == "scarce",
+                                                  holes=kind == "holes")
         tag = f"B={b} P={p} kk={kk}{' ' + kind if kind else ''}"
         # the table kernel on this index's probes (list 3 is dead), then the
         # scan on the kernel's own tables
@@ -916,6 +978,11 @@ def phase_adc_vs_plain(torch, dev):
                 shared += sh
                 dma_ids += dn
                 msg += f" key=gather=plain overlap(dma)={sh / max(1, dn):.3f}"
+        err = check_fused_dma(torch, tag, q_rot, probes, cents, codebooks, codes, slot_ids, kk,
+                              fills, lut)
+        out["fused_dma_err"] = max(out["fused_dma_err"], err)
+        out["fused_dma_cases"] += 1
+        msg += " | fused dma = staged = plain on the kernel's tables"
         if not dup:
             check_fused(torch, tag, q_rot, probes, cents, codebooks, codes, slot_ids, kk, fills,
                         lut)
@@ -936,12 +1003,18 @@ def phase_adc_vs_plain(torch, dev):
             filled = check_fused(torch, f"fused B={b} P={p} M={m} dsub={dsub} Lcap={lcap} "
                                  f"kk={kk} {kind} nq<={nq}", *args, kk, fills, lut, nq_max=nq)
             out["fused_cases"] += 1
+        for nq in (None, 1, 4):
+            check_fused_dma(torch, f"fused dma B={b} P={p} M={m} dsub={dsub} Lcap={lcap} "
+                            f"kk={kk} {kind} nq<={nq}", *args, kk, fills, lut, nq_max=nq)
+            out["fused_dma_cases"] += 1
         say(f"  fused B={b} P={p} M={m} dsub={dsub} Lcap={lcap} kk={kk} {kind or '-'}: bit for "
             f"bit the key kernel and its plain version at chunks of <= 8 / 1 / 32 queries, "
-            f"filled={filled:.3f}")
+            f"the fused dma scan the staged route at <= 8 / 1 / 4, filled={filled:.3f}")
         del args, lut
     say(f"  fused key scan: {out['fused_cases']} calls bit for bit the key kernel on the table "
-        f"kernel's tables")
+        f"kernel's tables; fused dma scan: {out['fused_dma_cases']} calls bit for bit the "
+        f"staged route and its plain version (largest |value - plain| "
+        f"{out['fused_dma_err']:.1e})")
     check(out["key_overlap"] >= KEY_OVERLAP_MIN,
           f"key-mode ids overlap the dma kernel's at {out['key_overlap']} < {KEY_OVERLAP_MIN}")
     torch.cuda.empty_cache()
@@ -1096,11 +1169,12 @@ def phase_ivf_main_path(torch, dev, work, n=1_000_000, nlist=4096):
 
 
 def adc_reset():
-    """Every ADC launch counter (tables, the dma, key, gather and fused scans) to 0."""
+    """Every ADC launch counter (tables, the staged dma, key, gather and
+    fused scans) to 0."""
     from nvdb_tpu_torch.kernels import adc_scan
 
     adc_scan.LAUNCHES = adc_scan.TABLE_LAUNCHES = adc_scan.KEY_LAUNCHES = 0
-    adc_scan.GATHER_LAUNCHES = adc_scan.FUSED_LAUNCHES = 0
+    adc_scan.GATHER_LAUNCHES = adc_scan.FUSED_LAUNCHES = adc_scan.FUSED_DMA_LAUNCHES = 0
 
 
 def adc_counts():
@@ -1109,7 +1183,8 @@ def adc_counts():
 
     return {"adc_tables": adc_scan.TABLE_LAUNCHES, "adc_topk": adc_scan.LAUNCHES,
             "adc_topk_key": adc_scan.KEY_LAUNCHES, "adc_topk_gather": adc_scan.GATHER_LAUNCHES,
-            "adc_fused_key": adc_scan.FUSED_LAUNCHES}
+            "adc_fused_key": adc_scan.FUSED_LAUNCHES,
+            "adc_fused_dma": adc_scan.FUSED_DMA_LAUNCHES}
 
 
 def ivf_eval_counted(torch, main, argv, first=True):
@@ -1167,7 +1242,9 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
     # counters are set to 0 just before it and read just after
     runs = [("auto", [], ("adc_fused_key", "rerank_topk")),
             ("tables", ["--key-scan", "tables"], ("adc_tables", "adc_topk_key")),
-            ("dma", ["--ids-mode", "dma"], ("adc_tables", "adc_topk")),
+            ("dma", ["--ids-mode", "dma"], ("adc_fused_dma", "rerank_topk")),
+            ("dma_tables", ["--ids-mode", "dma", "--key-scan", "tables"],
+             ("adc_tables", "adc_topk")),
             ("gather", ["--ids-mode", "gather"], ("adc_fused_gather", "rerank_topk")),
             ("gather_tables", ["--ids-mode", "gather", "--key-scan", "tables"],
              ("adc_tables", "adc_topk_gather")),
@@ -1182,13 +1259,18 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
         say(f"  ivf_eval {' '.join(extra) or '(auto: key candidates, fused)'}: recall@10="
             f"{res['recall']:.4f} QPS={res['qps']:.1f} launches {launches}")
         out[name] = res
-        if name in ("auto", "gather"):
+        if name in ("auto", "gather", "dma"):
+            fused = ("adc_fused_dma",) if name == "dma" else ("adc_fused_key", "adc_fused_gather")
             others = {c: launches[c] for c in ("adc_tables", "adc_topk", "adc_topk_key",
-                                               "adc_topk_gather")}
+                                               "adc_topk_gather", "adc_fused_key",
+                                               "adc_fused_gather", "adc_fused_dma")
+                      if c not in fused}
             check(not any(others.values()), f"the {name} path ran another ADC kernel beside "
                                              f"the fused scan: {launches}")
     check(out["tables"]["recall"] == out["auto"]["recall"],
           f"two-kernel key recall {out['tables']['recall']} != fused {out['auto']['recall']}")
+    check(out["dma_tables"]["recall"] == out["dma"]["recall"],
+          f"staged dma recall {out['dma_tables']['recall']} != fused {out['dma']['recall']}")
     for a, b in (("auto", "torch"), ("auto", "dma")):
         gap = abs(out[a]["recall"] - out[b]["recall"])
         check(gap <= RECALL_GAP, f"recall@10 {a} {out[a]['recall']} vs {b} "
@@ -1420,6 +1502,94 @@ def fused_times(torch, dev, idx, q_rot, probes, kk, fills):
             "adc_fused_gather": dict(gather[256], plain_ms=plain, by_batch=gather)}
 
 
+def fused_dma_times(torch, dev, idx, q_rot, probes, fills):
+    """The fused dma scan (the dma mode's route) at kk = 100 and 10 and B =
+    256, 8 and 1 against the staged route it replaces (the table kernel,
+    then the staged dma scan), in turns, eagerly and as device time (calls
+    in a CUDA graph), bit for bit, with each route's peak device memory over
+    one call; its bound, its plain version and the repeated-id check's cost
+    at B = 256, and one call replayed from a CUDA graph. The index has
+    replicas 1, so the route runs with ``dedup=False``, as ``search_device``
+    does there."""
+    from nvdb_tpu_torch.kernels import _build, adc_scan, ivf_scan
+
+    dsub = idx.codebooks.shape[2]
+    dp = idx.centroids.shape[1]
+    out = {}
+    for kk in (100, 10):
+        for b in (256, 8, 1):
+            qb, pb_ = q_rot[:b].contiguous(), probes[:b].contiguous()
+            args = (qb, pb_, idx.centroids, idx.codebooks, idx.codes, idx.slot_ids, kk)
+            fused = lambda: adc_scan.adc_fused_topk_cuda(*args, fills=fills, dedup=False)
+            staged = lambda: adc_scan.adc_topk_cuda(
+                adc_scan.adc_tables_cuda(qb, pb_, idx.centroids, idx.codebooks, fills), pb_,
+                idx.codes, idx.slot_ids, kk, fills=fills)
+            kern, st_ms, runs = in_turns(torch, staged, fused, iters=10)
+            gk, gs, gruns = graph_turns(torch, staged, fused)
+            fv, fi = fused()
+            sv, si = staged()
+            check(torch.equal(fv, sv) and torch.equal(fi, si),
+                  f"fused dma B={b} kk={kk}: differs from the staged route on the flagship index")
+            del fv, fi, sv, si
+            peak, st_peak = peak_gb(torch, dev, fused), peak_gb(torch, dev, staged)
+            if b == 256:
+                check(peak <= 0.05, f"fused dma B=256 kk={kk}: peak memory {peak} GB > 0.05")
+            # bytes: each distinct probed list's live codes and slot ids once,
+            # the queries, the distinct probed centroids, the codebooks, the
+            # probes, the result; operations: the fused key scan's (every live
+            # pair's table entries, 2 dsub + 4 FLOP each, and every lookup's add)
+            pb = ivf_scan.probe_bytes(pb_, fills, idx.m, idx.nlist)
+            lookups = pb["as_probed"]
+            nbytes = (pb["rows"] * (idx.m + 4) + b * dp * 4 + pb["lists"] * dp * 4
+                      + idx.codebooks.numel() * 4 + pb_.numel() * 4 + b * kk * 8)
+            flops = float(pb["pairs"]) * idx.m * 256 * (2 * dsub + 4) + lookups
+            bnd, by = bound_ms(nbytes, flops, "f32")
+            say(f"  fused dma B={b} P={probes.shape[1]} kk={kk}: {kern:.4f} ms {runs['kernel']} | "
+                f"staged route (tables + dma scan) {st_ms:.4f} ms {runs['plain']} | device time "
+                f"(10 calls in a CUDA graph) fused {gk:.4f} {gruns['kernel']}, staged {gs:.4f} "
+                f"{gruns['plain']}; bit for bit equal")
+            say(f"    bound {bnd:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e9:.4f} GB) "
+                f"time / bound {kern / bnd:.2f} (device {gk / bnd:.2f}); peak device memory of "
+                f"one call: fused {peak:.4f} GB, staged {st_peak:.4f} GB")
+            out[(kk, b)] = dict(ms=kern, staged_ms=st_ms, device_ms=gk, staged_device_ms=gs,
+                                bound_ms=bnd, bound_by=by, peak_gb=peak, staged_peak_gb=st_peak)
+    args = (q_rot, probes, idx.centroids, idx.codebooks, idx.codes, idx.slot_ids, 100)
+    plain = cuda_ms(torch, lambda: adc_scan.adc_fused_topk_reference(
+        *args, fills=fills, dedup=False), iters=1)
+    leads = adc_scan.tile_leads(idx.slot_ids)
+    dedup_ms = graph_ms(torch, lambda: adc_scan.adc_fused_topk_cuda(
+        *args, fills=fills, leads=leads), launches=10, replays=5)
+    say(f"  fused dma B=256 kk=100: plain version (adc_fused_topk_reference) {plain:.4f} ms; "
+        f"device ms with the repeated-id check (leads of this index, none repeated) "
+        f"{dedup_ms:.4f} against {out[(100, 256)]['device_ms']:.4f} without")
+    # the call by pass, as the fused key scan's: measurement builds that stop
+    # after the tables, after the lookups and before the merge
+    split = {}
+    port_lib = adc_scan._fused_lib
+    try:
+        for part, defines in FUSED_ABLATIONS:
+            lib = adc_scan.bind_fused(_build.load("adc_topk", defines))
+            adc_scan._fused_lib = lambda lib=lib: lib
+            split[part] = graph_ms(torch, lambda: adc_scan.adc_fused_topk_cuda(
+                *args, fills=fills, dedup=False), launches=10, replays=5)
+    finally:
+        adc_scan._fused_lib = port_lib
+    whole = graph_ms(torch, lambda: adc_scan.adc_fused_topk_cuda(*args, fills=fills,
+                                                                 dedup=False),
+                     launches=10, replays=5)
+    say(f"  fused dma B=256 kk=100 by part (device ms): pass 0, staging and tables "
+        f"{split['tables']:.4f}, lookups {split['lookups'] - split['tables']:.4f}, selection "
+        f"{split['selection'] - split['lookups']:.4f}, merge {whole - split['selection']:.4f}; "
+        f"the whole call {whole:.4f}")
+    graph_replay_check(torch, lambda: adc_scan.adc_fused_topk_cuda(*args, fills=fills,
+                                                                   dedup=False))
+    say("  one fused dma call (B=256) captured in a CUDA graph and replayed: equal to an eager "
+        "call bit for bit")
+    return {"adc_fused_dma": dict(out[(100, 256)], plain_ms=plain, dedup_device_ms=dedup_ms,
+                                  by_part=dict(split, whole=whole),
+                                  by_batch={f"kk={kk} B={b}": t for (kk, b), t in out.items()})}
+
+
 def phase_ivf_times(torch, dev, idx, store, queries):
     from nvdb_tpu_torch.index.ivf_flat import _coarse_probes
     from nvdb_tpu_torch.kernels import adc_scan, ivf_scan, ops, rerank
@@ -1496,6 +1666,7 @@ def phase_ivf_times(torch, dev, idx, store, queries):
     cand = cand.contiguous()
     del lut, kv, pv, pi
     out.update(fused_times(torch, dev, idx, q_rot, probes, kk, fills))
+    out.update(fused_dma_times(torch, dev, idx, q_rot, probes, fills))
 
     # the whole batch, its operators recorded: on the key path (the fused
     # key scan) nothing the size of the tables
@@ -1531,11 +1702,36 @@ def phase_ivf_times(torch, dev, idx, store, queries):
                                          key_scan="tables"), search, iters=5)
     say(f"  whole search_device B={b}: fused key scan (auto) {fused_ms:.4f} ms {runs['kernel']} "
         f"| table kernel + key scan {two_ms:.4f} ms {runs['plain']}")
-    key_ms, dma_ms, runs = in_turns(
-        torch, lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
-                                         ids_mode="dma"), search, iters=5)
+    dma = lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
+                                    ids_mode="dma")
+    key_ms, dma_ms, runs = in_turns(torch, dma, search, iters=5)
     say(f"  whole search_device B={b}: key candidates (auto) {key_ms:.4f} ms {runs['kernel']} | "
-        f"dma candidates {dma_ms:.4f} ms {runs['plain']}")
+        f"dma candidates (the fused dma scan) {dma_ms:.4f} ms {runs['plain']}")
+    # the dma batch and an ADC-only batch (the dma mode): the fused dma scan,
+    # no table kernel, nothing the size of the tables
+    dma_tables = lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
+                                           ids_mode="dma", key_scan="tables")
+    adc_reset()
+    (dv, di), ops_seen = dispatched_ops(torch, dma)
+    idx.search_device(q, 10, nprobe)
+    torch.cuda.synchronize()
+    launched = adc_counts()
+    check(launched["adc_fused_dma"] == 2 and launched["adc_tables"] == 0
+          and launched["adc_topk"] == 0, f"the dma and ADC-only batches' launches: {launched}")
+    big = [(name, shape, dt) for name, outs in ops_seen for shape, dt in outs
+           if int(np.prod(shape)) >= table_elems]
+    check(big == [], f"the dma path made table-sized tensors: {big}")
+    sv, si = dma_tables()
+    check(torch.equal(dv, sv) and torch.equal(di, si), "dma batch: differs from the staged route")
+    peak, st_peak = peak_gb(torch, dev, dma), peak_gb(torch, dev, dma_tables)
+    check(peak < table_elems * 2 / 1e10, "the dma path allocated a tenth of the bf16 tables")
+    d_ms, st_ms, runs = in_turns(torch, dma_tables, dma, iters=5)
+    say(f"  whole search_device B={b} ids_mode=dma: fused dma scan {d_ms:.4f} ms {runs['kernel']}, "
+        f"peak {peak:.4f} GB | staged route (key_scan=tables) {st_ms:.4f} ms {runs['plain']}, "
+        f"peak {st_peak:.4f} GB; results bit for bit the staged route's; the ADC-only batch "
+        f"(refine 0) on the fused dma scan too, no table kernel launched")
+    out["whole search_device dma"] = dict(ms=d_ms, staged_ms=st_ms, peak_gb=peak,
+                                          staged_peak_gb=st_peak)
     # the gather batch: the fused key scan, with no code slab and no tables
     gather = lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
                                        ids_mode="gather")
@@ -2062,7 +2258,8 @@ def build_side_ivfpq(torch, dev, work, p8, spilled8):
     """14a: the IVF-PQ repacks of phase 8's index at the published settings
     and ivf_eval on them, with the kernels and with their plain versions."""
     from nvdb_tpu_torch.formats import vecbin
-    from nvdb_tpu_torch.kernels import adc_scan, kmeans, ops
+    from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+    from nvdb_tpu_torch.kernels import kmeans, ops
     from nvdb_tpu_torch.tools import ivf_build, ivf_eval
 
     paths = work_paths(work, "b14", ("rep1.npz", "rep2.npz"))
@@ -2096,14 +2293,38 @@ def build_side_ivfpq(torch, dev, work, p8, spilled8):
     check(rep2.replicas == 2 and rep2.ids_mode() == "dma",
           f"replicated index: replicas {rep2.replicas}, mode {rep2.ids_mode()}")
     queries = vecbin.VecbinFile(p8["q.vecbin"]).rows_f32()
-    adc_scan.LAUNCHES = 0
-    _, cand = rep2.search(queries, 100, 64)
-    out["launches"]["adc_topk"] = adc_scan.LAUNCHES
-    dups = sum(len(set(row.tolist())) != len(row) for row in cand)
-    say(f"  replicated ADC candidates (k 100, nprobe 64, {len(cand)} queries, dma kernel "
-        f"{adc_scan.LAUNCHES} launches): {dups} queries with a repeated id")
-    check(adc_scan.LAUNCHES > 0 and dups == 0, f"replicated search: {dups} queries repeat an id")
-    del rep1, rep2
+    # the dma route on the repacked indexes: the fused dma scan and no table
+    # kernel, for the replicated index's ADC candidates, an ADC-only search of
+    # the repacked one and the refine candidates of a copy of it with holes
+    holed_ids = rep1.slot_ids.clone()
+    holed_ids[:, 1::7] = -1
+    holed = IVFPQIndex(rotation=rep1.rotation, centroids=rep1.centroids,
+                       codebooks=rep1.codebooks, codes=rep1.codes, slot_ids=holed_ids, n=rep1.n,
+                       d=rep1.d, m=rep1.m)
+    check(holed.ids_mode() == "dma", f"holed index: mode {holed.ids_mode()}")
+    leads = rep2.tile_leads()
+    repeated = int((leads >= 0).sum())
+    qpad = torch.zeros((queries.shape[0], rep1.centroids.shape[1]), device=dev)
+    qpad[:, :queries.shape[1]] = torch.from_numpy(queries).to(dev)
+    for name, run in (
+            ("replicated", lambda: rep2.search(queries, 100, 64)[1]),
+            ("repacked, ADC-only", lambda: rep1.search(queries, 100, 64)[1]),
+            ("repacked with holes, refine candidates", lambda: torch.cat(
+                [holed.search_device(x, 100, 64, for_refine=True)[1] for x in qpad.split(256)]
+            ).cpu().numpy())):
+        adc_reset()
+        cand = run()
+        launched = adc_counts()
+        add_launches(out["launches"], {"adc_fused_dma": launched["adc_fused_dma"]})
+        dups = sum(len(set(row[row >= 0].tolist())) != int((row >= 0).sum()) for row in cand)
+        say(f"  {name} ADC candidates (k 100, nprobe 64, {len(cand)} queries): launches "
+            f"{launched}, {dups} queries with a repeated id")
+        check(launched["adc_fused_dma"] > 0 and launched["adc_tables"] == 0
+              and launched["adc_topk"] == 0, f"{name} search: the dma route's launches {launched}")
+        check(dups == 0, f"{name} search: {dups} queries repeat an id")
+    say(f"  replicated index: {repeated} slots hold an id their 1024-lane tile holds again "
+        f"(adc_scan.tile_leads)")
+    del rep1, rep2, holed, qpad
     torch.cuda.empty_cache()
 
     ev = [p8["base.vecbin"], p8["q.vecbin"], "--gt", p8["gt.gtbin"], "--chained", "--nprobe",
@@ -2112,13 +2333,14 @@ def build_side_ivfpq(torch, dev, work, p8, spilled8):
     runs = [("phase 8 index", p8["index.npz"], [], ("adc_fused_key", "rerank_topk")),
             ("repacked", paths["rep1.npz"], [], ("adc_fused_key", "rerank_topk")),
             ("repacked", paths["rep1.npz"], ["--ivf-backend", "torch"], ()),
-            ("replicated", paths["rep2.npz"], [], ("adc_tables", "adc_topk", "rerank_topk")),
+            ("replicated", paths["rep2.npz"], [], ("adc_fused_dma", "rerank_topk")),
             ("replicated", paths["rep2.npz"], ["--ivf-backend", "torch"], ())]
     for name, index, extra, counted in runs:
         res, launches = ivf_eval_counted(torch, ivf_eval.main, [index, *ev, *extra],
                                          first=False)
         for c in counted:
             check(launches[c] > 0, f"ivf_eval {name}: did not launch {c}")
+        check(launches["adc_tables"] == 0, f"ivf_eval {name}: launched the table kernel")
         add_launches(out["launches"], {c: launches[c] for c in counted})
         out[(name, "torch" if extra else "cuda")] = {r["nprobe"]: r for r in res}
     for name in ("repacked", "replicated"):
@@ -2350,7 +2572,7 @@ def phase_hbm_and_sanity(torch, dev):
     return out
 
 
-DIST_KERNELS = ("adc_tables", "adc_topk", "adc_fused_key", "rerank_topk", "ivf_probe_topk")
+DIST_KERNELS = ("adc_fused_dma", "adc_fused_key", "rerank_topk", "ivf_probe_topk")
 
 
 def dist_counted(total, fn, *args, **kw):
@@ -2820,7 +3042,8 @@ def main() -> int:
                    f"{TABLE_EQUAL_MIN} bit-equal, the rest one bf16 step; scan: |kernel - plain| "
                    f"<= {ADC_ATOL}, id agreement >= {ID_AGREE_MIN}, no duplicate ids; key and "
                    f"gather: bit for bit their plain version and each other, id overlap with "
-                   f"dma >= {KEY_OVERLAP_MIN})"):
+                   f"dma >= {KEY_OVERLAP_MIN}; the fused scans bit for bit the two-kernel "
+                   f"routes)"):
             adc = phase_adc_vs_plain(torch, dev)
             say(f"  tables: least bit-equal share {adc['table_equal']:.6f}, largest "
                 f"|kernel - plain| {adc['table_err']:.3e}; scan: largest |kernel - plain| "
@@ -2832,7 +3055,8 @@ def main() -> int:
             rerank_err = phase_rerank_vs_plain(torch, dev)
 
         with phase("[8 IVF-PQ main path] 1M x 768, nlist 4096, m 96, OPQ; nprobe 64, "
-                   "refine 100: auto (key), the key A/B, dma, gather, the gather A/B, torch; "
+                   "refine 100: auto (key), the key A/B, dma, the dma A/B, gather, the gather "
+                   "A/B, torch; "
                    "then the residual-int8 refine on both paths"):
             idx, store, queries, ivf, ivf_paths = phase_ivf_main_path(torch, dev, work)
             spilled8 = idx.n_spilled
@@ -2906,7 +3130,8 @@ def main() -> int:
     say(f"flat kernel launches by instance, phases 4, 8, 11, 14, 15 and 16: {flat}")
     # the dist paths' and the tools' launches of the other kernels
     dist = {name: dl.get(name, 0) + tl.get(name, 0)
-            for name in DIST_KERNELS + ("adc_topk_key", "adc_topk_gather")}
+            for name in DIST_KERNELS + ("adc_tables", "adc_topk", "adc_topk_key",
+                                        "adc_topk_gather")}
     rows = [
         ("flat_topk", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
          flat.get("bf16", 0) + flat.get("int8", 0) + flat.get("int8_int8", 0),
@@ -2916,13 +3141,21 @@ def main() -> int:
         # the A/B, on no default path: its launches are phase 14's SIMT ground truth
         ("flat_topk_f32_simt", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
          flat.get("f32_simt", 0), max_err["f32_simt"], times["f32 B=512 k=10 simt"]),
+        # the tables and the staged dma scan: the A/Bs (phase 8's --key-scan
+        # tables runs, phase 16's tools), on no default path since this slice
         ("adc_tables", "adc_tables", "nvdb_tpu/kernels/pq.py:89",
          ivf["launches"]["adc_tables"] + bl.get("adc_tables", 0) + dist["adc_tables"],
          adc["table_err"],
          ivf_times["adc_tables"]),
         ("adc_topk", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:558",
-         ivf["launches"]["adc_topk"] + bl["adc_topk"] + dist["adc_topk"], adc["scan_err"],
-         ivf_times["adc_topk"]),
+         ivf["launches"]["adc_topk"] + bl.get("adc_topk", 0) + dist["adc_topk"],
+         adc["scan_err"], ivf_times["adc_topk"]),
+        # the dma site of the IVF-PQ path (ADC-only searches, replicated and
+        # holed indexes, the sharded IVF-PQ): the fused dma scan, bit for bit
+        # the staged route and its plain version in phases 6 and 9
+        ("adc_fused_dma", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:758",
+         ivf["launches"]["adc_fused_dma"] + bl["adc_fused_dma"] + dist["adc_fused_dma"],
+         adc["fused_dma_err"], ivf_times["adc_fused_dma"]),
         # bit for bit their plain version in phase 6, so their error is 0
         ("adc_topk_key", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:691",
          ivf["launches"]["adc_topk_key"] + bl.get("adc_topk_key", 0) + dist["adc_topk_key"],

@@ -254,10 +254,11 @@ def _refine(mesh: meshmod.Mesh, queries: torch.Tensor, cand: torch.Tensor, store
 class ShardedIVFPQIndex:
     """IVF-PQ with its lists (centroids, codes, slot ids) split over the
     mesh's rows, the rotation and codebooks whole on every shard's device.
-    Each shard scores its probed lists by ADC (the table kernel and the ADC
-    scan on a card, in the id mode of ``ids_mode()`` for refine
-    candidates); the merged candidates are refined after the merge, sharded
-    when the refine store is row-sharded over the same mesh."""
+    Each shard scores its probed lists by ADC (on a card the fused scans,
+    which build the tables in shared memory: the key scan in the id mode of
+    ``ids_mode()`` for refine candidates, the dma scan otherwise); the merged
+    candidates are refined after the merge, sharded when the refine store is
+    row-sharded over the same mesh."""
 
     def __init__(self, mesh: meshmod.Mesh, rotation: Optional[torch.Tensor], centroids,
                  codebooks, codes, slot_ids, n: int, d: int, m: int, replicas: int = 1):

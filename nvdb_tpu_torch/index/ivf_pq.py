@@ -9,9 +9,8 @@ rotated residual against the list each row is packed in.
 
 Search is coarse probe -> ADC candidate top-kk in the id mode the JAX
 package picks (the key and gather modes: the fused key scan of
-``adc_topk``, which builds the bf16 ADC tables in shared memory and reads
-the probed lists in place; dma: the ``adc_tables`` kernel, then the
-``adc_topk`` kernel) -> exact refine
+``adc_topk``; dma: its fused dma scan; both build the bf16 ADC tables in
+shared memory and read the probed lists in place) -> exact refine
 against the flat store or a residual-int8 store (the ``rerank_topk``
 kernel), all on one device. ``.npz`` files are plain numpy
 and byte-compatible with the JAX package's, so an index built by either
@@ -37,9 +36,10 @@ from nvdb_tpu_torch.index.ivf_flat import (_coarse_probes, _host_chunked, _pack_
 from nvdb_tpu_torch.kernels import adc_scan, dispatch, kmeans, ops, pq
 from nvdb_tpu_torch.utils import round_up
 
-# The key and gather modes' candidate generators on the kernel path: the fused
-# key scan (the default) and the table kernel followed by the key scan, or by
-# the scan of the gathered code slab (the A/B).
+# The candidate generators of every id mode on the kernel path: the fused scan
+# (the default; the key scan in the key and gather modes, the dma scan in the
+# dma mode) and the table kernel followed by the scan of the tables (the
+# key scan, the scan of the gathered code slab or the staged dma scan: the A/B).
 KEY_SCANS = ("fused", "tables")
 
 
@@ -57,18 +57,21 @@ def _ivfpq_search_block(
     fills: Optional[torch.Tensor] = None,  # [nlist] int32 (kernel path)
     terms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cached coarse_terms
     ids_mode: str = "dma",     # "key" / "gather": prefix-packed, replicas == 1 only
-    key_scan: str = "fused",   # key / gather: "fused", or "tables" (the two-kernel A/B)
+    key_scan: str = "fused",   # "fused", or "tables" (the two-kernel A/B)
+    leads: Optional[torch.Tensor] = None,  # dma, dedup > 1: cached adc_scan.tile_leads
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Coarse probes, ADC tables and the ADC candidate top-k of one batch.
-    The kernel path's key and gather modes are the fused key scan
-    (``adc_fused_keys_cuda``: the tables built in shared memory, none in
-    device memory, each probed list's codes read in place from ``codes``; the
+    The kernel path runs the fused scans, which build each pair's bf16
+    tables in shared memory (none in device memory) and read each probed
+    list's codes in place from ``codes``, once for a chunk of queries: the
+    key and gather modes the fused key scan (``adc_fused_keys_cuda``; the
     gather mode's result is the key mode's bit for bit, so no code slab is
-    made). The dma mode, and the key and gather modes with
-    ``key_scan="tables"``, write the bf16 tables in one pass
-    (``adc_tables_cuda``) and scan them (``adc_topk_cuda``, or
-    ``adc_topk_keys_cuda``, over ``gather_codes``' slab in the gather mode):
-    no f32 table exists on it. A shape the fused scan cannot plan raises
+    made), the dma mode the fused dma scan (``adc_fused_topk_cuda``, which
+    keeps a replicated row once). With ``key_scan="tables"`` each mode
+    writes the bf16 tables in one pass (``adc_tables_cuda``) and scans them
+    (``adc_topk_cuda``, or ``adc_topk_keys_cuda``, over ``gather_codes``'
+    slab in the gather mode): the A/B, the same candidates; no f32 table
+    exists on it. A shape the fused scans cannot plan raises
     (``adc_scan.fused_plan``). The ``torch`` path runs the same routes'
     plain versions; the oracle path, the JAX package's jnp block, ignores
     ``ids_mode`` as that block does."""
@@ -78,23 +81,30 @@ def _ivfpq_search_block(
     probes = _coarse_probes(q_rot, centroids, slot_ids, nprobe, terms=terms)  # [B, P]
     path = dispatch.refine_backend(backend, codes)
     keyed = ids_mode in ("key", "gather")
-    fused = keyed and key_scan == "fused"
+    fused = key_scan == "fused"
     if path == "cuda":
         probes = probes.to(torch.int32)       # once, for every kernel
         if fills is None:
             fills = adc_scan.list_fills(slot_ids)
-        if fused:
+        if fused and keyed:
             return adc_scan.adc_fused_keys_cuda(q_rot.contiguous(), probes, centroids,
                                                 codebooks, codes, slot_ids, k, fills=fills)
+        if fused:
+            return adc_scan.adc_fused_topk_cuda(q_rot.contiguous(), probes, centroids,
+                                                codebooks, codes, slot_ids, k, fills=fills,
+                                                dedup=dedup > 1, leads=leads)
         lut = adc_scan.adc_tables_cuda(q_rot.contiguous(), probes, centroids, codebooks,
                                        fills)
         if keyed:
             return adc_scan.adc_topk_keys_cuda(lut, probes, codes, slot_ids, k, fills=fills,
                                                gathered=ids_mode == "gather")
         return adc_scan.adc_topk_cuda(lut, probes, codes, slot_ids, k, fills=fills)
-    if path == "torch" and fused:
+    if path == "torch" and fused and keyed:
         return adc_scan.adc_fused_keys_reference(q_rot, probes, centroids, codebooks, codes,
                                                  slot_ids, k, fills=fills)
+    if path == "torch" and fused:
+        return adc_scan.adc_fused_topk_reference(q_rot, probes, centroids, codebooks, codes,
+                                                 slot_ids, k, fills=fills, dedup=dedup > 1)
     residuals = q_rot[:, None, :] - centroids[probes]                # [B, P, Dp]
     lut = pq.adc_lut(residuals.reshape(B * nprobe, -1), codebooks, m)
     lut = lut.reshape(B, nprobe, m, pq.KSUB)                         # [B, P, M, 256]
@@ -134,6 +144,8 @@ class IVFPQIndex:
         default=None, repr=False, compare=False)
     _coarse: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
         default=None, repr=False, compare=False)
+    _leads: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def nlist(self) -> int:
@@ -153,6 +165,13 @@ class IVFPQIndex:
         if self._fills is None:
             self._fills = adc_scan.list_fills(self.slot_ids)
         return self._fills
+
+    def tile_leads(self) -> torch.Tensor:
+        """[nlist, Lcap] the fused dma scan's repeated-id map
+        (``adc_scan.tile_leads``) of a replicated index, cached."""
+        if self._leads is None:
+            self._leads = adc_scan.tile_leads(self.slot_ids)
+        return self._leads
 
     def coarse_terms(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(||c||^2, live-list mask) of the coarse ranking, cached."""
@@ -386,11 +405,13 @@ class IVFPQIndex:
         granularity and need a prefix-packed index with replicas == 1. The
         cuda and torch paths run the mode; the oracle path keeps the jnp
         semantics, as the JAX package's jnp backend does. ``key_scan``: the
-        key and gather modes' generator, ``fused`` (one fused kernel that
-        reads each probed list in place; the gather mode is then the key
-        mode) or ``tables`` (the table kernel, then the key kernel, or in the
-        gather mode the kernel over the gathered code slab: the A/B arm, bit
-        for bit the same candidates)."""
+        candidate generator of every mode, ``fused`` (one fused kernel that
+        builds the tables in shared memory and reads each probed list in
+        place: the fused key scan, the gather mode then being the key mode,
+        or the fused dma scan) or ``tables`` (the table kernel, then the key
+        kernel, in the gather mode the kernel over the gathered code slab, in
+        the dma mode the staged dma scan: the A/B arm, bit for bit the same
+        candidates)."""
         if ids_mode not in (None, "dma", "key", "gather"):
             raise ValueError(f"ids_mode must be 'dma', 'key' or 'gather', got {ids_mode!r}")
         # the key modes derive ids from list and lane, right only on a
@@ -409,12 +430,15 @@ class IVFPQIndex:
         q_rot = _matmul(queries, self.rotation) if self.rotation is not None else queries
         path = dispatch.refine_backend(backend, self.codes)
         dispatch.check_finite("IVF-PQ queries", q_rot)
+        cuda = path == "cuda"
         v, i = _ivfpq_search_block(q_rot, self.centroids, self.codebooks, self.codes,
                                    self.slot_ids, kk, nprobe, self.m, backend=backend,
-                                   dedup=self.replicas,
-                                   fills=self.fills() if path == "cuda" else None,
+                                   dedup=self.replicas, fills=self.fills() if cuda else None,
                                    terms=self.coarse_terms(), ids_mode=mode,
-                                   key_scan=key_scan)
+                                   key_scan=key_scan,
+                                   leads=(self.tile_leads() if cuda and mode == "dma"
+                                          and self.replicas > 1 and key_scan == "fused"
+                                          else None))
         dispatch.check_finite("IVF-PQ ADC candidate scores", v, i)
         if refine_k > 0:
             if refine_store is None:

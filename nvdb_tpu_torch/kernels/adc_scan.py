@@ -35,6 +35,11 @@ summed in f32 over m in order, and return the top kk (kk <= 1024) with
   gather modes of the IVF-PQ path. ``adc_topk_keys_listmajor_reference`` is
   the key mode's plain scan walked the same way, bit for bit
   ``adc_topk_keys_reference``.
+- fused dma scan (``adc_fused_topk_cuda``, ``adc_fused_topk_reference``):
+  the dma mode the same way, bit for bit ``adc_topk_cuda`` on
+  ``adc_tables_cuda``'s tables; the dma mode of the IVF-PQ path (ADC-only
+  searches, replicated indexes, lists with holes). The staged route (the
+  table kernel, then ``adc_topk_cuda``) is its A/B.
 
 The TPU kernel's nibble one-hot matmul works around the TPU's lack of a
 fast gather and is not carried over. The ``*_cuda`` wrappers launch their
@@ -560,13 +565,16 @@ def adc_fused_keys_reference(
 
 
 def bind_fused(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares the fused scan's C entries on a build of ``csrc/adc_topk.cu``
+    """Declares the fused scans' C entries on a build of ``csrc/adc_topk.cu``
     (the port's, or a measurement build of the same source)."""
-    # 11 pointers, B, P, Dp, M, dsub, nlist, Lcap, kk, nq, U, stream
+    # 11 pointers (the dma scan: 12, with the leads), B, P, Dp, M, dsub, nlist,
+    # Lcap, kk, nq, U, stream
     lib.nvdb_adc_fused_keys.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
+    lib.nvdb_adc_fused_topk.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + \
+        [ctypes.c_void_p]
     lib.nvdb_adc_fused_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    for fn in (lib.nvdb_adc_fused_keys, lib.nvdb_adc_fused_plan):
+    for fn in (lib.nvdb_adc_fused_keys, lib.nvdb_adc_fused_topk, lib.nvdb_adc_fused_plan):
         fn.restype = ctypes.c_int
     return lib
 
@@ -588,7 +596,7 @@ def fused_plan(m: int, dsub: int, nq_max: int, device_index: int) -> int:
     with torch.cuda.device(device_index):
         rc = _fused_lib().nvdb_adc_fused_plan(m, dsub, nq_max, ctypes.byref(nq))
     if rc != 0:
-        raise ValueError(f"adc_fused_keys: one query's residual and tables at M={m}, "
+        raise ValueError(f"the fused ADC scan: one query's residual and tables at M={m}, "
                          f"dsub={dsub} exceed a CTA's shared memory (cudaError_t {rc})")
     return nq.value
 
@@ -669,4 +677,233 @@ def adc_fused_keys_cuda(
     if rc != 0:
         raise RuntimeError(f"adc_fused_keys kernel launch failed: cudaError_t {rc}")
     FUSED_LAUNCHES += 1
+    return vals, ids
+
+
+# -- the fused dma scan ----------------------------------------------------------
+
+# Launches of the fused dma scan; only adc_fused_topk_cuda's launch adds to it.
+FUSED_DMA_LAUNCHES = 0
+# The widest query chunk the fused dma scan is built for (its instances take
+# chunks of 1, 4 and 8 queries).
+FUSED_DMA_NQ_MAX = 8
+# The plain dma key of no candidate: the kernel's key 0, the least of all.
+_EMPTY = -(1 << 63)
+
+
+def _dma_keys(acc: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """int64 keys of the dma order (score desc, id desc) of ADC sums ``acc``
+    and slot ids (-1: no candidate, ``_EMPTY``): the kernel's 64-bit key
+    mono32(-acc) << 32 | (id + 2^31) with its top bit flipped, so that the
+    int64 order is the kernel's unsigned order."""
+    b = ((-acc) + 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF   # -0 -> +0
+    mono = torch.where(b >= 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
+    key = (mono - (1 << 31)) * (1 << 32) + (ids.to(torch.int64) + (1 << 31))
+    return torch.where(ids >= 0, key, _EMPTY)
+
+
+def _dma_decode(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(f32 scores, int32 ids) of ``_dma_keys`` keys; (-inf, -1) for ``_EMPTY``."""
+    hit = keys != _EMPTY
+    mono = (keys >> 32) + (1 << 31)
+    bits = torch.where(mono >= 0x80000000, mono - 0x80000000, ~mono & 0xFFFFFFFF)
+    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32)
+    vals = torch.where(hit, bits.view(torch.float32), ops.NEG_INF)
+    ids = torch.where(hit, (keys & 0xFFFFFFFF) - (1 << 31), -1).to(torch.int32)
+    return vals, ids
+
+
+def tile_leads(slot_ids: torch.Tensor, tile: int = FUSED_TILE) -> torch.Tensor:
+    """[nlist, Lcap] int32: for each live slot whose id its list holds again
+    within the same tile of ``tile`` lanes, the first lane of that tile
+    holding the id; else -1. What the fused dma scan reads to keep one copy
+    of such an id a tile: nothing in the packer keeps a replicated row's
+    copies in distinct lists (a copy spilled to its second list may meet the
+    next copy there)."""
+    lane = torch.arange(slot_ids.shape[1], device=slot_ids.device)
+    ids = slot_ids.to(torch.int64)
+    key = torch.where(ids >= 0, (lane // tile) * (1 << 32) + ids, -1 - lane)
+    sk, order = torch.sort(key, dim=1, stable=True)
+    start = torch.ones_like(sk, dtype=torch.bool)
+    start[:, 1:] = sk[:, 1:] != sk[:, :-1]
+    run = torch.cumsum(start, dim=1) - 1                          # each position's run
+    size = torch.zeros_like(sk).scatter_add_(1, run, torch.ones_like(sk))
+    first = torch.cummax(torch.where(start, lane, 0), dim=1).values
+    lead = torch.where(torch.gather(size, 1, run) > 1, torch.gather(order, 1, first), -1)
+    return torch.empty_like(lead).scatter_(1, order, lead).to(torch.int32)
+
+
+def _drop_repeated(keys: torch.Tensor, leads: torch.Tensor) -> torch.Tensor:
+    """The fused dma scan's repeated-id rule on rows of keys [n, L] whose
+    lanes have the ``tile_leads`` ``leads`` [n, L]: of the lanes of a tile
+    holding one id, the best key's (of equal keys, the first lane's) stays,
+    the others become ``_EMPTY``."""
+    lane = torch.arange(keys.shape[1], device=keys.device).expand_as(keys)
+    grp = torch.where(leads >= 0, leads.to(torch.int64), lane)
+    best = torch.full_like(keys, _EMPTY).scatter_reduce_(1, grp, keys, "amax")
+    is_best = keys == torch.gather(best, 1, grp)
+    first = torch.full_like(grp, keys.shape[1]).scatter_reduce_(
+        1, grp, torch.where(is_best, lane, keys.shape[1]), "amin")
+    return torch.where(is_best & (torch.gather(first, 1, grp) == lane), keys, _EMPTY)
+
+
+def adc_fused_topk_reference(
+    q_rot: torch.Tensor,       # [B, Dp] f32 rotated queries
+    probes: torch.Tensor,      # [B, P] int probed list ids
+    centroids: torch.Tensor,   # [nlist, Dp] f32
+    codebooks: torch.Tensor,   # [M, 256, dsub] f32
+    codes: torch.Tensor,       # [nlist, M, Lcap] uint8
+    slot_ids: torch.Tensor,    # [nlist, Lcap] int32 (-1: no row)
+    k: int,
+    fills: Optional[torch.Tensor] = None,  # [nlist] int32 (list_fills)
+    dedup: bool = True,        # the index may hold an id twice (replicas > 1)
+    q_chunk: int = FUSED_DMA_NQ_MAX,
+    wave_pairs: int = 4096,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the fused dma scan, walked as the kernel walks
+    it: the plain tables (``adc_tables_reference``); the pairs grouped by
+    list into items of at most ``q_chunk`` (``ivf_scan.group_pairs_reference``),
+    taken in waves of whole items of about ``wave_pairs`` pairs; each pair
+    scoring its list's lanes (the f32 sum over m in order), each (pair, tile
+    of ``FUSED_TILE`` lanes) keeping its k best keys of distinct ids (with
+    ``dedup``, the kernel's rule for an id its tile holds twice:
+    ``tile_leads``); then each query's partials merged, each id's best key
+    kept. Bit for bit ``adc_topk_reference(adc_tables_reference(...))``
+    where the probes are in range; a probe out of range adds nothing.
+    Returns (vals [B, k] f32, ids [B, k] int32), ranked by (score desc, id
+    desc), (-inf, -1) after the real candidates."""
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    B, P = probes.shape
+    L = codes.shape[2]
+    dev = codes.device
+    if fills is None:
+        fills = list_fills(slot_ids)
+    lut = adc_tables_reference(q_rot, probes, centroids, codebooks, fills).to(torch.float32)
+    order, items = ivf_scan.group_pairs_reference(probes, fills, q_chunk)
+    leads = tile_leads(slot_ids) if dedup else None
+    T = cdiv(L, FUSED_TILE)
+    lane = torch.arange(L, device=dev)
+    part = torch.full((B * P, T, k), _EMPTY, dtype=torch.int64, device=dev)
+    # waves of whole items: the first position in ``order`` of each wave
+    ends = torch.cumsum(items[:, 2].long(), 0).tolist()
+    starts, w0 = [0], 0
+    for e in ends:
+        if e - w0 >= wave_pairs:
+            starts.append(e)
+            w0 = e
+    if starts[-1] != len(order):
+        starts.append(len(order))
+    for a, z in zip(starts[:-1], starts[1:]):
+        pairs = order[a:z].long()
+        b, p = pairs // P, pairs % P
+        lst = probes.reshape(-1)[pairs].long()
+        acc = torch.zeros((z - a, L), dtype=torch.float32, device=dev)
+        for m in range(codes.shape[1]):
+            acc += torch.gather(lut[b, p, m], 1, codes[lst, m].long())
+        sid = torch.where(lane < fills.long()[lst, None], slot_ids[lst], -1)
+        key = _dma_keys(acc, sid)
+        if dedup:
+            key = _drop_repeated(key, leads[lst])
+        key = torch.cat([key, key.new_full((z - a, T * FUSED_TILE - L), _EMPTY)], dim=1)
+        top = torch.topk(key.reshape(z - a, T, FUSED_TILE), min(k, FUSED_TILE), dim=2).values
+        part[pairs, :, :top.shape[2]] = top
+    # the merge: each id's best key of the query's P * T partials, the k best
+    keys = torch.sort(part.reshape(B, -1), dim=1, descending=True).values
+    by_id = torch.argsort(keys & 0xFFFFFFFF, dim=1, stable=True)
+    keys = torch.gather(keys, 1, by_id)
+    dup = torch.zeros_like(keys, dtype=torch.bool)
+    dup[:, 1:] = (keys[:, 1:] & 0xFFFFFFFF) == (keys[:, :-1] & 0xFFFFFFFF)
+    keys = torch.where(dup, _EMPTY, keys)
+    return _dma_decode(torch.topk(keys, k, dim=1).values)
+
+
+def adc_fused_topk_cuda(
+    q_rot: torch.Tensor,       # [B, Dp] f32 rotated queries
+    probes: torch.Tensor,      # [B, P] int32 probed list ids
+    centroids: torch.Tensor,   # [nlist, Dp] f32
+    codebooks: torch.Tensor,   # [M, 256, dsub] f32, M * dsub == Dp
+    codes: torch.Tensor,       # [nlist, M, Lcap] uint8
+    slot_ids: torch.Tensor,    # [nlist, Lcap] int32 (-1: no row; holes allowed)
+    k: int,
+    fills: Optional[torch.Tensor] = None,  # [nlist] int32 (list_fills), cached by callers
+    nq_max: Optional[int] = None,          # the plan's widest chunk (None: by the batch), <= 8
+    dedup: bool = True,        # the index may hold an id twice (replicas > 1)
+    leads: Optional[torch.Tensor] = None,  # dedup: tile_leads(slot_ids), cached by callers
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused dma scan: bit for bit ``adc_topk_cuda(adc_tables_cuda(q_rot,
+    probes, centroids, codebooks, fills), probes, codes, slot_ids, k,
+    fills=fills)``, with each pair's tables built in shared memory and no
+    [B, P, M, 256] tensor, each probed list read once for a chunk of queries;
+    the contract of ``adc_fused_topk_reference`` up to the table kernel's
+    rare one-step entry. ``dedup=False``: the caller guarantees that the
+    index holds every id once (replicas 1); no ``leads`` is read and the
+    merge skips its duplicate pass. Returns (vals [B, k] f32, ids [B, k]
+    int32). No host sync: the launches can be captured in a CUDA graph."""
+    global FUSED_DMA_LAUNCHES
+    from nvdb_tpu_torch.kernels import ivf_scan
+
+    require_cuda(codes, "adc_fused_topk")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    if (q_rot.dim() != 2 or probes.dim() != 2 or centroids.dim() != 2 or codebooks.dim() != 3
+            or codes.dim() != 3):
+        raise ValueError("q_rot [B, Dp], probes [B, P], centroids [nlist, Dp], codebooks "
+                         "[M, 256, dsub], codes [nlist, M, Lcap]")
+    dev = codes.device
+    nlist, M, L = codes.shape
+    B, Dp = q_rot.shape
+    P = probes.shape[1]
+    dsub = codebooks.shape[2]
+    if tuple(codebooks.shape[:2]) != (M, pq.KSUB) or M * dsub != Dp:
+        raise ValueError(f"codebooks {tuple(codebooks.shape)} do not split dim {Dp} into the "
+                         f"codes' {M} subspaces of {pq.KSUB} codewords")
+    if L % 4 != 0:
+        raise ValueError(f"list capacity {L} is not a multiple of 4 (the scan copies code "
+                         f"rows in 4-byte pieces)")
+    if P * L >= 1 << 31:
+        raise ValueError(f"P={P} probes of {L} lanes exceed a 31-bit coordinate")
+    probes = probes.to(torch.int32).contiguous()
+    if fills is None:
+        fills = list_fills(slot_ids)
+    if dedup and leads is None:
+        leads = tile_leads(slot_ids)
+    check_tensor(q_rot, "q_rot", dev, (torch.float32,), (B, Dp))
+    check_tensor(probes, "probes", dev, (torch.int32,), (B, P))
+    check_tensor(centroids, "centroids", dev, (torch.float32,), (nlist, Dp))
+    check_tensor(codebooks, "codebooks", dev, (torch.float32,), (M, pq.KSUB, dsub))
+    check_tensor(codes, "codes", dev, (torch.uint8,), (nlist, M, L))
+    check_tensor(slot_ids, "slot_ids", dev, (torch.int32,), (nlist, L))
+    check_tensor(fills, "fills", dev, (torch.int32,), (nlist,))
+    if dedup:
+        check_tensor(leads, "leads", dev, (torch.int32,), (nlist, L))
+
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0 or P == 0:
+        vals.fill_(ops.NEG_INF)
+        ids.fill_(-1)
+        return vals, ids
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if nq_max is None:
+        nq_max = FUSED_NQ_MAX if B >= FUSED_CHUNK_MIN_BATCH else 1
+    nq = fused_plan(M, dsub, min(nq_max, FUSED_DMA_NQ_MAX), index)
+    U = ivf_scan.max_items(B * P, nlist, nq)
+    scratch = torch.empty(ivf_scan.group_scratch_ints(nlist, B * P, U), dtype=torch.int32,
+                          device=dev)
+    # the partial lists [B, P, tiles, k] and each one's threshold [B, P, tiles]
+    part_keys = torch.empty(B * P * cdiv(L, FUSED_TILE) * (k + 1), dtype=torch.int64,
+                            device=dev)
+    with torch.cuda.device(index):
+        stream = torch.cuda.current_stream(index).cuda_stream
+        rc = _fused_lib().nvdb_adc_fused_topk(
+            q_rot.data_ptr(), probes.data_ptr(), centroids.data_ptr(), codebooks.data_ptr(),
+            codes.data_ptr(), slot_ids.data_ptr(), leads.data_ptr() if dedup else None,
+            fills.data_ptr(), scratch.data_ptr(), part_keys.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), B, P, Dp, M, dsub, nlist, L, k, nq, U, stream)
+    if rc != 0:
+        raise RuntimeError(f"adc_fused_topk kernel launch failed: cudaError_t {rc}")
+    FUSED_DMA_LAUNCHES += 1
     return vals, ids

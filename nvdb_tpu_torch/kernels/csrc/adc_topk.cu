@@ -37,6 +37,10 @@
 //     tables: it computes each entry with the same arithmetic
 //     (adc_table_math.cuh), sums the entries in f32 over m in the same
 //     order and keys them the same way. No [B, P, M, 256] table exists.
+//   * fused dma scan (nvdb_adc_fused_topk; the dma mode of the IVF-PQ path,
+//     replacing the TPU kernel's dma mode and the XLA tables as the fused
+//     key scan replaces its key mode). The same fused pass 1 on 64-bit dma
+//     keys, bit for bit nvdb_adc_topk on adc_tables.cu's tables.
 // The TPU kernel builds a nibble one-hot and multiplies it on the MXU
 // because a TPU has no fast gather (adc_scan.py:12-18), and its key and
 // gather modes exist to spare the TPU's scalar core one DMA a list and
@@ -135,6 +139,22 @@
 //   Pass 2 (adc_merge_keys_kernel, with tiles partials a probe) merges each
 //   query's P x T partial lists as the key mode's pass 2 merges its groups,
 //   appending only keys at or above the largest of their lower bounds.
+//   The fused dma scan (adc_fused_kernel<DMA, ...>) differs in four places:
+//   a lane is live where its slot id is >= 0 (a repacked list has holes
+//   below its fill), the score is not truncated, a candidate is the dma
+//   key mono32(score) << 32 | (id + 2^31), its id read only where a key is
+//   made, and the radix select walks the score word, and the id word only
+//   for a pair whose kk-th score is tied. A tile's kk best keys must be kk
+//   distinct ids, or an id ranked just below them could be lost: where a
+//   list tile holds an id more than once (nothing in the packer keeps a
+//   row's copies in distinct lists; adc_scan.tile_leads marks such slots),
+//   each pair keeps that id's best copy only (of equal scores, the first
+//   lane's), the group's best score and first lane found with shared-memory
+//   atomics in the freed code ring. Pass 2 is the dma merge
+//   (adc_merge_kernel) over each query's P x T partials, appending only
+//   keys at or above the largest partial's kk-th key, and dropping the
+//   copies of an id that several lists or tiles hold where the index may
+//   hold an id twice.
 //   What bounds it on an H100: operations. The tables are ~6.4 GFLOP of f32
 //   FMA at the flagship (dsub products, the norms and the combination for
 //   every entry of every live pair), 0.1 ms at 67 TFLOP/s, against ~30 MB
@@ -148,8 +168,8 @@
 // NVDB_ADC_ABLATE (measurement builds of tools.adc_breakdown and
 // chip_smoke.py phase 9, wrong by design): 1 stages every step and scores
 // nothing; 2 also looks up and sums every slot but keeps no candidate; 3:
-// the fused scan stages and builds its tables and looks nothing up; 4: it
-// also looks up and sums, but selects and writes no candidate; 5: it runs
+// the fused scans stage and build their tables and look nothing up; 4:
+// they also look up and sum, but select and write no candidate; 5: they run
 // passes 0 and 1 and no merge.
 
 #include <cuda_bf16.h>
@@ -190,11 +210,15 @@ struct KeyOf<DMA> {
   using T = unsigned long long;
 };
 
-__device__ __forceinline__ unsigned long long make_key(float s, int id) {
+// The 32 monotone bits of a score (the high word of its dma key).
+__device__ __forceinline__ unsigned mono32(float s) {
   s = s + 0.0f;  // -0 -> +0: equal scores get equal keys
   const unsigned b = __float_as_uint(s);
-  const unsigned m = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return ((unsigned long long)m << 32) | (unsigned)(id ^ 0x80000000);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__device__ __forceinline__ unsigned long long make_key(float s, int id) {
+  return ((unsigned long long)mono32(s) << 32) | (unsigned)(id ^ 0x80000000);
 }
 
 __device__ __forceinline__ float key_score(unsigned long long key) {
@@ -688,8 +712,19 @@ adc_partial_kernel(const __nv_bfloat16* __restrict__ lut, const int* __restrict_
   for (int j = threadIdx.x; j < kk; j += NC) out[j] = buf[j];
 }
 
+constexpr int MERGE_U = 4;   // keys a pass-2 thread loads at once
+
+// Pass 2 of the dma modes. Query b's S partial lists of kk 64-bit keys (0
+// empty, in any order; the staged scan's probe groups, or the fused scan's
+// (probe, tile) partials) are read as one run, NC * MERGE_U keys at a time,
+// and folded, with the duplicate pass where an id may be held twice (DEDUP);
+// part_thr (the fused scan's, or null) holds each partial's kk-th key, a
+// lower bound of the query's kk-th, so keys under the largest bound are not
+// appended.
+template <bool DEDUP>
 __global__ void __launch_bounds__(NC)
 adc_merge_kernel(const unsigned long long* __restrict__ part_keys,
+                 const unsigned long long* __restrict__ part_thr,
                  float* __restrict__ out_vals, int* __restrict__ out_ids, int kk, int S,
                  int cap) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -702,14 +737,26 @@ adc_merge_kernel(const unsigned long long* __restrict__ part_keys,
     theta_sh = 0ull;
   }
   __syncthreads();
-  TopK<unsigned long long, true> top{buf, &n_sh, &theta_sh, cap, kk};
-  for (int s = 0; s < S; ++s) {
-    if (n_sh + kk > cap) top.compact();
-    const unsigned long long* src = part_keys + ((size_t)b * S + s) * kk;
-    for (int j = threadIdx.x; j < kk; j += NC) {
-      const unsigned long long key = src[j];
-      if (key != 0ull) top.append(key);
+  if (part_thr != nullptr) {
+    unsigned long long lo = 0ull;
+    for (int s = threadIdx.x; s < S; s += NC) lo = max(lo, part_thr[(size_t)b * S + s]);
+    if (lo != 0ull) atomicMax(&theta_sh, lo - 1ull);
+    __syncthreads();
+  }
+  TopK<unsigned long long, DEDUP> top{buf, &n_sh, &theta_sh, cap, kk};
+  const int total = S * kk;
+  const unsigned long long* src = part_keys + (size_t)b * total;
+  for (int c0 = 0; c0 < total; c0 += NC * MERGE_U) {
+    unsigned long long key[MERGE_U];
+#pragma unroll
+    for (int u = 0; u < MERGE_U; ++u) {
+      const int i = c0 + u * NC + (int)threadIdx.x;
+      key[u] = i < total ? src[i] : 0ull;
     }
+    if (n_sh + NC * MERGE_U > cap) top.compact();
+#pragma unroll
+    for (int u = 0; u < MERGE_U; ++u)
+      if (key[u] != 0ull) top.append(key[u]);
     __syncthreads();
   }
   top.compact();
@@ -719,8 +766,6 @@ adc_merge_kernel(const unsigned long long* __restrict__ part_keys,
     out_ids[(size_t)b * kk + j] = key ? key_id(key) : -1;
   }
 }
-
-constexpr int MERGE_U = 4;   // keys a pass-2 thread of the key modes loads at once
 
 // Pass 2 of the key modes. Query b's S partial lists of kk 32-bit keys
 // (mono16 << 16 | coordinate, 0 empty, in any order) are read as one run,
@@ -804,6 +849,21 @@ int pow2_at_least(int x) {
   return c;
 }
 
+// Pass 2 of the dma modes on `st`; its buffer holds the kk kept keys and a
+// whole load of every thread. dedup: an id may be held twice.
+template <bool DEDUP>
+cudaError_t launch_merge(const void* part_keys, const unsigned long long* part_thr,
+                         void* out_vals, void* out_ids, int B, int kk, int S, cudaStream_t st) {
+  const size_t smem = (size_t)pow2_at_least(kk + NC * MERGE_U) * 8;
+  cudaError_t e = cudaFuncSetAttribute(adc_merge_kernel<DEDUP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  adc_merge_kernel<DEDUP><<<B, NC, smem, st>>>(
+      static_cast<const unsigned long long*>(part_keys), part_thr,
+      static_cast<float*>(out_vals), static_cast<int*>(out_ids), kk, S, (int)(smem / 8));
+  return cudaGetLastError();
+}
+
 // Pass 2 of the key modes on `st`; its buffer holds the kk kept keys and a
 // whole load of every thread.
 cudaError_t launch_merge_keys(const void* part_keys, const unsigned* part_thr, const void* probes,
@@ -821,11 +881,11 @@ cudaError_t launch_merge_keys(const void* part_keys, const unsigned* part_thr, c
 }
 
 // The checks and the pass-1 launch shared by the modes. Returns a
-// cudaError_t; *cap2 is pass 2's buffer length.
+// cudaError_t.
 template <int MODE>
 int launch_partial(const void* lut, const void* probes, const void* codes, const void* slot_ids,
                    const void* fills, void* part_keys, int B, int P, int M, int Lcap, int nlist,
-                   int kk, int S, int stages, int tile, cudaStream_t st, int* cap2) {
+                   int kk, int S, int stages, int tile, cudaStream_t st) {
   using K = typename KeyOf<MODE>::T;
   if (B < 1 || P < 1 || M < 1 || Lcap < 16 || Lcap % 16 != 0 || nlist < 1 || kk < 1 ||
       kk > MAX_KK || S < 1 || S > P || stages < 1 || stages > MAX_STAGES || tile < 16 ||
@@ -833,7 +893,6 @@ int launch_partial(const void* lut, const void* probes, const void* codes, const
     return (int)cudaErrorInvalidValue;
   // buffer lengths (keys): the kk kept keys plus room for several items
   const int cap1 = pow2_at_least(kk + 512 > 1024 ? kk + 512 : 1024);
-  *cap2 = pow2_at_least(2 * kk > 1024 ? 2 * kk : 1024);
   if (cap1 > MAX_CAP || cap1 < kk + ITEM) return (int)cudaErrorInvalidValue;
   const size_t smem1 =
       (size_t)cap1 * sizeof(K) + (size_t)stages * ((size_t)M * 512 + (size_t)M * tile);
@@ -987,15 +1046,23 @@ __device__ __forceinline__ void fused_lookup(float (&acc)[NQ][F_LPT], const unsi
   }
 }
 
-// Pass 1 of the fused scan: one CTA per (item, lane tile). DSUB 0: any dsub.
-template <int DSUB, int NQ>
+// Pass 1 of the fused scans: one CTA per (item, lane tile). MODE KEY (the
+// fused key scan) or DMA (the fused dma scan); DSUB 0: any dsub. dma:
+// slot_ids gives the live lanes and the candidates' ids; leads (or null) the
+// first lane of the tile that holds a lane's id when the tile holds it more
+// than once, else -1 (adc_scan.tile_leads).
+template <int MODE, int DSUB, int NQ>
 __global__ void __launch_bounds__(FT, NQ <= 8 ? F_CTAS : NQ <= 16 ? 2 : 1)
 adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cents,
                  const float* __restrict__ cb, const uint8_t* __restrict__ codes,
+                 const int* __restrict__ slot_ids, const int* __restrict__ leads,
                  const int* __restrict__ fills, const int* __restrict__ order,
                  const int4* __restrict__ items, const int* __restrict__ n_items,
-                 unsigned* __restrict__ part_keys, unsigned* __restrict__ part_thr, int P,
-                 int Dp, int M, int dsub_any, int Lcap, int kk) {
+                 typename KeyOf<MODE>::T* __restrict__ part_keys,
+                 typename KeyOf<MODE>::T* __restrict__ part_thr, int P, int Dp, int M,
+                 int dsub_any, int Lcap, int kk) {
+  using K = typename KeyOf<MODE>::T;
+  static_assert(MODE != DMA || NQ * F_LPT <= 32, "one bit a (pair, lane) of a dma tile");
   constexpr int DS = DSUB > 0 ? DSUB : 1;   // the register codeword of a fixed dsub
   const int dsub = DSUB > 0 ? DSUB : dsub_any;
   if ((int)blockIdx.x >= *n_items) return;   // the grid holds the most items there can be
@@ -1027,7 +1094,8 @@ adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cent
 #pragma unroll
   for (int m = 0; m < F_RING - 2; ++m) copy_row(m);
   __shared__ int pair_of[NQ];
-  __shared__ unsigned sel_prefix[NQ];   // the kk-th key's bits found so far
+  __shared__ unsigned sel_prefix[NQ];   // the kk-th key's bits of the word walked, found so far
+  __shared__ unsigned sel_hi[NQ];       // dma: the kk-th key's score word, once walked
   __shared__ int sel_need[NQ];          // keys still to take under that prefix
   __shared__ int sel_done[NQ];          // the prefix is the threshold
   __shared__ int sel_count[NQ];         // keys written
@@ -1035,6 +1103,7 @@ adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cent
   if (tid < NQ) {
     pair_of[tid] = tid < nq ? order[start + tid] : 0;
     sel_prefix[tid] = 0u;
+    sel_hi[tid] = 0u;
     sel_need[tid] = kk;
     sel_done[tid] = tid < nq ? 0 : 1;
     sel_count[tid] = 0;
@@ -1065,10 +1134,14 @@ adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cent
   const int n_slots = (l1 - l0 + FT - 1) / FT;
   int lane_of[F_LPT];
   bool live[F_LPT];
+  const int* sid_row = slot_ids + (size_t)lst * Lcap;   // dma only
 #pragma unroll
   for (int r = 0; r < F_LPT; ++r) {
     lane_of[r] = l0 + tid + FT * r;
     live[r] = lane_of[r] < l1;
+    // dma: a lane below the fill is live if its slot holds a row (a warp's
+    // 32 lanes are 128 contiguous bytes of slot ids)
+    if constexpr (MODE == DMA) live[r] = live[r] && __ldg(sid_row + lane_of[r]) >= 0;
   }
   float acc[NQ][F_LPT];
 #pragma unroll
@@ -1187,13 +1260,29 @@ adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cent
   cp_async_wait<0>();
   __syncthreads();   // every lookup is done: the buffers become histograms
 
-  // the keys of the key mode: mono16(truncated score) << 16 | lane
-  unsigned key[NQ][F_LPT];
-#pragma unroll
-  for (int i = 0; i < NQ; ++i)
-#pragma unroll
-    for (int r = 0; r < F_LPT; ++r)
-      key[i][r] = (i < nq && live[r]) ? make_key16(-acc[i][r], lane_of[r]) : 0u;
+  // dma: bit i * F_LPT + r drops lane r for pair i (a worse copy of an id
+  // the tile holds again)
+  uint32_t dropped = 0u;
+  // dma: the score word of pair i's key at lane slot r, mono32(score) (0:
+  // none); a lane's slot id, read where a key is made (no register holds the
+  // ids through the select)
+  auto hi_at = [&](int i, int r) -> unsigned {
+    return live[r] && !((dropped >> (i * F_LPT + r)) & 1u) ? mono32(-acc[i][r]) : 0u;
+  };
+  auto lo_at = [&](int r) -> unsigned {
+    return (unsigned)__ldcg(sid_row + lane_of[r]) ^ 0x80000000u;
+  };
+  // the candidate key of pair i at lane slot r (0: none), lo = lo_at(r) for
+  // dma. key: mono16(truncated score) << 16 | lane; dma: mono32(score) << 32
+  // | (id + 2^31)
+  auto key_at = [&](int i, int r, unsigned lo) -> K {
+    if constexpr (MODE == DMA) {
+      const unsigned hi = hi_at(i, r);
+      return hi ? (K)((unsigned long long)hi << 32 | lo) : K(0);
+    } else {
+      return live[r] ? make_key16(-acc[i][r], lane_of[r]) : K(0);
+    }
+  };
 #if NVDB_ADC_ABLATE == 3 || NVDB_ADC_ABLATE == 4
   // measurement builds: keep the sums alive, select nothing
   float sink = 0.f;
@@ -1201,149 +1290,255 @@ adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cent
   for (int i = 0; i < NQ; ++i)
 #pragma unroll
     for (int r = 0; r < F_LPT; ++r) sink += acc[i][r];
-  if (sink == -1234.5f) part_keys[0] = 1u;
+  if (sink == -1234.5f) part_keys[0] = K(1);
   return;
 #endif
+  if constexpr (MODE == DMA) {
+    // a tile that holds an id more than once keeps each pair's best copy of
+    // it (of equal scores, the first lane's), so that its kk best keys are
+    // kk distinct ids; the code ring is free and holds each group's best
+    // score word and the first lane holding it, at the group's first lane
+    // (an id's copies differ in their score word only)
+    int lead[F_LPT];
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < F_LPT; ++r) {
+      lead[r] = -1;
+      if (leads != nullptr && live[r]) {
+        const int x = leads[(size_t)lst * Lcap + lane_of[r]] - l0;
+        lead[r] = (unsigned)x < (unsigned)F_TILE ? x : -1;
+      }
+      any = any || lead[r] >= 0;
+    }
+    if (__syncthreads_or(any)) {
+      static_assert(F_TILE * 8 <= F_RING * F_TILE, "a group's best score word and first lane");
+      unsigned* best = reinterpret_cast<unsigned*>(crow);
+      int* first = reinterpret_cast<int*>(best + F_TILE);
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        if (i >= nq) break;
+        for (int x = tid; x < F_TILE; x += FT) {
+          best[x] = 0u;
+          first[x] = 0x7fffffff;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < F_LPT; ++r)
+          if (lead[r] >= 0) atomicMax(&best[lead[r]], hi_at(i, r));
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < F_LPT; ++r)
+          if (lead[r] >= 0 && hi_at(i, r) == best[lead[r]]) atomicMin(&first[lead[r]], lane_of[r]);
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < F_LPT; ++r)
+          if (lead[r] >= 0 && first[lead[r]] != lane_of[r]) dropped |= 1u << (i * F_LPT + r);
+        __syncthreads();
+      }
+    }
+  }
   const int T = gridDim.y;
   const int n_live = l1 - l0;
   if (n_live <= kk) {
     // every live lane is a candidate (part_thr stays 0: no bound)
 #pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      if (i >= nq) break;
-      unsigned* out = part_keys + ((size_t)pair_of[i] * T + blockIdx.y) * kk;
+    for (int r = 0; r < F_LPT; ++r) {
+      if (!live[r]) continue;
+      const unsigned lo = MODE == DMA ? lo_at(r) : 0u;
 #pragma unroll
-      for (int r = 0; r < F_LPT; ++r)
-        if (live[r]) out[lane_of[r] - l0] = key[i][r];
+      for (int i = 0; i < NQ; ++i) {
+        if (i >= nq) break;
+        part_keys[((size_t)pair_of[i] * T + blockIdx.y) * kk + lane_of[r] - l0] =
+            key_at(i, r, lo);
+      }
     }
     return;
   }
 
-  // Radix select of each pair's kk-th key, eight bits a pass from the top:
-  // histogram the keys that share the prefix found so far, then one warp a
-  // pair walks the bins from the top.
-  // Keys are unique, so exactly kk keys are at or above the result.
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int x = tid; x < NQ * 256; x += FT) hist[x] = 0;
-    __syncthreads();
-    const unsigned hi = shift == 24 ? 0u : 0xffffffffu << (shift + 8);
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      if (i >= nq) break;
-      if (sel_done[i]) continue;
-      const unsigned pre = sel_prefix[i] & hi;
-#pragma unroll
-      for (int r = 0; r < F_LPT; ++r) {
-        const unsigned k = key[i][r];
-        const bool ok = k != 0u && (k & hi) == pre;
-        const unsigned bin = (k >> shift) & 255u;
-        const unsigned okm = __ballot_sync(FULL_MASK, ok);
-        if (okm == 0u) continue;
-        // the lanes in the first one's bin (most, as keys cluster) add at once
-        const int ldr = __ffs(okm) - 1;
-        const unsigned lb = __shfl_sync(FULL_MASK, bin, ldr);
-        const unsigned same = __ballot_sync(FULL_MASK, ok && bin == lb);
-        if (lane == ldr) atomicAdd(&hist[i * 256 + lb], __popc(same));
-        if (ok && bin != lb) atomicAdd(&hist[i * 256 + bin], 1);
-      }
+  // Radix select of each pair's kk-th key, eight bits a pass from the top
+  // of a 32-bit word: histogram the words of the keys that share the prefix
+  // found so far, then one warp a pair walks the bins from the top. The key
+  // mode's word is its key. The dma mode walks the score word (mono32), and
+  // only for a pair whose kk-th score the tile holds more than once (a tie
+  // at the threshold) the id word of the keys of that score. Keys are unique
+  // (a tile's ids are, once its repeated ids are dropped), so exactly kk keys
+  // are at or above the result; a pair with fewer keys than kk takes them all
+  // (threshold 0).
+  constexpr int WORDS = MODE == DMA ? 2 : 1;
+  auto word_at = [&](int i, int r, int w) -> unsigned {
+    if constexpr (MODE == DMA) {
+      const unsigned hi = hi_at(i, r);
+      if (w == 0) return hi;
+      return hi != 0u && hi == sel_hi[i] ? lo_at(r) : 0u;
+    } else {
+      return live[r] ? make_key16(-acc[i][r], lane_of[r]) : 0u;
     }
-    __syncthreads();
-    for (int i = warp; i < nq; i += FW) {
-      if (sel_done[i]) continue;
-      // lane L holds bins 255 - 8 L .. 248 - 8 L, the top first
-      const int* h = hist + i * 256;
-      int c[8], sum = 0;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        c[e] = h[255 - 8 * lane - e];
-        sum += c[e];
+  };
+  bool all = false, ids_walked = false;
+  for (int w = 0; w < WORDS && !all; ++w) {
+    if (w > 0) {
+      // the score word is walked: its bits become the high word of each
+      // threshold, and the pairs not done walk the ids of their tied keys
+      ids_walked = true;
+      if (tid < NQ) {
+        sel_hi[tid] = sel_prefix[tid];
+        sel_prefix[tid] = 0u;
       }
-      int incl = sum;
+      __syncthreads();
+    }
+    for (int shift = 24; shift >= 0; shift -= 8) {
+      for (int x = tid; x < NQ * 256; x += FT) hist[x] = 0;
+      __syncthreads();
+      const unsigned hi = shift == 24 ? 0u : 0xffffffffu << (shift + 8);
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(FULL_MASK, incl, o);
-        if (lane >= o) incl += v;
+      for (int i = 0; i < NQ; ++i) {
+        if (i >= nq) break;
+        if (sel_done[i]) continue;
+        const unsigned pre = sel_prefix[i] & hi;
+#pragma unroll
+        for (int r = 0; r < F_LPT; ++r) {
+          const unsigned k = word_at(i, r, w);
+          const bool ok = k != 0u && (k & hi) == pre;
+          const unsigned bin = (k >> shift) & 255u;
+          const unsigned okm = __ballot_sync(FULL_MASK, ok);
+          if (okm == 0u) continue;
+          // the lanes in the first one's bin (most, as keys cluster) add at once
+          const int ldr = __ffs(okm) - 1;
+          const unsigned lb = __shfl_sync(FULL_MASK, bin, ldr);
+          const unsigned same = __ballot_sync(FULL_MASK, ok && bin == lb);
+          if (lane == ldr) atomicAdd(&hist[i * 256 + lb], __popc(same));
+          if (ok && bin != lb) atomicAdd(&hist[i * 256 + bin], 1);
+        }
       }
-      const int need = sel_need[i];
-      const unsigned who = __ballot_sync(FULL_MASK, incl - sum < need && need <= incl);
-      if (lane == __ffs(who) - 1) {
-        int run = incl - sum, bin = -1, cnt = 0;
+      __syncthreads();
+      for (int i = warp; i < nq; i += FW) {
+        if (sel_done[i]) continue;
+        // lane L holds bins 255 - 8 L .. 248 - 8 L, the top first
+        const int* h = hist + i * 256;
+        int c[8], sum = 0;
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          if (bin < 0 && run + c[e] >= need) {
-            bin = 255 - 8 * lane - e;
-            cnt = c[e];
-          }
-          if (bin < 0) run += c[e];
+          c[e] = h[255 - 8 * lane - e];
+          sum += c[e];
         }
-        sel_prefix[i] |= (unsigned)bin << shift;
-        sel_need[i] = need - run;
-        sel_done[i] = (need - run == cnt || shift == 0) ? 1 : 0;
+        int incl = sum;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int v = __shfl_up_sync(FULL_MASK, incl, o);
+          if (lane >= o) incl += v;
+        }
+        const int need = sel_need[i];
+        if (__shfl_sync(FULL_MASK, incl, 31) < need) {
+          // fewer keys than kk (the first pass only): all of them, no bound
+          if (lane == 0) sel_done[i] = 1;
+          continue;
+        }
+        const unsigned who = __ballot_sync(FULL_MASK, incl - sum < need && need <= incl);
+        if (lane == __ffs(who) - 1) {
+          int run = incl - sum, bin = -1, cnt = 0;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (bin < 0 && run + c[e] >= need) {
+              bin = 255 - 8 * lane - e;
+              cnt = c[e];
+            }
+            if (bin < 0) run += c[e];
+          }
+          sel_prefix[i] |= (unsigned)bin << shift;
+          sel_need[i] = need - run;
+          sel_done[i] = (need - run == cnt || (shift == 0 && w == WORDS - 1)) ? 1 : 0;
+        }
       }
+      __syncthreads();
+      all = true;   // the same shared values in every thread, between barriers
+      for (int i = 0; i < nq; ++i) all = all && sel_done[i] != 0;
+      if (all) break;
     }
-    __syncthreads();
   }
   // each pair's keys at or above its threshold, in any order, and the
   // threshold: the pair's kk-th key, a lower bound of the query's kk-th
+  // (dma: the score word's prefix above the id word's, 0 where no pair
+  // walked the ids)
+  auto thr_of = [&](int i) -> K {
+    if constexpr (MODE == DMA) {
+      return ids_walked ? (K)((unsigned long long)sel_hi[i] << 32 | sel_prefix[i])
+                        : (K)((unsigned long long)sel_prefix[i] << 32);
+    } else {
+      return (K)sel_prefix[i];
+    }
+  };
+  if (tid < nq) part_thr[(size_t)pair_of[tid] * T + blockIdx.y] = thr_of(tid);
 #pragma unroll
-  for (int i = 0; i < NQ; ++i) {
-    if (i >= nq) break;
-    const unsigned thr = sel_prefix[i];
-    unsigned* out = part_keys + ((size_t)pair_of[i] * T + blockIdx.y) * kk;
-    if (tid == 0) part_thr[(size_t)pair_of[i] * T + blockIdx.y] = thr;
+  for (int r = 0; r < F_LPT; ++r) {
+    const unsigned lo = MODE == DMA && live[r] ? lo_at(r) : 0u;
 #pragma unroll
-    for (int r = 0; r < F_LPT; ++r) {
-      const unsigned k = key[i][r];
-      const bool take = k != 0u && k >= thr;
+    for (int i = 0; i < NQ; ++i) {
+      if (i >= nq) break;
+      const K k = key_at(i, r, lo);
+      const bool take = k != K(0) && k >= thr_of(i);
       const unsigned bal = __ballot_sync(FULL_MASK, take);
       if (bal == 0u) continue;
       const int src = __ffs(bal) - 1;
       int base = lane == src ? atomicAdd(&sel_count[i], __popc(bal)) : 0;
       base = __shfl_sync(FULL_MASK, base, src);
-      if (take) out[base + __popc(bal & ((1u << lane) - 1u))] = k;
+      const int pos = base + __popc(bal & ((1u << lane) - 1u));
+      if (take && pos < kk)   // kk at most, whatever the input
+        part_keys[((size_t)pair_of[i] * T + blockIdx.y) * kk + pos] = k;
     }
   }
 }
 
-template <int DSUB, int NQ>
+template <int MODE, int DSUB, int NQ>
 cudaError_t launch_fused(const float* q, const float* ce, const float* cb, const uint8_t* codes,
-                         const int* fills, const int* order, const int4* items,
-                         const int* n_items, unsigned* part, unsigned* thr, int P, int Dp,
-                         int M, int dsub, int Lcap, int kk, int U, int T, int dev,
+                         const int* sids, const int* leads, const int* fills, const int* order,
+                         const int4* items, const int* n_items, void* part, void* thr, int P,
+                         int Dp, int M, int dsub, int Lcap, int kk, int U, int T, int dev,
                          cudaStream_t st) {
+  using K = typename KeyOf<MODE>::T;
   // the instance's shared-memory allowance, raised on a device only when a
   // call needs more than it was last given there (host time per call)
   static size_t allowed[F_MAX_DEVICES] = {};
   const size_t smem = fused_smem_bytes(NQ, M, dsub);
   if (dev >= F_MAX_DEVICES || smem > allowed[dev]) {
-    cudaError_t e = cudaFuncSetAttribute(adc_fused_kernel<DSUB, NQ>,
+    cudaError_t e = cudaFuncSetAttribute(adc_fused_kernel<MODE, DSUB, NQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     if (dev < F_MAX_DEVICES) allowed[dev] = smem;
   }
-  adc_fused_kernel<DSUB, NQ><<<dim3(U, T), FT, smem, st>>>(q, ce, cb, codes, fills, order, items,
-                                                           n_items, part, thr, P, Dp, M, dsub,
-                                                           Lcap, kk);
+  adc_fused_kernel<MODE, DSUB, NQ><<<dim3(U, T), FT, smem, st>>>(
+      q, ce, cb, codes, sids, leads, fills, order, items, n_items, static_cast<K*>(part),
+      static_cast<K*>(thr), P, Dp, M, dsub, Lcap, kk);
   return cudaGetLastError();
 }
 
-template <int DSUB>
+// The fused key scan is built for chunks of 1, 4, 8, 16 and 32 queries, the
+// fused dma scan for 1, 4 and 8 (F_DMA_NQ_MAX; wider chunks are slower for
+// the key scan already, and build time doubles with the instances).
+constexpr int F_DMA_NQ_MAX = 8;
+
+template <int MODE, int DSUB>
 cudaError_t launch_fused_nq(int nq, const float* q, const float* ce, const float* cb,
-                            const uint8_t* codes, const int* fills, const int* order,
-                            const int4* items, const int* n_items, unsigned* part, unsigned* thr,
-                            int P, int Dp, int M, int dsub, int Lcap, int kk, int U, int T,
-                            int dev, cudaStream_t st) {
-#define NVDB_FUSED_ARGS q, ce, cb, codes, fills, order, items, n_items, part, thr, P, Dp, M, \
-                        dsub, Lcap, kk, U, T, dev, st
+                            const uint8_t* codes, const int* sids, const int* leads,
+                            const int* fills, const int* order, const int4* items,
+                            const int* n_items, void* part, void* thr, int P, int Dp, int M,
+                            int dsub, int Lcap, int kk, int U, int T, int dev, cudaStream_t st) {
+#define NVDB_FUSED_ARGS q, ce, cb, codes, sids, leads, fills, order, items, n_items, part, thr, P, \
+                        Dp, M, dsub, Lcap, kk, U, T, dev, st
   switch (nq) {
-    case 1: return launch_fused<DSUB, 1>(NVDB_FUSED_ARGS);
-    case 4: return launch_fused<DSUB, 4>(NVDB_FUSED_ARGS);
-    case 8: return launch_fused<DSUB, 8>(NVDB_FUSED_ARGS);
-    case 16: return launch_fused<DSUB, 16>(NVDB_FUSED_ARGS);
-    case 32: return launch_fused<DSUB, 32>(NVDB_FUSED_ARGS);
-    default: return cudaErrorInvalidValue;
+    case 1: return launch_fused<MODE, DSUB, 1>(NVDB_FUSED_ARGS);
+    case 4: return launch_fused<MODE, DSUB, 4>(NVDB_FUSED_ARGS);
+    case 8: return launch_fused<MODE, DSUB, 8>(NVDB_FUSED_ARGS);
+    default: break;
+  }
+  if constexpr (MODE == KEY) {
+    switch (nq) {
+      case 16: return launch_fused<MODE, DSUB, 16>(NVDB_FUSED_ARGS);
+      case 32: return launch_fused<MODE, DSUB, 32>(NVDB_FUSED_ARGS);
+      default: break;
+    }
   }
 #undef NVDB_FUSED_ARGS
+  return cudaErrorInvalidValue;
 }
 
 // The chunk widths the fused scan is built for, the widest first.
@@ -1363,18 +1558,10 @@ extern "C" int nvdb_adc_topk(const void* lut, const void* probes, const void* co
                              void* out_vals, void* out_ids, int B, int P, int M, int Lcap,
                              int nlist, int kk, int S, int stages, int tile, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int cap2 = 0;
   int e = launch_partial<DMA>(lut, probes, codes, slot_ids, fills, part_keys, B, P, M, Lcap,
-                              nlist, kk, S, stages, tile, st, &cap2);
+                              nlist, kk, S, stages, tile, st);
   if (e != 0) return e;
-  const size_t smem2 = (size_t)cap2 * 8;
-  cudaError_t ce = cudaFuncSetAttribute(adc_merge_kernel,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-  if (ce != cudaSuccess) return (int)ce;
-  adc_merge_kernel<<<B, NC, smem2, st>>>(static_cast<const unsigned long long*>(part_keys),
-                                         static_cast<float*>(out_vals),
-                                         static_cast<int*>(out_ids), kk, S, cap2);
-  return (int)cudaGetLastError();
+  return (int)launch_merge<true>(part_keys, nullptr, out_vals, out_ids, B, kk, S, st);
 }
 
 // The key modes. As nvdb_adc_topk, but the index is prefix-packed with
@@ -1391,12 +1578,11 @@ extern "C" int nvdb_adc_topk_keys(const void* lut, const void* probes, const voi
       (long long)P * Lcap >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int cap2 = 0;
   int e = gathered
               ? launch_partial<GATHER>(lut, probes, codes, slot_ids, fills, part_keys, B, P, M,
-                                       Lcap, nlist, kk, S, stages, tile, st, &cap2)
+                                       Lcap, nlist, kk, S, stages, tile, st)
               : launch_partial<KEY>(lut, probes, codes, slot_ids, fills, part_keys, B, P, M,
-                                    Lcap, nlist, kk, S, stages, tile, st, &cap2);
+                                    Lcap, nlist, kk, S, stages, tile, st);
   if (e != 0) return e;
   return (int)launch_merge_keys(part_keys, nullptr, probes, slot_ids, out_vals, out_ids, B, P,
                                 Lcap, kk, S, (P + S - 1) / S, 1, st);
@@ -1423,6 +1609,76 @@ extern "C" int nvdb_adc_fused_plan(int M, int dsub, int nq_max, int* nq) {
   return (int)cudaErrorInvalidConfiguration;
 }
 
+namespace {
+
+// The fused scans' passes on `st` (the entries below): pass 0, pass 1 of
+// the mode, then its merge.
+template <int MODE>
+int fused_entry(const void* q_rot, const void* probes, const void* centroids,
+                const void* codebooks, const void* codes, const void* slot_ids,
+                const void* leads, const void* fills, void* iscratch, void* part_keys,
+                void* out_vals, void* out_ids, int B, int P, int Dp, int M, int dsub, int nlist,
+                int Lcap, int kk, int nq, int U, void* stream) {
+  using K = typename KeyOf<MODE>::T;
+  if (B < 1 || P < 1 || M < 1 || dsub < 1 || (long long)M * dsub > Dp || nlist < 1 ||
+      Lcap < 4 || Lcap % 4 != 0 || (MODE == KEY && Lcap > COORD_SPAN) ||
+      (long long)P * Lcap >= (1ll << 31) || kk < 1 || kk > MAX_KK || U < 1 ||
+      (long long)B * P > 0x7fffffffLL || (MODE == DMA && nq > F_DMA_NQ_MAX))
+    return (int)cudaErrorInvalidValue;
+  const int T = (Lcap + F_TILE - 1) / F_TILE;
+  const long long S = (long long)P * T;
+  if (S * (kk + 1) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  // every partial list starts empty and unbounded: the pairs no CTA scans
+  // (a dead or out-of-range probe, a tile past the list's end) keep none
+  e = cudaMemsetAsync(part_keys, 0, (size_t)B * S * (kk + 1) * sizeof(K), st);
+  if (e != cudaSuccess) return (int)e;
+  const int BP = B * P;
+  int* is = static_cast<int*>(iscratch);
+  int* counts = is;
+  int* order = is + nlist;
+  int* n_items = order + BP;
+  int4* items = reinterpret_cast<int4*>(is + nvdb::items_offset(nlist, BP));
+  const int* pr = static_cast<const int*>(probes);
+  const int* fi = static_cast<const int*>(fills);
+  e = nvdb::launch_group(pr, fi, counts, order, items, n_items, nullptr, nullptr, BP, nlist,
+                         Lcap, nq, 1, 1, st);
+  if (e != cudaSuccess) return (int)e;
+  const float* q = static_cast<const float*>(q_rot);
+  const float* ce = static_cast<const float*>(centroids);
+  const float* cb = static_cast<const float*>(codebooks);
+  const uint8_t* cd = static_cast<const uint8_t*>(codes);
+  const int* si = static_cast<const int*>(slot_ids);
+  const int* ld = static_cast<const int*>(leads);
+  K* part = static_cast<K*>(part_keys);
+  K* thr = part + (size_t)B * S * kk;
+#define NVDB_FUSED_ARGS nq, q, ce, cb, cd, si, ld, fi, order, items, n_items, part, thr, P, Dp, \
+                        M, dsub, Lcap, kk, U, T, dev, st
+  switch (dsub) {
+    case 4: e = launch_fused_nq<MODE, 4>(NVDB_FUSED_ARGS); break;
+    case 8: e = launch_fused_nq<MODE, 8>(NVDB_FUSED_ARGS); break;
+    case 12: e = launch_fused_nq<MODE, 12>(NVDB_FUSED_ARGS); break;
+    case 16: e = launch_fused_nq<MODE, 16>(NVDB_FUSED_ARGS); break;
+    default: e = launch_fused_nq<MODE, 0>(NVDB_FUSED_ARGS); break;
+  }
+#undef NVDB_FUSED_ARGS
+  if (e != cudaSuccess || NVDB_ADC_ABLATE == 5) return (int)e;
+  if constexpr (MODE == DMA) {
+    // no leads: every id is held once in the index, and no duplicate pass is needed
+    return (int)(leads != nullptr
+                     ? launch_merge<true>(part_keys, thr, out_vals, out_ids, B, kk, (int)S, st)
+                     : launch_merge<false>(part_keys, thr, out_vals, out_ids, B, kk, (int)S, st));
+  } else {
+    return (int)launch_merge_keys(part_keys, thr, probes, slot_ids, out_vals, out_ids, B, P,
+                                  Lcap, kk, (int)S, 1, T, st);
+  }
+}
+
+}  // namespace
+
 // The fused key scan: the key mode's result (nvdb_adc_topk_keys on the
 // tables of nvdb_adc_tables) with no table in device memory. q_rot [B, Dp]
 // f32, probes [B, P] int32, centroids [nlist, Dp] f32, codebooks [M, 256,
@@ -1441,49 +1697,27 @@ extern "C" int nvdb_adc_fused_keys(const void* q_rot, const void* probes, const 
                                    void* part_keys, void* out_vals, void* out_ids, int B, int P,
                                    int Dp, int M, int dsub, int nlist, int Lcap, int kk, int nq,
                                    int U, void* stream) {
-  if (B < 1 || P < 1 || M < 1 || dsub < 1 || (long long)M * dsub > Dp || nlist < 1 ||
-      Lcap < 4 || Lcap % 4 != 0 || Lcap > COORD_SPAN || (long long)P * Lcap >= (1ll << 31) ||
-      kk < 1 || kk > MAX_KK || U < 1 || (long long)B * P > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const int T = (Lcap + F_TILE - 1) / F_TILE;
-  const long long S = (long long)P * T;
-  if (S * (kk + 1) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  // every partial list starts empty and unbounded: the pairs no CTA scans
-  // (a dead or out-of-range probe, a tile past the list's end) keep none
-  e = cudaMemsetAsync(part_keys, 0, (size_t)B * S * (kk + 1) * sizeof(unsigned), st);
-  if (e != cudaSuccess) return (int)e;
-  const int BP = B * P;
-  int* is = static_cast<int*>(iscratch);
-  int* counts = is;
-  int* order = is + nlist;
-  int* n_items = order + BP;
-  int4* items = reinterpret_cast<int4*>(is + nvdb::items_offset(nlist, BP));
-  const int* pr = static_cast<const int*>(probes);
-  const int* fi = static_cast<const int*>(fills);
-  e = nvdb::launch_group(pr, fi, counts, order, items, n_items, nullptr, nullptr, BP, nlist,
-                         Lcap, nq, 1, 1, st);
-  if (e != cudaSuccess) return (int)e;
-  const float* q = static_cast<const float*>(q_rot);
-  const float* ce = static_cast<const float*>(centroids);
-  const float* cb = static_cast<const float*>(codebooks);
-  const uint8_t* cd = static_cast<const uint8_t*>(codes);
-  unsigned* part = static_cast<unsigned*>(part_keys);
-  unsigned* thr = part + (size_t)B * S * kk;
-#define NVDB_FUSED_ARGS nq, q, ce, cb, cd, fi, order, items, n_items, part, thr, P, Dp, M, dsub, \
-                        Lcap, kk, U, T, dev, st
-  switch (dsub) {
-    case 4: e = launch_fused_nq<4>(NVDB_FUSED_ARGS); break;
-    case 8: e = launch_fused_nq<8>(NVDB_FUSED_ARGS); break;
-    case 12: e = launch_fused_nq<12>(NVDB_FUSED_ARGS); break;
-    case 16: e = launch_fused_nq<16>(NVDB_FUSED_ARGS); break;
-    default: e = launch_fused_nq<0>(NVDB_FUSED_ARGS); break;
-  }
-#undef NVDB_FUSED_ARGS
-  if (e != cudaSuccess || NVDB_ADC_ABLATE == 5) return (int)e;
-  return (int)launch_merge_keys(part_keys, thr, probes, slot_ids, out_vals, out_ids, B, P, Lcap,
-                                kk, (int)S, 1, T, st);
+  return fused_entry<KEY>(q_rot, probes, centroids, codebooks, codes, slot_ids, nullptr, fills,
+                          iscratch, part_keys, out_vals, out_ids, B, P, Dp, M, dsub, nlist,
+                          Lcap, kk, nq, U, stream);
+}
+
+// The fused dma scan: the dma mode's result (nvdb_adc_topk on the tables of
+// nvdb_adc_tables) with no table in device memory. As nvdb_adc_fused_keys,
+// but slot_ids may hold holes below a list's fill and an id in several
+// lists; leads [nlist, Lcap] int32, for each slot the first lane of its
+// 1024-lane tile that holds the same id when the tile holds it more than
+// once, else -1 (adc_scan.tile_leads), or null where every id is held once
+// in the index (replicas 1; the merge then skips its duplicate pass); no
+// bound on Lcap but a multiple of 4; part_keys the uint64 scratch of B * P *
+// T * (kk + 1); nq 1, 4 or 8.
+extern "C" int nvdb_adc_fused_topk(const void* q_rot, const void* probes, const void* centroids,
+                                   const void* codebooks, const void* codes,
+                                   const void* slot_ids, const void* leads, const void* fills,
+                                   void* iscratch, void* part_keys, void* out_vals, void* out_ids,
+                                   int B, int P, int Dp, int M, int dsub, int nlist, int Lcap,
+                                   int kk, int nq, int U, void* stream) {
+  return fused_entry<DMA>(q_rot, probes, centroids, codebooks, codes, slot_ids, leads, fills,
+                          iscratch, part_keys, out_vals, out_ids, B, P, Dp, M, dsub, nlist,
+                          Lcap, kk, nq, U, stream);
 }

@@ -30,10 +30,11 @@ are skipped, as in the JAX package.
 ``--ids-mode`` overrides the IVF-PQ candidate generator (default: the
 index's ``ids_mode()``, ``key`` on every index ``ivf_build`` makes, for refine
 candidates, and ``dma`` for ADC-only results). The key and gather modes run the
-fused key scan, which reads each probed list in place; ``--key-scan tables``
-runs them as the table kernel and the key kernel, or in the gather mode the
-kernel over the gathered code slab (the A/B of the fused key scan, the same
-candidates; RESULT lines then carry ``key_scan``). ``--residual-refine``: the
+fused key scan, the dma mode the fused dma scan; both read each probed list in
+place and build the tables in shared memory. ``--key-scan tables`` runs each
+mode as the table kernel and the key kernel, in the gather mode the kernel
+over the gathered code slab, in the dma mode the staged dma scan (the A/B of
+the fused scans, the same candidates; RESULT lines then carry ``key_scan``). ``--residual-refine``: the
 base vecbin holds residual int8 codes of this index
 (``tools.quantize_i8 --residual``); the refine dequantizes them against the
 index's centroids and scores rotated queries.
@@ -101,11 +102,11 @@ def main(argv=None):
                         "rank candidates at bf16 granularity, 'dma' at exact f32; "
                         "default: auto")
     p.add_argument("--key-scan", default=None, choices=["fused", "tables"],
-                   help="the IVF-PQ key and gather modes' generator on the kernel path: "
-                        "'fused' (the default: one kernel, no tables or code slab in "
-                        "device memory) or 'tables' (the table kernel, then the key "
-                        "kernel, over the gathered code slab in the gather mode: the "
-                        "A/B, the same candidates)")
+                   help="the IVF-PQ candidate generator on the kernel path: 'fused' "
+                        "(the default: one kernel, no tables or code slab in device "
+                        "memory) or 'tables' (the table kernel, then the key kernel, "
+                        "over the gathered code slab in the gather mode, the staged "
+                        "dma scan in the dma mode: the A/B, the same candidates)")
     p.add_argument("--exact-metric", default=eval_env.exact_metric,
                    choices=["l2", "dot"], help="refine ranking metric (EXACT_METRIC)")
     p.add_argument("--residual-refine", action="store_true",

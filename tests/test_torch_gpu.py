@@ -509,10 +509,9 @@ def test_tables_kernel_rejects_bad_input(cuda_device):
 @pytest.mark.parametrize("replicas,mode", [(1, "key"), (1, "dma"), (2, "dma")])
 def test_ivfpq_kernel_path_makes_no_f32_table(cuda_device, replicas, mode):
     """``IVFPQIndex.search_device`` on a CUDA index. The key mode: one
-    launch of the fused key scan, no table kernel and no tensor the size of
-    the tables. The dma mode: one table launch and one scan launch, and no
-    tensor the size of the tables but the bf16 one the table kernel fills.
-    The candidates are the plain path's."""
+    launch of the fused key scan; the dma mode (ADC-only, and a replicated
+    index): one launch of the fused dma scan; no table kernel and no tensor
+    the size of the tables in either. The candidates are the plain path's."""
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
     from nvdb_tpu_torch.kernels import adc_scan
 
@@ -523,20 +522,16 @@ def test_ivfpq_kernel_path_makes_no_f32_table(cuda_device, replicas, mode):
     q_rot, _, cents, cb, _ = _table_case(b, p, nlist, m, 8, seed=12, device=cuda_device)
     idx = IVFPQIndex(rotation=None, centroids=cents, codebooks=cb, codes=codes,
                      slot_ids=slot_ids, n=nlist * lcap, d=m * 8, m=m, replicas=replicas)
-    before = (adc_scan.TABLE_LAUNCHES, adc_scan.LAUNCHES, adc_scan.KEY_LAUNCHES,
-              adc_scan.FUSED_LAUNCHES)
+    counts = lambda: (adc_scan.TABLE_LAUNCHES, adc_scan.LAUNCHES, adc_scan.KEY_LAUNCHES,
+                      adc_scan.FUSED_LAUNCHES, adc_scan.FUSED_DMA_LAUNCHES)
+    before = counts()
     (kv, ki), ops_seen = _dispatched_ops(lambda: idx.search_device(q_rot, k, p, ids_mode=mode))
     torch.cuda.synchronize()
-    after = (adc_scan.TABLE_LAUNCHES, adc_scan.LAUNCHES, adc_scan.KEY_LAUNCHES,
-             adc_scan.FUSED_LAUNCHES)
     big = [(name, shape, dt) for name, outs in ops_seen for shape, dt in outs
            if int(np.prod(shape)) >= b * p * m * 256]
-    if mode == "key":
-        assert tuple(a - c for a, c in zip(after, before)) == (0, 0, 0, 1)
-        assert big == []
-    else:
-        assert tuple(a - c for a, c in zip(after, before)) == (1, 1, 0, 0)
-        assert len(big) == 1 and "empty" in big[0][0] and big[0][2] == torch.bfloat16
+    assert tuple(a - c for a, c in zip(counts(), before)) == (
+        (0, 0, 0, 1, 0) if mode == "key" else (0, 0, 0, 0, 1))
+    assert big == []
     pv, pi = idx.search_device(q_rot, k, p, backend="torch", ids_mode=mode)
     kv, ki, pv, pi = (x.cpu().numpy() for x in (kv, ki, pv, pi))
     # the kernel's tables differ from the plain ones in a rare entry by one
@@ -740,6 +735,168 @@ def test_fused_key_scan_rejects_bad_input(cuda_device):
         adc_scan.fused_plan(4096, 16, 8, cuda_device.index or 0)
 
 
+# -- the fused ADC dma scan ---------------------------------------------------------
+
+def _dma_case(b, p, nlist, m, dsub, lcap, seed, device, kind=""):
+    """``_fused_case``'s index, every query on list 5, with ``kind``:
+    "holes" frees slots below lists' fills; "replicas" also makes list 2 hold
+    list 1's ids (probed by every query), list 5 repeat 30 of its rows with
+    their codes and give 25 other rows the codes of 25 more (tied scores),
+    list 7 repeat 30 ids with other codes and, in lists of two tiles, list 4
+    repeat rows across its tiles; "bad": probes out of range."""
+    q, probes, cents, cb, codes, sids = _fused_case(b, p, nlist, m, dsub, lcap, seed, device,
+                                                    hot=True, bad="bad" in kind)
+    if "holes" in kind or "replicas" in kind:
+        sids[5, 1::3] = -1
+        sids[6, :300:2] = -1
+    if "replicas" in kind:
+        sids[2] = sids[1]
+        sids[5, :30] = sids[5, 40:70]
+        codes[5, :, :30] = codes[5, :, 40:70]
+        codes[5, :, 70:95] = codes[5, :, 95:120]        # other ids: tied scores
+        sids[7, 1:61:2] = sids[7, 60:90]
+        if lcap > 1100:
+            sids[4, 1030:1060] = sids[4, :30]
+        if p >= 3:
+            probes[:, 1], probes[:, 2] = 1, 2
+    return q, probes, cents, cb, codes, sids
+
+
+def _dma_check(q_rot, probes, cents, cb, codes, slot_ids, kk, nq_max=None, dedup=True):
+    """The fused dma scan bit for bit the staged route (the table kernel,
+    then the dma kernel; where its ring plans the shape) and the dma scan's
+    plain version on the same tables; one launch on its counter and none of
+    the table kernel; each id once a row. ``dedup=False`` where the index
+    holds every id once."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    fills = adc_scan.list_fills(slot_ids)
+    lut = adc_scan.adc_tables_cuda(q_rot, probes, cents, cb, fills)
+    try:   # the staged route's ring holds a table and a code tile a stage
+        adc_scan.scan_plan(kk, codes.shape[1], codes.shape[2])
+        sv, si = adc_scan.adc_topk_cuda(lut, probes, codes, slot_ids, kk, fills=fills)
+    except ValueError:
+        sv = si = None
+    ok = (probes >= 0) & (probes < codes.shape[0])
+    pv, pi = adc_scan.adc_topk_reference(lut, torch.where(ok, probes, 3), codes, slot_ids, kk)
+    before = (adc_scan.FUSED_DMA_LAUNCHES, adc_scan.TABLE_LAUNCHES)
+    fv, fi = adc_scan.adc_fused_topk_cuda(q_rot, probes, cents, cb, codes, slot_ids, kk,
+                                          fills=fills, nq_max=nq_max, dedup=dedup)
+    torch.cuda.synchronize()
+    assert (adc_scan.FUSED_DMA_LAUNCHES, adc_scan.TABLE_LAUNCHES) == (before[0] + 1, before[1])
+    if si is not None:
+        assert torch.equal(fv, sv) and torch.equal(fi, si)
+    assert torch.equal(fv, pv) and torch.equal(fi, pi)
+    for row in fi.cpu().numpy():
+        live = row[row >= 0]
+        assert len(set(live.tolist())) == len(live)
+    return fv, fi
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,p", [(1, 1), (8, 7), (64, 32)])
+@pytest.mark.parametrize("kk", [10, 100, 1024])
+@pytest.mark.parametrize("kind", ["holes", "replicas bad"])
+def test_fused_dma_scan_matches_the_staged_route(cuda_device, b, p, kk, kind):
+    """Lists with holes (unique ids: also without the duplicate passes), and
+    ids held by two lists and twice by one, with tied scores and probes out
+    of range."""
+    args = _dma_case(b, p, 64, 16, 8, 640, seed=b + p + kk, device=cuda_device, kind=kind)
+    for dedup in (True, False) if kind == "holes" else (True,):
+        _dma_check(*args, kk, dedup=dedup)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [256, 8, 1])
+@pytest.mark.parametrize("kk", [10, 100])
+def test_fused_dma_scan_at_the_flagship_shape(cuda_device, b, kk):
+    """M = 96, dsub = 8, Lcap = 640, P = 64, on a replicated index with holes,
+    at each chunk width the dma instances are built for."""
+    args = _dma_case(b, 64, 512, 96, 8, 640, seed=b + kk, device=cuda_device,
+                     kind="replicas")
+    for nq_max in (None, 1, 4, 8):
+        _dma_check(*args, kk, nq_max=nq_max)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,dsub,lcap", [(32, 4, 256), (24, 12, 320), (8, 16, 1024),
+                                         (12, 3, 256), (10, 8, 2048), (340, 8, 128)])
+def test_fused_dma_scan_dsub_instances_and_widths(cuda_device, m, dsub, lcap):
+    """Register codewords (dsub 4, 12, 16), the any-dsub instance (3), lists
+    of two tiles (Lcap 2048) whose repeated rows straddle the tiles, a wide
+    M, kk 1024 above most lists' rows (at M 340 beyond what the staged
+    route's ring holds: the plain version alone is the reference)."""
+    for kk in (100, 1024):
+        _dma_check(*_dma_case(16, 8, 40, m, dsub, lcap, seed=m * dsub, device=cuda_device,
+                              kind="replicas bad"), kk)
+
+
+@pytest.mark.gpu
+def test_fused_dma_scan_plain_version_and_scarce_lists(cuda_device):
+    """Against its own plain version (the plain tables: a rare entry one
+    bf16 step off, so ids at >= 0.9 of a row's and values to 2^-8 of the
+    largest), and with fewer live slots than kk ((-inf, -1) after them)."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    args = _dma_case(32, 8, 40, 16, 8, 256, seed=7, device=cuda_device, kind="replicas")
+    fv, fi = adc_scan.adc_fused_topk_cuda(*args, 50)
+    pv, pi = adc_scan.adc_fused_topk_reference(*args, 50)
+    assert torch.equal(fi >= 0, pi >= 0)
+    fin = fi >= 0
+    assert float((fv[fin] - pv[fin]).abs().max()) <= 2.0 ** -8 * float(pv[fin].abs().max())
+    for x, y in zip(fi.cpu().numpy(), pi.cpu().numpy()):
+        assert len(set(x.tolist()) & set(y.tolist())) >= int(0.9 * len(set(y.tolist())))
+    for dedup in (True, False):   # unique ids: the merge's duplicate pass changes nothing
+        fv, fi = _dma_check(*_fused_case(64, 16, 40, 16, 8, 256, seed=3, device=cuda_device,
+                                         hot=True, scarce=True), 1024, dedup=dedup)
+        assert bool((fi[:, -1] == -1).all()) and bool(torch.isneginf(fv[:, -1]).all())
+
+
+@pytest.mark.gpu
+def test_fused_dma_scan_in_a_cuda_graph(cuda_device):
+    """No host sync: a captured call replays to the eager call's result."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    args = _dma_case(32, 16, 40, 16, 8, 640, seed=5, device=cuda_device, kind="replicas")
+    leads = adc_scan.tile_leads(args[5])
+    want = adc_scan.adc_fused_topk_cuda(*args, 100, leads=leads)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        adc_scan.adc_fused_topk_cuda(*args, 100, leads=leads)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = adc_scan.adc_fused_topk_cuda(*args, 100, leads=leads)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_fused_dma_scan_rejects_bad_input(cuda_device):
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    q, probes, cents, cb, codes, slot_ids = _fused_case(4, 3, 20, 16, 8, 256, seed=6,
+                                                        device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        adc_scan.adc_fused_topk_cuda(*(x.cpu() for x in (q, probes, cents, cb, codes,
+                                                         slot_ids)), 10)
+    with pytest.raises(ValueError, match="outside"):
+        adc_scan.adc_fused_topk_cuda(q, probes, cents, cb, codes, slot_ids, 1025)
+    with pytest.raises(TypeError):
+        adc_scan.adc_fused_topk_cuda(q.double(), probes, cents, cb, codes, slot_ids, 10)
+    with pytest.raises(ValueError, match="subspaces"):
+        adc_scan.adc_fused_topk_cuda(q, probes, cents, cb[:8].contiguous(), codes, slot_ids,
+                                     10)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        adc_scan.adc_fused_topk_cuda(q, probes, cents, cb, codes[:, :, :254].contiguous(),
+                                     slot_ids[:, :254].contiguous(), 10)
+    with pytest.raises(TypeError):
+        adc_scan.adc_fused_topk_cuda(q, probes, cents, cb, codes, slot_ids, 10,
+                                     leads=adc_scan.tile_leads(slot_ids).long())
+
+
 def _ivfpq_on_card(cuda_device, replicas=1, b=16, p=8, nlist=40, m=16, lcap=256):
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
 
@@ -750,6 +907,38 @@ def _ivfpq_on_card(cuda_device, replicas=1, b=16, p=8, nlist=40, m=16, lcap=256)
     idx = IVFPQIndex(rotation=None, centroids=cents, codebooks=cb, codes=codes,
                      slot_ids=slot_ids, n=nlist * lcap, d=m * 8, m=m, replicas=replicas)
     return idx, q_rot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["adc-only", "replicated", "holes"])
+def test_ivfpq_dma_route_is_the_fused_scan(cuda_device, kind):
+    """The dma mode's default route on the card (an ADC-only search of a
+    prefix-packed index, a replicated index's and a holed index's refine
+    candidates): one launch of the fused dma scan and none of the table
+    kernel or the staged scan; bit for bit the staged A/B
+    (``key_scan="tables"``), each id once a row."""
+    from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    idx, q = _ivfpq_on_card(cuda_device, replicas=2 if kind == "replicated" else 1)
+    if kind == "holes":
+        sids = idx.slot_ids.clone()
+        sids[5, 1::3] = -1
+        idx = IVFPQIndex(rotation=None, centroids=idx.centroids, codebooks=idx.codebooks,
+                         codes=idx.codes, slot_ids=sids, n=idx.n, d=idx.d, m=idx.m)
+    assert idx.ids_mode() == ("key" if kind == "adc-only" else "dma")
+    counts = lambda: (adc_scan.FUSED_DMA_LAUNCHES, adc_scan.TABLE_LAUNCHES, adc_scan.LAUNCHES)
+    kw = {} if kind == "adc-only" else {"for_refine": True}
+    before = counts()
+    fv, fi = idx.search_device(q, 50, 8, **kw)
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(counts(), before)) == (1, 0, 0)
+    sv, si = idx.search_device(q, 50, 8, key_scan="tables", **kw)
+    assert tuple(a - c for a, c in zip(counts(), before)) == (1, 1, 1)
+    assert torch.equal(fv, sv) and torch.equal(fi, si)
+    for row in fi.cpu().numpy():
+        live = row[row >= 0]
+        assert len(set(live.tolist())) == len(live)
 
 
 @pytest.mark.gpu
@@ -825,9 +1014,10 @@ def test_ivfpq_gather_mode_reads_lists_in_place(cuda_device, b, kk):
 @pytest.mark.gpu
 def test_ivfpq_gather_mode_refuses_a_shape_the_fused_scan_cannot_plan(cuda_device):
     """One query's residual and tables past a CTA's shared memory (M 4096,
-    dsub 16): the gather mode raises by name, as the key mode does, and
-    launches no kernel; it does not take the slab route."""
+    dsub 16): the gather mode raises by name, as the key and dma modes do,
+    and launches no kernel; none takes its two-kernel route."""
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+    from nvdb_tpu_torch.kernels import adc_scan
 
     nlist, m, dsub, lcap = 4, 4096, 16, 16
     g = torch.Generator(device=cuda_device).manual_seed(7)
@@ -838,12 +1028,12 @@ def test_ivfpq_gather_mode_refuses_a_shape_the_fused_scan_cannot_plan(cuda_devic
                             device=cuda_device).reshape(nlist, lcap)
     idx = IVFPQIndex(rotation=None, centroids=cents, codebooks=cb, codes=codes,
                      slot_ids=slot_ids, n=nlist * lcap, d=m * dsub, m=m)
-    before = _adc_launches()
-    for mode in ("key", "gather"):
+    before = _adc_launches(), adc_scan.FUSED_DMA_LAUNCHES
+    for mode in ("key", "gather", "dma"):
         with pytest.raises(ValueError, match="shared memory"):
             idx.search_device(cents[:2].contiguous(), 10, 2, ids_mode=mode)
     torch.cuda.synchronize()
-    assert _adc_launches() == before
+    assert (_adc_launches(), adc_scan.FUSED_DMA_LAUNCHES) == before
 
 
 @pytest.mark.gpu
@@ -1241,7 +1431,7 @@ def test_repacked_ivfpq_kernels_match_plain(cuda_device, built_pq, replicas):
     """A repacked (R = 1) and a replicated (R = 2) index searched through the
     kernels against the plain path: ids equal at >= 0.99 of positions after
     the exact refine, and no id twice in any query's ADC candidates or
-    results (R = 2 takes the dma kernel with its duplicate pass)."""
+    results (R = 2 takes the fused dma scan with its duplicate pass)."""
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
     from nvdb_tpu_torch.kernels import adc_scan
 
@@ -1251,13 +1441,14 @@ def test_repacked_ivfpq_kernels_match_plain(cuda_device, built_pq, replicas):
     assert idx.replicas == replicas and idx.device.type == "cuda"
     assert idx.n_spilled < w["idx"].n_spilled
     assert idx.ids_mode() == ("key" if replicas == 1 else "dma")
-    before = adc_scan.LAUNCHES
+    before = (adc_scan.FUSED_DMA_LAUNCHES, adc_scan.TABLE_LAUNCHES)
     _, ki = idx.search(w["q"], 10, 4, refine_k=50, refine_store=w["store"])
     _, pi = idx.search(w["q"], 10, 4, refine_k=50, refine_store=w["store"], backend="torch")
     assert float(np.mean(ki == pi)) >= 0.99
     _, cand = idx.search(w["q"], 40, 4)
     if replicas > 1:
-        assert adc_scan.LAUNCHES > before
+        assert adc_scan.FUSED_DMA_LAUNCHES > before[0]
+    assert adc_scan.TABLE_LAUNCHES == before[1]
     for row in [*ki, *cand]:
         live = row[row >= 0]
         assert len(set(live.tolist())) == len(live)

@@ -336,12 +336,16 @@ def test_scan_plan_fits_shared_memory():
 def _record_adc_routes(monkeypatch):
     """Record each plain ADC route ``search_device`` reaches: "fused"
     (``adc_fused_keys_reference``), "key", "gather" (the key mode's plain
-    scan over ``codes``, or over the gathered slab) and "dma"."""
+    scan over ``codes``, or over the gathered slab), "fused_dma"
+    (``adc_fused_topk_reference``) and "dma" (the staged route's plain scan)."""
     calls = []
     real_fused = adc_scan.adc_fused_keys_reference
+    real_fused_dma = adc_scan.adc_fused_topk_reference
     real_keys, real_dma = adc_scan.adc_topk_keys_reference, adc_scan.adc_topk_reference
     monkeypatch.setattr(adc_scan, "adc_fused_keys_reference",
                         lambda *a, **kw: calls.append("fused") or real_fused(*a, **kw))
+    monkeypatch.setattr(adc_scan, "adc_fused_topk_reference",
+                        lambda *a, **kw: calls.append("fused_dma") or real_fused_dma(*a, **kw))
     monkeypatch.setattr(adc_scan, "adc_topk_keys_reference",
                         lambda *a, **kw: calls.append("gather" if kw.get("gathered") else "key")
                         or real_keys(*a, **kw))
@@ -453,9 +457,13 @@ def test_ids_mode_resolution_and_guard(world, monkeypatch):
                     ids_mode="dma")
     t.search_device(qp, 10, 4, backend="torch", ids_mode="gather")
     t.search_device(qp, 10, 4, backend="torch", ids_mode="gather", key_scan="tables")
-    # the fused plain version runs the key mode's plain scan on its tables;
-    # the gather mode reads the lists in place unless the slab A/B is asked for
-    assert calls == ["dma", "fused", "key", "fused", "key", "dma", "fused", "key", "gather"]
+    t.search_device(qp, 10, 4, backend="torch", ids_mode="dma", key_scan="tables")
+    # the fused key plain version runs the key mode's plain scan on its
+    # tables; the gather mode reads the lists in place unless the slab A/B is
+    # asked for; the dma mode is the fused dma plain version unless the
+    # staged A/B is asked for
+    assert calls == ["fused_dma", "fused", "key", "fused", "key", "fused_dma", "fused", "key",
+                     "gather", "dma"]
     calls.clear()
     t.search_device(qp, 10, 4, refine_k=20, refine_store=store, ids_mode="key")
     assert calls == []                                   # auto on the CPU: the jnp path
