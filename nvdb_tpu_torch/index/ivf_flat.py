@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from nvdb_tpu_torch.eval import trace
 from nvdb_tpu_torch.formats import vecbin
 from nvdb_tpu_torch.kernels import adc_scan, dispatch, kmeans, ops
 from nvdb_tpu_torch.utils import round_up
@@ -128,10 +129,12 @@ def _coarse_probes(queries: torch.Tensor, centroids: torch.Tensor,
     would outrank the real cell means and burn probe slots on lists with
     no candidate. ``terms``: the index's cached ``coarse_terms``. Returns
     [B, nprobe] int64."""
-    ops.no_tf32()
-    qc = queries @ centroids.T
-    c2, live = terms if terms is not None else coarse_terms(centroids, slot_ids)
-    return torch.topk(torch.where(live, 2.0 * qc - c2, ops.NEG_INF), nprobe, dim=1).indices
+    with trace.span("coarse"):
+        ops.no_tf32()
+        qc = queries @ centroids.T
+        c2, live = terms if terms is not None else coarse_terms(centroids, slot_ids)
+        return torch.topk(torch.where(live, 2.0 * qc - c2, ops.NEG_INF), nprobe,
+                          dim=1).indices
 
 
 def _topS_centroids(data: torch.Tensor, cents: torch.Tensor, s: int,
@@ -375,10 +378,11 @@ class IVFFlatIndex:
         ``backend``: ``auto`` takes the probe kernel on a CUDA index and the
         JAX package's jnp path on the CPU; ``cuda`` the kernel (raising on
         the CPU); ``torch`` the kernel's plain version."""
-        nprobe = min(nprobe, self.nlist)
-        return _ivf_search_block(queries, self.centroids, self.packed, self.slot_ids,
-                                 self.slot_scales, k, nprobe, backend=backend,
-                                 fills=self.fills(), terms=self.coarse_terms())
+        with trace.span("ivfflat.search", b=queries.shape[0], k=k, nprobe=nprobe):
+            nprobe = min(nprobe, self.nlist)
+            return _ivf_search_block(queries, self.centroids, self.packed, self.slot_ids,
+                                     self.slot_scales, k, nprobe, backend=backend,
+                                     fills=self.fills(), terms=self.coarse_terms())
 
     def search(self, queries: np.ndarray, k: int, nprobe: int, q_chunk: int = 32,
                backend: str = "auto") -> Tuple[np.ndarray, np.ndarray]:

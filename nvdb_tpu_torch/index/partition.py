@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from nvdb_tpu_torch.eval import trace
 from nvdb_tpu_torch.eval.recall import recall_at_k
 from nvdb_tpu_torch.formats import vecbin
 from nvdb_tpu_torch.index.ivf_flat import IVFFlatIndex
@@ -145,13 +146,15 @@ class PartitionRerankIndex:
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Padded [B, Dp] on-device queries in, device tensors out: probe and
         optional exact rerank chained on the device, no host sync."""
-        if rerank_k <= k or self.refine_store is None:
-            return self.ivf.search_device(queries, k, nprobe, backend=backend)
-        _, cid = self.ivf.search_device(queries, rerank_k, nprobe, backend=backend)
-        store = self.refine_store
-        return dispatch.exact_refine(queries, cid, store.vectors, store.scales, k,
-                                     metric="dot", backend=backend,
-                                     res_cents=store.res_cents, res_ids=store.res_ids)
+        with trace.span("partition.search", b=queries.shape[0], k=k, nprobe=nprobe,
+                        rerank_k=rerank_k):
+            if rerank_k <= k or self.refine_store is None:
+                return self.ivf.search_device(queries, k, nprobe, backend=backend)
+            _, cid = self.ivf.search_device(queries, rerank_k, nprobe, backend=backend)
+            store = self.refine_store
+            return dispatch.exact_refine(queries, cid, store.vectors, store.scales, k,
+                                         metric="dot", backend=backend,
+                                         res_cents=store.res_cents, res_ids=store.res_ids)
 
     def save(self, path: str) -> None:
         """Persist the self-contained search structure (the IVF-Flat

@@ -54,6 +54,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from nvdb_tpu_torch.eval import trace
 from nvdb_tpu_torch.kernels import ops, pq
 from nvdb_tpu_torch.kernels.flat_scan import check_tensor, require_cuda
 from nvdb_tpu_torch.utils import cdiv
@@ -622,62 +623,71 @@ def adc_fused_keys_cuda(
     global FUSED_LAUNCHES
     from nvdb_tpu_torch.kernels import ivf_scan
 
-    require_cuda(codes, "adc_fused_keys")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside [1, {MAX_K}]")
-    if (q_rot.dim() != 2 or probes.dim() != 2 or centroids.dim() != 2 or codebooks.dim() != 3
-            or codes.dim() != 3):
-        raise ValueError("q_rot [B, Dp], probes [B, P], centroids [nlist, Dp], codebooks "
-                         "[M, 256, dsub], codes [nlist, M, Lcap]")
-    dev = codes.device
-    nlist, M, L = codes.shape
-    B, Dp = q_rot.shape
-    P = probes.shape[1]
-    dsub = codebooks.shape[2]
-    if tuple(codebooks.shape[:2]) != (M, pq.KSUB) or M * dsub != Dp:
-        raise ValueError(f"codebooks {tuple(codebooks.shape)} do not split dim {Dp} into the "
-                         f"codes' {M} subspaces of {pq.KSUB} codewords")
-    key_groups(1, P, L)   # raises on a list wider than a 16-bit lane
-    if P * L >= 1 << 31:
-        raise ValueError(f"P={P} probes of {L} lanes exceed a 31-bit coordinate")
-    probes = probes.to(torch.int32).contiguous()
-    if fills is None:
-        fills = list_fills(slot_ids)
-    check_tensor(q_rot, "q_rot", dev, (torch.float32,), (B, Dp))
-    check_tensor(probes, "probes", dev, (torch.int32,), (B, P))
-    check_tensor(centroids, "centroids", dev, (torch.float32,), (nlist, Dp))
-    check_tensor(codebooks, "codebooks", dev, (torch.float32,), (M, pq.KSUB, dsub))
-    check_tensor(codes, "codes", dev, (torch.uint8,), (nlist, M, L))
-    check_tensor(slot_ids, "slot_ids", dev, (torch.int32,), (nlist, L))
-    check_tensor(fills, "fills", dev, (torch.int32,), (nlist,))
+    with trace.span("adc_fused_keys_cuda") as sp:
+        require_cuda(codes, "adc_fused_keys")
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"k={k} outside [1, {MAX_K}]")
+        if (q_rot.dim() != 2 or probes.dim() != 2 or centroids.dim() != 2
+                or codebooks.dim() != 3 or codes.dim() != 3):
+            raise ValueError("q_rot [B, Dp], probes [B, P], centroids [nlist, Dp], codebooks "
+                             "[M, 256, dsub], codes [nlist, M, Lcap]")
+        dev = codes.device
+        nlist, M, L = codes.shape
+        B, Dp = q_rot.shape
+        P = probes.shape[1]
+        dsub = codebooks.shape[2]
+        if tuple(codebooks.shape[:2]) != (M, pq.KSUB) or M * dsub != Dp:
+            raise ValueError(f"codebooks {tuple(codebooks.shape)} do not split dim {Dp} into "
+                             f"the codes' {M} subspaces of {pq.KSUB} codewords")
+        key_groups(1, P, L)   # raises on a list wider than a 16-bit lane
+        if P * L >= 1 << 31:
+            raise ValueError(f"P={P} probes of {L} lanes exceed a 31-bit coordinate")
+        given = probes, fills
+        probes = probes.to(torch.int32).contiguous()
+        if fills is None:
+            fills = list_fills(slot_ids)
+        check_tensor(q_rot, "q_rot", dev, (torch.float32,), (B, Dp))
+        check_tensor(probes, "probes", dev, (torch.int32,), (B, P))
+        check_tensor(centroids, "centroids", dev, (torch.float32,), (nlist, Dp))
+        check_tensor(codebooks, "codebooks", dev, (torch.float32,), (M, pq.KSUB, dsub))
+        check_tensor(codes, "codes", dev, (torch.uint8,), (nlist, M, L))
+        check_tensor(slot_ids, "slot_ids", dev, (torch.int32,), (nlist, L))
+        check_tensor(fills, "fills", dev, (torch.int32,), (nlist,))
 
-    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
-    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    if B == 0 or P == 0:
-        vals.fill_(ops.NEG_INF)
-        ids.fill_(-1)
+        vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+        ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+        if sp:
+            sp.count_alloc(vals, ids, None if probes is given[0] else probes,
+                           None if fills is given[1] else fills)
+        if B == 0 or P == 0:
+            vals.fill_(ops.NEG_INF)
+            ids.fill_(-1)
+            return vals, ids
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        if nq_max is None:
+            nq_max = FUSED_NQ_MAX if B >= FUSED_CHUNK_MIN_BATCH else 1
+        nq = fused_plan(M, dsub, nq_max, index)
+        U = ivf_scan.max_items(B * P, nlist, nq)
+        scratch = torch.empty(ivf_scan.group_scratch_ints(nlist, B * P, U), dtype=torch.int32,
+                              device=dev)
+        # the partial lists [B, P, tiles, k] and each one's threshold [B, P, tiles]
+        part_keys = torch.empty(B * P * cdiv(L, FUSED_TILE) * (k + 1), dtype=torch.int32,
+                                device=dev)
+        if sp:
+            sp.count_alloc(scratch, part_keys)
+        fn = _fused_lib().nvdb_adc_fused_keys
+        with torch.cuda.device(index):
+            stream = torch.cuda.current_stream(index).cuda_stream
+            with trace.span("launch"):
+                rc = fn(q_rot.data_ptr(), probes.data_ptr(), centroids.data_ptr(),
+                        codebooks.data_ptr(), codes.data_ptr(), slot_ids.data_ptr(),
+                        fills.data_ptr(), scratch.data_ptr(), part_keys.data_ptr(),
+                        vals.data_ptr(), ids.data_ptr(), B, P, Dp, M, dsub, nlist, L, k, nq, U,
+                        stream)
+        if rc != 0:
+            raise RuntimeError(f"adc_fused_keys kernel launch failed: cudaError_t {rc}")
+        FUSED_LAUNCHES += 1
         return vals, ids
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if nq_max is None:
-        nq_max = FUSED_NQ_MAX if B >= FUSED_CHUNK_MIN_BATCH else 1
-    nq = fused_plan(M, dsub, nq_max, index)
-    U = ivf_scan.max_items(B * P, nlist, nq)
-    scratch = torch.empty(ivf_scan.group_scratch_ints(nlist, B * P, U), dtype=torch.int32,
-                          device=dev)
-    # the partial lists [B, P, tiles, k] and each one's threshold [B, P, tiles]
-    part_keys = torch.empty(B * P * cdiv(L, FUSED_TILE) * (k + 1), dtype=torch.int32,
-                            device=dev)
-    with torch.cuda.device(index):
-        stream = torch.cuda.current_stream(index).cuda_stream
-        rc = _fused_lib().nvdb_adc_fused_keys(
-            q_rot.data_ptr(), probes.data_ptr(), centroids.data_ptr(), codebooks.data_ptr(),
-            codes.data_ptr(), slot_ids.data_ptr(), fills.data_ptr(), scratch.data_ptr(),
-            part_keys.data_ptr(), vals.data_ptr(), ids.data_ptr(), B, P, Dp, M, dsub, nlist, L,
-            k, nq, U, stream)
-    if rc != 0:
-        raise RuntimeError(f"adc_fused_keys kernel launch failed: cudaError_t {rc}")
-    FUSED_LAUNCHES += 1
-    return vals, ids
 
 
 # -- the fused dma scan ----------------------------------------------------------
@@ -845,65 +855,76 @@ def adc_fused_topk_cuda(
     global FUSED_DMA_LAUNCHES
     from nvdb_tpu_torch.kernels import ivf_scan
 
-    require_cuda(codes, "adc_fused_topk")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside [1, {MAX_K}]")
-    if (q_rot.dim() != 2 or probes.dim() != 2 or centroids.dim() != 2 or codebooks.dim() != 3
-            or codes.dim() != 3):
-        raise ValueError("q_rot [B, Dp], probes [B, P], centroids [nlist, Dp], codebooks "
-                         "[M, 256, dsub], codes [nlist, M, Lcap]")
-    dev = codes.device
-    nlist, M, L = codes.shape
-    B, Dp = q_rot.shape
-    P = probes.shape[1]
-    dsub = codebooks.shape[2]
-    if tuple(codebooks.shape[:2]) != (M, pq.KSUB) or M * dsub != Dp:
-        raise ValueError(f"codebooks {tuple(codebooks.shape)} do not split dim {Dp} into the "
-                         f"codes' {M} subspaces of {pq.KSUB} codewords")
-    if L % 4 != 0:
-        raise ValueError(f"list capacity {L} is not a multiple of 4 (the scan copies code "
-                         f"rows in 4-byte pieces)")
-    if P * L >= 1 << 31:
-        raise ValueError(f"P={P} probes of {L} lanes exceed a 31-bit coordinate")
-    probes = probes.to(torch.int32).contiguous()
-    if fills is None:
-        fills = list_fills(slot_ids)
-    if dedup and leads is None:
-        leads = tile_leads(slot_ids)
-    check_tensor(q_rot, "q_rot", dev, (torch.float32,), (B, Dp))
-    check_tensor(probes, "probes", dev, (torch.int32,), (B, P))
-    check_tensor(centroids, "centroids", dev, (torch.float32,), (nlist, Dp))
-    check_tensor(codebooks, "codebooks", dev, (torch.float32,), (M, pq.KSUB, dsub))
-    check_tensor(codes, "codes", dev, (torch.uint8,), (nlist, M, L))
-    check_tensor(slot_ids, "slot_ids", dev, (torch.int32,), (nlist, L))
-    check_tensor(fills, "fills", dev, (torch.int32,), (nlist,))
-    if dedup:
-        check_tensor(leads, "leads", dev, (torch.int32,), (nlist, L))
+    with trace.span("adc_fused_topk_cuda") as sp:
+        require_cuda(codes, "adc_fused_topk")
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"k={k} outside [1, {MAX_K}]")
+        if (q_rot.dim() != 2 or probes.dim() != 2 or centroids.dim() != 2
+                or codebooks.dim() != 3 or codes.dim() != 3):
+            raise ValueError("q_rot [B, Dp], probes [B, P], centroids [nlist, Dp], codebooks "
+                             "[M, 256, dsub], codes [nlist, M, Lcap]")
+        dev = codes.device
+        nlist, M, L = codes.shape
+        B, Dp = q_rot.shape
+        P = probes.shape[1]
+        dsub = codebooks.shape[2]
+        if tuple(codebooks.shape[:2]) != (M, pq.KSUB) or M * dsub != Dp:
+            raise ValueError(f"codebooks {tuple(codebooks.shape)} do not split dim {Dp} into "
+                             f"the codes' {M} subspaces of {pq.KSUB} codewords")
+        if L % 4 != 0:
+            raise ValueError(f"list capacity {L} is not a multiple of 4 (the scan copies code "
+                             f"rows in 4-byte pieces)")
+        if P * L >= 1 << 31:
+            raise ValueError(f"P={P} probes of {L} lanes exceed a 31-bit coordinate")
+        given = probes, fills
+        probes = probes.to(torch.int32).contiguous()
+        if fills is None:
+            fills = list_fills(slot_ids)
+        if dedup and leads is None:
+            leads = tile_leads(slot_ids)
+            if sp:
+                sp.count_alloc(leads)
+        check_tensor(q_rot, "q_rot", dev, (torch.float32,), (B, Dp))
+        check_tensor(probes, "probes", dev, (torch.int32,), (B, P))
+        check_tensor(centroids, "centroids", dev, (torch.float32,), (nlist, Dp))
+        check_tensor(codebooks, "codebooks", dev, (torch.float32,), (M, pq.KSUB, dsub))
+        check_tensor(codes, "codes", dev, (torch.uint8,), (nlist, M, L))
+        check_tensor(slot_ids, "slot_ids", dev, (torch.int32,), (nlist, L))
+        check_tensor(fills, "fills", dev, (torch.int32,), (nlist,))
+        if dedup:
+            check_tensor(leads, "leads", dev, (torch.int32,), (nlist, L))
 
-    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
-    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    if B == 0 or P == 0:
-        vals.fill_(ops.NEG_INF)
-        ids.fill_(-1)
+        vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+        ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+        if sp:
+            sp.count_alloc(vals, ids, None if probes is given[0] else probes,
+                           None if fills is given[1] else fills)
+        if B == 0 or P == 0:
+            vals.fill_(ops.NEG_INF)
+            ids.fill_(-1)
+            return vals, ids
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        if nq_max is None:
+            nq_max = FUSED_NQ_MAX if B >= FUSED_CHUNK_MIN_BATCH else 1
+        nq = fused_plan(M, dsub, min(nq_max, FUSED_DMA_NQ_MAX), index)
+        U = ivf_scan.max_items(B * P, nlist, nq)
+        scratch = torch.empty(ivf_scan.group_scratch_ints(nlist, B * P, U), dtype=torch.int32,
+                              device=dev)
+        # the partial lists [B, P, tiles, k] and each one's threshold [B, P, tiles]
+        part_keys = torch.empty(B * P * cdiv(L, FUSED_TILE) * (k + 1), dtype=torch.int64,
+                                device=dev)
+        if sp:
+            sp.count_alloc(scratch, part_keys)
+        fn = _fused_lib().nvdb_adc_fused_topk
+        with torch.cuda.device(index):
+            stream = torch.cuda.current_stream(index).cuda_stream
+            with trace.span("launch"):
+                rc = fn(q_rot.data_ptr(), probes.data_ptr(), centroids.data_ptr(),
+                        codebooks.data_ptr(), codes.data_ptr(), slot_ids.data_ptr(),
+                        leads.data_ptr() if dedup else None, fills.data_ptr(),
+                        scratch.data_ptr(), part_keys.data_ptr(), vals.data_ptr(),
+                        ids.data_ptr(), B, P, Dp, M, dsub, nlist, L, k, nq, U, stream)
+        if rc != 0:
+            raise RuntimeError(f"adc_fused_topk kernel launch failed: cudaError_t {rc}")
+        FUSED_DMA_LAUNCHES += 1
         return vals, ids
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if nq_max is None:
-        nq_max = FUSED_NQ_MAX if B >= FUSED_CHUNK_MIN_BATCH else 1
-    nq = fused_plan(M, dsub, min(nq_max, FUSED_DMA_NQ_MAX), index)
-    U = ivf_scan.max_items(B * P, nlist, nq)
-    scratch = torch.empty(ivf_scan.group_scratch_ints(nlist, B * P, U), dtype=torch.int32,
-                          device=dev)
-    # the partial lists [B, P, tiles, k] and each one's threshold [B, P, tiles]
-    part_keys = torch.empty(B * P * cdiv(L, FUSED_TILE) * (k + 1), dtype=torch.int64,
-                            device=dev)
-    with torch.cuda.device(index):
-        stream = torch.cuda.current_stream(index).cuda_stream
-        rc = _fused_lib().nvdb_adc_fused_topk(
-            q_rot.data_ptr(), probes.data_ptr(), centroids.data_ptr(), codebooks.data_ptr(),
-            codes.data_ptr(), slot_ids.data_ptr(), leads.data_ptr() if dedup else None,
-            fills.data_ptr(), scratch.data_ptr(), part_keys.data_ptr(), vals.data_ptr(),
-            ids.data_ptr(), B, P, Dp, M, dsub, nlist, L, k, nq, U, stream)
-    if rc != 0:
-        raise RuntimeError(f"adc_fused_topk kernel launch failed: cudaError_t {rc}")
-    FUSED_DMA_LAUNCHES += 1
-    return vals, ids

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from nvdb_tpu_torch.eval import trace
 from nvdb_tpu_torch.kernels import flat_scan, ivf_scan, ops, rerank
 
 BACKENDS = ("auto", "cuda", "torch")
@@ -148,20 +149,21 @@ def exact_refine(
     every refine call (the exact-i8 flat mode, the IVF-PQ refine, the
     partition index's rerank). Residual-int8 stores: pass res_cents /
     res_ids, and queries in the space of the store's centroids."""
-    rb = refine_path(backend, vectors)
-    cand_ids = cand_ids.to(torch.int32).contiguous()
-    res = dict(res_cents=res_cents, res_ids=res_ids)
-    _check_inputs("exact_refine", queries, vectors, scales)
-    if rb == "cuda":
-        v, i = rerank.rerank_topk_cuda(queries.contiguous(), cand_ids, vectors, scales,
-                                       k, norms2=norms2, metric=metric, **res)
-    elif rb == "torch":
-        v, i = rerank.rerank_topk_reference(queries, cand_ids, vectors, scales, k,
-                                            norms2=norms2, metric=metric, **res)
-    else:
-        v, i = oracle_refine(queries, cand_ids, vectors, scales, k, metric=metric, **res)
-    check_finite("exact_refine scores", v, i)
-    return v, i
+    with trace.span("refine"):
+        rb = refine_path(backend, vectors)
+        cand_ids = cand_ids.to(torch.int32).contiguous()
+        res = dict(res_cents=res_cents, res_ids=res_ids)
+        _check_inputs("exact_refine", queries, vectors, scales)
+        if rb == "cuda":
+            v, i = rerank.rerank_topk_cuda(queries.contiguous(), cand_ids, vectors, scales,
+                                           k, norms2=norms2, metric=metric, **res)
+        elif rb == "torch":
+            v, i = rerank.rerank_topk_reference(queries, cand_ids, vectors, scales, k,
+                                                norms2=norms2, metric=metric, **res)
+        else:
+            v, i = oracle_refine(queries, cand_ids, vectors, scales, k, metric=metric, **res)
+        check_finite("exact_refine scores", v, i)
+        return v, i
 
 
 def oracle_refine(
@@ -201,14 +203,15 @@ def ivf_probe_topk(
     IVF-Flat and partition searches. The oracle is the slab part of the JAX
     package's ``_ivf_search_block``: the plain version in one unchunked
     gather of the probed slabs [B, P, Lcap, Dp] and one batched product."""
-    path = refine_backend(backend, packed)
-    _check_inputs("ivf_probe_topk", queries, packed, slot_scales)
-    if path == "cuda":
-        v, i = ivf_scan.ivf_probe_topk_cuda(queries.contiguous(), probes, packed, slot_ids,
-                                            slot_scales, k, fills=fills)
-    else:
-        q_chunk = None if path == "torch" else max(1, queries.shape[0])
-        v, i = ivf_scan.ivf_probe_topk_reference(queries, probes, packed, slot_ids,
-                                                 slot_scales, k, q_chunk=q_chunk)
-    check_finite("ivf_probe_topk scores", v, i)
-    return v, i
+    with trace.span("probe"):
+        path = refine_backend(backend, packed)
+        _check_inputs("ivf_probe_topk", queries, packed, slot_scales)
+        if path == "cuda":
+            v, i = ivf_scan.ivf_probe_topk_cuda(queries.contiguous(), probes, packed,
+                                                slot_ids, slot_scales, k, fills=fills)
+        else:
+            q_chunk = None if path == "torch" else max(1, queries.shape[0])
+            v, i = ivf_scan.ivf_probe_topk_reference(queries, probes, packed, slot_ids,
+                                                     slot_scales, k, q_chunk=q_chunk)
+        check_finite("ivf_probe_topk scores", v, i)
+        return v, i

@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from nvdb_tpu_torch.eval import trace
 from nvdb_tpu_torch.kernels import ops
 from nvdb_tpu_torch.kernels.adc_scan import list_fills
 from nvdb_tpu_torch.kernels.flat_scan import check_tensor, require_cuda
@@ -294,68 +295,80 @@ def ivf_probe_topk_cuda(
     (the query-major A/B arm). Returns (vals [B, k] f32, ids [B, k] int32).
     No host sync: the launches can be captured in a CUDA graph."""
     global LAUNCHES
-    require_cuda(packed, "ivf_probe_topk")
-    if layout not in LAYOUTS:
-        raise ValueError(f"unknown layout {layout!r}; expected one of {LAYOUTS}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside [1, {MAX_K}]")
-    if packed.dim() != 3 or queries.dim() != 2 or probes.dim() != 2:
-        raise ValueError("queries [B, Dp], probes [B, P], packed [nlist, Lcap, Dp]")
-    dev = packed.device
-    nlist, L, Dp = packed.shape
-    B, P = probes.shape
-    if Dp % 16 != 0:
-        raise ValueError(f"padded dim {Dp} is not a multiple of 16 (16-byte loads)")
-    probes = probes.to(torch.int32).contiguous()
-    if fills is None:
-        fills = list_fills(slot_ids)
-    check_tensor(packed, "packed", dev, tuple(_MODES), (nlist, L, Dp))
-    check_tensor(queries, "queries", dev, (torch.float32,), (B, Dp))
-    check_tensor(probes, "probes", dev, (torch.int32,), (B, P))
-    check_tensor(slot_ids, "slot_ids", dev, (torch.int32,), (nlist, L))
-    check_tensor(fills, "fills", dev, (torch.int32,), (nlist,))
-    if (packed.dtype == torch.int8) != (slot_scales is not None):
-        raise ValueError("per-slot scales go with int8 slabs, and only with them")
-    if slot_scales is not None:
-        check_tensor(slot_scales, "slot_scales", dev, (torch.float32,), (nlist, L))
+    with trace.span("ivf_probe_topk_cuda") as sp:
+        require_cuda(packed, "ivf_probe_topk")
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {layout!r}; expected one of {LAYOUTS}")
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"k={k} outside [1, {MAX_K}]")
+        if packed.dim() != 3 or queries.dim() != 2 or probes.dim() != 2:
+            raise ValueError("queries [B, Dp], probes [B, P], packed [nlist, Lcap, Dp]")
+        dev = packed.device
+        nlist, L, Dp = packed.shape
+        B, P = probes.shape
+        if Dp % 16 != 0:
+            raise ValueError(f"padded dim {Dp} is not a multiple of 16 (16-byte loads)")
+        given = probes, fills
+        probes = probes.to(torch.int32).contiguous()
+        if fills is None:
+            fills = list_fills(slot_ids)
+        check_tensor(packed, "packed", dev, tuple(_MODES), (nlist, L, Dp))
+        check_tensor(queries, "queries", dev, (torch.float32,), (B, Dp))
+        check_tensor(probes, "probes", dev, (torch.int32,), (B, P))
+        check_tensor(slot_ids, "slot_ids", dev, (torch.int32,), (nlist, L))
+        check_tensor(fills, "fills", dev, (torch.int32,), (nlist,))
+        if (packed.dtype == torch.int8) != (slot_scales is not None):
+            raise ValueError("per-slot scales go with int8 slabs, and only with them")
+        if slot_scales is not None:
+            check_tensor(slot_scales, "slot_scales", dev, (torch.float32,), (nlist, L))
 
-    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
-    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    if B == 0 or P == 0:
-        vals.fill_(ops.NEG_INF)
-        ids.fill_(-1)
+        vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+        ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+        if sp:
+            sp.count_alloc(vals, ids, None if probes is given[0] else probes,
+                           None if fills is given[1] else fills)
+        if B == 0 or P == 0:
+            vals.fill_(ops.NEG_INF)
+            ids.fill_(-1)
+            return vals, ids
+        mode = _MODES[packed.dtype]
+        scales_ptr = slot_scales.data_ptr() if slot_scales is not None else None
+        lib = _lib()
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        with torch.cuda.device(index):
+            stream = torch.cuda.current_stream(index).cuda_stream
+            if layout == "query":
+                S = _probe_groups(B, P, index)
+                part_vals = torch.empty((B, S, k), dtype=torch.float32, device=dev)
+                part_ids = torch.empty((B, S, k), dtype=torch.int32, device=dev)
+                if sp:
+                    sp.count_alloc(part_vals, part_ids)
+                with trace.span("launch"):
+                    rc = lib.nvdb_ivf_probe_topk(
+                        queries.data_ptr(), probes.data_ptr(), packed.data_ptr(),
+                        slot_ids.data_ptr(), scales_ptr, fills.data_ptr(), part_vals.data_ptr(),
+                        part_ids.data_ptr(), vals.data_ptr(), ids.data_ptr(), B, P, nlist, L,
+                        Dp, k, S, mode, stream)
+            else:
+                nq, n_stages = _list_plan(mode, Dp, k, index, _LIST_NQ_MAX, _LIST_PLAN_CTAS,
+                                          _LIST_MAX_STAGES)
+                R = list_ranges(B, P, L, _sm_count(index))
+                U = max_items(B * P, nlist, nq)
+                # one int32 allocation: pass 0's scratch, then the partial lists' ids
+                head = group_scratch_ints(nlist, B * P, U)
+                scratch = torch.empty(head + B * P * R * k, dtype=torch.int32, device=dev)
+                part_vals = torch.empty((B, P * R, k), dtype=torch.float32, device=dev)
+                if sp:
+                    sp.count_alloc(scratch, part_vals)
+                with trace.span("launch"):
+                    rc = lib.nvdb_ivf_probe_topk_list(
+                        queries.data_ptr(), probes.data_ptr(), packed.data_ptr(),
+                        slot_ids.data_ptr(), scales_ptr, fills.data_ptr(), scratch.data_ptr(),
+                        part_vals.data_ptr(), scratch.data_ptr() + 4 * head, vals.data_ptr(),
+                        ids.data_ptr(), B, P, nlist, L, Dp, k, R, nq, n_stages, U, mode, stream)
+        if rc != 0:
+            raise RuntimeError(f"ivf_probe_topk ({layout}-major) kernel launch failed: "
+                               f"cudaError_t {rc}")
+        LAUNCHES += 1
+        LAUNCHES_BY_LAYOUT[layout] += 1
         return vals, ids
-    mode = _MODES[packed.dtype]
-    scales_ptr = slot_scales.data_ptr() if slot_scales is not None else None
-    lib = _lib()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    with torch.cuda.device(index):
-        stream = torch.cuda.current_stream(index).cuda_stream
-        if layout == "query":
-            S = _probe_groups(B, P, index)
-            part_vals = torch.empty((B, S, k), dtype=torch.float32, device=dev)
-            part_ids = torch.empty((B, S, k), dtype=torch.int32, device=dev)
-            rc = lib.nvdb_ivf_probe_topk(
-                queries.data_ptr(), probes.data_ptr(), packed.data_ptr(), slot_ids.data_ptr(),
-                scales_ptr, fills.data_ptr(), part_vals.data_ptr(), part_ids.data_ptr(),
-                vals.data_ptr(), ids.data_ptr(), B, P, nlist, L, Dp, k, S, mode, stream)
-        else:
-            nq, n_stages = _list_plan(mode, Dp, k, index, _LIST_NQ_MAX, _LIST_PLAN_CTAS,
-                                      _LIST_MAX_STAGES)
-            R = list_ranges(B, P, L, _sm_count(index))
-            U = max_items(B * P, nlist, nq)
-            # one int32 allocation: pass 0's scratch, then the partial lists' ids
-            head = group_scratch_ints(nlist, B * P, U)
-            scratch = torch.empty(head + B * P * R * k, dtype=torch.int32, device=dev)
-            part_vals = torch.empty((B, P * R, k), dtype=torch.float32, device=dev)
-            rc = lib.nvdb_ivf_probe_topk_list(
-                queries.data_ptr(), probes.data_ptr(), packed.data_ptr(), slot_ids.data_ptr(),
-                scales_ptr, fills.data_ptr(), scratch.data_ptr(), part_vals.data_ptr(),
-                scratch.data_ptr() + 4 * head, vals.data_ptr(), ids.data_ptr(), B, P, nlist, L,
-                Dp, k, R, nq, n_stages, U, mode, stream)
-    if rc != 0:
-        raise RuntimeError(f"ivf_probe_topk ({layout}-major) kernel launch failed: "
-                           f"cudaError_t {rc}")
-    LAUNCHES += 1
-    LAUNCHES_BY_LAYOUT[layout] += 1
-    return vals, ids

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from nvdb_tpu_torch.eval import trace
 from nvdb_tpu_torch.kernels import ops
 from nvdb_tpu_torch.kernels.flat_scan import check_tensor, require_cuda
 
@@ -164,48 +165,53 @@ def rerank_topk_cuda(
     Pass ``norms2`` in serving loops: without it, metric l2 reads the whole
     store once per call."""
     global LAUNCHES
-    require_cuda(vectors, "rerank_topk")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside [1, {MAX_K}]")
-    if vectors.dim() != 2 or queries.dim() != 2 or cand_ids.dim() != 2:
-        raise ValueError("queries, cand_ids and vectors must be 2-D")
-    dev = vectors.device
-    Np, Dp = vectors.shape
-    B, R = cand_ids.shape
-    if Dp % 16 != 0:
-        raise ValueError(f"padded dim {Dp} is not a multiple of 16 (16-byte loads)")
-    check_tensor(vectors, "vectors", dev, tuple(_MODES), (Np, Dp))
-    check_tensor(queries, "queries", dev, (torch.float32,), (B, Dp))
-    check_tensor(cand_ids, "cand_ids", dev, (torch.int32,), (B, R))
-    if (vectors.dtype == torch.int8) != (scales is not None):
-        raise ValueError("per-row scales go with int8 stores, and only with them")
-    if scales is not None:
-        check_tensor(scales, "scales", dev, (torch.float32,), (Np,))
-    if R < 1:
-        raise ValueError("no candidates")
-    if Dp * 4 + R * 8 + k * 8 > _SMEM_LIMIT:
-        raise ValueError(f"R={R} candidates of dim {Dp} exceed the kernel's "
-                         f"shared memory")
-    norms2, qcent = _fold_inputs(queries, cand_ids, vectors, scales, norms2, metric,
-                                 res_cents, res_ids)
-    if norms2 is not None:
-        check_tensor(norms2, "norms2", dev, (torch.float32,), (Np,))
-    if qcent is not None:
-        qcent = qcent.contiguous()
-        check_tensor(qcent, "qcent", dev, (torch.float32,), (B, R))
+    with trace.span("rerank_topk_cuda") as sp:
+        require_cuda(vectors, "rerank_topk")
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"k={k} outside [1, {MAX_K}]")
+        if vectors.dim() != 2 or queries.dim() != 2 or cand_ids.dim() != 2:
+            raise ValueError("queries, cand_ids and vectors must be 2-D")
+        dev = vectors.device
+        Np, Dp = vectors.shape
+        B, R = cand_ids.shape
+        if Dp % 16 != 0:
+            raise ValueError(f"padded dim {Dp} is not a multiple of 16 (16-byte loads)")
+        check_tensor(vectors, "vectors", dev, tuple(_MODES), (Np, Dp))
+        check_tensor(queries, "queries", dev, (torch.float32,), (B, Dp))
+        check_tensor(cand_ids, "cand_ids", dev, (torch.int32,), (B, R))
+        if (vectors.dtype == torch.int8) != (scales is not None):
+            raise ValueError("per-row scales go with int8 stores, and only with them")
+        if scales is not None:
+            check_tensor(scales, "scales", dev, (torch.float32,), (Np,))
+        if R < 1:
+            raise ValueError("no candidates")
+        if Dp * 4 + R * 8 + k * 8 > _SMEM_LIMIT:
+            raise ValueError(f"R={R} candidates of dim {Dp} exceed the kernel's "
+                             f"shared memory")
+        norms2_in = norms2
+        norms2, qcent = _fold_inputs(queries, cand_ids, vectors, scales, norms2, metric,
+                                     res_cents, res_ids)
+        if norms2 is not None:
+            check_tensor(norms2, "norms2", dev, (torch.float32,), (Np,))
+        if qcent is not None:
+            qcent = qcent.contiguous()
+            check_tensor(qcent, "qcent", dev, (torch.float32,), (B, R))
 
-    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
-    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    if B == 0:
+        vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+        ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+        if sp:
+            sp.count_alloc(vals, ids, qcent, None if norms2 is norms2_in else norms2)
+        if B == 0:
+            return vals, ids
+        fn = _lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            ptr = lambda t: None if t is None else t.data_ptr()
+            with trace.span("launch"):
+                rc = fn(queries.data_ptr(), cand_ids.data_ptr(), vectors.data_ptr(),
+                        ptr(scales), ptr(norms2), ptr(qcent), vals.data_ptr(), ids.data_ptr(),
+                        B, R, Dp, Np, k, _MODES[vectors.dtype], int(metric == "l2"), stream)
+        if rc != 0:
+            raise RuntimeError(f"rerank_topk kernel launch failed: cudaError_t {rc}")
+        LAUNCHES += 1
         return vals, ids
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptr = lambda t: None if t is None else t.data_ptr()
-        rc = fn(queries.data_ptr(), cand_ids.data_ptr(), vectors.data_ptr(), ptr(scales),
-                ptr(norms2), ptr(qcent), vals.data_ptr(), ids.data_ptr(),
-                B, R, Dp, Np, k, _MODES[vectors.dtype], int(metric == "l2"), stream)
-    if rc != 0:
-        raise RuntimeError(f"rerank_topk kernel launch failed: cudaError_t {rc}")
-    LAUNCHES += 1
-    return vals, ids

@@ -1755,3 +1755,113 @@ def test_tool_mesh_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
         assert rc == 0, out
         assert f"process {rank}/2" in out and "backend=gloo" in out and "global_devices=2" in out
         assert "recall=1.000000" in out, out
+
+
+# -- the recorder's spans around the kernel wrappers ---------------------------------
+
+def _wrapper_call(name, device):
+    """(call, its arguments' note) of one kernel wrapper on a small case,
+    with the caches a serving caller passes (fills, leads, norms2) made
+    beforehand, so that the wrapper's own allocations are all it allocates.
+    The probe wrapper gets int64 probes, as the coarse ranking gives them,
+    and converts them itself."""
+    from nvdb_tpu_torch.kernels import adc_scan, ivf_scan, rerank
+
+    if name == "adc_fused_keys_cuda":
+        q, probes, cents, cb, codes, sids = _fused_case(64, 32, 40, 16, 8, 256, 31, device)
+        fills = adc_scan.list_fills(sids)
+        return lambda: adc_scan.adc_fused_keys_cuda(q, probes, cents, cb, codes, sids, 100,
+                                                    fills=fills)
+    if name == "adc_fused_topk_cuda":
+        q, probes, cents, cb, codes, sids = _dma_case(64, 32, 40, 16, 8, 256, 32, device,
+                                                      kind="replicas")
+        fills, leads = adc_scan.list_fills(sids), adc_scan.tile_leads(sids)
+        return lambda: adc_scan.adc_fused_topk_cuda(q, probes, cents, cb, codes, sids, 100,
+                                                    fills=fills, leads=leads)
+    if name == "ivf_probe_topk_cuda":
+        q, probes, packed, sids, sc = (None if x is None else x.to(device)
+                                       for x in _probe_case("bf16", 37, 12, 33))
+        probes = probes.to(torch.int64)
+        fills = adc_scan.list_fills(sids)
+        return lambda: ivf_scan.ivf_probe_topk_cuda(q, probes, packed, sids, sc, 50,
+                                                    fills=fills)
+    q, cand, store, _ = _rerank_case("f32", 37, 100, 34)
+    q, cand, store = (torch.from_numpy(x).to(device) if isinstance(x, np.ndarray)
+                      else x.to(device) for x in (q, cand, store))
+    norms2 = rerank.store_norms2(store)
+    return lambda: rerank.rerank_topk_cuda(q, cand, store, None, 10, norms2=norms2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["adc_fused_keys_cuda", "adc_fused_topk_cuda",
+                                  "ivf_probe_topk_cuda", "rerank_topk_cuda"])
+def test_wrapper_span_has_one_launch_and_counts_its_allocations(cuda_device, name):
+    """Recorded, a wrapper is one span of its own name with exactly one
+    ``launch`` child; its ``alloc_bytes`` is what the caching allocator was
+    asked for during the call; the answers are bit for bit the unrecorded
+    call's."""
+    from nvdb_tpu_torch.eval import trace
+
+    call = _wrapper_call(name, cuda_device)
+    v0, i0 = call()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats(cuda_device)["requested_bytes.all.allocated"]
+    with trace.recording() as tr:
+        v1, i1 = call()
+    asked = torch.cuda.memory_stats(cuda_device)["requested_bytes.all.allocated"] - before
+    torch.cuda.synchronize()
+    assert [(r.name, r.parent) for r in tr.records] == [(name, -1), ("launch", 0)]
+    root, launch = tr.records
+    assert root.start_ns <= launch.start_ns <= launch.end_ns <= root.end_ns
+    assert root.attrs == {"alloc_bytes": asked} and asked > 0
+    assert launch.attrs == {}
+    assert torch.equal(i0, i1) and torch.equal(v0.view(torch.int32), v1.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_served_search_spans_on_the_card(cuda_device):
+    """Both served paths on the card, recorded: the records nest root ->
+    stage -> wrapper -> ``launch``, one request a call, and the answers are
+    bit for bit an unrecorded call's."""
+    from nvdb_tpu_torch.eval import trace
+    from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+    from nvdb_tpu_torch.index.partition import PartitionRerankIndex
+    from nvdb_tpu_torch.store import VectorStore
+
+    rows = synth.clustered(6000, 128, n_clusters=32, seed=8)
+    q = torch.from_numpy(synth.sample_queries(rows, 64, seed=9, perturb=0.05)[0]).to(cuda_device)
+    pq_idx = IVFPQIndex.build(rows, nlist=32, m=16, train_size=4000, n_iters=4, opq_iters=2,
+                              seed=0, device=cuda_device)
+    store = VectorStore.from_numpy(rows, "f32", device=cuda_device)
+    part = PartitionRerankIndex.build(rows, nlist=32, n_iters=4, seed=1, device=cuda_device)
+    served = {
+        "ivfpq": lambda: pq_idx.search_device(q, 10, 8, refine_k=50, refine_store=store),
+        "partition": lambda: part.search_device(q, 10, 8, rerank_k=50),
+    }
+    scan = "adc_fused_keys_cuda" if pq_idx.ids_mode() == "key" else "adc_fused_topk_cuda"
+    trees = {
+        "ivfpq": [("ivfpq.search", None), ("rotate", "ivfpq.search"),
+                  ("coarse", "ivfpq.search"), ("adc", "ivfpq.search"),
+                  (scan, "adc"), ("launch", scan),
+                  ("refine", "ivfpq.search"), ("rerank_topk_cuda", "refine"),
+                  ("launch", "rerank_topk_cuda")],
+        "partition": [("partition.search", None), ("ivfflat.search", "partition.search"),
+                      ("coarse", "ivfflat.search"), ("probe", "ivfflat.search"),
+                      ("ivf_probe_topk_cuda", "probe"), ("launch", "ivf_probe_topk_cuda"),
+                      ("refine", "partition.search"), ("rerank_topk_cuda", "refine"),
+                      ("launch", "rerank_topk_cuda")],
+    }
+    for kind, call in served.items():
+        v0, i0 = call()
+        with trace.recording() as tr:
+            v1, i1 = call()
+            v2, i2 = call()
+        torch.cuda.synchronize()
+        assert torch.equal(i0, i1) and torch.equal(v0.view(torch.int32), v1.view(torch.int32))
+        assert torch.equal(i1, i2) and torch.equal(v1.view(torch.int32), v2.view(torch.int32))
+        names = [r.name for r in tr.records]
+        tree = [(r.name, None if r.parent < 0 else names[r.parent]) for r in tr.records]
+        assert tree == trees[kind] * 2
+        assert [r.request for r in tr.records] == [0] * 9 + [1] * 9
+        assert all(r.attrs.get("alloc_bytes", 0) > 0 for r in tr.records
+                   if r.name.endswith("_cuda"))
