@@ -12,7 +12,8 @@ stage of a search (the index's ``search_device``, the coarse ranking, the
 candidate and refine stages, each kernel wrapper and its C entry call).
 They record only inside ``recording()``, which makes a fresh ``Tracer``
 the active recorder; outside it ``span`` returns one shared no-op object,
-reads no clock and keeps nothing. Each span is a ``Span`` record: name,
+reads no clock and keeps nothing; ``paused()`` turns the active recorder
+off for a block. Each span is a ``Span`` record: name,
 start and end on ``time.perf_counter_ns()``, the index of the enclosing
 record (-1 for none), a request id (a span opened with no open parent
 starts the next id, and its children carry it) and a small dict of
@@ -107,6 +108,18 @@ def recording() -> Iterator["Tracer"]:
     _active = tracer
     try:
         yield tracer
+    finally:
+        _active = before
+
+
+@contextlib.contextmanager
+def paused() -> Iterator[None]:
+    """No recorder active for the block (its spans are ``OFF``); the one
+    that was active before (if any) is active again after."""
+    global _active
+    before, _active = _active, None
+    try:
+        yield
     finally:
         _active = before
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from nvdb_tpu_torch.eval import trace
+from nvdb_tpu_torch.index import graphs
 from nvdb_tpu_torch.index.ivf_flat import (_coarse_probes, _host_chunked, _pack_lists,
                                            _stage_logger, _topS_centroids, coarse_terms)
 from nvdb_tpu_torch.kernels import adc_scan, dispatch, kmeans, ops, pq
@@ -148,6 +149,8 @@ class IVFPQIndex:
         default=None, repr=False, compare=False)
     _leads: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
+    _graphs: graphs.GraphCache = dataclasses.field(
+        default_factory=graphs.GraphCache, init=False, repr=False, compare=False)
 
     @property
     def nlist(self) -> int:
@@ -413,9 +416,14 @@ class IVFPQIndex:
         or the fused dma scan) or ``tables`` (the table kernel, then the key
         kernel, in the gather mode the kernel over the gathered code slab, in
         the dma mode the staged dma scan: the A/B arm, bit for bit the same
-        candidates)."""
+        candidates).
+
+        On the card, with the fused scan and every stage on its kernel, the
+        chain is captured once a shape in a CUDA graph and replayed, bit for
+        bit the eager call (``index/graphs.py``); every other call runs
+        eagerly. A replayed index serves one CUDA stream at a time."""
         with trace.span("ivfpq.search", b=queries.shape[0], k=k, nprobe=nprobe,
-                        refine_k=refine_k):
+                        refine_k=refine_k) as root:
             if ids_mode not in (None, "dma", "key", "gather"):
                 raise ValueError(f"ids_mode must be 'dma', 'key' or 'gather', got {ids_mode!r}")
             # the key modes derive ids from list and lane, right only on a
@@ -427,43 +435,71 @@ class IVFPQIndex:
                     f"auto mode {self.ids_mode()!r}); use ids_mode='dma' or None")
             nprobe = min(nprobe, self.nlist)
             if refine_k > 0:
-                # refining fewer than k candidates cannot give k results
-                refine_k = max(refine_k, k)
-            kk = max(k, refine_k)
-            mode = ids_mode or (self.ids_mode() if (refine_k > 0 or for_refine) else "dma")
-            q_rot = queries
-            if self.rotation is not None:
-                with trace.span("rotate"):
-                    q_rot = _matmul(queries, self.rotation)
-            path = dispatch.refine_backend(backend, self.codes)
-            dispatch.check_finite("IVF-PQ queries", q_rot)
-            cuda = path == "cuda"
-            v, i = _ivfpq_search_block(q_rot, self.centroids, self.codebooks, self.codes,
-                                       self.slot_ids, kk, nprobe, self.m, backend=backend,
-                                       dedup=self.replicas,
-                                       fills=self.fills() if cuda else None,
-                                       terms=self.coarse_terms(), ids_mode=mode,
-                                       key_scan=key_scan,
-                                       leads=(self.tile_leads() if cuda and mode == "dma"
-                                              and self.replicas > 1 and key_scan == "fused"
-                                              else None))
-            dispatch.check_finite("IVF-PQ ADC candidate scores", v, i)
-            if refine_k > 0:
                 if refine_store is None:
                     raise ValueError("refine_k > 0 requires refine_store")
-                # a residual-int8 store dequantizes against the index's rotated
-                # centroids: score it with q_rot (the dot is rotation-invariant)
-                residual = refine_store.is_residual
-                v, i = dispatch.exact_refine(
-                    q_rot if residual else queries, i[:, :refine_k], refine_store.vectors,
-                    refine_store.scales, k, metric=refine_metric, backend=backend,
-                    norms2=(refine_store.norms2()
-                            if refine_metric == "l2"
-                            and dispatch.refine_path(backend, refine_store.vectors) != "oracle"
-                            else None),
-                    res_cents=refine_store.res_cents if residual else None,
-                    res_ids=refine_store.res_ids if residual else None)
-            return v[:, :k], i[:, :k]
+                # refining fewer than k candidates cannot give k results
+                refine_k = max(refine_k, k)
+            mode = ids_mode or (self.ids_mode() if (refine_k > 0 or for_refine) else "dma")
+            chain = lambda q: self._search_chain(q, k, nprobe, refine_k, refine_store, backend,
+                                                 refine_metric, mode, key_scan)
+            paths = [dispatch.refine_backend(backend, self.codes)]
+            if refine_k > 0:
+                paths.append(dispatch.refine_path(backend, refine_store.vectors))
+            if key_scan == "fused" and graphs.engages(queries, paths):
+                return self._graphs.run(
+                    root, self._graph_parts(k, nprobe, refine_k, refine_store, refine_metric,
+                                            mode, key_scan), queries, chain)
+            return graphs.eager(root, chain, queries)
+
+    def _graph_parts(self, k: int, nprobe: int, refine_k: int, refine_store,
+                     refine_metric: str, mode: str, key_scan: str) -> tuple:
+        """What a served call's chain depends on besides its batch and the
+        index's own tensors, as ``search_device`` resolved it (``nprobe`` at
+        most nlist, ``refine_k`` at least k, ``mode`` the id mode taken):
+        its scalars, and the refine store with its tensors."""
+        store = ()
+        if refine_k > 0:
+            st = refine_store
+            store = (st, st.vectors, st.scales, st.res_cents, st.res_ids)
+        return (k, nprobe, refine_k, refine_metric, mode, key_scan) + store
+
+    def _search_chain(self, queries: torch.Tensor, k: int, nprobe: int, refine_k: int,
+                      refine_store, backend: str, refine_metric: str, mode: str,
+                      key_scan: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The device work of ``search_device`` on its resolved arguments:
+        rotation, coarse ranking and ADC candidates, then the refine."""
+        kk = max(k, refine_k)
+        q_rot = queries
+        if self.rotation is not None:
+            with trace.span("rotate"):
+                q_rot = _matmul(queries, self.rotation)
+        path = dispatch.refine_backend(backend, self.codes)
+        dispatch.check_finite("IVF-PQ queries", q_rot)
+        cuda = path == "cuda"
+        v, i = _ivfpq_search_block(q_rot, self.centroids, self.codebooks, self.codes,
+                                   self.slot_ids, kk, nprobe, self.m, backend=backend,
+                                   dedup=self.replicas,
+                                   fills=self.fills() if cuda else None,
+                                   terms=self.coarse_terms(), ids_mode=mode,
+                                   key_scan=key_scan,
+                                   leads=(self.tile_leads() if cuda and mode == "dma"
+                                          and self.replicas > 1 and key_scan == "fused"
+                                          else None))
+        dispatch.check_finite("IVF-PQ ADC candidate scores", v, i)
+        if refine_k > 0:
+            # a residual-int8 store dequantizes against the index's rotated
+            # centroids: score it with q_rot (the dot is rotation-invariant)
+            residual = refine_store.is_residual
+            v, i = dispatch.exact_refine(
+                q_rot if residual else queries, i[:, :refine_k], refine_store.vectors,
+                refine_store.scales, k, metric=refine_metric, backend=backend,
+                norms2=(refine_store.norms2()
+                        if refine_metric == "l2"
+                        and dispatch.refine_path(backend, refine_store.vectors) != "oracle"
+                        else None),
+                res_cents=refine_store.res_cents if residual else None,
+                res_ids=refine_store.res_ids if residual else None)
+        return v[:, :k], i[:, :k]
 
     def search(self, queries: np.ndarray, k: int, nprobe: int, refine_k: int = 0,
                refine_store=None, q_chunk: int = 256, backend: str = "auto",

@@ -22,6 +22,7 @@ import torch
 from nvdb_tpu_torch.eval import trace
 from nvdb_tpu_torch.eval.recall import recall_at_k
 from nvdb_tpu_torch.formats import vecbin
+from nvdb_tpu_torch.index import graphs
 from nvdb_tpu_torch.index.ivf_flat import IVFFlatIndex
 from nvdb_tpu_torch.kernels import dispatch
 from nvdb_tpu_torch.store import VectorStore
@@ -37,6 +38,8 @@ def auto_nlist(n: int) -> int:
 class PartitionRerankIndex:
     ivf: IVFFlatIndex
     refine_store: Optional[VectorStore]   # exact store for the rerank
+    _graphs: graphs.GraphCache = dataclasses.field(
+        default_factory=graphs.GraphCache, init=False, repr=False, compare=False)
 
     @property
     def n(self) -> int:
@@ -145,16 +148,42 @@ class PartitionRerankIndex:
                       rerank_k: int = 0, backend: str = "auto"
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Padded [B, Dp] on-device queries in, device tensors out: probe and
-        optional exact rerank chained on the device, no host sync."""
+        optional exact rerank chained on the device, no host sync. On the
+        card, with every stage on its kernel, the chain is captured once a
+        shape in a CUDA graph and replayed (``index/graphs.py``); a replayed
+        index serves one CUDA stream at a time."""
         with trace.span("partition.search", b=queries.shape[0], k=k, nprobe=nprobe,
-                        rerank_k=rerank_k):
-            if rerank_k <= k or self.refine_store is None:
-                return self.ivf.search_device(queries, k, nprobe, backend=backend)
-            _, cid = self.ivf.search_device(queries, rerank_k, nprobe, backend=backend)
-            store = self.refine_store
-            return dispatch.exact_refine(queries, cid, store.vectors, store.scales, k,
-                                         metric="dot", backend=backend,
-                                         res_cents=store.res_cents, res_ids=store.res_ids)
+                        rerank_k=rerank_k) as root:
+            store = self.refine_store if rerank_k > k else None
+            chain = lambda q: self._search_chain(q, k, nprobe, rerank_k, store, backend)
+            paths = [dispatch.refine_backend(backend, self.ivf.packed)]
+            if store is not None:
+                paths.append(dispatch.refine_path(backend, store.vectors))
+            if graphs.engages(queries, paths):
+                return self._graphs.run(root, self._graph_parts(k, nprobe, rerank_k, store),
+                                        queries, chain)
+            return graphs.eager(root, chain, queries)
+
+    def _graph_parts(self, k: int, nprobe: int, rerank_k: int,
+                     store: Optional[VectorStore]) -> tuple:
+        """What a served call's chain depends on besides its batch: its
+        scalars, the IVF-Flat index it probes, and the rerank store with its
+        tensors (``store``: None where no rerank runs)."""
+        rerank = (0,) if store is None else (rerank_k, store, store.vectors, store.scales,
+                                             store.res_cents, store.res_ids)
+        return (k, min(nprobe, self.ivf.nlist), self.ivf) + rerank
+
+    def _search_chain(self, queries: torch.Tensor, k: int, nprobe: int, rerank_k: int,
+                      store: Optional[VectorStore], backend: str
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The device work of ``search_device``: the probe, then the rerank
+        against ``store`` (None: the probe's top k alone)."""
+        if store is None:
+            return self.ivf.search_device(queries, k, nprobe, backend=backend)
+        _, cid = self.ivf.search_device(queries, rerank_k, nprobe, backend=backend)
+        return dispatch.exact_refine(queries, cid, store.vectors, store.scales, k,
+                                     metric="dot", backend=backend,
+                                     res_cents=store.res_cents, res_ids=store.res_ids)
 
     def save(self, path: str) -> None:
         """Persist the self-contained search structure (the IVF-Flat

@@ -478,7 +478,9 @@ def adc_tables_cuda(
 # -- the fused key scan ----------------------------------------------------------
 
 # Launches of the fused key scan (the key and gather modes); only
-# adc_fused_keys_cuda's launch adds to it.
+# adc_fused_keys_cuda's launch adds to it, and ``index/graphs.py`` keeps it to
+# the kernels that ran: a served chain's capture adds nothing, each replay
+# adds its launches.
 FUSED_LAUNCHES = 0
 # The widest query chunk the fused scan's plan may take, and the batch below
 # which it takes one query a chunk (few pairs then share a list, and a wide
@@ -692,7 +694,9 @@ def adc_fused_keys_cuda(
 
 # -- the fused dma scan ----------------------------------------------------------
 
-# Launches of the fused dma scan; only adc_fused_topk_cuda's launch adds to it.
+# Launches of the fused dma scan; only adc_fused_topk_cuda's launch adds to
+# it, and ``index/graphs.py`` keeps it to the kernels that ran: a served
+# chain's capture adds nothing, each replay adds its launches.
 FUSED_DMA_LAUNCHES = 0
 # The widest query chunk the fused dma scan is built for (its instances take
 # chunks of 1, 4 and 8 queries).

@@ -54,7 +54,9 @@ _LIST_MAX_STAGES = 16
 _MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # Launches of the kernel since the last reset, either layout. Only
-# ivf_probe_topk_cuda's launch adds to it, and to its layout's count.
+# ivf_probe_topk_cuda's launch adds to it, and to its layout's count;
+# ``index/graphs.py`` keeps them to the kernels that ran: a served chain's
+# capture adds nothing, each replay adds its launches.
 LAUNCHES = 0
 LAUNCHES_BY_LAYOUT = {"list": 0, "query": 0}
 

@@ -35,8 +35,9 @@ _SMEM_LIMIT = 200 * 1024
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-# Launches of the kernel since the last reset. Only rerank_topk_cuda's
-# launch adds to it.
+# Launches of the kernel since the last reset. Only rerank_topk_cuda's launch
+# adds to it, and ``index/graphs.py`` keeps it to the kernels that ran: a
+# served chain's capture adds nothing, each replay adds its launches.
 LAUNCHES = 0
 
 
@@ -163,7 +164,8 @@ def rerank_topk_cuda(
     """Exact top-k over each query's candidate rows; the contract of
     ``rerank_topk_reference``. Returns (vals [B, k] f32, ids [B, k] int32).
     Pass ``norms2`` in serving loops: without it, metric l2 reads the whole
-    store once per call."""
+    store once per call. No host sync: the launches (the residual fold's
+    too) can be captured in a CUDA graph."""
     global LAUNCHES
     with trace.span("rerank_topk_cuda") as sp:
         require_cuda(vectors, "rerank_topk")

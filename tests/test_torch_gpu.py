@@ -21,6 +21,11 @@ from nvdb_tpu_torch.formats import synth, vecbin
 from nvdb_tpu_torch.kernels import dispatch, flat_scan
 
 DTYPES = ["f32", "bf16", "i8", "i8xi8"]
+# The launches of each kernel of a served search's first call for its shape
+# on the card: its eager warm-up, then the replay of the CUDA graph captured
+# after it, which serves the call (``nvdb_tpu_torch/index/graphs.py``; the
+# capture itself launches nothing and counts nothing).
+FIRST_CALL_LAUNCHES = 2
 
 
 @pytest.fixture
@@ -508,10 +513,11 @@ def test_tables_kernel_rejects_bad_input(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("replicas,mode", [(1, "key"), (1, "dma"), (2, "dma")])
 def test_ivfpq_kernel_path_makes_no_f32_table(cuda_device, replicas, mode):
-    """``IVFPQIndex.search_device`` on a CUDA index. The key mode: one
-    launch of the fused key scan; the dma mode (ADC-only, and a replicated
-    index): one launch of the fused dma scan; no table kernel and no tensor
-    the size of the tables in either. The candidates are the plain path's."""
+    """``IVFPQIndex.search_device`` on a CUDA index. The key mode: the
+    fused key scan alone (launched by the call's warm-up and by the replay
+    of its CUDA graph); the dma mode (ADC-only, and a replicated index): the
+    fused dma scan alone; no table kernel and no tensor the size of the
+    tables in either. The candidates are the plain path's."""
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
     from nvdb_tpu_torch.kernels import adc_scan
 
@@ -529,8 +535,9 @@ def test_ivfpq_kernel_path_makes_no_f32_table(cuda_device, replicas, mode):
     torch.cuda.synchronize()
     big = [(name, shape, dt) for name, outs in ops_seen for shape, dt in outs
            if int(np.prod(shape)) >= b * p * m * 256]
+    first = FIRST_CALL_LAUNCHES
     assert tuple(a - c for a, c in zip(counts(), before)) == (
-        (0, 0, 0, 1, 0) if mode == "key" else (0, 0, 0, 0, 1))
+        (0, 0, 0, first, 0) if mode == "key" else (0, 0, 0, 0, first))
     assert big == []
     pv, pi = idx.search_device(q_rot, k, p, backend="torch", ids_mode=mode)
     kv, ki, pv, pi = (x.cpu().numpy() for x in (kv, ki, pv, pi))
@@ -914,8 +921,8 @@ def _ivfpq_on_card(cuda_device, replicas=1, b=16, p=8, nlist=40, m=16, lcap=256)
 def test_ivfpq_dma_route_is_the_fused_scan(cuda_device, kind):
     """The dma mode's default route on the card (an ADC-only search of a
     prefix-packed index, a replicated index's and a holed index's refine
-    candidates): one launch of the fused dma scan and none of the table
-    kernel or the staged scan; bit for bit the staged A/B
+    candidates): the fused dma scan (its warm-up and replay) and none of
+    the table kernel or the staged scan; bit for bit the staged A/B
     (``key_scan="tables"``), each id once a row."""
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
     from nvdb_tpu_torch.kernels import adc_scan
@@ -932,9 +939,9 @@ def test_ivfpq_dma_route_is_the_fused_scan(cuda_device, kind):
     before = counts()
     fv, fi = idx.search_device(q, 50, 8, **kw)
     torch.cuda.synchronize()
-    assert tuple(a - c for a, c in zip(counts(), before)) == (1, 0, 0)
+    assert tuple(a - c for a, c in zip(counts(), before)) == (FIRST_CALL_LAUNCHES, 0, 0)
     sv, si = idx.search_device(q, 50, 8, key_scan="tables", **kw)
-    assert tuple(a - c for a, c in zip(counts(), before)) == (1, 1, 1)
+    assert tuple(a - c for a, c in zip(counts(), before)) == (FIRST_CALL_LAUNCHES, 1, 1)
     assert torch.equal(fv, sv) and torch.equal(fi, si)
     for row in fi.cpu().numpy():
         live = row[row >= 0]
@@ -963,8 +970,8 @@ def _adc_launches():
 @pytest.mark.parametrize("b", [256, 8, 1])
 def test_ivfpq_gather_mode_reads_lists_in_place(cuda_device, b, kk):
     """``search_device(ids_mode="gather")`` on a CUDA index at P = 7 (not a
-    multiple of the TPU kernel's 4 lists a step): one launch of the fused
-    key scan, and no table, dma, key or gather kernel, no ``index_select``
+    multiple of the TPU kernel's 4 lists a step): the fused key scan (its
+    warm-up and replay), and no table, dma, key or gather kernel, no ``index_select``
     and no tensor the size of the tables or of the code slab. Its values and
     ids are bit for bit the slab arm's (``key_scan="tables"``), the key
     mode's, and the plain scans' (the key mode's and the slab's) on the
@@ -979,7 +986,8 @@ def test_ivfpq_gather_mode_reads_lists_in_place(cuda_device, b, kk):
     (gv, gi), ops_seen = _dispatched_ops(
         lambda: idx.search_device(q, kk, p, ids_mode="gather"))
     torch.cuda.synchronize()
-    assert tuple(a - c for a, c in zip(_adc_launches(), before)) == (0, 0, 0, 0, 1)
+    assert tuple(a - c for a, c in zip(_adc_launches(), before)) == (
+        0, 0, 0, 0, FIRST_CALL_LAUNCHES)
     assert not any("index_select" in name for name, _ in ops_seen)
     big = [(name, shape) for name, outs in ops_seen for shape, _ in outs
            if int(np.prod(shape)) >= b * p * idx.m * min(256, idx.lcap)]
@@ -1040,8 +1048,9 @@ def test_ivfpq_gather_mode_refuses_a_shape_the_fused_scan_cannot_plan(cuda_devic
 @pytest.mark.parametrize("metric", ["l2", "dot"])
 def test_ivfpq_residual_refine_through_the_kernels(cuda_device, metric):
     """``search_device`` with a residual-int8 refine store on a CUDA index:
-    the fused key scan and the rerank kernel launch once each (no table
-    kernel, no key kernel), and the result is the plain path's: ids at >=
+    the fused key scan and the rerank kernel, each launched by the call's
+    warm-up and by the replay of its CUDA graph (no table kernel, no key
+    kernel), and the result is the plain path's: ids at >=
     0.9 of positions (a rare table entry one bf16 step off may change a
     candidate), values where the ids agree to 1e-4."""
     from nvdb_tpu_torch.kernels import adc_scan, rerank
@@ -1062,7 +1071,8 @@ def test_ivfpq_residual_refine_through_the_kernels(cuda_device, metric):
     kv, ki = idx.search_device(q, 10, 8, refine_k=50, refine_store=store,
                                refine_metric=metric)
     torch.cuda.synchronize()
-    assert tuple(a - c for a, c in zip(counts(), before)) == (0, 0, 1, 1)
+    assert tuple(a - c for a, c in zip(counts(), before)) == (0, 0, FIRST_CALL_LAUNCHES,
+                                                               FIRST_CALL_LAUNCHES)
     pv, pi = idx.search_device(q, 10, 8, refine_k=50, refine_store=store, backend="torch",
                                refine_metric=metric)
     same = ki == pi
@@ -1818,27 +1828,132 @@ def test_wrapper_span_has_one_launch_and_counts_its_allocations(cuda_device, nam
     assert torch.equal(i0, i1) and torch.equal(v0.view(torch.int32), v1.view(torch.int32))
 
 
-@pytest.mark.gpu
-def test_served_search_spans_on_the_card(cuda_device):
-    """Both served paths on the card, recorded: the records nest root ->
-    stage -> wrapper -> ``launch``, one request a call, and the answers are
-    bit for bit an unrecorded call's."""
-    from nvdb_tpu_torch.eval import trace
+def _served_on_card(cuda_device, n_queries=64):
+    """A small IVF-PQ index with an f32 refine store and a partition index
+    of one corpus on the card; ``n_queries`` queries; each served call, and
+    its chain run eagerly as ``search_device`` resolves it."""
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
     from nvdb_tpu_torch.index.partition import PartitionRerankIndex
     from nvdb_tpu_torch.store import VectorStore
 
     rows = synth.clustered(6000, 128, n_clusters=32, seed=8)
-    q = torch.from_numpy(synth.sample_queries(rows, 64, seed=9, perturb=0.05)[0]).to(cuda_device)
+    q = torch.from_numpy(synth.sample_queries(rows, n_queries, seed=9,
+                                              perturb=0.05)[0]).to(cuda_device)
     pq_idx = IVFPQIndex.build(rows, nlist=32, m=16, train_size=4000, n_iters=4, opq_iters=2,
                               seed=0, device=cuda_device)
     store = VectorStore.from_numpy(rows, "f32", device=cuda_device)
     part = PartitionRerankIndex.build(rows, nlist=32, n_iters=4, seed=1, device=cuda_device)
     served = {
-        "ivfpq": lambda: pq_idx.search_device(q, 10, 8, refine_k=50, refine_store=store),
-        "partition": lambda: part.search_device(q, 10, 8, rerank_k=50),
+        "ivfpq": lambda x, **kw: pq_idx.search_device(x, 10, 8, refine_k=50,
+                                                      refine_store=store, **kw),
+        "partition": lambda x, **kw: part.search_device(x, 10, 8, rerank_k=50, **kw),
     }
-    scan = "adc_fused_keys_cuda" if pq_idx.ids_mode() == "key" else "adc_fused_topk_cuda"
+    eager = {
+        "ivfpq": lambda x, backend="auto": pq_idx._search_chain(
+            x, 10, 8, 50, store, backend, "l2", pq_idx.ids_mode(), "fused"),
+        "partition": lambda x, backend="auto": part._search_chain(
+            x, 10, 8, 50, part.refine_store, backend),
+    }
+    return {"ivfpq": pq_idx, "partition": part}, served, eager, q
+
+
+def _same(a, b):
+    """Bit for bit: ids equal, f32 values equal as their int32 bits."""
+    return torch.equal(a[1], b[1]) and torch.equal(a[0].view(torch.int32),
+                                                   b[0].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ivfpq", "partition"])
+@pytest.mark.parametrize("b", [1, 8, 256])
+def test_served_search_replays_bit_for_bit(cuda_device, kind, b):
+    """Five distinct batches in a row through ``search_device``: one capture,
+    then four replays, each answer bit for bit the eager chain's on its
+    batch; each call's tensors unchanged by the calls after it. The launch
+    counters count the kernels that ran: the capture call's warm-up and
+    replay, then one a replay."""
+    from nvdb_tpu_torch.index import graphs
+    from nvdb_tpu_torch.kernels import adc_scan, ivf_scan, rerank
+
+    idxs, served, eager, q = _served_on_card(cuda_device, n_queries=5 * b)
+    counts = lambda: (rerank.LAUNCHES, adc_scan.FUSED_LAUNCHES + adc_scan.FUSED_DMA_LAUNCHES
+                      if kind == "ivfpq" else ivf_scan.LAUNCHES)
+    before = counts()
+    graphs.reset_counts()
+    got = []
+    for j in range(5):
+        x = q[j * b:(j + 1) * b]
+        v, i = served[kind](x)
+        got.append((x, (v, i), (v.clone(), i.clone())))
+    torch.cuda.synchronize()
+    assert (graphs.GRAPH_CAPTURES, graphs.GRAPH_REPLAYS, graphs.GRAPH_EAGER) == (1, 4, 0)
+    assert tuple(a - c for a, c in zip(counts(), before)) == (FIRST_CALL_LAUNCHES + 4,) * 2
+    assert len(idxs[kind]._graphs) == 1
+    for x, out, kept in got:
+        assert _same(out, kept)
+        assert _same(out, eager[kind](x))
+    assert not all(torch.equal(a[1][1], c[1][1]) for a, c in zip(got, got[1:]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ivfpq", "partition"])
+def test_served_search_captures_a_graph_a_batch_size(cuda_device, kind):
+    """A second batch size captures a second graph; each size then
+    replays its own."""
+    from nvdb_tpu_torch.index import graphs
+
+    idxs, served, eager, q = _served_on_card(cuda_device)
+    graphs.reset_counts()
+    for x in (q[:32], q[:8], q[32:], q[8:16]):
+        assert _same(served[kind](x), eager[kind](x))
+    assert (graphs.GRAPH_CAPTURES, graphs.GRAPH_REPLAYS, graphs.GRAPH_EAGER) == (2, 2, 0)
+    assert len(idxs[kind]._graphs) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,route", [
+    (kind, route) for kind in ("ivfpq", "partition")
+    for route in ("debug_nans", "torch", "force_torch", "refine_jnp")] + [("ivfpq", "tables")])
+def test_served_search_eager_routes_capture_nothing(cuda_device, monkeypatch, kind, route):
+    """``DEBUG_NANS``, ``backend="torch"``, ``NVDB_FORCE_TORCH=1``,
+    ``NVDB_REFINE_BACKEND=jnp`` and the IVF-PQ ``key_scan="tables"`` arm run
+    eagerly on the card: the root span's ``graph`` is ``"eager"``, no graph
+    is captured, and the answers are bit for bit the chain's run directly on
+    the same route."""
+    from nvdb_tpu_torch.eval import trace
+    from nvdb_tpu_torch.index import graphs
+
+    idxs, served, eager, q = _served_on_card(cuda_device)
+    kw = {"torch": {"backend": "torch"}, "tables": {"key_scan": "tables"}}.get(route, {})
+    if route == "debug_nans":
+        monkeypatch.setattr(dispatch, "DEBUG_NANS", True)
+    if route == "force_torch":
+        monkeypatch.setenv("NVDB_FORCE_TORCH", "1")
+    if route == "refine_jnp":
+        monkeypatch.setenv("NVDB_REFINE_BACKEND", "jnp")
+    graphs.reset_counts()
+    with trace.recording() as tr:
+        v, i = served[kind](q, **kw)
+    torch.cuda.synchronize()
+    assert (graphs.GRAPH_CAPTURES, graphs.GRAPH_REPLAYS, graphs.GRAPH_EAGER) == (0, 0, 1)
+    assert len(idxs[kind]._graphs) == 0
+    assert tr.records[0].attrs["graph"] == "eager"
+    assert "replay" not in [r.name for r in tr.records]
+    assert _same((v, i), eager[kind](q, kw.get("backend", "auto")))
+
+
+@pytest.mark.gpu
+def test_served_search_spans_on_the_card(cuda_device):
+    """Both served paths on the card, recorded: a capture call's records
+    nest root -> stage -> wrapper -> ``launch`` as an eager call's do, then
+    one ``replay``; a replay call is its root (``graph="replay"``) and one
+    ``replay`` child. One request a call; the answers are bit for bit an
+    unrecorded replay's and the eager chain's."""
+    from nvdb_tpu_torch.eval import trace
+
+    idxs, served, eager, q = _served_on_card(cuda_device)
+    scan = ("adc_fused_keys_cuda" if idxs["ivfpq"].ids_mode() == "key"
+            else "adc_fused_topk_cuda")
     trees = {
         "ivfpq": [("ivfpq.search", None), ("rotate", "ivfpq.search"),
                   ("coarse", "ivfpq.search"), ("adc", "ivfpq.search"),
@@ -1852,16 +1967,19 @@ def test_served_search_spans_on_the_card(cuda_device):
                       ("launch", "rerank_topk_cuda")],
     }
     for kind, call in served.items():
-        v0, i0 = call()
+        root = trees[kind][0][0]
         with trace.recording() as tr:
-            v1, i1 = call()
-            v2, i2 = call()
+            v1, i1 = call(q)
+            v2, i2 = call(q)
+        v3, i3 = call(q)
         torch.cuda.synchronize()
-        assert torch.equal(i0, i1) and torch.equal(v0.view(torch.int32), v1.view(torch.int32))
-        assert torch.equal(i1, i2) and torch.equal(v1.view(torch.int32), v2.view(torch.int32))
+        assert _same((v1, i1), (v3, i3)) and _same((v2, i2), (v3, i3))
+        assert _same((v3, i3), eager[kind](q))
         names = [r.name for r in tr.records]
         tree = [(r.name, None if r.parent < 0 else names[r.parent]) for r in tr.records]
-        assert tree == trees[kind] * 2
-        assert [r.request for r in tr.records] == [0] * 9 + [1] * 9
+        assert tree == trees[kind] + [("replay", root), (root, None), ("replay", root)]
+        assert [r.request for r in tr.records] == [0] * 10 + [1] * 2
+        roots = [r for r in tr.records if r.parent < 0]
+        assert [r.attrs["graph"] for r in roots] == ["capture", "replay"]
         assert all(r.attrs.get("alloc_bytes", 0) > 0 for r in tr.records
                    if r.name.endswith("_cuda"))

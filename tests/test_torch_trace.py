@@ -101,7 +101,8 @@ def test_records_nest_as_the_stages_run(served, queries, kind):
             assert a.end_ns <= b.start_ns
     root = recs[0]
     extra = {"ivfpq": "refine_k", "partition": "rerank_k"}[kind]
-    assert root.attrs == {"b": B, "k": K, "nprobe": NPROBE, extra: REFINE}
+    # the CPU path runs eagerly: no CUDA graph serves it (index/graphs.py)
+    assert root.attrs == {"b": B, "k": K, "nprobe": NPROBE, extra: REFINE, "graph": "eager"}
 
 
 def test_each_call_is_the_next_request(served, queries):
@@ -128,6 +129,17 @@ def test_recording_restores_the_recorder_it_found():
     assert [(r.name, r.parent, r.request) for r in outer.records] == [("a", -1, 0),
                                                                       ("c", -1, 1)]
     assert [(r.name, r.parent, r.request) for r in inner.records] == [("b", -1, 0)]
+
+
+def test_paused_records_nothing_and_restores_the_recorder():
+    with trace.recording() as tr:
+        with trace.span("a"):
+            with trace.paused():
+                assert trace.span("b") is trace.OFF
+            with trace.span("c"):
+                pass
+    assert trace._active is None
+    assert [(r.name, r.parent) for r in tr.records] == [("a", -1), ("c", 0)]
 
 
 def test_tracer_span_sync_feeds_samples_and_tsv(tmp_path):
