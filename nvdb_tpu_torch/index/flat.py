@@ -1,8 +1,9 @@
 """Exact flat-scan index (the port of ``nvdb_tpu.index.flat``).
 
-B queries share one stream of the base. PyTorch runs eagerly, so the JAX
-package's power-of-two batch buckets, which only bound jit recompiles, are
-not needed: a batch runs at its own size.
+B queries share one stream of the base. A batch runs at its own size: the
+JAX package's power-of-two batch buckets, which only bound jit recompiles,
+are not needed. On the card ``search_device`` captures its chain once a
+shape in a CUDA graph and replays it (``index/graphs.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from nvdb_tpu_torch.eval import trace
 from nvdb_tpu_torch.formats import vecbin
+from nvdb_tpu_torch.index import graphs
 from nvdb_tpu_torch.kernels import dispatch, ops
 from nvdb_tpu_torch.store import VectorStore
 from nvdb_tpu_torch.utils import round_up
@@ -56,11 +59,42 @@ class FlatIndex:
         self.quantize_queries = (quantize_queries and metric == "dot"
                                  and store.dtype_code == vecbin.DTYPE_I8)
         self.refine_k = refine_k if self.quantize_queries else 0
+        self._graphs = graphs.GraphCache()
 
     def search_device(self, queries: torch.Tensor, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """queries [B, Dp] f32, already padded and on the store's device;
-        returns device tensors (scores [B, k] f32, ids [B, k] int32)."""
+        returns device tensors (scores [B, k] f32, ids [B, k] int32). On the
+        card, with every stage on its kernel (metric dot), the chain is
+        captured once a shape in a CUDA graph and replayed, bit for bit the
+        eager call (``index/graphs.py``); a replayed index serves one CUDA
+        stream at a time."""
+        with trace.span("flat.search", b=queries.shape[0], k=k) as root:
+            chain = lambda q: self._search_chain(q, k)
+            if graphs.engages(queries, self._paths()):
+                return self._graphs.run(root, self._graph_parts(k), queries, chain)
+            return graphs.eager(root, chain, queries)
+
+    def _paths(self) -> list:
+        """The path each stage of a call resolves to: the scan's (metric l2
+        runs the plain ops on any device, ``dispatch.flat_topk``), then the
+        exact refine's in the exact-i8 mode."""
+        vectors = self.store.vectors
+        paths = [dispatch.refine_backend(self.backend, vectors)
+                 if self.metric == "dot" else "torch"]
+        if self.refine_k:
+            paths.append(dispatch.refine_path(self.backend, vectors))
+        return paths
+
+    def _graph_parts(self, k: int) -> tuple:
+        """What a served call's chain depends on besides its batch: its
+        scalars (the store is the index's own)."""
+        return (k, self.backend, self.metric, self.quantize_queries, self.refine_k)
+
+    def _search_chain(self, queries: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The device work of ``search_device``: the scan (in quantize mode
+        the queries' int8 quantization first and the exact refine after)."""
         st = self.store
         if self.quantize_queries:
             q8, qs = quantize_queries_i8(queries)

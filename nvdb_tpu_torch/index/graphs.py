@@ -1,16 +1,20 @@
-"""CUDA-graph replay of a served search: the IVF-PQ and partition indexes'
-``search_device`` chains, captured once a shape and replayed.
+"""CUDA-graph replay of a served search: the ``search_device`` chains of
+every served index (``FlatIndex``, ``IVFPQIndex``, ``PartitionRerankIndex``),
+captured once a shape and replayed.
 
-A served call on the card launches a chain of small kernels (the rotation,
-the coarse ranking's product, mask and top-k, the candidate scan's passes,
-the rerank), each from the host; between them the device waits for the
-host. ``GraphCache.run`` records the chain once in a ``torch.cuda.CUDAGraph``
+A served call on the card launches a chain of kernels, each from the host:
+the flat index's scan (the queries' bf16 rounding, pass 1 and the merge; in
+its quantize mode the queries' int8 quantization before and the exact
+refine after), or the IVF indexes' rotation, coarse ranking (product, mask
+and top-k), candidate scan passes and rerank. Between them the device waits
+for the host. ``GraphCache.run`` records the chain once in a ``torch.cuda.CUDAGraph``
 and then launches the whole chain with one replay. Every kernel stays as it
 is, launched by the same wrapper with the same arguments in the same order:
 a replay's answers are bit for bit an eager call's.
 
 When it engages (``engages``): CUDA queries of at least one row, every stage
-of the call on the ``cuda`` path, ``dispatch.DEBUG_NANS`` off (its checks
+of the call on the ``cuda`` path (the flat index's metric ``l2`` runs the
+plain ops, so it never engages), ``dispatch.DEBUG_NANS`` off (its checks
 read back to the host), and the current stream not already capturing.
 Every other call runs its chain eagerly (``eager``).
 

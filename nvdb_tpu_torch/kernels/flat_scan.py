@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from nvdb_tpu_torch.eval import trace
 from nvdb_tpu_torch.kernels import ops
 from nvdb_tpu_torch.utils import cdiv
 
@@ -38,7 +39,8 @@ _MODES = {"f32_simt": 0, "bf16": 1, "int8": 2, "int8_int8": 3, "f32_tensor_core"
 
 # Launches of the kernel since the last reset, in all and by instance: a run
 # can show that its main path went through the kernel, and which instance
-# scored its f32 stores. Only flat_topk_cuda's launch adds to them.
+# scored its f32 stores. Only flat_topk_cuda's launch adds to them; a served
+# chain's capture adds nothing, each replay adds its launches.
 LAUNCHES = 0
 LAUNCHES_BY_KERNEL = dict.fromkeys(_MODES, 0)
 
@@ -182,67 +184,73 @@ def flat_topk_cuda(
     ``f32_kernel="simt"`` scores an f32 store with the SIMT kernel of f32
     FMA instead of the tensor cores: the A/B, never a fallback."""
     global LAUNCHES
-    require_cuda(vectors, "flat_topk")
-    if f32_kernel not in (SIMT, TENSOR_CORE):
-        raise ValueError(f"f32_kernel is {SIMT!r} or {TENSOR_CORE!r}, not {f32_kernel!r}")
-    if f32_kernel == SIMT and vectors.dtype != torch.float32:
-        raise ValueError("f32_kernel='simt' scores f32 stores only")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside [1, {MAX_K}]")
-    if vectors.dim() != 2 or queries.dim() != 2:
-        raise ValueError("queries and vectors must be 2-D")
-    dev = vectors.device
-    Np, Dp = vectors.shape
-    B = queries.shape[0]
-    kernel = f32_kernel if vectors.dtype == torch.float32 else kernel_for(vectors.dtype)
-    check_tma_operand(vectors, "vectors")
-    check_tma_operand(queries, "queries")
-    check_tensor(vectors, "vectors", dev, (torch.float32, torch.bfloat16, torch.int8),
-                 (Np, Dp))
-    instance = {torch.float32: f"f32_{kernel}", torch.bfloat16: "bf16",
-                torch.int8: "int8"}[vectors.dtype]
-    if vectors.dtype == torch.int8:
-        if scales is None:
-            raise ValueError("an int8 store needs its per-row scales")
-        check_tensor(scales, "scales", dev, (torch.float32,), (Np,))
-    elif scales is not None:
-        raise ValueError("per-row scales belong to int8 stores only")
-    if query_scales is not None:
-        if vectors.dtype != torch.int8:
-            raise ValueError("int8 queries need an int8 store")
-        check_tensor(queries, "queries", dev, (torch.int8,), (B, Dp))
-        check_tensor(query_scales, "query_scales", dev, (torch.float32,), (B,))
-        instance = "int8_int8"
-    else:
-        check_tensor(queries, "queries", dev, (torch.float32,), (B, Dp))
+    with trace.span("flat_topk_cuda") as sp:
+        require_cuda(vectors, "flat_topk")
+        if f32_kernel not in (SIMT, TENSOR_CORE):
+            raise ValueError(f"f32_kernel is {SIMT!r} or {TENSOR_CORE!r}, not {f32_kernel!r}")
+        if f32_kernel == SIMT and vectors.dtype != torch.float32:
+            raise ValueError("f32_kernel='simt' scores f32 stores only")
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"k={k} outside [1, {MAX_K}]")
+        if vectors.dim() != 2 or queries.dim() != 2:
+            raise ValueError("queries and vectors must be 2-D")
+        dev = vectors.device
+        Np, Dp = vectors.shape
+        B = queries.shape[0]
+        kernel = f32_kernel if vectors.dtype == torch.float32 else kernel_for(vectors.dtype)
+        check_tma_operand(vectors, "vectors")
+        check_tma_operand(queries, "queries")
+        check_tensor(vectors, "vectors", dev, (torch.float32, torch.bfloat16, torch.int8),
+                     (Np, Dp))
+        instance = {torch.float32: f"f32_{kernel}", torch.bfloat16: "bf16",
+                    torch.int8: "int8"}[vectors.dtype]
+        if vectors.dtype == torch.int8:
+            if scales is None:
+                raise ValueError("an int8 store needs its per-row scales")
+            check_tensor(scales, "scales", dev, (torch.float32,), (Np,))
+        elif scales is not None:
+            raise ValueError("per-row scales belong to int8 stores only")
+        if query_scales is not None:
+            if vectors.dtype != torch.int8:
+                raise ValueError("int8 queries need an int8 store")
+            check_tensor(queries, "queries", dev, (torch.int8,), (B, Dp))
+            check_tensor(query_scales, "query_scales", dev, (torch.float32,), (B,))
+            instance = "int8_int8"
+        else:
+            check_tensor(queries, "queries", dev, (torch.float32,), (B, Dp))
 
-    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
-    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    if B == 0:
+        vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+        ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+        if sp:
+            sp.count_alloc(vals, ids)
+        if B == 0:
+            return vals, ids
+        n_eff = max(0, min(int(n_valid), Np))
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        S = slice_count(B, n_eff, n_sm, kernel)
+        # the queries' prologue: bf16-rounded for a bf16 or int8 store, split
+        # into three bf16 planes for an f32 store (int8 queries go as they are)
+        planes = {"bf16": 1, "int8": 1, "f32_tensor_core": 3}.get(instance)
+        q16 = (torch.empty((planes, B, Dp), dtype=torch.bfloat16, device=dev)
+               if planes else None)
+        part_vals = torch.empty((B, S, k), dtype=torch.float32, device=dev)
+        part_ids = torch.empty((B, S, k), dtype=torch.int32, device=dev)
+        if sp:
+            sp.count_alloc(q16, part_vals, part_ids)
+
+        fn = _lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            with trace.span("launch"):
+                rc = fn(queries.data_ptr(), vectors.data_ptr(),
+                        scales.data_ptr() if scales is not None else None,
+                        query_scales.data_ptr() if query_scales is not None else None,
+                        q16.data_ptr() if q16 is not None else None,
+                        part_vals.data_ptr(), part_ids.data_ptr(),
+                        vals.data_ptr(), ids.data_ptr(),
+                        B, Dp, Np, n_eff, k, S, _MODES[instance], stream)
+        if rc != 0:
+            raise RuntimeError(f"flat_topk kernel launch failed ({instance}): cudaError_t {rc}")
+        LAUNCHES += 1
+        LAUNCHES_BY_KERNEL[instance] += 1
         return vals, ids
-    n_eff = max(0, min(int(n_valid), Np))
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    S = slice_count(B, n_eff, n_sm, kernel)
-    # the queries' prologue: bf16-rounded for a bf16 or int8 store, split
-    # into three bf16 planes for an f32 store (int8 queries go as they are)
-    planes = {"bf16": 1, "int8": 1, "f32_tensor_core": 3}.get(instance)
-    q16 = (torch.empty((planes, B, Dp), dtype=torch.bfloat16, device=dev)
-           if planes else None)
-    part_vals = torch.empty((B, S, k), dtype=torch.float32, device=dev)
-    part_ids = torch.empty((B, S, k), dtype=torch.int32, device=dev)
-
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(queries.data_ptr(), vectors.data_ptr(),
-                scales.data_ptr() if scales is not None else None,
-                query_scales.data_ptr() if query_scales is not None else None,
-                q16.data_ptr() if q16 is not None else None,
-                part_vals.data_ptr(), part_ids.data_ptr(),
-                vals.data_ptr(), ids.data_ptr(),
-                B, Dp, Np, n_eff, k, S, _MODES[instance], stream)
-    if rc != 0:
-        raise RuntimeError(f"flat_topk kernel launch failed ({instance}): cudaError_t {rc}")
-    LAUNCHES += 1
-    LAUNCHES_BY_KERNEL[instance] += 1
-    return vals, ids

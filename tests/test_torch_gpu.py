@@ -1776,7 +1776,14 @@ def _wrapper_call(name, device):
     The probe wrapper gets int64 probes, as the coarse ranking gives them,
     and converts them itself."""
     from nvdb_tpu_torch.kernels import adc_scan, ivf_scan, rerank
+    from nvdb_tpu_torch.store import VectorStore
 
+    if name == "flat_topk_cuda":
+        rows = synth.clustered(5000, 128, n_clusters=16, seed=35)
+        store = VectorStore.from_numpy(rows, "bf16", device=device)
+        q = torch.from_numpy(synth.sample_queries(rows, 37, seed=36,
+                                                  perturb=0.05)[0]).to(device)
+        return lambda: flat_scan.flat_topk_cuda(q, store.vectors, None, store.n, 10)
     if name == "adc_fused_keys_cuda":
         q, probes, cents, cb, codes, sids = _fused_case(64, 32, 40, 16, 8, 256, 31, device)
         fills = adc_scan.list_fills(sids)
@@ -1804,7 +1811,7 @@ def _wrapper_call(name, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["adc_fused_keys_cuda", "adc_fused_topk_cuda",
-                                  "ivf_probe_topk_cuda", "rerank_topk_cuda"])
+                                  "ivf_probe_topk_cuda", "rerank_topk_cuda", "flat_topk_cuda"])
 def test_wrapper_span_has_one_launch_and_counts_its_allocations(cuda_device, name):
     """Recorded, a wrapper is one span of its own name with exactly one
     ``launch`` child; its ``alloc_bytes`` is what the caching allocator was
@@ -1983,3 +1990,115 @@ def test_served_search_spans_on_the_card(cuda_device):
         assert [r.attrs["graph"] for r in roots] == ["capture", "replay"]
         assert all(r.attrs.get("alloc_bytes", 0) > 0 for r in tr.records
                    if r.name.endswith("_cuda"))
+
+
+# -- the flat index on the served path ----------------------------------------------
+
+FLAT_KINDS = ["bf16", "i8", "i8xi8_refine", "f32"]
+FLAT_INSTANCE = {"bf16": "bf16", "i8": "int8", "i8xi8_refine": "int8_int8",
+                 "f32": "f32_tensor_core"}
+
+
+def _flat_on_card(cuda_device, kind, n_queries):
+    """A ``FlatIndex`` of ``kind`` (its store type, or the exact-i8 mode:
+    int8 x int8 scan, then the exact refine of its 50 best) over 20,000
+    rows of 256 dims on the card, and ``n_queries`` queries."""
+    from nvdb_tpu_torch.index.flat import FlatIndex
+    from nvdb_tpu_torch.store import VectorStore
+
+    rows = synth.clustered(20000, 256, n_clusters=32, seed=11)
+    q = torch.from_numpy(synth.sample_queries(rows, n_queries, seed=12,
+                                              perturb=0.05)[0]).to(cuda_device)
+    store = VectorStore.from_numpy(rows, "i8" if kind.startswith("i8") else kind,
+                                   device=cuda_device)
+    return FlatIndex(store, quantize_queries=kind == "i8xi8_refine", refine_k=50), q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", FLAT_KINDS)
+@pytest.mark.parametrize("b", [1, 37, 512])
+def test_served_flat_search_replays_bit_for_bit(cuda_device, kind, b):
+    """Four distinct batches in a row through ``FlatIndex.search_device``:
+    one capture, then three replays, each answer bit for bit the eager
+    chain's on its batch and unchanged by the calls after it. The flat
+    kernel's counters (and the rerank's in the exact-i8 mode) count the
+    kernels that ran: the capture call's warm-up and replay, then one a
+    replay."""
+    from nvdb_tpu_torch.index import graphs
+    from nvdb_tpu_torch.kernels import rerank
+
+    idx, q = _flat_on_card(cuda_device, kind, 4 * b)
+    inst = FLAT_INSTANCE[kind]
+    counts = lambda: (flat_scan.LAUNCHES, flat_scan.LAUNCHES_BY_KERNEL[inst], rerank.LAUNCHES)
+    graphs.reset_counts()
+    got = []
+    for j in range(4):
+        before = counts()
+        x = q[j * b:(j + 1) * b]
+        v, i = idx.search_device(x, 10)
+        step = FIRST_CALL_LAUNCHES if j == 0 else 1
+        assert tuple(a - c for a, c in zip(counts(), before)) == (
+            step, step, step if kind == "i8xi8_refine" else 0)
+        got.append((x, (v, i), (v.clone(), i.clone())))
+    torch.cuda.synchronize()
+    assert (graphs.GRAPH_CAPTURES, graphs.GRAPH_REPLAYS, graphs.GRAPH_EAGER) == (1, 3, 0)
+    assert len(idx._graphs) == 1
+    for x, out, kept in got:
+        assert _same(out, kept)
+        assert _same(out, idx._search_chain(x, 10))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "i8xi8_refine"])
+def test_served_flat_search_spans_on_the_card(cuda_device, kind):
+    """Recorded, a capture call's records nest root -> wrapper -> ``launch``
+    (in the exact-i8 mode then ``refine`` -> rerank wrapper -> ``launch``),
+    then one ``replay``; the next call is its root (``graph="replay"``) and
+    one ``replay`` child; the wrappers count their allocations."""
+    from nvdb_tpu_torch.eval import trace
+
+    idx, q = _flat_on_card(cuda_device, kind, 64)
+    tree = [("flat.search", None), ("flat_topk_cuda", "flat.search"),
+            ("launch", "flat_topk_cuda")]
+    if kind == "i8xi8_refine":
+        tree += [("refine", "flat.search"), ("rerank_topk_cuda", "refine"),
+                 ("launch", "rerank_topk_cuda")]
+    with trace.recording() as tr:
+        a = idx.search_device(q, 10)
+        b = idx.search_device(q, 10)
+    torch.cuda.synchronize()
+    assert _same(a, b) and _same(b, idx._search_chain(q, 10))
+    names = [r.name for r in tr.records]
+    got = [(r.name, None if r.parent < 0 else names[r.parent]) for r in tr.records]
+    assert got == tree + [("replay", "flat.search"), ("flat.search", None),
+                          ("replay", "flat.search")]
+    roots = [r for r in tr.records if r.parent < 0]
+    assert [r.attrs for r in roots] == [{"b": 64, "k": 10, "graph": "capture"},
+                                        {"b": 64, "k": 10, "graph": "replay"}]
+    assert all(r.attrs.get("alloc_bytes", 0) > 0 for r in tr.records
+               if r.name.endswith("_cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["debug_nans", "torch", "l2"])
+def test_served_flat_search_eager_routes_capture_nothing(cuda_device, monkeypatch, route):
+    """``DEBUG_NANS``, ``backend="torch"`` and metric ``l2`` run eagerly on
+    the card: no graph is captured, the root says ``eager``, and the
+    answers are the chain's run directly."""
+    from nvdb_tpu_torch.eval import trace
+    from nvdb_tpu_torch.index import graphs
+    from nvdb_tpu_torch.index.flat import FlatIndex
+
+    idx, q = _flat_on_card(cuda_device, "f32", 16)
+    if route == "debug_nans":
+        monkeypatch.setattr(dispatch, "DEBUG_NANS", True)
+    else:
+        idx = FlatIndex(idx.store, backend="torch" if route == "torch" else "auto",
+                        metric="l2" if route == "l2" else "dot")
+    graphs.reset_counts()
+    with trace.recording() as tr:
+        out = idx.search_device(q, 10)
+    torch.cuda.synchronize()
+    assert (graphs.GRAPH_CAPTURES, graphs.GRAPH_REPLAYS, graphs.GRAPH_EAGER) == (0, 0, 1)
+    assert len(idx._graphs) == 0 and tr.records[0].attrs["graph"] == "eager"
+    assert _same(out, idx._search_chain(q, 10))

@@ -13,6 +13,7 @@ import torch
 
 from nvdb_tpu_torch.eval import trace
 from nvdb_tpu_torch.index import graphs
+from nvdb_tpu_torch.index.flat import FlatIndex
 from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
 from nvdb_tpu_torch.index.partition import PartitionRerankIndex
 from nvdb_tpu_torch.kernels import adc_scan, flat_scan, ivf_scan, rerank
@@ -35,11 +36,15 @@ def built():
                           opq_iters=2, seed=0, device="cpu")
     store = VectorStore.from_numpy(rows, "f32", device="cpu")
     part = PartitionRerankIndex.build(rows, nlist=NLIST, n_iters=4, seed=1, device="cpu")
-    return {"pq": pq, "store": store, "part": part, "q": torch.from_numpy(_rows(B, 7))}
+    return {"pq": pq, "store": store, "part": part, "q": torch.from_numpy(_rows(B, 7)),
+            "flat": {b: FlatIndex(VectorStore.from_numpy(rows, "bf16", device="cpu"), backend=b)
+                     for b in ("auto", "torch")}}
 
 
 def _call(built, kind, backend):
     q = built["q"]
+    if kind == "flat":
+        return built["flat"][backend].search_device(q, K)
     if kind == "ivfpq":
         return built["pq"].search_device(q, K, NPROBE, refine_k=REFINE,
                                          refine_store=built["store"], backend=backend)
@@ -49,6 +54,8 @@ def _call(built, kind, backend):
 def _chain(built, kind, backend):
     """The call's chain run directly, as ``search_device`` resolves it."""
     q = built["q"]
+    if kind == "flat":
+        return built["flat"][backend]._search_chain(q, K)
     if kind == "ivfpq":
         pq = built["pq"]
         return pq._search_chain(q, K, NPROBE, REFINE, built["store"], backend, "l2",
@@ -58,7 +65,7 @@ def _chain(built, kind, backend):
 
 
 @pytest.mark.parametrize("backend", ["auto", "torch"])
-@pytest.mark.parametrize("kind", ["ivfpq", "partition"])
+@pytest.mark.parametrize("kind", ["ivfpq", "partition", "flat"])
 def test_cpu_calls_stay_eager_and_count(built, kind, backend):
     """On CPU tensors no graph engages: ``GRAPH_EAGER`` counts each call, no
     graph is kept, and each answer is bit for bit the chain's run directly."""
@@ -68,10 +75,11 @@ def test_cpu_calls_stay_eager_and_count(built, kind, backend):
         assert (graphs.GRAPH_CAPTURES, graphs.GRAPH_REPLAYS, graphs.GRAPH_EAGER) == (0, 0, n)
     cv, ci = _chain(built, kind, backend)
     assert torch.equal(i, ci) and torch.equal(v.view(torch.int32), cv.view(torch.int32))
-    assert len(built["pq" if kind == "ivfpq" else "part"]._graphs) == 0
+    idx = {"ivfpq": built["pq"], "partition": built["part"], "flat": built["flat"][backend]}
+    assert len(idx[kind]._graphs) == 0
 
 
-@pytest.mark.parametrize("kind", ["ivfpq", "partition"])
+@pytest.mark.parametrize("kind", ["ivfpq", "partition", "flat"])
 def test_root_span_says_eager_on_the_cpu(built, kind):
     with trace.recording() as tr:
         _call(built, kind, "torch")

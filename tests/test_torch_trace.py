@@ -2,7 +2,8 @@
 served path: outside ``recording()`` a span is the shared no-op and nothing
 is kept; inside it each ``search_device`` call is one request whose records
 nest as the stages run (root, ``rotate``, ``coarse``, ``adc`` / ``probe``,
-``refine``), and the answers are bit for bit those of an unrecorded call.
+``refine``; the flat index's root alone, or with its exact-i8 ``refine``),
+and the answers are bit for bit those of an unrecorded call.
 The CPU reaches the kernels' plain versions (``backend="torch"``); the
 wrapper spans and their ``launch`` children are held on the card in
 ``tests/test_torch_gpu.py``."""
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from nvdb_tpu_torch.eval import trace
+from nvdb_tpu_torch.index.flat import FlatIndex
 from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
 from nvdb_tpu_torch.index.partition import PartitionRerankIndex
 from nvdb_tpu_torch.store import VectorStore
@@ -30,18 +32,23 @@ def _rows(n, seed):
 
 @pytest.fixture(scope="module")
 def served():
-    """Two served indexes of one corpus, each a ``search(q)`` of the port's
+    """The served indexes of one corpus, each a ``search(q)`` of the port's
     ``search_device`` on the plain path, and the records one call leaves."""
     rows = _rows(N, 3)
     pq = IVFPQIndex.build(rows, nlist=NLIST, m=16, use_opq=True, train_size=2000, n_iters=4,
                           opq_iters=2, seed=0, device="cpu")
     store = VectorStore.from_numpy(rows, "f32", device="cpu")
     part = PartitionRerankIndex.build(rows, nlist=NLIST, n_iters=4, seed=1, device="cpu")
+    flat = FlatIndex(VectorStore.from_numpy(rows, "bf16", device="cpu"))
+    flat_i8 = FlatIndex(VectorStore.from_numpy(rows, "i8", device="cpu"), quantize_queries=True,
+                        refine_k=REFINE)
     return {
         "ivfpq": lambda q: pq.search_device(q, K, NPROBE, refine_k=REFINE, refine_store=store,
                                             backend="torch"),
         "partition": lambda q: part.search_device(q, K, NPROBE, rerank_k=REFINE,
                                                   backend="torch"),
+        "flat": lambda q: flat.search_device(q, K),
+        "flat_i8_refine": lambda q: flat_i8.search_device(q, K),
     }
 
 
@@ -58,7 +65,14 @@ TREES = {
     "partition": [("partition.search", None), ("ivfflat.search", "partition.search"),
                   ("coarse", "ivfflat.search"), ("probe", "ivfflat.search"),
                   ("refine", "partition.search")],
+    "flat": [("flat.search", None)],
+    "flat_i8_refine": [("flat.search", None), ("refine", "flat.search")],
 }
+# each root's attributes besides b, k and graph
+ROOT_ATTRS = {"ivfpq": {"nprobe": NPROBE, "refine_k": REFINE},
+              "partition": {"nprobe": NPROBE, "rerank_k": REFINE},
+              "flat": {}, "flat_i8_refine": {}}
+KINDS = list(TREES)
 
 
 def test_span_without_a_recorder_is_the_shared_noop(served, queries):
@@ -72,7 +86,7 @@ def test_span_without_a_recorder_is_the_shared_noop(served, queries):
     assert tr.records == [] and trace._active is None
 
 
-@pytest.mark.parametrize("kind", ["ivfpq", "partition"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_results_bit_for_bit_with_the_recorder_on(served, queries, kind):
     v0, i0 = served[kind](queries)
     with trace.recording() as tr:
@@ -82,7 +96,7 @@ def test_results_bit_for_bit_with_the_recorder_on(served, queries, kind):
     assert torch.equal(v0.view(torch.int32), v1.view(torch.int32))
 
 
-@pytest.mark.parametrize("kind", ["ivfpq", "partition"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_records_nest_as_the_stages_run(served, queries, kind):
     with trace.recording() as tr:
         served[kind](queries)
@@ -99,10 +113,8 @@ def test_records_nest_as_the_stages_run(served, queries, kind):
     for a, b in zip(recs, recs[1:]):
         if a.parent == b.parent:
             assert a.end_ns <= b.start_ns
-    root = recs[0]
-    extra = {"ivfpq": "refine_k", "partition": "rerank_k"}[kind]
     # the CPU path runs eagerly: no CUDA graph serves it (index/graphs.py)
-    assert root.attrs == {"b": B, "k": K, "nprobe": NPROBE, extra: REFINE, "graph": "eager"}
+    assert recs[0].attrs == {"b": B, "k": K, **ROOT_ATTRS[kind], "graph": "eager"}
 
 
 def test_each_call_is_the_next_request(served, queries):
