@@ -103,7 +103,9 @@ one phase per line group:
    the codebook bytes its CTAs pull from L2 and its lookups, its plain
    version, a sweep of its chunk width (1 / 4 / 8 / 16 / 32 queries), the
    call by pass (measurement builds, ``NVDB_ADC_ABLATE`` 3 / 4 / 5) and one
-   call replayed from a CUDA graph; the fused dma scan at kk 100 and 10 and
+   call replayed from a CUDA graph; the query-term pass the fused scans open
+   with, alone at B = 256, 8 and 1 (20 calls in a CUDA graph), bit for bit
+   its plain version, beside its bound; the fused dma scan at kk 100 and 10 and
    B = 256, 8 and 1 against the staged route it replaces (the table kernel,
    then the staged dma scan), in turns, eagerly and as device time, bit for
    bit, with each route's peak device memory (at most 0.05 GB for the fused
@@ -227,7 +229,8 @@ there is one; the flat kernel has three rows: bf16 / int8, f32 on the
 tensor cores, f32 on the SIMT kernel; the probe kernel two: list-major and
 the query-major A/B; the ADC scans six: the staged dma scan, the key kernel
 and the slab gather kernel (the A/Bs), the fused key scan at the key site
-and at the gather site, and the fused dma scan at the dma site), and
+and at the gather site, and the fused dma scan at the dma site; and the
+query-term pass, which the fused scans launch), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1177,6 +1180,7 @@ def adc_reset():
 
     adc_scan.LAUNCHES = adc_scan.TABLE_LAUNCHES = adc_scan.KEY_LAUNCHES = 0
     adc_scan.GATHER_LAUNCHES = adc_scan.FUSED_LAUNCHES = adc_scan.FUSED_DMA_LAUNCHES = 0
+    adc_scan.QTERM_LAUNCHES = 0
 
 
 def adc_counts():
@@ -1186,7 +1190,8 @@ def adc_counts():
     return {"adc_tables": adc_scan.TABLE_LAUNCHES, "adc_topk": adc_scan.LAUNCHES,
             "adc_topk_key": adc_scan.KEY_LAUNCHES, "adc_topk_gather": adc_scan.GATHER_LAUNCHES,
             "adc_fused_key": adc_scan.FUSED_LAUNCHES,
-            "adc_fused_dma": adc_scan.FUSED_DMA_LAUNCHES}
+            "adc_fused_dma": adc_scan.FUSED_DMA_LAUNCHES,
+            "adc_query_terms": adc_scan.QTERM_LAUNCHES}
 
 
 def ivf_eval_counted(torch, main, argv, first=True):
@@ -1242,14 +1247,15 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
                  "--k", str(k), "--batch-q", "256", "--device", dev.type]
     # (name, extra flags, the launch counters the run must raise); each run's
     # counters are set to 0 just before it and read just after
-    runs = [("auto", [], ("adc_fused_key", "rerank_topk")),
-            ("tables", ["--key-scan", "tables"], ("adc_tables", "adc_topk_key")),
-            ("dma", ["--ids-mode", "dma"], ("adc_fused_dma", "rerank_topk")),
+    runs = [("auto", [], ("adc_fused_key", "adc_query_terms", "rerank_topk")),
+            ("tables", ["--key-scan", "tables"], ("adc_tables", "adc_query_terms", "adc_topk_key")),
+            ("dma", ["--ids-mode", "dma"], ("adc_fused_dma", "adc_query_terms", "rerank_topk")),
             ("dma_tables", ["--ids-mode", "dma", "--key-scan", "tables"],
-             ("adc_tables", "adc_topk")),
-            ("gather", ["--ids-mode", "gather"], ("adc_fused_gather", "rerank_topk")),
+             ("adc_tables", "adc_query_terms", "adc_topk")),
+            ("gather", ["--ids-mode", "gather"],
+             ("adc_fused_gather", "adc_query_terms", "rerank_topk")),
             ("gather_tables", ["--ids-mode", "gather", "--key-scan", "tables"],
-             ("adc_tables", "adc_topk_gather")),
+             ("adc_tables", "adc_query_terms", "adc_topk_gather")),
             ("torch", ["--ivf-backend", "torch"], ())]
     out = {"launches": {"flat_topk": gt_launches}}
     for name, extra, counted in runs:
@@ -1269,6 +1275,11 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
                       if c not in fused}
             check(not any(others.values()), f"the {name} path ran another ADC kernel beside "
                                              f"the fused scan: {launches}")
+            check(launches["adc_query_terms"] == sum(launches[c] for c in fused),
+                  f"the {name} path: not one query-term pass a fused call: {launches}")
+        if name.endswith("tables"):
+            check(launches["adc_query_terms"] == launches["adc_tables"],
+                  f"the {name} path: not one query-term pass a table launch: {launches}")
     check(out["tables"]["recall"] == out["auto"]["recall"],
           f"two-kernel key recall {out['tables']['recall']} != fused {out['auto']['recall']}")
     check(out["dma_tables"]["recall"] == out["dma"]["recall"],
@@ -1425,15 +1436,31 @@ def fused_times(torch, dev, idx, q_rot, probes, kk, fills):
     over it) with each route's peak device memory over one call; in turns,
     eagerly and as device time (calls in a CUDA graph), bit for bit. Its
     bound, codebook L2 bytes and lookups, its plain version, the chunk
-    sweep, the call by pass and a call replayed from a CUDA graph."""
+    sweep, the call by pass and a call replayed from a CUDA graph. The
+    query-term pass the fused scans open with, alone at each batch, bit for
+    bit its plain version, beside its bound."""
     from nvdb_tpu_torch.kernels import _build, adc_scan, ivf_scan
 
     dsub = idx.codebooks.shape[2]
     dp = idx.centroids.shape[1]
     index = dev.index or 0
-    out, gather = {}, {}
+    out, gather, qterms = {}, {}, {}
     for b in (256, 8, 1):
         qb, pb_ = q_rot[:b].contiguous(), probes[:b].contiguous()
+        # the query-term pass alone: bytes, the queries and codebooks read and
+        # the terms written; operations, each term's dot (2 dsub FLOP) and its
+        # combination
+        qt = lambda: adc_scan.adc_query_terms_cuda(qb, idx.codebooks)
+        check(torch.equal(qt(), adc_scan.adc_query_terms_reference(qb, idx.codebooks)),
+              f"query terms B={b}: differ from the plain version")
+        qt_ms = graph_ms(torch, qt, launches=20, replays=5)
+        terms = b * idx.m * 256
+        qbnd, qby = bound_ms(terms * 4 + b * dp * 4 + idx.codebooks.numel() * 4,
+                             float(terms) * (2 * dsub + 2), "f32")
+        say(f"  query-term pass B={b} M={idx.m} dsub={dsub}: device {qt_ms:.4f} ms (20 calls "
+            f"in a CUDA graph) | bound {qbnd:.4f} ms ({qby}: {terms * 4 / 1e6:.2f} MB written) "
+            f"time / bound {qt_ms / qbnd:.2f}; bit for bit its plain version")
+        qterms[b] = dict(ms=qt_ms, bound_ms=qbnd, bound_by=qby)
         args = (qb, pb_, idx.centroids, idx.codebooks, idx.codes, idx.slot_ids, kk)
         fused = lambda: adc_scan.adc_fused_keys_cuda(*args, fills=fills)
         two = lambda: adc_scan.adc_topk_keys_cuda(
@@ -1463,7 +1490,7 @@ def fused_times(torch, dev, idx, q_rot, probes, kk, fills):
         flops = float(pb["pairs"]) * idx.m * 256 * (2 * dsub + 4) + lookups
         bnd, by = bound_ms(nbytes, flops, "f32")
         nq_max = adc_scan.FUSED_NQ_MAX if b >= adc_scan.FUSED_CHUNK_MIN_BATCH else 1
-        nq = adc_scan.fused_plan(idx.m, dsub, nq_max, index)
+        nq = adc_scan.fused_plan(idx.m, nq_max, index)
         items = ivf_scan.group_pairs_reference(pb_, fills, nq)[1]
         tiles = -(-idx.lcap // adc_scan.FUSED_TILE)
         cb_bytes = int(items.shape[0]) * tiles * idx.codebooks.numel() * 4
@@ -1472,9 +1499,17 @@ def fused_times(torch, dev, idx, q_rot, probes, kk, fills):
             f"tables + key scan {two_ms:.4f} ms {runs['plain']} | device time (10 calls in a "
             f"CUDA graph) fused {gk:.4f} {gruns['kernel']}, two kernels {gt:.4f} "
             f"{gruns['plain']}; bit for bit equal")
+        # the work the scan does now: each entry's query share once a query,
+        # its list share once an item and subspace, then one FMA and one add a
+        # pair and entry
+        done = (float(b) * idx.m * 256 * (2 * dsub + 2) + float(items.shape[0]) * tiles
+                * idx.m * 256 * 2 * dsub + float(pb["pairs"]) * idx.m * 256 * 3 + lookups)
         say(f"    bound {bnd:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e9:.4f} GB) "
             f"time / bound {kern / bnd:.2f} (device {gk / bnd:.2f}); {lookups / 1e9:.3f} G "
-            f"lookups into shared memory; codebook bytes from L2 {cb_bytes / 1e9:.3f} GB")
+            f"lookups into shared memory; codebook bytes from L2 {cb_bytes / 1e9:.3f} GB; "
+            f"the operations the scan performs {done / 1e9:.3f} GFLOP (bound "
+            f"{bound_ms(0, done, 'f32')[0]:.4f} ms), its query terms from L2 "
+            f"{float(pb['pairs']) * idx.m * 1024 / 1e9:.3f} GB")
         out[b] = dict(ms=kern, two_ms=two_ms, device_ms=gk, two_device_ms=gt, bound_ms=bnd,
                       bound_by=by, lookups=lookups, codebook_bytes=cb_bytes, nq=nq,
                       items=int(items.shape[0]))
@@ -1516,17 +1551,20 @@ def fused_times(torch, dev, idx, q_rot, probes, kk, fills):
         adc_scan._fused_lib = port_lib
     whole = graph_ms(torch, lambda: adc_scan.adc_fused_keys_cuda(*args, fills=fills),
                      launches=10, replays=5)
-    say(f"  fused key scan B=256 by part (device ms): pass 0, staging and tables "
-        f"{split['tables']:.4f}, lookups {split['lookups'] - split['tables']:.4f}, selection "
-        f"{split['selection'] - split['lookups']:.4f}, merge {whole - split['selection']:.4f}; "
-        f"the whole call {whole:.4f}")
+    say(f"  fused key scan B=256 by part (device ms): the query terms, pass 0, staging and "
+        f"tables {split['tables']:.4f}, lookups {split['lookups'] - split['tables']:.4f}, "
+        f"selection {split['selection'] - split['lookups']:.4f}, merge "
+        f"{whole - split['selection']:.4f}; the whole call {whole:.4f}")
     graph_replay_check(torch, lambda: adc_scan.adc_fused_keys_cuda(*args, fills=fills))
     say("  one fused call (B=256) captured in a CUDA graph and replayed: equal to an eager "
         "call bit for bit")
     res = dict(out[256], plain_ms=plain, sweep=sweep, by_part=dict(split, whole=whole),
                by_batch=out)
+    qt_plain = cuda_ms(torch, lambda: adc_scan.adc_query_terms_reference(q_rot, idx.codebooks),
+                       iters=2)
     return {"adc_fused_key": res,
-            "adc_fused_gather": dict(gather[256], plain_ms=plain, by_batch=gather)}
+            "adc_fused_gather": dict(gather[256], plain_ms=plain, by_batch=gather),
+            "adc_query_terms": dict(qterms[256], plain_ms=qt_plain, by_batch=qterms)}
 
 
 def fused_dma_times(torch, dev, idx, q_rot, probes, fills):
@@ -1604,10 +1642,10 @@ def fused_dma_times(torch, dev, idx, q_rot, probes, fills):
     whole = graph_ms(torch, lambda: adc_scan.adc_fused_topk_cuda(*args, fills=fills,
                                                                  dedup=False),
                      launches=10, replays=5)
-    say(f"  fused dma B=256 kk=100 by part (device ms): pass 0, staging and tables "
-        f"{split['tables']:.4f}, lookups {split['lookups'] - split['tables']:.4f}, selection "
-        f"{split['selection'] - split['lookups']:.4f}, merge {whole - split['selection']:.4f}; "
-        f"the whole call {whole:.4f}")
+    say(f"  fused dma B=256 kk=100 by part (device ms): the query terms, pass 0, staging and "
+        f"tables {split['tables']:.4f}, lookups {split['lookups'] - split['tables']:.4f}, "
+        f"selection {split['selection'] - split['lookups']:.4f}, merge "
+        f"{whole - split['selection']:.4f}; the whole call {whole:.4f}")
     graph_replay_check(torch, lambda: adc_scan.adc_fused_topk_cuda(*args, fills=fills,
                                                                    dedup=False))
     say("  one fused dma call (B=256) captured in a CUDA graph and replayed: equal to an eager "
@@ -2361,7 +2399,7 @@ def build_side_ivfpq(torch, dev, work, p8, spilled8):
         check(launched["adc_fused_dma"] > 0 and launched["adc_tables"] == 0
               and launched["adc_topk"] == 0, f"{name} search: the dma route's launches {launched}")
         check(dups == 0, f"{name} search: {dups} queries repeat an id")
-    say(f"  replicated index: {repeated} slots hold an id their 1024-lane tile holds again "
+    say(f"  replicated index: {repeated} slots hold an id their 768-lane tile holds again "
         f"(adc_scan.tile_leads)")
     del rep1, rep2, holed, qpad
     torch.cuda.empty_cache()
@@ -3169,8 +3207,8 @@ def main() -> int:
     say(f"flat kernel launches by instance, phases 4, 8, 11, 14, 15 and 16: {flat}")
     # the dist paths' and the tools' launches of the other kernels
     dist = {name: dl.get(name, 0) + tl.get(name, 0)
-            for name in DIST_KERNELS + ("adc_tables", "adc_topk", "adc_topk_key",
-                                        "adc_topk_gather")}
+            for name in DIST_KERNELS + ("adc_tables", "adc_query_terms", "adc_topk",
+                                        "adc_topk_key", "adc_topk_gather")}
     rows = [
         ("flat_topk", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
          flat.get("bf16", 0) + flat.get("int8", 0) + flat.get("int8_int8", 0),
@@ -3216,6 +3254,11 @@ def main() -> int:
          ivf["launches"]["adc_fused_key"] + bl.get("adc_fused_key", 0) + dist["adc_fused_key"],
          0.0,
          ivf_times["adc_fused_key"]),
+        # the query's share of every table entry, once a query: launched by
+        # each fused key and dma call; bit for bit its plain version in phase 9
+        ("adc_query_terms", "adc_topk", "nvdb_tpu/kernels/pq.py:89",
+         ivf["launches"]["adc_query_terms"] + bl.get("adc_query_terms", 0)
+         + dist["adc_query_terms"], 0.0, ivf_times["adc_query_terms"]),
         ("rerank_topk", "rerank_topk", "nvdb_tpu/kernels/rerank.py:187",
          ivf["launches"]["rerank_topk"] + pl["pr"]["rerank_topk"] + bl["rerank_topk"]
          + dist["rerank_topk"], rerank_err, ivf_times["rerank_topk B=256"]),

@@ -64,7 +64,8 @@ def _ivfpq_search_block(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Coarse probes, ADC tables and the ADC candidate top-k of one batch.
     The kernel path runs the fused scans, which build each pair's bf16
-    tables in shared memory (none in device memory) and read each probed
+    tables in shared memory (none in device memory; each query's share of
+    every entry comes from one query-term pass) and read each probed
     list's codes in place from ``codes``, once for a chunk of queries: the
     key and gather modes the fused key scan (``adc_fused_keys_cuda``; the
     gather mode's result is the key mode's bit for bit, so no code slab is
@@ -108,10 +109,10 @@ def _ivfpq_search_block(
         if path == "torch" and fused:
             return adc_scan.adc_fused_topk_reference(q_rot, probes, centroids, codebooks, codes,
                                                      slot_ids, k, fills=fills, dedup=dedup > 1)
-        residuals = q_rot[:, None, :] - centroids[probes]                # [B, P, Dp]
-        lut = pq.adc_lut(residuals.reshape(B * nprobe, -1), codebooks, m)
-        lut = lut.reshape(B, nprobe, m, pq.KSUB)                         # [B, P, M, 256]
         if path == "torch":
+            if fills is None:
+                fills = adc_scan.list_fills(slot_ids)
+            lut = adc_scan.adc_tables_reference(q_rot, probes, centroids, codebooks, fills)
             if ids_mode == "gather":
                 return adc_scan.adc_topk_keys_reference(
                     lut, probes, adc_scan.gather_codes(codes, probes), slot_ids, k,
@@ -121,6 +122,9 @@ def _ivfpq_search_block(
                                                         fills=fills)
             return adc_scan.adc_topk_reference(lut, probes, codes, slot_ids, k)
         # the JAX package's jnp path: f32 tables, gathered code slabs
+        residuals = q_rot[:, None, :] - centroids[probes]                # [B, P, Dp]
+        lut = pq.adc_lut(residuals.reshape(B * nprobe, -1), codebooks, m)
+        lut = lut.reshape(B, nprobe, m, pq.KSUB)                         # [B, P, M, 256]
         code_slab = codes[probes].transpose(-1, -2)                      # [B, P, L, M]
         sids = slot_ids[probes]                                          # [B, P, L]
         scores = torch.where(sids >= 0, pq.adc_scores(lut, code_slab), ops.NEG_INF)

@@ -2,8 +2,10 @@
 ``csrc/adc_topk.cu`` (the port of ``nvdb_tpu.kernels.adc_scan.pallas_adc_topk``
 in its three id modes) and their plain PyTorch versions; and the bf16 ADC
 tables they read: the wrapper of ``csrc/adc_tables.cu`` and its plain
-version (``pq.adc_lut`` then the bf16 cast, which the JAX package leaves to
-XLA).
+version (in exact arithmetic ``pq.adc_lut`` then the bf16 cast, which the
+JAX package leaves to XLA; here each entry is built from a query's, a
+list's and a pair's share, ``csrc/adc_table_math.cuh``, with the kernels'
+f32 FMA chains, so kernel and plain version agree bit for bit).
 
 All modes score slot l of probed list p by -sum_m bf16(lut[b, p, m, code]),
 summed in f32 over m in order, and return the top kk (kk <= 1024) with
@@ -30,7 +32,10 @@ summed in f32 over m in order, and return the top kk (kk <= 1024) with
 - fused key scan (``adc_fused_keys_cuda``, ``adc_fused_keys_reference``):
   the key mode from the rotated queries, probes, centroids and codebooks,
   bit for bit ``adc_topk_keys_cuda`` on ``adc_tables_cuda``'s tables, with
-  each pair's tables built in shared memory, list-major (the pairs grouped
+  each pair's tables built in shared memory from each entry's query share
+  (the query-term pass it opens with, ``adc_query_terms_cuda`` /
+  ``adc_query_terms_reference``: once a query), its list share (once a
+  list) and the pair's residual norm, list-major (the pairs grouped
   by list, each probed list read once for a chunk of queries); the key and
   gather modes of the IVF-PQ path. ``adc_topk_keys_listmajor_reference`` is
   the key mode's plain scan walked the same way, bit for bit
@@ -399,6 +404,50 @@ def live_probes(probes: torch.Tensor, fills: torch.Tensor) -> torch.Tensor:
     return ok & (fills[torch.where(ok, probes, 0).long()] > 0)
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``fmaf(a, b, c)``: a * b + c rounded once to f32, as the kernels
+    compute it. The product of two f32 values is exact in float64 and the
+    float64 sum's own error is recovered exactly (TwoSum), so the one case
+    where rounding the float64 sum to f32 would round twice, a sum that
+    lands halfway between two f32 values, is settled by that error's sign."""
+    p = a.double() * b.double()
+    c = c.double()
+    hi = p + c
+    v = hi - p
+    lo = (p - (hi - v)) + (c - v)
+    r = hi.float()
+    back = r.double()
+    toward = torch.where(hi > back, torch.inf, -torch.inf).to(torch.float32)
+    other = torch.nextafter(r, toward)
+    tie = (lo != 0) & (hi != back) & ((back + other.double()) * 0.5 == hi)
+    return torch.where(tie, torch.where(lo > 0, torch.maximum(r, other),
+                                        torch.minimum(r, other)), r)
+
+
+def fma_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_d a[..., d] * b[..., d] (broadcast) as the kernels compute it: one
+    f32 FMA chain from 0 over d = 0, 1, ... in order (adc_table_math.cuh)."""
+    s = torch.zeros(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]), dtype=torch.float32,
+                    device=a.device)
+    for d in range(a.shape[-1]):
+        s = _fma(a[..., d], b[..., d], s)
+    return s
+
+
+def adc_query_terms_reference(
+    q_rot: torch.Tensor,       # [B, Dp] f32 rotated queries
+    codebooks: torch.Tensor,   # [M, 256, dsub] f32
+) -> torch.Tensor:
+    """The plain version of the query-term pass: [B, M, 256] f32,
+    ``c2 - 2 q_m . cb[m, j]`` with q_m the query's slice of subspace m and c2
+    = |cb[m, j]|^2, each a chain of FMAs (``fma_chain``) and the combination
+    rounded once (2 q . cb is exact): the query's share of each ADC table
+    entry (``adc_tables_reference``), the kernel's bits."""
+    m, _, dsub = codebooks.shape
+    q = q_rot[:, :m * dsub].reshape(q_rot.shape[0], m, 1, dsub)
+    return fma_chain(codebooks, codebooks)[None] - 2.0 * fma_chain(q, codebooks[None])
+
+
 def adc_tables_reference(
     q_rot: torch.Tensor,       # [B, Dp] f32 rotated queries
     probes: torch.Tensor,      # [B, P] int probed list ids
@@ -406,16 +455,28 @@ def adc_tables_reference(
     codebooks: torch.Tensor,   # [M, 256, dsub] f32
     fills: torch.Tensor,       # [nlist] int32 (list_fills)
 ) -> torch.Tensor:
-    """The plain PyTorch version of the table kernel: ``pq.adc_lut`` of each
-    probe's residual, rounded to bf16; [B, P, M, 256]. Probes of a dead or
-    out-of-range list get zeros (the scan reads nothing of them)."""
+    """The plain version of the table kernel: each probe's bf16 tables [B,
+    P, M, 256], entry ``bf16((r2 + 2 c_m . cb_j) + (c2 - 2 q_m . cb_j))`` for
+    the query q, the probed list's centroid c and the residual's squared
+    norm r2 = |q_m - c_m|^2, which is ||res_m - cb_j||^2 (``pq.adc_lut``) in
+    exact arithmetic. The dots and norms are the kernels' FMA chains
+    (``fma_chain``), the query's share ``adc_query_terms_reference``, the
+    list's once a distinct probed list (1,024 lists at a time), the
+    combinations rounded once each in that order: the kernels' bits. Probes
+    of a dead or out-of-range list get zeros (the scan reads nothing of them)."""
     B, P = probes.shape
-    m = codebooks.shape[0]
+    m, _, dsub = codebooks.shape
     live = live_probes(probes, fills)
     safe = torch.where(live, probes, 0).long()
-    residuals = q_rot[:, None, :] - centroids[safe]                  # [B, P, Dp]
-    lut = pq.adc_lut(residuals.reshape(B * P, -1), codebooks, m)
-    lut = lut.reshape(B, P, m, pq.KSUB).to(torch.bfloat16)
+    lists, where = torch.unique(safe, return_inverse=True)              # where: [B, P]
+    cent = centroids[:, :m * dsub].reshape(centroids.shape[0], m, 1, dsub)
+    ldot = torch.cat([fma_chain(cent[lists[s:s + 1024]], codebooks[None])
+                      for s in range(0, lists.numel(), 1024)])          # [lists, M, 256]
+    q = q_rot[:, :m * dsub].reshape(B, 1, m, dsub)
+    res = q - centroids[safe][:, :, :m * dsub].reshape(B, P, m, dsub)  # one rounding each
+    r2 = fma_chain(res, res)                                           # [B, P, M]
+    qterm = adc_query_terms_reference(q_rot, codebooks)                # [B, M, 256]
+    lut = ((r2[..., None] + 2.0 * ldot[where]) + qterm[:, None]).to(torch.bfloat16)
     return torch.where(live[:, :, None, None], lut, 0.0)
 
 
@@ -425,8 +486,8 @@ def _tables_lib():
     from nvdb_tpu_torch.kernels import _build
 
     fn = _build.load("adc_tables").nvdb_adc_tables
-    # 6 pointers, B, P, Dp, M, dsub, nlist, ctas, stream
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    # 7 pointers, B, P, Dp, M, dsub, nlist, ctas, stream
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -438,9 +499,9 @@ def adc_tables_cuda(
     codebooks: torch.Tensor,   # [M, 256, dsub] f32, M * dsub == Dp
     fills: torch.Tensor,       # [nlist] int32 (list_fills)
 ) -> torch.Tensor:
-    """bf16 ADC tables [B, P, M, 256] in one pass; the contract of
-    ``adc_tables_reference`` (a rare entry one bf16 step off: the dsub
-    products are summed in another order)."""
+    """bf16 ADC tables [B, P, M, 256], bit for bit ``adc_tables_reference``:
+    the query-term pass (``adc_query_terms_cuda``, one launch on its counter),
+    then the table kernel, which reads each entry's query share from it."""
     global TABLE_LAUNCHES
     require_cuda(codebooks, "adc_tables")
     if q_rot.dim() != 2 or probes.dim() != 2 or centroids.dim() != 2 or codebooks.dim() != 3:
@@ -464,9 +525,10 @@ def adc_tables_cuda(
         return lut
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     fn = _tables_lib()
+    qterms = adc_query_terms_cuda(q_rot, codebooks)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(q_rot.data_ptr(), probes.data_ptr(), centroids.data_ptr(),
+        rc = fn(q_rot.data_ptr(), qterms.data_ptr(), probes.data_ptr(), centroids.data_ptr(),
                 codebooks.data_ptr(), fills.data_ptr(), lut.data_ptr(), B, P, Dp, M, dsub,
                 nlist, _TABLE_CTAS_PER_SM * n_sm, stream)
     if rc != 0:
@@ -488,7 +550,7 @@ FUSED_LAUNCHES = 0
 # chip_smoke.py phase 9 sweeps 1 / 4 / 8 / 16 / 32 (PERF.md).
 FUSED_NQ_MAX = 8
 FUSED_CHUNK_MIN_BATCH = 32
-FUSED_TILE = 1024        # lanes a fused CTA takes (four a thread): a list's tiles are CTAs
+FUSED_TILE = 768         # lanes a fused CTA takes (three a thread): a list's tiles are CTAs
 
 
 def _mono16_score(m: torch.Tensor) -> torch.Tensor:
@@ -568,16 +630,21 @@ def adc_fused_keys_reference(
 
 
 def bind_fused(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares the fused scans' C entries on a build of ``csrc/adc_topk.cu``
-    (the port's, or a measurement build of the same source)."""
-    # 11 pointers (the dma scan: 12, with the leads), B, P, Dp, M, dsub, nlist,
+    """Declares the fused scans' C entries and the query-term pass's on a
+    build of ``csrc/adc_topk.cu`` (the port's, or a measurement build of the
+    same source)."""
+    # 12 pointers (the dma scan: 13, with the leads), B, P, Dp, M, dsub, nlist,
     # Lcap, kk, nq, U, stream
-    lib.nvdb_adc_fused_keys.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + \
+    lib.nvdb_adc_fused_keys.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
-    lib.nvdb_adc_fused_topk.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + \
+    lib.nvdb_adc_fused_topk.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
-    lib.nvdb_adc_fused_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    for fn in (lib.nvdb_adc_fused_keys, lib.nvdb_adc_fused_topk, lib.nvdb_adc_fused_plan):
+    lib.nvdb_adc_fused_plan.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    # q_rot, codebooks, qterms, B, Dp, M, dsub, stream
+    lib.nvdb_adc_query_terms.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    for fn in (lib.nvdb_adc_fused_keys, lib.nvdb_adc_fused_topk, lib.nvdb_adc_fused_plan,
+               lib.nvdb_adc_query_terms):
         fn.restype = ctypes.c_int
     return lib
 
@@ -591,17 +658,56 @@ def _fused_lib():
 
 
 @functools.cache
-def fused_plan(m: int, dsub: int, nq_max: int, device_index: int) -> int:
+def fused_plan(m: int, nq_max: int, device_index: int) -> int:
     """Queries a chunk of the fused scan: the widest of 32, 16, 8, 4 and 1
-    at most ``nq_max`` whose residuals and tables fit a CTA's shared memory.
-    Raises, naming the shape, where not even one query's do."""
+    at most ``nq_max`` whose copy rings, tables and residual norms fit a
+    CTA's shared memory at M = ``m``. Raises, naming the shape, where not
+    even one query's do."""
     nq = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = _fused_lib().nvdb_adc_fused_plan(m, dsub, nq_max, ctypes.byref(nq))
+        rc = _fused_lib().nvdb_adc_fused_plan(m, nq_max, ctypes.byref(nq))
     if rc != 0:
-        raise ValueError(f"the fused ADC scan: one query's residual and tables at M={m}, "
-                         f"dsub={dsub} exceed a CTA's shared memory (cudaError_t {rc})")
+        raise ValueError(f"the fused ADC scan: one query's rings, tables and residual norms "
+                         f"at M={m} exceed a CTA's shared memory (cudaError_t {rc})")
     return nq.value
+
+
+# Launches of the query-term pass: one at every fused key and fused dma call
+# (they launch it first) and one at every adc_query_terms_cuda call;
+# ``index/graphs.py`` keeps it to the kernels that ran.
+QTERM_LAUNCHES = 0
+
+
+def adc_query_terms_cuda(
+    q_rot: torch.Tensor,       # [B, Dp] f32 rotated queries
+    codebooks: torch.Tensor,   # [M, 256, dsub] f32, M * dsub == Dp
+) -> torch.Tensor:
+    """The query-term pass alone (the fused scans launch it themselves):
+    [B, M, 256] f32, bit for bit ``adc_query_terms_reference``. One launch."""
+    global QTERM_LAUNCHES
+    require_cuda(codebooks, "adc_query_terms")
+    if q_rot.dim() != 2 or codebooks.dim() != 3:
+        raise ValueError("q_rot [B, Dp], codebooks [M, 256, dsub]")
+    dev = codebooks.device
+    B, Dp = q_rot.shape
+    M, ksub, dsub = codebooks.shape
+    if ksub != pq.KSUB or M * dsub != Dp:
+        raise ValueError(f"codebooks {tuple(codebooks.shape)} do not split dim {Dp} into "
+                         f"M x {pq.KSUB} codewords")
+    check_tensor(q_rot, "q_rot", dev, (torch.float32,), (B, Dp))
+    check_tensor(codebooks, "codebooks", dev, (torch.float32,), (M, ksub, dsub))
+    out = torch.empty((B, M, pq.KSUB), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(index):
+        stream = torch.cuda.current_stream(index).cuda_stream
+        rc = _fused_lib().nvdb_adc_query_terms(q_rot.data_ptr(), codebooks.data_ptr(),
+                                               out.data_ptr(), B, Dp, M, dsub, stream)
+    if rc != 0:
+        raise RuntimeError(f"adc_query_terms kernel launch failed: cudaError_t {rc}")
+    QTERM_LAUNCHES += 1
+    return out
 
 
 def adc_fused_keys_cuda(
@@ -617,12 +723,13 @@ def adc_fused_keys_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused key scan: bit for bit ``adc_topk_keys_cuda(adc_tables_cuda(
     q_rot, probes, centroids, codebooks, fills), probes, codes, slot_ids,
-    k, fills=fills)``, with each pair's tables built in shared memory and no
-    [B, P, M, 256] tensor; the contract of ``adc_fused_keys_reference`` up
-    to the table kernel's rare one-step entry. The caller guarantees a
+    k, fills=fills)``, with each pair's tables built in shared memory from
+    one query-term pass (``adc_query_terms_cuda``'s, a [B, M, 256] f32
+    scratch) and no [B, P, M, 256] tensor; bit for bit
+    ``adc_fused_keys_reference``. The caller guarantees a
     prefix-packed index with unique ids. Returns (vals [B, k] f32, ids [B,
     k] int32). No host sync: the launches can be captured in a CUDA graph."""
-    global FUSED_LAUNCHES
+    global FUSED_LAUNCHES, QTERM_LAUNCHES
     from nvdb_tpu_torch.kernels import ivf_scan
 
     with trace.span("adc_fused_keys_cuda") as sp:
@@ -668,27 +775,29 @@ def adc_fused_keys_cuda(
         index = dev.index if dev.index is not None else torch.cuda.current_device()
         if nq_max is None:
             nq_max = FUSED_NQ_MAX if B >= FUSED_CHUNK_MIN_BATCH else 1
-        nq = fused_plan(M, dsub, nq_max, index)
+        nq = fused_plan(M, nq_max, index)
         U = ivf_scan.max_items(B * P, nlist, nq)
         scratch = torch.empty(ivf_scan.group_scratch_ints(nlist, B * P, U), dtype=torch.int32,
                               device=dev)
+        qterms = torch.empty((B, M, pq.KSUB), dtype=torch.float32, device=dev)
         # the partial lists [B, P, tiles, k] and each one's threshold [B, P, tiles]
         part_keys = torch.empty(B * P * cdiv(L, FUSED_TILE) * (k + 1), dtype=torch.int32,
                                 device=dev)
         if sp:
-            sp.count_alloc(scratch, part_keys)
+            sp.count_alloc(scratch, qterms, part_keys)
         fn = _fused_lib().nvdb_adc_fused_keys
         with torch.cuda.device(index):
             stream = torch.cuda.current_stream(index).cuda_stream
             with trace.span("launch"):
                 rc = fn(q_rot.data_ptr(), probes.data_ptr(), centroids.data_ptr(),
                         codebooks.data_ptr(), codes.data_ptr(), slot_ids.data_ptr(),
-                        fills.data_ptr(), scratch.data_ptr(), part_keys.data_ptr(),
-                        vals.data_ptr(), ids.data_ptr(), B, P, Dp, M, dsub, nlist, L, k, nq, U,
-                        stream)
+                        fills.data_ptr(), scratch.data_ptr(), qterms.data_ptr(),
+                        part_keys.data_ptr(), vals.data_ptr(), ids.data_ptr(), B, P, Dp, M, dsub,
+                        nlist, L, k, nq, U, stream)
         if rc != 0:
             raise RuntimeError(f"adc_fused_keys kernel launch failed: cudaError_t {rc}")
         FUSED_LAUNCHES += 1
+        QTERM_LAUNCHES += 1
         return vals, ids
 
 
@@ -849,14 +958,14 @@ def adc_fused_topk_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused dma scan: bit for bit ``adc_topk_cuda(adc_tables_cuda(q_rot,
     probes, centroids, codebooks, fills), probes, codes, slot_ids, k,
-    fills=fills)``, with each pair's tables built in shared memory and no
-    [B, P, M, 256] tensor, each probed list read once for a chunk of queries;
-    the contract of ``adc_fused_topk_reference`` up to the table kernel's
-    rare one-step entry. ``dedup=False``: the caller guarantees that the
+    fills=fills)``, with each pair's tables built in shared memory from one
+    query-term pass and no [B, P, M, 256] tensor, each probed list read once
+    for a chunk of queries; bit for bit ``adc_fused_topk_reference``.
+    ``dedup=False``: the caller guarantees that the
     index holds every id once (replicas 1); no ``leads`` is read and the
     merge skips its duplicate pass. Returns (vals [B, k] f32, ids [B, k]
     int32). No host sync: the launches can be captured in a CUDA graph."""
-    global FUSED_DMA_LAUNCHES
+    global FUSED_DMA_LAUNCHES, QTERM_LAUNCHES
     from nvdb_tpu_torch.kernels import ivf_scan
 
     with trace.span("adc_fused_topk_cuda") as sp:
@@ -910,15 +1019,16 @@ def adc_fused_topk_cuda(
         index = dev.index if dev.index is not None else torch.cuda.current_device()
         if nq_max is None:
             nq_max = FUSED_NQ_MAX if B >= FUSED_CHUNK_MIN_BATCH else 1
-        nq = fused_plan(M, dsub, min(nq_max, FUSED_DMA_NQ_MAX), index)
+        nq = fused_plan(M, min(nq_max, FUSED_DMA_NQ_MAX), index)
         U = ivf_scan.max_items(B * P, nlist, nq)
         scratch = torch.empty(ivf_scan.group_scratch_ints(nlist, B * P, U), dtype=torch.int32,
                               device=dev)
+        qterms = torch.empty((B, M, pq.KSUB), dtype=torch.float32, device=dev)
         # the partial lists [B, P, tiles, k] and each one's threshold [B, P, tiles]
         part_keys = torch.empty(B * P * cdiv(L, FUSED_TILE) * (k + 1), dtype=torch.int64,
                                 device=dev)
         if sp:
-            sp.count_alloc(scratch, part_keys)
+            sp.count_alloc(scratch, qterms, part_keys)
         fn = _fused_lib().nvdb_adc_fused_topk
         with torch.cuda.device(index):
             stream = torch.cuda.current_stream(index).cuda_stream
@@ -926,9 +1036,11 @@ def adc_fused_topk_cuda(
                 rc = fn(q_rot.data_ptr(), probes.data_ptr(), centroids.data_ptr(),
                         codebooks.data_ptr(), codes.data_ptr(), slot_ids.data_ptr(),
                         leads.data_ptr() if dedup else None, fills.data_ptr(),
-                        scratch.data_ptr(), part_keys.data_ptr(), vals.data_ptr(),
-                        ids.data_ptr(), B, P, Dp, M, dsub, nlist, L, k, nq, U, stream)
+                        scratch.data_ptr(), qterms.data_ptr(), part_keys.data_ptr(),
+                        vals.data_ptr(), ids.data_ptr(), B, P, Dp, M, dsub, nlist, L, k, nq, U,
+                        stream)
         if rc != 0:
             raise RuntimeError(f"adc_fused_topk kernel launch failed: cudaError_t {rc}")
         FUSED_DMA_LAUNCHES += 1
+        QTERM_LAUNCHES += 1
         return vals, ids

@@ -35,8 +35,10 @@
 //     queries, the probes, centroids and codebooks in place of the tables
 //     and gives bit for bit the key mode's result on adc_tables.cu's
 //     tables: it computes each entry with the same arithmetic
-//     (adc_table_math.cuh), sums the entries in f32 over m in the same
-//     order and keys them the same way. No [B, P, M, 256] table exists.
+//     (adc_table_math.cuh: (r2 + 2 c_m . cb_j) + (c2 - 2 q_m . cb_j), the
+//     query's share from the query-term pass), sums the entries in f32 over
+//     m in the same order and keys them the same way. No [B, P, M, 256]
+//     table exists.
 //   * fused dma scan (nvdb_adc_fused_topk; the dma mode of the IVF-PQ path,
 //     replacing the TPU kernel's dma mode and the XLA tables as the fused
 //     key scan replaces its key mode). The same fused pass 1 on 64-bit dma
@@ -109,25 +111,40 @@
 // either does, and building a pair's tables inside a query-major scan
 // would pull the 786 KB of codebooks through L2 once a pair (12.9 GB). So
 // the fused scan is list-major, and the tables live in shared memory.
+//   The query-term pass (adc_qterms_kernel): an entry is ||res_m - cb_j||^2
+//   = r2 + 2 c_m . cb_j + (c2 - 2 q_m . cb_j), and its last share depends
+//   on the query alone. A pair's tables built from its residual cost a
+//   dsub-long FMA chain an entry, yet each query appears in P pairs and each
+//   list in several: at the benchmark's cell (B 256, P 64, M 64, dsub 12)
+//   3.2 G FMA a batch. So the query's share is computed once a query, [B, M,
+//   256] f32 (16.8 MB at B 256, 50 M FMA), and the list's once a CTA and
+//   subspace; a pair's entry is then a read of its query term, one FMA and
+//   one add.
 //   Pass 0 (nvdb::group_pairs_kernel, group_pairs.cuh, shared with
 //   ivf_probe_topk.cu): the pairs are grouped by list into items of at
 //   most nq pairs, the longest lists first; pass 1's grid is sized from
 //   shapes and nothing is read back to the host.
 //   Pass 1 (adc_fused_kernel<DSUB, NQ>): one CTA of 256 threads per (item,
-//   tile of 1024 lanes of its list). It stages each pair's residual (one
-//   rounded subtraction a coordinate) and its squared norm per subspace in
-//   shared memory, a subspace's slices of the pairs side by side, then walks
-//   the subspaces in order. At step m, thread j builds entry j of subspace
-//   m + 2's table of each pair from codeword j (registers, loaded two steps
-//   ahead) into one of four buffers [256][nq] bf16 (a codeword's entries of
-//   the pairs side by side), while subspace m's are looked up: each lane's
-//   code byte (a ring of code rows in shared memory, each copied 14
-//   subspaces ahead by cp.async) is read once, and one 16-byte load fetches
-//   its entries for eight pairs, added in f32 to per-(pair, lane)
-//   accumulators in registers. A buffer is read two steps after it is
-//   written, so one barrier serves two steps. A subspace's 8 KB codebook
-//   slice is read once for the item's nq pairs, and a lane's code once for
-//   them. A thread owns lanes t, t + 256, ..., which spreads a list's ragged
+//   tile of 768 lanes of its list). It computes each pair's residual's
+//   squared norm per subspace (one rounded subtraction a coordinate, then
+//   the chain) into shared memory, then walks the subspaces in order. At
+//   step m, subspace m's tables are looked up: each lane's code byte is
+//   read once, and one 16-byte load fetches its entries for eight pairs,
+//   added in f32 to per-(pair, lane) accumulators in registers. Then thread
+//   j builds entry j of subspace m + 2's table of each pair into one of four
+//   buffers [256][nq] bf16 (a codeword's entries of the pairs side by side):
+//   the list term of codeword j (its codeword in registers, loaded a step
+//   ahead, against the centroid's slice), then for each pair its query
+//   term, its r2, one FMA and one add. Code rows come by cp.async through a
+//   ring of 16 in shared memory, each copied 14 subspaces before its
+//   lookups; the pairs' query-term rows (1 KB each) and the centroid's
+//   slice by bulk copies (warp 0 issues them) through a ring of 4, each
+//   counted on its slot's mbarrier and copied two steps before its build
+//   (one pair: into registers with the codeword, see below). A
+//   buffer is read two steps after it is written, so one barrier serves two
+//   steps. A subspace's codebook slice is read once for the item's nq
+//   pairs, and a lane's code once for them. A thread owns lanes t, t + 256
+//   and t + 512, which spreads a list's ragged
 //   end over all warps. Then each pair keys its live lanes as the key mode
 //   does (mono16 of the truncated score << 16 | lane). A tile with more live
 //   lanes than kk selects each pair's kk best keys by a radix select, eight
@@ -155,11 +172,25 @@
 //   keys at or above the largest partial's kk-th key, and dropping the
 //   copies of an id that several lists or tiles hold where the index may
 //   hold an id twice.
-//   What bounds it on an H100: operations. The tables are ~6.4 GFLOP of f32
-//   FMA at the flagship (dsub products, the norms and the combination for
-//   every entry of every live pair), 0.1 ms at 67 TFLOP/s, against ~30 MB
-//   of distinct codes, queries, centroids and codebooks; beside them come
-//   the ~0.8 G lookups into shared memory, which have no data-sheet rate.
+//   What bounds it on an H100. The operations it performs are ~2.4 GFLOP at
+//   the benchmark's cell (a query term once a query, a list term once a CTA,
+//   one FMA and one add a pair and entry, an add a lookup), 0.04 ms at 67
+//   TFLOP/s, against ~20 MB of distinct codes, queries, centroids and
+//   codebooks. The time goes to latency and traffic the data sheet gives no
+//   rate for (portbench/adc_cell.py splits it): the query terms (1.07 GB
+//   a batch from L2, 4 bytes a pair and entry) and codebook slices (2 GB
+//   from L2, 12 KB a CTA and subspace) that each step waits on, the
+//   shared-memory traffic of the builds and lookups, and the selection. The
+//   CTA of 8 pairs is held to 80 registers (three a SM): three lane slots a
+//   thread and one register codeword keep its selection free of spills,
+//   which cost more than the deeper codeword prefetch they would buy.
+//   A CTA of one pair (batches below 32 queries) is often alone on its SM,
+//   and there each step waited out the latency of its bulk copies and their
+//   mbarrier (an H100 at M 64, dsub 12, P 64: a call of one query 0.073 ms,
+//   0.054 ms when each pair built its tables from its residual). So it
+//   takes its query term and the centroid's slice into registers with its
+//   codeword, a step ahead, and keeps no query-term ring (0.049 ms; a call
+//   of 8 queries 0.084 ms, against 0.098 with the ring).
 //   The chunk width nq is the wrapper's plan (the widest that fits shared
 //   memory, at most the chosen maximum; chip_smoke.py phase 9 sweeps it):
 //   wider chunks read the codebooks fewer times but keep more accumulators,
@@ -168,7 +199,8 @@
 // NVDB_ADC_ABLATE (measurement builds of tools.adc_breakdown and
 // chip_smoke.py phase 9, wrong by design): 1 stages every step and scores
 // nothing; 2 also looks up and sums every slot but keeps no candidate; 3:
-// the fused scans stage and build their tables and look nothing up; 4:
+// the fused scans compute their query terms, stage and build their tables
+// and look nothing up; 4:
 // they also look up and sum, but select and write no candidate; 5: they run
 // passes 0 and 1 and no merge.
 
@@ -914,23 +946,38 @@ int launch_partial(const void* lut, const void* probes, const void* codes, const
 
 constexpr int FT = 256;                  // threads of a fused CTA: thread j builds codeword j
 constexpr int FW = FT / 32;
-constexpr int F_LPT = 4;                 // lanes of a tile a thread owns: t, t + FT, ...
+constexpr int F_LPT = 3;                 // lanes of a tile a thread owns: t, t + FT, t + 2 FT
 constexpr int F_TILE = FT * F_LPT;       // lanes a CTA takes: a list's tiles are CTAs
 constexpr int F_RING = 16;               // code rows a CTA holds: a row's copy starts 14
                                          // subspaces before it is read
-constexpr int F_CTAS = 3;                // CTAs a SM the instances of up to 8 pairs are built
-                                         // for: 80 registers a thread, no spill at dsub 8
+constexpr int F_QRING = 4;               // subspaces of query-term rows and centroid slices
+                                         // a CTA of several pairs holds: copied 2 steps
+                                         // before their build (one pair: registers)
+constexpr int F_CSLICE = 16;             // floats a centroid slice takes in its ring
+constexpr int F_CTAS = 3;                // CTAs a SM the instances of 4 or 8 pairs are built
+                                         // for: 80 registers a thread, no spill at dsub 12;
+                                         // 4 for one pair (64 registers: a batch of 8
+                                         // queries' 512 one-pair CTAs runs in one wave)
 constexpr int F_MAX_DEVICES = 64;        // the per-device cache of launch_fused
 constexpr int F_STATIC_SMEM = 1024;      // room the plan leaves for the static shared memory
 static_assert(FT == 256, "one thread a codeword of a subspace");
 
-// Dynamic shared memory of a fused CTA of nq pairs: the residuals [nq][M *
-// dsub] f32, their squared norms r2 [nq][M] f32, four table buffers
-// [4][256][nq] bf16 (which the selection reuses as histograms [nq][256]
-// int) and a ring of code rows [F_RING][F_TILE] u8.
-__host__ __device__ inline size_t fused_smem_bytes(int nq, int M, int dsub) {
-  return (size_t)nq * ((size_t)M * dsub * 4 + (size_t)M * 4 + 4 * 256 * 2) +
-         (size_t)F_RING * F_TILE;
+static_assert(F_RING >= 4 && F_QRING >= 3, "a ring slot is refilled two steps after it is read");
+
+// The query-term ring's depth of a CTA of nq pairs: none for one pair, whose
+// query terms and centroid slices come to registers with its codewords.
+__host__ __device__ constexpr int f_qring(int nq) { return nq == 1 ? 0 : F_QRING; }
+static_assert(F_RING * F_TILE >= F_TILE * 8, "the dma mode's repeated-id groups fit the code ring");
+
+// Dynamic shared memory of a fused CTA of nq pairs: a ring of the pairs'
+// query-term rows [f_qring(nq)][nq][256] f32 and one of the list's centroid
+// slices [f_qring(nq)][F_CSLICE] f32, a ring of code rows [F_RING][F_TILE] u8,
+// four table buffers [4][256][nq] bf16 (which the selection reuses as
+// histograms [nq][256] int) and the residuals' squared norms r2 [M][nq] f32.
+__host__ __device__ inline size_t fused_smem_bytes(int nq, int M) {
+  const int qr = f_qring(nq);
+  return (size_t)nq * ((size_t)qr * 256 * 4 + 4 * 256 * 2 + (size_t)M * 4) +
+         (size_t)qr * F_CSLICE * 4 + (size_t)F_RING * F_TILE;
 }
 
 // One asynchronous 4-byte copy global -> shared (cp.async); of `bytes` (0
@@ -951,35 +998,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// DSUB floats from p (16-byte aligned where DSUB % 4 == 0) into registers.
-template <int DSUB>
-__device__ __forceinline__ void load_slice(float (&x)[DSUB], const float* p) {
-  if constexpr (DSUB % 4 == 0) {
-#pragma unroll
-    for (int d4 = 0; d4 < DSUB / 4; ++d4) {
-      const float4 v = reinterpret_cast<const float4*>(p)[d4];
-      x[4 * d4] = v.x;
-      x[4 * d4 + 1] = v.y;
-      x[4 * d4 + 2] = v.z;
-      x[4 * d4 + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int d = 0; d < DSUB; ++d) x[d] = p[d];
-  }
-}
-
 // Subspace m's table entries of the CTA's pairs i0 .. i0 + K - 1 into tab
 // [256][NQ] (a codeword's entries of the pairs side by side): thread j
-// writes them to row j, codeword j being w (registers for a fixed dsub, the
-// codebook itself for DSUB 0) with squared norm c2; the K entries are
-// independent chains, so they overlap. xs: the pairs' residual slices of
-// subspace m, [NQ][dsub] from pair i0 on; r2: their squared norms, [NQ].
-// The arithmetic of adc_tables.cu, from adc_table_math.cuh.
-template <int DSUB, int NQ, int K>
-__device__ __forceinline__ void fused_tables(unsigned short* tab, const float* xs,
-                                             const float* r2, const float* w, float c2, int i0,
-                                             int dsub) {
+// writes them to row j, from the pairs' query terms of codeword j (qt
+// [NQ][256], the pairs' rows of subspace m), their residuals' squared norms
+// (r2 [NQ], from pair i0 on) and its list term ldot; one FMA and one add an
+// entry (adc_table_math.cuh, the table kernel's arithmetic).
+template <int NQ, int K>
+__device__ __forceinline__ void fused_tables(unsigned short* tab, const float* qt,
+                                             const float* r2, float ldot, int i0) {
   float v[K];
   float r2v[K];
   if constexpr (K == 4) {
@@ -992,17 +1019,9 @@ __device__ __forceinline__ void fused_tables(unsigned short* tab, const float* x
 #pragma unroll
     for (int u = 0; u < K; ++u) r2v[u] = r2[u];
   }
-  if constexpr (DSUB > 0) {
-    float x[K][DSUB];
 #pragma unroll
-    for (int u = 0; u < K; ++u) load_slice<DSUB>(x[u], xs + u * DSUB);
-#pragma unroll
-    for (int u = 0; u < K; ++u) v[u] = nvdb::adc_entry(r2v[u], nvdb::fma_chain<DSUB>(x[u], w), c2);
-  } else {
-#pragma unroll
-    for (int u = 0; u < K; ++u)
-      v[u] = nvdb::adc_entry(r2v[u], nvdb::fma_chain_n(xs + u * dsub, w, dsub), c2);
-  }
+  for (int u = 0; u < K; ++u)
+    v[u] = nvdb::adc_entry(r2v[u], ldot, qt[(i0 + u) * 256 + threadIdx.x]);
   unsigned short* row = tab + threadIdx.x * NQ + i0;
   if constexpr (K == 4) {
     *reinterpret_cast<uint2*>(row) =
@@ -1047,23 +1066,30 @@ __device__ __forceinline__ void fused_lookup(float (&acc)[NQ][F_LPT], const unsi
 }
 
 // Pass 1 of the fused scans: one CTA per (item, lane tile). MODE KEY (the
-// fused key scan) or DMA (the fused dma scan); DSUB 0: any dsub. dma:
-// slot_ids gives the live lanes and the candidates' ids; leads (or null) the
-// first lane of the tile that holds a lane's id when the tile holds it more
-// than once, else -1 (adc_scan.tile_leads).
+// fused key scan) or DMA (the fused dma scan); DSUB 0: any dsub. qterms: the
+// query-term pass's [B, M, 256]. dma: slot_ids gives the live lanes and the
+// candidates' ids; leads (or null) the first lane of the tile that holds a
+// lane's id when the tile holds it more than once, else -1
+// (adc_scan.tile_leads).
 template <int MODE, int DSUB, int NQ>
-__global__ void __launch_bounds__(FT, NQ <= 8 ? F_CTAS : NQ <= 16 ? 2 : 1)
-adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cents,
-                 const float* __restrict__ cb, const uint8_t* __restrict__ codes,
-                 const int* __restrict__ slot_ids, const int* __restrict__ leads,
-                 const int* __restrict__ fills, const int* __restrict__ order,
-                 const int4* __restrict__ items, const int* __restrict__ n_items,
-                 typename KeyOf<MODE>::T* __restrict__ part_keys,
+__global__ void __launch_bounds__(FT, NQ == 1 ? 4 : NQ <= 8 ? F_CTAS : NQ <= 16 ? 2 : 1)
+adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ qterms,
+                 const float* __restrict__ cents, const float* __restrict__ cb,
+                 const uint8_t* __restrict__ codes, const int* __restrict__ slot_ids,
+                 const int* __restrict__ leads, const int* __restrict__ fills,
+                 const int* __restrict__ order, const int4* __restrict__ items,
+                 const int* __restrict__ n_items, typename KeyOf<MODE>::T* __restrict__ part_keys,
                  typename KeyOf<MODE>::T* __restrict__ part_thr, int P, int Dp, int M,
                  int dsub_any, int Lcap, int kk) {
   using K = typename KeyOf<MODE>::T;
   static_assert(MODE != DMA || NQ * F_LPT <= 32, "one bit a (pair, lane) of a dma tile");
   constexpr int DS = DSUB > 0 ? DSUB : 1;   // the register codeword of a fixed dsub
+  static_assert(DSUB <= F_CSLICE, "a centroid slice fits its ring slot");
+  // one pair: its query terms and centroid slices come to registers with
+  // the codewords, a step ahead, and no bulk copy or mbarrier wait paces the
+  // steps (with a CTA a SM, their latency was the step's)
+  constexpr bool REG = NQ == 1;
+  constexpr int QR = f_qring(NQ);
   const int dsub = DSUB > 0 ? DSUB : dsub_any;
   if ((int)blockIdx.x >= *n_items) return;   // the grid holds the most items there can be
   const int4 item = items[blockIdx.x];
@@ -1071,29 +1097,17 @@ adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cent
   const int l0 = blockIdx.y * F_TILE, l1 = min(min(fills[lst], Lcap), l0 + F_TILE);
   if (l0 >= l1) return;                      // the list ends before this tile
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int Md = M * dsub;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* res = reinterpret_cast<float*>(smem);                              // [M][NQ][dsub]
-  float* r2s = res + (size_t)NQ * Md;                                       // [M][NQ]
-  unsigned short* tabs = reinterpret_cast<unsigned short*>(r2s + NQ * M);  // [4][256][NQ]
-  int* hist = reinterpret_cast<int*>(tabs);                                 // [NQ][256]
-  unsigned char* crow = reinterpret_cast<unsigned char*>(tabs + 4 * NQ * 256);
-  // code rows: thread t copies lanes l0 + 4 t .. l0 + 4 t + 3 of each (a
-  // whole tile between the threads), one copy group a row; a row's copy
-  // starts F_RING - 2 subspaces before it is read
-  const bool copies = l0 + 4 * tid < Lcap;
-  const uint8_t* csrc = codes + (size_t)lst * M * Lcap + l0 + 4 * tid;
-  const uint32_t cdst = smem_u32(crow) + 4 * tid;
-  auto copy_row = [&](int m) {
-    if (m < M)
-      cp_async4(cdst + (m % F_RING) * F_TILE, copies ? csrc + (size_t)m * Lcap : codes,
-                copies ? 4 : 0);
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int m = 0; m < F_RING - 2; ++m) copy_row(m);
+  float* qring = reinterpret_cast<float*>(smem);                    // [QR][NQ][256]
+  float* cring = qring + QR * NQ * 256;                             // [QR][F_CSLICE]
+  unsigned char* crow = reinterpret_cast<unsigned char*>(cring + QR * F_CSLICE);
+  unsigned short* tabs = reinterpret_cast<unsigned short*>(crow + F_RING * F_TILE);  // [4][256][NQ]
+  int* hist = reinterpret_cast<int*>(tabs);                         // [NQ][256]
+  float* r2s = reinterpret_cast<float*>(tabs + 4 * NQ * 256);       // [M][NQ]
+  __shared__ __align__(8) unsigned long long qfull[F_QRING];  // a query-term slot's bytes landed
   __shared__ int pair_of[NQ];
+  __shared__ int query_of[NQ];
   __shared__ unsigned sel_prefix[NQ];   // the kk-th key's bits of the word walked, found so far
   __shared__ unsigned sel_hi[NQ];       // dma: the kk-th key's score word, once walked
   __shared__ int sel_need[NQ];          // keys still to take under that prefix
@@ -1102,31 +1116,64 @@ adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cent
 
   if (tid < NQ) {
     pair_of[tid] = tid < nq ? order[start + tid] : 0;
+    query_of[tid] = pair_of[tid] / P;
     sel_prefix[tid] = 0u;
     sel_hi[tid] = 0u;
     sel_need[tid] = kk;
     sel_done[tid] = tid < nq ? 0 : 1;
     sel_count[tid] = 0;
   }
-  __syncthreads();
-  // each pair's residual, one rounded subtraction a coordinate, then its
-  // squared norm per subspace; a subspace's slices of the pairs side by side
-  const float* cl = cents + (size_t)lst * Dp;
-  for (int i = 0; i < nq; ++i) {
-    const float* qb = q_rot + (size_t)(pair_of[i] / P) * Dp;
-    for (int c = tid; c < Md; c += FT)
-      res[((size_t)(c / dsub) * NQ + i) * dsub + c % dsub] = __fsub_rn(qb[c], cl[c]);
+  if (tid == 0) {
+    for (int k = 0; k < QR; ++k) mbar_init(smem_u32(&qfull[k]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // code rows: thread t < F_TILE / 4 copies lanes l0 + 4 t .. l0 + 4 t + 3
+  // of each (a whole tile between them), one copy group a row; a row's copy
+  // starts F_RING - 2 subspaces before it is read
+  const bool copier = 4 * tid < F_TILE;          // the threads a row needs
+  const bool copies = l0 + 4 * tid < Lcap;
+  const uint8_t* csrc = codes + (size_t)lst * M * Lcap + l0 + 4 * tid;
+  const uint32_t cdst = smem_u32(crow) + 4 * tid;
+  auto copy_row = [&](int m) {
+    if (m < M && copier)
+      cp_async4(cdst + (m % F_RING) * F_TILE, copies ? csrc + (size_t)m * Lcap : codes,
+                copies ? 4 : 0);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int m = 0; m < F_RING - 2; ++m) copy_row(m);
   __syncthreads();
+  // the pairs' query-term rows of subspace m (1 KB each) and the list's
+  // centroid slice, by bulk copies warp 0 issues, counted on the slot's
+  // mbarrier; subspace m is copied at step m - QR (the first QR
+  // here), into the slot the build of subspace m - QR freed
+  const float* cl = cents + (size_t)lst * Dp;
+  static_assert(DSUB % 4 == 0, "a fixed dsub's slices are 16-byte copies");
+  auto copy_qterms = [&](int m) {
+    if constexpr (!REG) {
+      if (warp != 0 || m >= M) return;
+      const int slot = m % QR;
+      const uint32_t bar = smem_u32(&qfull[slot]);
+      if (lane == 0) mbar_expect_tx(bar, (uint32_t)nq * 1024u + DSUB * 4u);
+      __syncwarp();
+      const uint32_t dst = smem_u32(qring + slot * NQ * 256);
+      for (int i = lane; i < nq; i += 32)
+        bulk_load(dst + i * 1024, qterms + ((size_t)query_of[i] * M + m) * 256, 1024u, bar);
+      if (DSUB > 0 && lane == 31)
+        bulk_load(smem_u32(cring + slot * F_CSLICE), cl + m * DSUB, DSUB * 4u, bar);
+    }
+  };
+  for (int m = 0; m < QR; ++m) copy_qterms(m);
+  // each pair's residual's squared norm per subspace (one rounded
+  // subtraction a coordinate, then the chain), the pairs of a subspace side
+  // by side
   for (int x = tid; x < nq * M; x += FT) {
     const int m = x / nq, i = x - m * nq;
-    const float* r = res + ((size_t)m * NQ + i) * dsub;
+    const float* q = q_rot + (size_t)query_of[i] * Dp + m * dsub;
     if constexpr (DSUB > 0) {
-      float v[DSUB];
-      load_slice<DSUB>(v, r);
-      r2s[m * NQ + i] = nvdb::fma_chain<DSUB>(v, v);
+      r2s[m * NQ + i] = nvdb::residual_norm2<DSUB>(q, cl + m * dsub);
     } else {
-      r2s[m * NQ + i] = nvdb::fma_chain_n(r, r, dsub);
+      r2s[m * NQ + i] = nvdb::residual_norm2_n(q, cl + m * dsub, dsub);
     }
   }
 
@@ -1149,59 +1196,80 @@ adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cent
 #pragma unroll
     for (int r = 0; r < F_LPT; ++r) acc[i][r] = 0.f;
 
-  // codeword j of subspace m: registers (fixed dsub; two sets, for even and
-  // odd subspaces, each loaded two subspaces before its build) or the
-  // codebook row
-  float w_even[DS], w_odd[DS];
-  auto load_codeword = [&](int m, float (&w)[DS]) {
+  // codeword j of subspace m: registers (fixed dsub; loaded a step before
+  // its build, in place of the codeword the build of that step used) or the
+  // codebook row; one pair: with the centroid's slice and the pair's query
+  // term of codeword j
+  struct Operands {
+    float w[DS];                         // codeword j
+    float c[REG && DSUB > 0 ? DS : 1];   // one pair: the centroid's slice
+    float q;                             // one pair: its query term of codeword j
+  };
+  Operands op;
+  auto load_codeword = [&](int m) {
+    if (m >= M) return;
     if constexpr (DSUB > 0) {
-      const float* src = cb + ((size_t)m * 256 + tid) * DSUB;
-      if constexpr (DSUB % 4 == 0) {
+      const float4* src = reinterpret_cast<const float4*>(cb + ((size_t)m * 256 + tid) * DSUB);
+#pragma unroll
+      for (int d4 = 0; d4 < DSUB / 4; ++d4) {
+        const float4 v = __ldg(src + d4);
+        op.w[4 * d4] = v.x;
+        op.w[4 * d4 + 1] = v.y;
+        op.w[4 * d4 + 2] = v.z;
+        op.w[4 * d4 + 3] = v.w;
+      }
+      if constexpr (REG) {
+        const float4* cs = reinterpret_cast<const float4*>(cl + m * DSUB);
 #pragma unroll
         for (int d4 = 0; d4 < DSUB / 4; ++d4) {
-          const float4 v = __ldg(reinterpret_cast<const float4*>(src) + d4);
-          w[4 * d4] = v.x;
-          w[4 * d4 + 1] = v.y;
-          w[4 * d4 + 2] = v.z;
-          w[4 * d4 + 3] = v.w;
+          const float4 v = __ldg(cs + d4);
+          op.c[4 * d4] = v.x;
+          op.c[4 * d4 + 1] = v.y;
+          op.c[4 * d4 + 2] = v.z;
+          op.c[4 * d4 + 3] = v.w;
         }
-      } else {
-#pragma unroll
-        for (int d = 0; d < DSUB; ++d) w[d] = __ldg(src + d);
       }
     }
+    if constexpr (REG) op.q = __ldg(qterms + ((size_t)query_of[0] * M + m) * 256 + tid);
   };
-  auto build = [&](int m, const float (&w)[DS]) {
+  // subspace m's tables, once its query-term rows have landed (one pair:
+  // from registers): the list term of codeword j (the centroid's slice
+  // against the codeword), then each pair's entries from its query terms
+  auto build = [&](int m) {
     unsigned short* tab = tabs + (m & 3) * NQ * 256;
-    const float* wp = w;
-    float c2;
-    if constexpr (DSUB > 0) {
-      c2 = nvdb::fma_chain<DSUB>(w, w);
+    if constexpr (REG) {
+      float ldot;
+      if constexpr (DSUB > 0) {
+        ldot = nvdb::fma_chain<DSUB>(op.c, op.w);
+      } else {
+        ldot = nvdb::fma_chain_n(cl + m * dsub, cb + ((size_t)m * 256 + tid) * dsub, dsub);
+      }
+      tab[tid] = nvdb::bf16_bits(nvdb::adc_entry(r2s[m], ldot, op.q));
     } else {
-      wp = cb + ((size_t)m * 256 + tid) * dsub;
-      c2 = nvdb::fma_chain_n(wp, wp, dsub);
+      const int slot = m % QR;
+      mbar_wait(smem_u32(&qfull[slot]), (uint32_t)((m / QR) & 1));
+      float ldot;
+      if constexpr (DSUB > 0) {
+        ldot = nvdb::fma_chain<DSUB>(cring + slot * F_CSLICE, op.w);
+      } else {
+        ldot = nvdb::fma_chain_n(cl + m * dsub, cb + ((size_t)m * 256 + tid) * dsub, dsub);
+      }
+      const float* qt = qring + slot * NQ * 256;
+      const float* r2 = r2s + m * NQ;
+      int i = 0;
+      if constexpr (NQ >= 4) {
+        for (; i + 4 <= nq; i += 4) fused_tables<NQ, 4>(tab, qt, r2 + i, ldot, i);
+      }
+      for (; i < nq; ++i) fused_tables<NQ, 1>(tab, qt, r2 + i, ldot, i);
     }
-    const float* xs = res + (size_t)m * NQ * dsub;
-    const float* r2 = r2s + m * NQ;
-    int i = 0;
-    if constexpr (NQ >= 4) {
-      for (; i + 4 <= nq; i += 4)
-        fused_tables<DSUB, NQ, 4>(tab, xs + i * dsub, r2 + i, wp, c2, i, dsub);
-    }
-    for (; i < nq; ++i) fused_tables<DSUB, NQ, 1>(tab, xs + i * dsub, r2 + i, wp, c2, i, dsub);
   };
   // step m: builds m + 2's tables while m's are looked up, each lane's code
   // read once for the nq pairs; a barrier every second step suffices (a
   // table buffer is read two steps after it is written and written two
-  // steps after it is read; a code row's slot is refilled two steps after
-  // it is read, and each thread's copies of the rows of the next two steps
-  // have landed before the barrier)
-  auto step = [&](int m, float (&w)[DS]) {
-    copy_row(m + F_RING - 2);
-    if (m + 2 < M) {
-      build(m + 2, w);
-      if (m + 4 < M) load_codeword(m + 4, w);
-    }
+  // steps after it is read; a code-row slot is refilled two steps after it
+  // is read, a query-term slot two steps after its build, and each thread's
+  // copies of the next two steps' code rows have landed before the barrier)
+  auto lookups = [&](int m) {
 #if NVDB_ADC_ABLATE != 3
     uint32_t cur[F_LPT] = {};
     const unsigned char* row = crow + (m % F_RING) * F_TILE + tid;
@@ -1238,25 +1306,30 @@ adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cent
       fused_lookup<NQ, 1>(acc, ta, cur, live, i0, n_slots);
     }
 #endif
+  };
+  auto step = [&](int m) {
+    copy_row(m + F_RING - 2);
+    copy_qterms(m + QR);
+    lookups(m);
+    if (m + 2 < M) {
+      build(m + 2);
+      load_codeword(m + 3);
+    }
     if (m & 1) {
       cp_async_wait<F_RING - 4>();
       __syncthreads();
     }
   };
-  load_codeword(0, w_even);
-  if (M > 1) load_codeword(1, w_odd);
+  load_codeword(0);
   __syncthreads();   // the residuals' norms are written
-  build(0, w_even);
-  if (M > 1) build(1, w_odd);
-  if (M > 2) load_codeword(2, w_even);
-  if (M > 3) load_codeword(3, w_odd);
-  cp_async_wait<F_RING - 4>();   // this thread's copies of rows 0 and 1 have landed
+  build(0);
+  load_codeword(1);
+  if (M > 1) build(1);
+  load_codeword(2);
+  cp_async_wait<F_RING - 4>();   // this thread's copies of the first two groups have landed
   __syncthreads();
   // subspace by subspace, in order, through four table buffers
-  for (int m = 0; m < M; m += 2) {
-    step(m, w_even);
-    if (m + 1 < M) step(m + 1, w_odd);
-  }
+  for (int m = 0; m < M; ++m) step(m);
   cp_async_wait<0>();
   __syncthreads();   // every lookup is done: the buffers become histograms
 
@@ -1311,7 +1384,6 @@ adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cent
       any = any || lead[r] >= 0;
     }
     if (__syncthreads_or(any)) {
-      static_assert(F_TILE * 8 <= F_RING * F_TILE, "a group's best score word and first lane");
       unsigned* best = reinterpret_cast<unsigned*>(crow);
       int* first = reinterpret_cast<int*>(best + F_TILE);
 #pragma unroll
@@ -1489,7 +1561,8 @@ adc_fused_kernel(const float* __restrict__ q_rot, const float* __restrict__ cent
 }
 
 template <int MODE, int DSUB, int NQ>
-cudaError_t launch_fused(const float* q, const float* ce, const float* cb, const uint8_t* codes,
+cudaError_t launch_fused(const float* q, const float* qt, const float* ce, const float* cb,
+                         const uint8_t* codes,
                          const int* sids, const int* leads, const int* fills, const int* order,
                          const int4* items, const int* n_items, void* part, void* thr, int P,
                          int Dp, int M, int dsub, int Lcap, int kk, int U, int T, int dev,
@@ -1498,7 +1571,7 @@ cudaError_t launch_fused(const float* q, const float* ce, const float* cb, const
   // the instance's shared-memory allowance, raised on a device only when a
   // call needs more than it was last given there (host time per call)
   static size_t allowed[F_MAX_DEVICES] = {};
-  const size_t smem = fused_smem_bytes(NQ, M, dsub);
+  const size_t smem = fused_smem_bytes(NQ, M);
   if (dev >= F_MAX_DEVICES || smem > allowed[dev]) {
     cudaError_t e = cudaFuncSetAttribute(adc_fused_kernel<MODE, DSUB, NQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1506,7 +1579,7 @@ cudaError_t launch_fused(const float* q, const float* ce, const float* cb, const
     if (dev < F_MAX_DEVICES) allowed[dev] = smem;
   }
   adc_fused_kernel<MODE, DSUB, NQ><<<dim3(U, T), FT, smem, st>>>(
-      q, ce, cb, codes, sids, leads, fills, order, items, n_items, static_cast<K*>(part),
+      q, qt, ce, cb, codes, sids, leads, fills, order, items, n_items, static_cast<K*>(part),
       static_cast<K*>(thr), P, Dp, M, dsub, Lcap, kk);
   return cudaGetLastError();
 }
@@ -1517,13 +1590,14 @@ cudaError_t launch_fused(const float* q, const float* ce, const float* cb, const
 constexpr int F_DMA_NQ_MAX = 8;
 
 template <int MODE, int DSUB>
-cudaError_t launch_fused_nq(int nq, const float* q, const float* ce, const float* cb,
+cudaError_t launch_fused_nq(int nq, const float* q, const float* qt, const float* ce,
+                            const float* cb,
                             const uint8_t* codes, const int* sids, const int* leads,
                             const int* fills, const int* order, const int4* items,
                             const int* n_items, void* part, void* thr, int P, int Dp, int M,
                             int dsub, int Lcap, int kk, int U, int T, int dev, cudaStream_t st) {
-#define NVDB_FUSED_ARGS q, ce, cb, codes, sids, leads, fills, order, items, n_items, part, thr, P, \
-                        Dp, M, dsub, Lcap, kk, U, T, dev, st
+#define NVDB_FUSED_ARGS q, qt, ce, cb, codes, sids, leads, fills, order, items, n_items, part, \
+                        thr, P, Dp, M, dsub, Lcap, kk, U, T, dev, st
   switch (nq) {
     case 1: return launch_fused<MODE, DSUB, 1>(NVDB_FUSED_ARGS);
     case 4: return launch_fused<MODE, DSUB, 4>(NVDB_FUSED_ARGS);
@@ -1539,6 +1613,64 @@ cudaError_t launch_fused_nq(int nq, const float* q, const float* ce, const float
   }
 #undef NVDB_FUSED_ARGS
   return cudaErrorInvalidValue;
+}
+
+// The query-term pass: qterms[b, m, j] = c2 - 2 q_m . cb[m, j]
+// (adc_table_math.cuh's adc_qterm) for every query b, subspace m and
+// codeword j, which the fused scans read in place of building each pair's
+// query share themselves. One CTA per (subspace, QT_QUERIES queries): thread
+// j keeps codeword j in registers (fixed dsub) and its squared norm, reads
+// each query's slice (the same address in every thread) and writes one f32,
+// a warp's 32 side by side.
+constexpr int QT_QUERIES = 16;
+
+template <int DSUB>
+__global__ void __launch_bounds__(256)
+adc_qterms_kernel(const float* __restrict__ q_rot, const float* __restrict__ cb,
+                  float* __restrict__ qterms, int B, int Dp, int M, int dsub_any) {
+  constexpr int DS = DSUB > 0 ? DSUB : 1;
+  const int dsub = DSUB > 0 ? DSUB : dsub_any;
+  const int m = blockIdx.x, j = threadIdx.x;
+  const float* wp = cb + ((size_t)m * 256 + j) * dsub;
+  float w[DS];
+  float c2;
+  if constexpr (DSUB > 0) {
+#pragma unroll
+    for (int d = 0; d < DSUB; ++d) w[d] = __ldg(wp + d);
+    c2 = nvdb::fma_chain<DSUB>(w, w);
+  } else {
+    c2 = nvdb::fma_chain_n(wp, wp, dsub);
+  }
+  for (int b0 = blockIdx.y * QT_QUERIES; b0 < B; b0 += gridDim.y * QT_QUERIES) {
+    const int b1 = min(B, b0 + QT_QUERIES);
+    for (int b = b0; b < b1; ++b) {
+      const float* qm = q_rot + (size_t)b * Dp + m * dsub;
+      float qdot;
+      if constexpr (DSUB > 0) {
+        float x[DSUB];
+#pragma unroll
+        for (int d = 0; d < DSUB; ++d) x[d] = __ldg(qm + d);
+        qdot = nvdb::fma_chain<DSUB>(x, w);
+      } else {
+        qdot = nvdb::fma_chain_n(qm, wp, dsub);
+      }
+      qterms[((size_t)b * M + m) * 256 + j] = nvdb::adc_qterm(qdot, c2);
+    }
+  }
+}
+
+cudaError_t launch_qterms(const float* q, const float* cb, float* qt, int B, int Dp, int M,
+                          int dsub, cudaStream_t st) {
+  const int groups = (B + QT_QUERIES - 1) / QT_QUERIES;
+  const dim3 grid(M, groups < 65535 ? groups : 65535);
+  switch (dsub) {
+    case 4: adc_qterms_kernel<4><<<grid, 256, 0, st>>>(q, cb, qt, B, Dp, M, dsub); break;
+    case 8: adc_qterms_kernel<8><<<grid, 256, 0, st>>>(q, cb, qt, B, Dp, M, dsub); break;
+    case 12: adc_qterms_kernel<12><<<grid, 256, 0, st>>>(q, cb, qt, B, Dp, M, dsub); break;
+    case 16: adc_qterms_kernel<16><<<grid, 256, 0, st>>>(q, cb, qt, B, Dp, M, dsub); break;
+    default: adc_qterms_kernel<0><<<grid, 256, 0, st>>>(q, cb, qt, B, Dp, M, dsub); break;
+  }
+  return cudaGetLastError();
 }
 
 // The chunk widths the fused scan is built for, the widest first.
@@ -1589,11 +1721,11 @@ extern "C" int nvdb_adc_topk_keys(const void* lut, const void* probes, const voi
 }
 
 // The fused key scan's chunk width: the widest of 32, 16, 8, 4, 1 queries
-// at most nq_max whose CTA fits the device's shared memory at M subspaces
-// of dsub. Returns a cudaError_t; cudaErrorInvalidConfiguration where not
-// even one query fits.
-extern "C" int nvdb_adc_fused_plan(int M, int dsub, int nq_max, int* nq) {
-  if (M < 1 || dsub < 1 || nq_max < 1) return (int)cudaErrorInvalidValue;
+// at most nq_max whose CTA fits the device's shared memory at M subspaces.
+// Returns a cudaError_t; cudaErrorInvalidConfiguration where not even one
+// query fits.
+extern "C" int nvdb_adc_fused_plan(int M, int nq_max, int* nq) {
+  if (M < 1 || nq_max < 1) return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -1601,7 +1733,7 @@ extern "C" int nvdb_adc_fused_plan(int M, int dsub, int nq_max, int* nq) {
   if (e != cudaSuccess) return (int)e;
   for (int w : F_WIDTHS) {
     if (w > nq_max) continue;
-    if (fused_smem_bytes(w, M, dsub) + F_STATIC_SMEM <= (size_t)optin) {
+    if (fused_smem_bytes(w, M) + F_STATIC_SMEM <= (size_t)optin) {
       *nq = w;
       return 0;
     }
@@ -1611,12 +1743,13 @@ extern "C" int nvdb_adc_fused_plan(int M, int dsub, int nq_max, int* nq) {
 
 namespace {
 
-// The fused scans' passes on `st` (the entries below): pass 0, pass 1 of
-// the mode, then its merge.
+// The fused scans' passes on `st` (the entries below): the query terms,
+// pass 0, pass 1 of the mode, then its merge.
 template <int MODE>
 int fused_entry(const void* q_rot, const void* probes, const void* centroids,
                 const void* codebooks, const void* codes, const void* slot_ids,
-                const void* leads, const void* fills, void* iscratch, void* part_keys,
+                const void* leads, const void* fills, void* iscratch, void* qterms,
+                void* part_keys,
                 void* out_vals, void* out_ids, int B, int P, int Dp, int M, int dsub, int nlist,
                 int Lcap, int kk, int nq, int U, void* stream) {
   using K = typename KeyOf<MODE>::T;
@@ -1636,6 +1769,11 @@ int fused_entry(const void* q_rot, const void* probes, const void* centroids,
   // (a dead or out-of-range probe, a tile past the list's end) keep none
   e = cudaMemsetAsync(part_keys, 0, (size_t)B * S * (kk + 1) * sizeof(K), st);
   if (e != cudaSuccess) return (int)e;
+  const float* q = static_cast<const float*>(q_rot);
+  const float* cb = static_cast<const float*>(codebooks);
+  float* qt = static_cast<float*>(qterms);
+  e = launch_qterms(q, cb, qt, B, Dp, M, dsub, st);
+  if (e != cudaSuccess) return (int)e;
   const int BP = B * P;
   int* is = static_cast<int*>(iscratch);
   int* counts = is;
@@ -1647,16 +1785,14 @@ int fused_entry(const void* q_rot, const void* probes, const void* centroids,
   e = nvdb::launch_group(pr, fi, counts, order, items, n_items, nullptr, nullptr, BP, nlist,
                          Lcap, nq, 1, 1, st);
   if (e != cudaSuccess) return (int)e;
-  const float* q = static_cast<const float*>(q_rot);
   const float* ce = static_cast<const float*>(centroids);
-  const float* cb = static_cast<const float*>(codebooks);
   const uint8_t* cd = static_cast<const uint8_t*>(codes);
   const int* si = static_cast<const int*>(slot_ids);
   const int* ld = static_cast<const int*>(leads);
   K* part = static_cast<K*>(part_keys);
   K* thr = part + (size_t)B * S * kk;
-#define NVDB_FUSED_ARGS nq, q, ce, cb, cd, si, ld, fi, order, items, n_items, part, thr, P, Dp, \
-                        M, dsub, Lcap, kk, U, T, dev, st
+#define NVDB_FUSED_ARGS nq, q, qt, ce, cb, cd, si, ld, fi, order, items, n_items, part, thr, P, \
+                        Dp, M, dsub, Lcap, kk, U, T, dev, st
   switch (dsub) {
     case 4: e = launch_fused_nq<MODE, 4>(NVDB_FUSED_ARGS); break;
     case 8: e = launch_fused_nq<MODE, 8>(NVDB_FUSED_ARGS); break;
@@ -1685,8 +1821,9 @@ int fused_entry(const void* q_rot, const void* probes, const void* centroids,
 // dsub] f32 (M * dsub <= Dp), codes [nlist, M, Lcap] uint8, slot_ids [nlist,
 // Lcap] int32 (prefix-packed, unique ids; Lcap a multiple of 4), fills
 // [nlist] int32; iscratch the int32 scratch of pass 0 (nvdb::items_offset(nlist, B * P) + 4 U
-// ints); part_keys the uint32 scratch of B * P * T * (kk + 1) with T =
-// ceil(Lcap / 1024): the partial lists [B, P, T, kk], then each one's
+// ints); qterms the f32 scratch [B, M, 256] of the query terms (written
+// here, then read by pass 1); part_keys the uint32 scratch of B * P * T * (kk + 1) with T =
+// ceil(Lcap / 768): the partial lists [B, P, T, kk], then each one's
 // threshold [B, P, T]; outputs [B, kk]. nq: queries a chunk
 // (nvdb_adc_fused_plan), U: pass 1's grid in items (at least the most items
 // B * P pairs can make). Returns a cudaError_t (0 on success); the launches
@@ -1694,11 +1831,11 @@ int fused_entry(const void* q_rot, const void* probes, const void* centroids,
 extern "C" int nvdb_adc_fused_keys(const void* q_rot, const void* probes, const void* centroids,
                                    const void* codebooks, const void* codes,
                                    const void* slot_ids, const void* fills, void* iscratch,
-                                   void* part_keys, void* out_vals, void* out_ids, int B, int P,
-                                   int Dp, int M, int dsub, int nlist, int Lcap, int kk, int nq,
-                                   int U, void* stream) {
+                                   void* qterms, void* part_keys, void* out_vals, void* out_ids,
+                                   int B, int P, int Dp, int M, int dsub, int nlist, int Lcap,
+                                   int kk, int nq, int U, void* stream) {
   return fused_entry<KEY>(q_rot, probes, centroids, codebooks, codes, slot_ids, nullptr, fills,
-                          iscratch, part_keys, out_vals, out_ids, B, P, Dp, M, dsub, nlist,
+                          iscratch, qterms, part_keys, out_vals, out_ids, B, P, Dp, M, dsub, nlist,
                           Lcap, kk, nq, U, stream);
 }
 
@@ -1706,7 +1843,7 @@ extern "C" int nvdb_adc_fused_keys(const void* q_rot, const void* probes, const 
 // nvdb_adc_tables) with no table in device memory. As nvdb_adc_fused_keys,
 // but slot_ids may hold holes below a list's fill and an id in several
 // lists; leads [nlist, Lcap] int32, for each slot the first lane of its
-// 1024-lane tile that holds the same id when the tile holds it more than
+// 768-lane tile that holds the same id when the tile holds it more than
 // once, else -1 (adc_scan.tile_leads), or null where every id is held once
 // in the index (replicas 1; the merge then skips its duplicate pass); no
 // bound on Lcap but a multiple of 4; part_keys the uint64 scratch of B * P *
@@ -1714,10 +1851,24 @@ extern "C" int nvdb_adc_fused_keys(const void* q_rot, const void* probes, const 
 extern "C" int nvdb_adc_fused_topk(const void* q_rot, const void* probes, const void* centroids,
                                    const void* codebooks, const void* codes,
                                    const void* slot_ids, const void* leads, const void* fills,
-                                   void* iscratch, void* part_keys, void* out_vals, void* out_ids,
-                                   int B, int P, int Dp, int M, int dsub, int nlist, int Lcap,
-                                   int kk, int nq, int U, void* stream) {
+                                   void* iscratch, void* qterms, void* part_keys, void* out_vals,
+                                   void* out_ids, int B, int P, int Dp, int M, int dsub, int nlist,
+                                   int Lcap, int kk, int nq, int U, void* stream) {
   return fused_entry<DMA>(q_rot, probes, centroids, codebooks, codes, slot_ids, leads, fills,
-                          iscratch, part_keys, out_vals, out_ids, B, P, Dp, M, dsub, nlist,
+                          iscratch, qterms, part_keys, out_vals, out_ids, B, P, Dp, M, dsub, nlist,
                           Lcap, kk, nq, U, stream);
+}
+
+// The query-term pass alone (the fused scans launch it themselves): q_rot
+// [B, Dp] f32, codebooks [M, 256, dsub] f32 (M * dsub <= Dp); output qterms
+// [B, M, 256] f32, qterms[b, m, j] = c2 - 2 q_rot[b, m dsub:(m + 1) dsub] .
+// cb[m, j], each dot one FMA chain (adc_table_math.cuh). Returns a
+// cudaError_t (0 on success); the launch is asynchronous on `stream`.
+extern "C" int nvdb_adc_query_terms(const void* q_rot, const void* codebooks, void* qterms,
+                                    int B, int Dp, int M, int dsub, void* stream) {
+  if (B < 1 || M < 1 || dsub < 1 || (long long)M * dsub > Dp)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_qterms(static_cast<const float*>(q_rot),
+                            static_cast<const float*>(codebooks), static_cast<float*>(qterms), B,
+                            Dp, M, dsub, static_cast<cudaStream_t>(stream));
 }

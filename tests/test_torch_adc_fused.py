@@ -110,6 +110,25 @@ def _geometry(rng, b):
     return q_rot, cents, codebooks
 
 
+@pytest.mark.parametrize("q_chunk", [1, 8])
+def test_listmajor_reference_on_the_plain_tables(q_chunk):
+    """On the tables the fused scans build (``adc_tables_reference``: the
+    query's, the list's and the pair's shares of each entry), the list-major
+    walk is the key reference bit for bit, dead and out-of-range probes
+    included."""
+    codes, slot_ids, probes, rng = _index(6, 10, 5, hot=True, bad=True)
+    q_rot, cents, codebooks = _geometry(rng, 10)
+    codes, slot_ids, probes, q_rot, cents, codebooks = _t(codes, slot_ids, probes, q_rot,
+                                                          cents, codebooks)
+    fills = adc_scan.list_fills(slot_ids)
+    lut = adc_scan.adc_tables_reference(q_rot, probes, cents, codebooks, fills)
+    for k in (10, 300):
+        want = adc_scan.adc_topk_keys_reference(lut, probes, codes, slot_ids, k, fills=fills)
+        got = adc_scan.adc_topk_keys_listmajor_reference(lut, probes, codes, slot_ids, k,
+                                                         fills=fills, q_chunk=q_chunk)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("k", [10, 100])
 def test_fused_reference_matches_the_jax_key_path(k):
     b, p = 4, 6

@@ -458,13 +458,6 @@ def _table_case(b, p, nlist, m, dsub, seed, device):
     return q_rot.contiguous(), probes, cents, cb, fills
 
 
-def _bf16_steps(a, b):
-    def ordered(x):
-        bits = x.contiguous().view(torch.int16).to(torch.int32)
-        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
-    return (ordered(a) - ordered(b)).abs()
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,p,nlist,m,dsub", [
     (1, 1, 8, 16, 8), (8, 7, 40, 96, 8), (37, 12, 64, 16, 8), (64, 64, 512, 96, 8),
@@ -473,24 +466,42 @@ def _bf16_steps(a, b):
 def test_tables_kernel_matches_plain(cuda_device, b, p, nlist, m, dsub):
     """Register-resident instances (dsub 4, 8, 12, 16), the any-dsub kernel
     (32), an M off the 8-subspace group (10); dead and out-of-range probes.
-    At least 99.9% of the live probes' entries bit-equal, the rest one bf16
-    step off (8 products summed in another order, then one rounding)."""
+    Bit for bit the plain version, which runs the kernel's FMA chains and
+    combinations (``adc_scan.fma_chain``). One launch on its counter and one
+    of the query-term pass it reads."""
     from nvdb_tpu_torch.kernels import adc_scan
 
     args = _table_case(b, p, nlist, m, dsub, seed=b * p + m, device=cuda_device)
-    before = adc_scan.TABLE_LAUNCHES
+    before = adc_scan.TABLE_LAUNCHES, adc_scan.QTERM_LAUNCHES
     got, ops_seen = _dispatched_ops(lambda: adc_scan.adc_tables_cuda(*args))
     torch.cuda.synchronize()
-    assert adc_scan.TABLE_LAUNCHES == before + 1
+    assert (adc_scan.TABLE_LAUNCHES, adc_scan.QTERM_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert [name for name, _ in ops_seen if "empty" not in name] == []
     want = adc_scan.adc_tables_reference(*args)
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, p, m, 256)
     live = adc_scan.live_probes(args[1], args[4])
     assert bool((got[~live] == 0).all())
-    if bool(live.any()):
-        steps = _bf16_steps(got[live], want[live])
-        assert float((steps == 0).float().mean()) >= 0.999
-        assert int(steps.max()) <= 1
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8, 256])
+@pytest.mark.parametrize("dsub", [3, 4, 8, 12, 16])
+def test_query_terms_kernel_matches_plain(cuda_device, b, dsub):
+    """The query-term pass, its register instances (dsub 4, 8, 12, 16) and
+    the any-dsub one (3), bit for bit its plain version; one launch on its
+    counter and no torch operator but the output's allocation."""
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    q_rot, _, _, cb, _ = _table_case(b, 1, 8, 64, dsub, seed=b * dsub, device=cuda_device)
+    before = adc_scan.QTERM_LAUNCHES
+    got, ops_seen = _dispatched_ops(lambda: adc_scan.adc_query_terms_cuda(q_rot, cb))
+    torch.cuda.synchronize()
+    assert adc_scan.QTERM_LAUNCHES == before + 1
+    assert [name for name, _ in ops_seen if "empty" not in name] == []
+    want = adc_scan.adc_query_terms_reference(q_rot, cb)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, 64, 256)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -648,18 +659,19 @@ def _fused_case(b, p, nlist, m, dsub, lcap, seed, device, hot=False, bad=False,
 
 def _fused_check(q_rot, probes, cents, cb, codes, slot_ids, kk, nq_max=None):
     """The fused scan bit for bit the key mode's plain scan on the table
-    kernel's tables and the two-kernel key path; one launch on its counter."""
+    kernel's tables and the two-kernel key path; one launch on its counter
+    and one of the query-term pass."""
     from nvdb_tpu_torch.kernels import adc_scan
 
     fills = adc_scan.list_fills(slot_ids)
     lut = adc_scan.adc_tables_cuda(q_rot, probes, cents, cb, fills)
     pv, pi = adc_scan.adc_topk_keys_reference(lut, probes, codes, slot_ids, kk, fills=fills)
     kv, ki = adc_scan.adc_topk_keys_cuda(lut, probes, codes, slot_ids, kk, fills=fills)
-    before = adc_scan.FUSED_LAUNCHES
+    before = adc_scan.FUSED_LAUNCHES, adc_scan.QTERM_LAUNCHES
     fv, fi = adc_scan.adc_fused_keys_cuda(q_rot, probes, cents, cb, codes, slot_ids, kk,
                                           fills=fills, nq_max=nq_max)
     torch.cuda.synchronize()
-    assert adc_scan.FUSED_LAUNCHES == before + 1
+    assert (adc_scan.FUSED_LAUNCHES, adc_scan.QTERM_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert torch.equal(fv, pv) and torch.equal(fi, pi)
     assert torch.equal(fv, kv) and torch.equal(fi, ki)
     return fv, fi
@@ -738,8 +750,8 @@ def test_fused_key_scan_rejects_bad_input(cuda_device):
             torch.zeros((20, 16, 65552), dtype=torch.uint8, device=cuda_device),
             torch.zeros((20, 65552), dtype=torch.int32, device=cuda_device), 10)
     with pytest.raises(ValueError, match="shared memory"):
-        # one query's residual (M x dsub f32) past a CTA's shared memory
-        adc_scan.fused_plan(4096, 16, 8, cuda_device.index or 0)
+        # one query's residual norms (M f32) past a CTA's shared memory
+        adc_scan.fused_plan(65536, 8, cuda_device.index or 0)
 
 
 # -- the fused ADC dma scan ---------------------------------------------------------
@@ -772,9 +784,9 @@ def _dma_case(b, p, nlist, m, dsub, lcap, seed, device, kind=""):
 def _dma_check(q_rot, probes, cents, cb, codes, slot_ids, kk, nq_max=None, dedup=True):
     """The fused dma scan bit for bit the staged route (the table kernel,
     then the dma kernel; where its ring plans the shape) and the dma scan's
-    plain version on the same tables; one launch on its counter and none of
-    the table kernel; each id once a row. ``dedup=False`` where the index
-    holds every id once."""
+    plain version on the same tables; one launch on its counter, one of the
+    query-term pass and none of the table kernel; each id once a row.
+    ``dedup=False`` where the index holds every id once."""
     from nvdb_tpu_torch.kernels import adc_scan
 
     fills = adc_scan.list_fills(slot_ids)
@@ -786,11 +798,13 @@ def _dma_check(q_rot, probes, cents, cb, codes, slot_ids, kk, nq_max=None, dedup
         sv = si = None
     ok = (probes >= 0) & (probes < codes.shape[0])
     pv, pi = adc_scan.adc_topk_reference(lut, torch.where(ok, probes, 3), codes, slot_ids, kk)
-    before = (adc_scan.FUSED_DMA_LAUNCHES, adc_scan.TABLE_LAUNCHES)
+    counts = lambda: (adc_scan.FUSED_DMA_LAUNCHES, adc_scan.TABLE_LAUNCHES,
+                      adc_scan.QTERM_LAUNCHES)
+    before = counts()
     fv, fi = adc_scan.adc_fused_topk_cuda(q_rot, probes, cents, cb, codes, slot_ids, kk,
                                           fills=fills, nq_max=nq_max, dedup=dedup)
     torch.cuda.synchronize()
-    assert (adc_scan.FUSED_DMA_LAUNCHES, adc_scan.TABLE_LAUNCHES) == (before[0] + 1, before[1])
+    assert counts() == (before[0] + 1, before[1], before[2] + 1)
     if si is not None:
         assert torch.equal(fv, sv) and torch.equal(fi, si)
     assert torch.equal(fv, pv) and torch.equal(fi, pi)
@@ -1021,13 +1035,14 @@ def test_ivfpq_gather_mode_reads_lists_in_place(cuda_device, b, kk):
 
 @pytest.mark.gpu
 def test_ivfpq_gather_mode_refuses_a_shape_the_fused_scan_cannot_plan(cuda_device):
-    """One query's residual and tables past a CTA's shared memory (M 4096,
-    dsub 16): the gather mode raises by name, as the key and dma modes do,
-    and launches no kernel; none takes its two-kernel route."""
+    """One query's share of a CTA's shared memory past its limit (M 65,536:
+    its residual norms alone are 256 KB): the gather mode raises by name, as
+    the key and dma modes do, and launches no kernel; none takes its
+    two-kernel route."""
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
     from nvdb_tpu_torch.kernels import adc_scan
 
-    nlist, m, dsub, lcap = 4, 4096, 16, 16
+    nlist, m, dsub, lcap = 4, 65536, 1, 16
     g = torch.Generator(device=cuda_device).manual_seed(7)
     cents = torch.randn((nlist, m * dsub), generator=g, device=cuda_device)
     cb = torch.randn((m, 256, dsub), generator=g, device=cuda_device)
@@ -1878,13 +1893,15 @@ def test_served_search_replays_bit_for_bit(cuda_device, kind, b):
     then four replays, each answer bit for bit the eager chain's on its
     batch; each call's tensors unchanged by the calls after it. The launch
     counters count the kernels that ran: the capture call's warm-up and
-    replay, then one a replay."""
+    replay, then one a replay (IVF-PQ: the query-term pass as often as the
+    fused scan)."""
     from nvdb_tpu_torch.index import graphs
     from nvdb_tpu_torch.kernels import adc_scan, ivf_scan, rerank
 
     idxs, served, eager, q = _served_on_card(cuda_device, n_queries=5 * b)
     counts = lambda: (rerank.LAUNCHES, adc_scan.FUSED_LAUNCHES + adc_scan.FUSED_DMA_LAUNCHES
-                      if kind == "ivfpq" else ivf_scan.LAUNCHES)
+                      if kind == "ivfpq" else ivf_scan.LAUNCHES,
+                      adc_scan.QTERM_LAUNCHES if kind == "ivfpq" else ivf_scan.LAUNCHES)
     before = counts()
     graphs.reset_counts()
     got = []
@@ -1894,7 +1911,7 @@ def test_served_search_replays_bit_for_bit(cuda_device, kind, b):
         got.append((x, (v, i), (v.clone(), i.clone())))
     torch.cuda.synchronize()
     assert (graphs.GRAPH_CAPTURES, graphs.GRAPH_REPLAYS, graphs.GRAPH_EAGER) == (1, 4, 0)
-    assert tuple(a - c for a, c in zip(counts(), before)) == (FIRST_CALL_LAUNCHES + 4,) * 2
+    assert tuple(a - c for a, c in zip(counts(), before)) == (FIRST_CALL_LAUNCHES + 4,) * 3
     assert len(idxs[kind]._graphs) == 1
     for x, out, kept in got:
         assert _same(out, kept)

@@ -197,6 +197,7 @@ def test_a_replaced_index_gets_its_own_graph_cache(built, kind):
 
 # every kernel wrapper's launch counter a served chain may move
 COUNTERS = [(adc_scan, "FUSED_LAUNCHES", None), (adc_scan, "FUSED_DMA_LAUNCHES", None),
+            (adc_scan, "QTERM_LAUNCHES", None),
             (adc_scan, "TABLE_LAUNCHES", None), (adc_scan, "LAUNCHES", None),
             (adc_scan, "KEY_LAUNCHES", None), (adc_scan, "GATHER_LAUNCHES", None),
             (ivf_scan, "LAUNCHES", None), (ivf_scan, "LAUNCHES_BY_LAYOUT", "list"),
