@@ -72,22 +72,17 @@ one phase per line group:
    ground truth by the flat kernel,
    ``tools.ivf_build --kind ivfpq --nlist 4096 --pq-m 96 --opq``, then
    ``tools.ivf_eval --chained --nprobe 64 --refine-k 100 --k 10 --batch-q
-   256`` seven ways, each with the IVF-PQ launch counts reset just before and
+   256`` four ways, each with the IVF-PQ launch counts reset just before and
    read just after: ``auto`` (key-mode candidates by the fused key scan, no
-   table kernel), ``--key-scan tables`` (the table kernel and the key
-   kernel, the A/B), ``--ids-mode dma`` (the fused dma scan, no other ADC
-   kernel), ``--ids-mode dma --key-scan tables`` (the table kernel and the
-   staged dma scan, its A/B, recall equal), ``--ids-mode gather`` (the fused
-   key scan reading the probed lists in place, no other ADC kernel; its
-   launches are the gather site's, ``adc_fused_gather``), ``--ids-mode
-   gather --key-scan tables`` (the table kernel and the kernel over the
-   gathered code slab, the gather site's A/B) and ``--ivf-backend torch``;
+   table kernel), ``--ids-mode dma`` (the fused dma scan, no other ADC
+   kernel), ``--ids-mode gather`` (the fused key scan reading the probed
+   lists in place, no other ADC kernel; its launches are the gather site's,
+   ``adc_fused_gather``) and ``--ivf-backend torch``;
    then ``tools.quantize_i8 --residual`` of the same base against the index
    and ``ivf_eval --residual-refine`` with the kernels and with
    ``--ivf-backend torch``, and, for reference, a plain int8 store of the
    same bytes; recall@10 and QPS of each, auto within 0.005 of torch and of
-   dma, the A/Bs and both gather runs equal to auto, the residual pair
-   within 0.005;
+   dma, the gather run equal to auto, the residual pair within 0.005;
 9. times at B = 256, P = 64, M = 96, Lcap = 640, kk = 100 on the built index,
    each alone: rotation + coarse ranking (plain torch), the table kernel,
    the dma scan, the key scan, the gather wrapper and its two parts (the
@@ -112,24 +107,22 @@ one phase per line group:
    call at B = 256), beside its bound, its plain version, the cost of its
    repeated-id check and one call replayed from a CUDA graph; the whole dma
    batch and an ADC-only batch on the fused dma scan alone (no table kernel,
-   nothing table-sized), bit for bit and in turns with the staged route,
-   with the peak memory of each; the gather site's route (the fused key
-   scan) at B = 256, 8 and 1 against the slab route it replaces (the table
-   kernel, the slab copy and the scan of the slab), in turns, eagerly and
+   nothing table-sized), with the dma batch's peak memory; the gather
+   site's route (the fused key scan) at B = 256, 8 and 1 against the slab
+   route it replaces (the table kernel, the slab copy and the scan of the
+   slab), in turns, eagerly and
    as device time, bit for bit, with each route's peak device memory; the
    whole ``search_device``, on a call that captures its CUDA graph (its
    warm-up and capture dispatch the chain; a replay would not), whose
    operators are recorded to show that the key path makes no tensor the
    size of the tables, with its peak device memory and its graph pool's
-   reserved bytes, against its plain versions and, in turns, with the two-kernel
-   key path and with dma candidates in place of the key ones; the whole
-   gather batch likewise (no tensor the size of the tables or the slab; bit
-   for bit the slab route's and the key batch's) against its slab route,
-   with the peak memory of each;
-10. IVF probe kernel vs plain and a float64 oracle, both layouts (list-major,
-   the default, and the query-major A/B): random packed indexes of f32 /
-   bf16 / int8 payloads at Lcap 384 and 992 (lists full, with holes, filled
-   below k, dead), B in {1, 8, 64, 256}, P in {1, 7, 32, 64}, k in {1, 10,
+   reserved bytes, against its plain versions and, in turns, with dma
+   candidates in place of the key ones; the whole gather batch likewise (no
+   tensor the size of the tables or the slab; bit for bit the key batch's)
+   in turns with the key batch, with its peak memory;
+10. IVF probe kernel (list-major) vs plain and a float64 oracle: random
+   packed indexes of f32 / bf16 / int8 payloads at Lcap 384 and 992 (lists
+   full, with holes, filled below k, dead), B in {1, 8, 64, 256}, P in {1, 7, 32, 64}, k in {1, 10,
    50, 128}, and B = 256 with every query on one list, each query probing a
    list twice, and holes with out-of-range probes; the list-major grouping
    pass against its plain version;
@@ -141,16 +134,16 @@ one phase per line group:
    ``--backend torch``; ``tools.pr_build`` -> ``tools.pr_search``; then
    ``tools.ivf_build --kind ivfflat --nlist 4096 --dtype bf16`` ->
    ``tools.ivf_eval --chained --nprobe 64 --batch-q 256`` on both paths;
-12. times: the list-major probe kernel against its plain version and
-   against the query-major A/B, in turns, on the partition index (B = 64, P
-   = 32, Lcap 992, k = 50) and the IVF-Flat index (B = 256, P = 64, k = 10)
-   and at B = 8 and 1, with each layout's device time (20 calls in a CUDA
-   graph); the bounds count each distinct probed list once (the bytes as
-   probed, the distinct lists and the queries a list printed beside); the
-   list-major plan's chunk widths and CTAs a SM; the call by pass (two
-   measurement builds, ``NVDB_PROBE_ABLATE``, that stop after pass 0 and
-   after pass 1); one call captured in a CUDA graph and replayed against an
-   eager call; the partition and IVF-Flat batches by stage;
+12. times: the list-major probe kernel against its plain version, in
+   turns, on the partition index (B = 64, P = 32, Lcap 992, k = 50) and the
+   IVF-Flat index (B = 256, P = 64, k = 10) and at B = 8 and 1, with its
+   device time (20 calls in a CUDA graph); the bounds count each distinct
+   probed list once (the bytes as probed, the distinct lists and the
+   queries a list printed beside); the list-major plan's chunk widths and
+   CTAs a SM; the call by pass (two measurement builds,
+   ``NVDB_PROBE_ABLATE``, that stop after pass 0 and after pass 1); one
+   call captured in a CUDA graph and replayed against an eager call; the
+   partition and IVF-Flat batches by stage;
 13. ``tools.hbm_probe`` (the stream and ring kernels against ``torch.amax``
    over 1M x 768 bf16: the card's HBM ceiling, which phase 12's rates are
    read against) and ``tools.gpu_sanity`` (the add1 kernel); add1 and
@@ -226,9 +219,9 @@ last lines are ``nvidia-smi``'s name and power limit, the flat kernel's
 launches by instance, the kernels' JSON record (launches on the main paths,
 error, ms, plain ms, bound ms and what sets it, the library call's ms where
 there is one; the flat kernel has three rows: bf16 / int8, f32 on the
-tensor cores, f32 on the SIMT kernel; the probe kernel two: list-major and
-the query-major A/B; the ADC scans six: the staged dma scan, the key kernel
-and the slab gather kernel (the A/Bs), the fused key scan at the key site
+tensor cores, f32 on the SIMT kernel; the probe kernel one; the ADC scans
+six: the staged dma scan, the key kernel and the slab gather kernel (the A/B
+tools'), the fused key scan at the key site
 and at the gather site, and the fused dma scan at the dma site; and the
 query-term pass, which the fused scans launch), and
 ``{"ok": true, "device": {...}}``.
@@ -450,17 +443,6 @@ def flat_counts(tag, f32=False):
         check(counts.get("f32_tensor_core", 0) > 0 and "f32_simt" not in counts,
               f"{tag}: the f32 store did not go to the tensor-core instance alone")
     return counts
-
-
-def probe_launches(tag):
-    """The probe kernel's launches since ``ivf_scan.reset_launches()``, all
-    of them list-major: no path takes the query-major A/B by itself."""
-    from nvdb_tpu_torch.kernels import ivf_scan
-
-    check(ivf_scan.LAUNCHES_BY_LAYOUT["list"] == ivf_scan.LAUNCHES,
-          f"{tag}: the query-major probe kernel ran on a path "
-          f"({ivf_scan.LAUNCHES_BY_LAYOUT})")
-    return ivf_scan.LAUNCHES
 
 
 def phase_main_path(torch, dev):
@@ -1248,14 +1230,9 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
     # (name, extra flags, the launch counters the run must raise); each run's
     # counters are set to 0 just before it and read just after
     runs = [("auto", [], ("adc_fused_key", "adc_query_terms", "rerank_topk")),
-            ("tables", ["--key-scan", "tables"], ("adc_tables", "adc_query_terms", "adc_topk_key")),
             ("dma", ["--ids-mode", "dma"], ("adc_fused_dma", "adc_query_terms", "rerank_topk")),
-            ("dma_tables", ["--ids-mode", "dma", "--key-scan", "tables"],
-             ("adc_tables", "adc_query_terms", "adc_topk")),
             ("gather", ["--ids-mode", "gather"],
              ("adc_fused_gather", "adc_query_terms", "rerank_topk")),
-            ("gather_tables", ["--ids-mode", "gather", "--key-scan", "tables"],
-             ("adc_tables", "adc_query_terms", "adc_topk_gather")),
             ("torch", ["--ivf-backend", "torch"], ())]
     out = {"launches": {"flat_topk": gt_launches}}
     for name, extra, counted in runs:
@@ -1267,7 +1244,7 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
         say(f"  ivf_eval {' '.join(extra) or '(auto: key candidates, fused)'}: recall@10="
             f"{res['recall']:.4f} QPS={res['qps']:.1f} launches {launches}")
         out[name] = res
-        if name in ("auto", "gather", "dma"):
+        if name != "torch":
             fused = ("adc_fused_dma",) if name == "dma" else ("adc_fused_key", "adc_fused_gather")
             others = {c: launches[c] for c in ("adc_tables", "adc_topk", "adc_topk_key",
                                                "adc_topk_gather", "adc_fused_key",
@@ -1277,20 +1254,12 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
                                              f"the fused scan: {launches}")
             check(launches["adc_query_terms"] == sum(launches[c] for c in fused),
                   f"the {name} path: not one query-term pass a fused call: {launches}")
-        if name.endswith("tables"):
-            check(launches["adc_query_terms"] == launches["adc_tables"],
-                  f"the {name} path: not one query-term pass a table launch: {launches}")
-    check(out["tables"]["recall"] == out["auto"]["recall"],
-          f"two-kernel key recall {out['tables']['recall']} != fused {out['auto']['recall']}")
-    check(out["dma_tables"]["recall"] == out["dma"]["recall"],
-          f"staged dma recall {out['dma_tables']['recall']} != fused {out['dma']['recall']}")
     for a, b in (("auto", "torch"), ("auto", "dma")):
         gap = abs(out[a]["recall"] - out[b]["recall"])
         check(gap <= RECALL_GAP, f"recall@10 {a} {out[a]['recall']} vs {b} "
                                  f"{out[b]['recall']}: gap {gap} > {RECALL_GAP}")
-    for name in ("gather", "gather_tables"):
-        check(out[name]["recall"] == out["auto"]["recall"],
-              f"{name} recall {out[name]['recall']} != key {out['auto']['recall']}")
+    check(out["gather"]["recall"] == out["auto"]["recall"],
+          f"gather recall {out['gather']['recall']} != key {out['auto']['recall']}")
     check(out["auto"]["recall"] >= 0.5, f"recall@10 {out['auto']['recall']} < 0.5")
 
     # the residual-int8 refine of the JAX package's flagship: residual codes
@@ -1323,7 +1292,7 @@ def _ivf_main_path(torch, dev, n, nlist, d, nq, k, paths):
     return idx, store, queries, out
 
 
-def key_scan_times(torch, lut, probes, idx, kk, fills, rows, dma):
+def staged_key_times(torch, lut, probes, idx, kk, fills, rows, dma):
     """The key kernel, the gather kernel's two parts (the slab copy, then
     the scan over the slab) and the whole gather wrapper at the flagship
     shape, each against its plain version in turns, beside their bounds;
@@ -1727,7 +1696,7 @@ def phase_ivf_times(torch, dev, idx, store, queries):
     pv, pi = adc_scan.adc_topk_reference(*args)
     err, _ = check_adc(torch, "flagship scan", kv, cand, pv, pi)
     say(f"    scan on the kernel's tables vs plain on the same tables: max_abs_err={err:.3e}")
-    out.update(key_scan_times(torch, lut, probes, idx, kk, fills, pb["rows"], (kv, cand)))
+    out.update(staged_key_times(torch, lut, probes, idx, kk, fills, pb["rows"], (kv, cand)))
     cand = cand.contiguous()
     del lut, kv, pv, pi
     out.update(fused_times(torch, dev, idx, q_rot, probes, kk, fills))
@@ -1767,11 +1736,6 @@ def phase_ivf_times(torch, dev, idx, store, queries):
         f"versions {whole_plain:.4f} ms {runs['plain']} | bound {whole_bnd:.4f} ms (the sum of "
         f"its stages' bounds) time / bound {whole_ms / whole_bnd:.2f}")
     out["whole search_device"].update(ms=whole_ms, plain_ms=whole_plain, bound_ms=whole_bnd)
-    fused_ms, two_ms, runs = in_turns(
-        torch, lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
-                                         key_scan="tables"), search, iters=5)
-    say(f"  whole search_device B={b}: fused key scan (auto) {fused_ms:.4f} ms {runs['kernel']} "
-        f"| table kernel + key scan {two_ms:.4f} ms {runs['plain']}")
     dma = lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
                                     ids_mode="dma")
     key_ms, dma_ms, runs = in_turns(torch, dma, search, iters=5)
@@ -1779,12 +1743,10 @@ def phase_ivf_times(torch, dev, idx, store, queries):
         f"dma candidates (the fused dma scan) {dma_ms:.4f} ms {runs['plain']}")
     # the dma batch and an ADC-only batch (the dma mode): the fused dma scan,
     # no table kernel, nothing the size of the tables
-    dma_tables = lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
-                                           ids_mode="dma", key_scan="tables")
     adc_reset()
     # both batches capture: each launches the fused dma scan twice, in its
     # eager warm-up and in the replay that serves it
-    (dv, di), ops_seen = dispatched_ops(torch, capturing(idx, dma))
+    _, ops_seen = dispatched_ops(torch, capturing(idx, dma))
     capturing(idx, lambda: idx.search_device(q, 10, nprobe))()
     torch.cuda.synchronize()
     launched = adc_counts()
@@ -1793,44 +1755,30 @@ def phase_ivf_times(torch, dev, idx, store, queries):
     big = [(name, shape, dt) for name, outs in ops_seen for shape, dt in outs
            if int(np.prod(shape)) >= table_elems]
     check(big == [], f"the dma path made table-sized tensors: {big}")
-    sv, si = dma_tables()
-    check(torch.equal(dv, sv) and torch.equal(di, si), "dma batch: differs from the staged route")
-    (peak, pool), st_peak = capture_gb(torch, dev, idx, dma), peak_gb(torch, dev, dma_tables)
+    peak, pool = capture_gb(torch, dev, idx, dma)
     check(max(peak, pool) < table_elems * 2 / 1e10,
           "the dma path allocated or reserved a tenth of the bf16 tables")
-    d_ms, st_ms, runs = in_turns(torch, dma_tables, dma, iters=5)
-    say(f"  whole search_device B={b} ids_mode=dma: fused dma scan {d_ms:.4f} ms {runs['kernel']}, "
-        f"peak {peak:.4f} GB, pool {pool:.4f} GB | staged route (key_scan=tables) "
-        f"{st_ms:.4f} ms {runs['plain']}, "
-        f"peak {st_peak:.4f} GB; results bit for bit the staged route's; the ADC-only batch "
-        f"(refine 0) on the fused dma scan too, no table kernel launched")
-    out["whole search_device dma"] = dict(ms=d_ms, staged_ms=st_ms, peak_gb=peak, pool_gb=pool,
-                                          staged_peak_gb=st_peak)
+    say(f"  whole search_device B={b} ids_mode=dma: fused dma scan {dma_ms:.4f} ms, peak "
+        f"{peak:.4f} GB, pool {pool:.4f} GB; the ADC-only batch (refine 0) on the fused dma "
+        f"scan too, no table kernel launched")
+    out["whole search_device dma"] = dict(ms=dma_ms, peak_gb=peak, pool_gb=pool)
     # the gather batch: the fused key scan, with no code slab and no tables
     gather = lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
                                        ids_mode="gather")
-    gather_slab = lambda: idx.search_device(q, 10, nprobe, refine_k=kk, refine_store=store,
-                                            ids_mode="gather", key_scan="tables")
     (gv, gi), ops_seen = dispatched_ops(torch, capturing(idx, gather))
     big = [(name, shape, dt) for name, outs in ops_seen for shape, dt in outs
            if int(np.prod(shape)) >= table_elems]
     check(big == [], f"the gather path made table- or slab-sized tensors: {big}")
-    sv, si = gather_slab()
     kv, ki = search()
-    check(torch.equal(gv, sv) and torch.equal(gi, si) and torch.equal(gv, kv)
-          and torch.equal(gi, ki), "gather batch: differs from the slab route or the key batch")
-    (peak, pool), slab_peak = (capture_gb(torch, dev, idx, gather),
-                               peak_gb(torch, dev, gather_slab))
+    check(torch.equal(gv, kv) and torch.equal(gi, ki), "gather batch: differs from the key batch")
+    peak, pool = capture_gb(torch, dev, idx, gather)
     check(max(peak, pool) < table_elems * 2 / 1e10,
           "the gather path allocated or reserved a tenth of the bf16 tables")
-    g_ms, slab_ms, runs = in_turns(torch, gather_slab, gather, iters=5)
+    g_ms, k_ms, runs = in_turns(torch, search, gather, iters=5)
     say(f"  whole search_device B={b} ids_mode=gather: fused key scan (lists read in place) "
-        f"{g_ms:.4f} ms {runs['kernel']}, peak {peak:.4f} GB, pool {pool:.4f} GB | slab route "
-        f"(key_scan=tables) "
-        f"{slab_ms:.4f} ms {runs['plain']}, peak {slab_peak:.4f} GB; results bit for bit the "
-        f"slab route's and the key batch's")
-    out["whole search_device gather"] = dict(ms=g_ms, slab_ms=slab_ms, peak_gb=peak,
-                                             pool_gb=pool, slab_peak_gb=slab_peak)
+        f"{g_ms:.4f} ms {runs['kernel']}, peak {peak:.4f} GB, pool {pool:.4f} GB | key batch "
+        f"{k_ms:.4f} ms {runs['plain']}; results bit for bit the key batch's")
+    out["whole search_device gather"] = dict(ms=g_ms, peak_gb=peak, pool_gb=pool)
 
     st16 = store.vectors.to(torch.bfloat16)
     n2 = rerank.store_norms2(st16)
@@ -1993,17 +1941,16 @@ def check_grouping(torch, tag, probes, fills):
 
 
 def phase_probe_vs_plain(torch, dev, dp=768, lcaps=(384, 992), shapes=PROBE_SHAPES):
-    """Both layouts of the probe kernel (list-major, the default, and the
-    query-major A/B) against the plain version and the float64 oracle at
+    """The probe kernel against the plain version and the float64 oracle at
     every shape and at the special cases; the grouping pass against its
-    plain version."""
+    plain version. Returns the largest error against the plain version."""
     from nvdb_tpu_torch.kernels import ivf_scan
 
     rng = np.random.default_rng(51)
     g = torch.Generator(device=dev).manual_seed(52)
     qall = torch.randn((max(b for b, _, _ in shapes), dp), generator=g, device=dev)
     qall /= qall.norm(dim=1, keepdim=True)
-    max_err = {"list": 0.0, "query": 0.0}
+    max_err = 0.0
     for dtype in ("f32", "bf16", "i8"):
         for lcap in lcaps:
             packed, slot_ids, scales = probe_index(torch, dev, dtype, lcap,
@@ -2016,20 +1963,17 @@ def phase_probe_vs_plain(torch, dev, dp=768, lcaps=(384, 992), shapes=PROBE_SHAP
                 q = qall[:probes.shape[0]].contiguous()
                 pv, pi = ivf_scan.ivf_probe_topk_reference(q, probes, packed, slot_ids,
                                                            scales, k)
-                line = []
-                for layout in ivf_scan.LAYOUTS:
-                    kv, ki = ivf_scan.ivf_probe_topk_cuda(q, probes, packed, slot_ids, scales, k,
-                                                          fills=fills, layout=layout)
-                    torch.cuda.synchronize(dev)
-                    tag = f"{dtype} Lcap={lcap} {name} k={k} {layout}-major"
-                    err, r, agree = check_probe(torch, tag, q, probes, packed, slot_ids, scales,
-                                                k, kv, ki, pv, pi)
-                    max_err[layout] = max(max_err[layout], err)
-                    line.append(f"{layout}: regret={r:.3e} max_abs_err={err:.3e} "
-                                f"id_agree={agree:.4f}")
+                kv, ki = ivf_scan.ivf_probe_topk_cuda(q, probes, packed, slot_ids, scales, k,
+                                                      fills=fills)
+                torch.cuda.synchronize(dev)
+                tag = f"{dtype} Lcap={lcap} {name} k={k}"
+                err, r, agree = check_probe(torch, tag, q, probes, packed, slot_ids, scales,
+                                            k, kv, ki, pv, pi)
+                max_err = max(max_err, err)
                 n_items = check_grouping(torch, f"{dtype} Lcap={lcap} {name}",
                                          probes.to(torch.int32), fills)
-                say(f"  {dtype} Lcap={lcap} {name} k={k} ({n_items} items): " + " | ".join(line))
+                say(f"  {tag} ({n_items} items): regret={r:.3e} max_abs_err={err:.3e} "
+                    f"id_agree={agree:.4f}")
             del packed, slot_ids, scales
     torch.cuda.empty_cache()
     return max_err
@@ -2077,7 +2021,7 @@ def phase_partition_main_path(torch, dev, work, n=1_000_000, d=768, nq=1000, fla
         res = run_tool(pr_eval.main, pr_args + ["--backend", backend],
                        keep=("partitions=", "RESULT"))
         if backend == "auto":
-            out["launches"]["pr"] = {"ivf_probe_topk": probe_launches("pr_eval"),
+            out["launches"]["pr"] = {"ivf_probe_topk": ivf_scan.LAUNCHES,
                                      "rerank_topk": rerank.LAUNCHES}
         out[f"pr_{backend}"] = {r["nprobe"]: r for r in res}
         say(f"  pr_eval --backend {backend} ({time.perf_counter() - t0:.1f} s): " + "; ".join(
@@ -2124,7 +2068,7 @@ def phase_partition_main_path(torch, dev, work, n=1_000_000, d=768, nq=1000, fla
             ivf_scan.reset_launches()
         res = run_tool(ivf_eval.main, ev_args + ["--ivf-backend", backend])[0]
         if backend == "auto":
-            out["launches"]["ivfflat"] = {"ivf_probe_topk": probe_launches("ivf_eval ivfflat")}
+            out["launches"]["ivfflat"] = {"ivf_probe_topk": ivf_scan.LAUNCHES}
         out[f"flat_{backend}"] = res
         say(f"  ivf_eval ivfflat --ivf-backend {backend}: recall@10={res['recall']:.4f} "
             f"QPS={res['qps']:.1f}")
@@ -2162,19 +2106,18 @@ def graph_replay_check(torch, fn):
 
 
 def phase_probe_times(torch, dev, pidx, fidx, base, queries):
-    """The list-major probe kernel against the query-major A/B and the plain
-    version, in turns, on the partition and IVF-Flat indexes at their
-    batches and at B = 8 and 1; each beside its bound by distinct bytes and
-    the bytes as probed; the device time of each layout alone (a CUDA graph
-    of 20 calls); one call captured in a CUDA graph and replayed; the
-    partition and IVF-Flat batches by stage."""
+    """The probe kernel against its plain version, in turns, on the
+    partition and IVF-Flat indexes at their batches and at B = 8 and 1;
+    each beside its bound by distinct bytes and the bytes as probed; its
+    device time alone (a CUDA graph of 20 calls); the list-major plan's
+    sweep; the call by pass; one call captured in a CUDA graph and
+    replayed; the partition and IVF-Flat batches by stage."""
     from nvdb_tpu_torch.index.ivf_flat import _coarse_probes
     from nvdb_tpu_torch.index.partition import PartitionRerankIndex
     from nvdb_tpu_torch.kernels import _build, dispatch, ivf_scan
     from nvdb_tpu_torch.store import VectorStore
 
     out = {}
-    ivf_scan.reset_launches()
     for name, b, nprobe, k in PROBE_TIMES:
         ivf = pidx.ivf if name.startswith("partition") else fidx
         q = torch.zeros((b, ivf.centroids.shape[1]), device=dev)
@@ -2183,11 +2126,9 @@ def phase_probe_times(torch, dev, pidx, fidx, base, queries):
         fills = ivf.fills()
         args = (q, probes, ivf.packed, ivf.slot_ids, ivf.slot_scales, k)
         lst = lambda: ivf_scan.ivf_probe_topk_cuda(*args, fills=fills)
-        qry = lambda: ivf_scan.ivf_probe_topk_cuda(*args, fills=fills, layout="query")
         kern, plain, runs = in_turns(
             torch, lambda: ivf_scan.ivf_probe_topk_reference(*args), lst, iters=10)
-        lm, qm, ab = in_turns(torch, qry, lst, iters=10)
-        g_list, g_query = graph_ms(torch, lst, launches=20), graph_ms(torch, qry, launches=20)
+        g_list = graph_ms(torch, lst, launches=20)
         dp = ivf.packed.shape[2]
         row_bytes = dp * ivf.packed.element_size() + (4 if ivf.slot_scales is not None else 0)
         pb = ivf_scan.probe_bytes(probes, fills, row_bytes, ivf.nlist, dp, k)
@@ -2196,21 +2137,16 @@ def phase_probe_times(torch, dev, pidx, fidx, base, queries):
         kind = "f32" if ivf.packed.dtype == torch.float32 else "bf16"
         bnd, by = bound_ms(pb["distinct"], ops, kind)
         per_list = pb["pairs"] / max(1, pb["lists"])
-        say(f"  probe {name} B={b} P={nprobe} Lcap={ivf.lcap} k={k}: list-major {kern:.4f} ms "
-            f"{runs['kernel']} | plain {plain:.4f} ms {runs['plain']}")
-        say(f"    in turns: list-major {lm:.4f} ms {ab['kernel']} | query-major {qm:.4f} ms "
-            f"{ab['plain']} | device time, 20 calls in a CUDA graph: list-major {g_list:.4f} "
-            f"ms, query-major {g_query:.4f} ms")
+        say(f"  probe {name} B={b} P={nprobe} Lcap={ivf.lcap} k={k}: kernel {kern:.4f} ms "
+            f"{runs['kernel']} | plain {plain:.4f} ms {runs['plain']} | device time, 20 calls "
+            f"in a CUDA graph: {g_list:.4f} ms")
         say(f"    bytes: distinct {pb['distinct'] / 1e9:.4f} GB ({pb['lists']} distinct lists, "
             f"{per_list:.2f} queries a probed list), as probed {pb['as_probed'] / 1e9:.4f} GB; "
-            f"bound {bnd:.4f} ms ({by}) time / bound: list-major {lm / bnd:.2f} "
-            f"(device {g_list / bnd:.2f}), query-major {qm / bnd:.2f} (device "
-            f"{g_query / bnd:.2f})")
-        out[name] = dict(ms=lm, plain_ms=plain, query_ms=qm, graph_ms=g_list,
-                         query_graph_ms=g_query, bytes=pb["distinct"],
+            f"bound {bnd:.4f} ms ({by}) time / bound {kern / bnd:.2f} (device "
+            f"{g_list / bnd:.2f})")
+        out[name] = dict(ms=kern, plain_ms=plain, graph_ms=g_list, bytes=pb["distinct"],
                          as_probed=pb["as_probed"], lists=pb["lists"], bound_ms=bnd,
                          bound_by=by)
-    out["query launches"] = ivf_scan.LAUNCHES_BY_LAYOUT["query"]
     # the list-major plan's knobs: queries a chunk and CTAs a SM (device time)
     defaults = (ivf_scan._LIST_NQ_MAX, ivf_scan._LIST_PLAN_CTAS)
     for name, b, nprobe, k in PROBE_TIMES[:2]:
@@ -2478,7 +2414,7 @@ def build_side_ivfflat(torch, dev, work, part, nlist=4096):
         ivf_scan.reset_launches()
         res = run_tool(ivf_eval.main, [index, *ev, "--ivf-backend", backend])[0]
         if backend == "auto":
-            n = probe_launches(f"ivf_eval {name}")
+            n = ivf_scan.LAUNCHES
             check(n > 0, f"ivf_eval {name}: did not launch ivf_probe_topk")
             out["launches"]["ivf_probe_topk"] += n
         out[(name, backend)] = res
@@ -2668,7 +2604,7 @@ def dist_counted(total, fn, *args, **kw):
     torch.cuda.synchronize()
     add_launches(total, {f"flat_topk.{i}": c for i, c in flat_scan.LAUNCHES_BY_KERNEL.items()})
     add_launches(total, dict(adc_counts(), rerank_topk=rerank.LAUNCHES,
-                             ivf_probe_topk=probe_launches("dist")))
+                             ivf_probe_topk=ivf_scan.LAUNCHES))
     return res
 
 
@@ -3218,14 +3154,14 @@ def main() -> int:
         # the A/B, on no default path: its launches are phase 14's SIMT ground truth
         ("flat_topk_f32_simt", "flat_topk", "nvdb_tpu/kernels/flat_scan.py:417",
          flat.get("f32_simt", 0), max_err["f32_simt"], times["f32 B=512 k=10 simt"]),
-        # the tables and the staged dma scan: the A/Bs (phase 8's --key-scan
-        # tables runs, phase 16's tools), on no default path since this slice
+        # the tables and the staged scans: the A/B tools' (phase 16), on no
+        # search path; the fused scans are held to them in phases 6 and 9
         ("adc_tables", "adc_tables", "nvdb_tpu/kernels/pq.py:89",
-         ivf["launches"]["adc_tables"] + bl.get("adc_tables", 0) + dist["adc_tables"],
+         bl.get("adc_tables", 0) + dist["adc_tables"],
          adc["table_err"],
          ivf_times["adc_tables"]),
         ("adc_topk", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:558",
-         ivf["launches"]["adc_topk"] + bl.get("adc_topk", 0) + dist["adc_topk"],
+         bl.get("adc_topk", 0) + dist["adc_topk"],
          adc["scan_err"], ivf_times["adc_topk"]),
         # the dma site of the IVF-PQ path (ADC-only searches, replicated and
         # holed indexes, the sharded IVF-PQ): the fused dma scan, bit for bit
@@ -3235,7 +3171,7 @@ def main() -> int:
          adc["fused_dma_err"], ivf_times["adc_fused_dma"]),
         # bit for bit their plain version in phase 6, so their error is 0
         ("adc_topk_key", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:691",
-         ivf["launches"]["adc_topk_key"] + bl.get("adc_topk_key", 0) + dist["adc_topk_key"],
+         bl.get("adc_topk_key", 0) + dist["adc_topk_key"],
          0.0,
          ivf_times["adc_topk_key"]),
         # the gather site: the fused key scan reads each probed list in place;
@@ -3243,9 +3179,9 @@ def main() -> int:
         # phases 6 and 9, so its error is 0. Its launches are phase 8's gather run's
         ("adc_fused_gather", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:718",
          ivf["launches"]["adc_fused_gather"], 0.0, ivf_times["adc_fused_gather"]),
-        # the gather site's A/B: the kernel over the gathered code slab
+        # the kernel over the gathered code slab: the A/B tools'
         ("adc_topk_gather", "adc_topk", "nvdb_tpu/kernels/adc_scan.py:718",
-         ivf["launches"]["adc_topk_gather"] + dist["adc_topk_gather"], 0.0,
+         dist["adc_topk_gather"], 0.0,
          ivf_times["adc_topk_gather"]),
         # the key mode of the IVF-PQ path: the key kernel's TPU counterpart and
         # the tables (nvdb_tpu/kernels/pq.py:89) in one kernel; bit for bit
@@ -3264,12 +3200,7 @@ def main() -> int:
          + dist["rerank_topk"], rerank_err, ivf_times["rerank_topk B=256"]),
         ("ivf_probe_topk", "ivf_probe_topk", "nvdb_tpu/kernels/ivf_scan.py:111",
          pl["pr"]["ivf_probe_topk"] + pl["ivfflat"]["ivf_probe_topk"] + bl["ivf_probe_topk"]
-         + dist["ivf_probe_topk"], probe_err["list"], probe_times["partition"]),
-        # the query-major A/B, on no path: its launches are phase 12's, in turns
-        # with the list-major kernel
-        ("ivf_probe_topk_query", "ivf_probe_topk", "nvdb_tpu/kernels/ivf_scan.py:111",
-         probe_times["query launches"], probe_err["query"],
-         dict(probe_times["partition"], ms=probe_times["partition"]["query_ms"])),
+         + dist["ivf_probe_topk"], probe_err, probe_times["partition"]),
         ("hbm_stream", "hbm_stream", "scripts/hbm_probe.py:62",
          sum(hbm["stream_launches"].values()), hbm["stream_err"], hbm["hbm_stream"]),
         ("add1", "add1", "nvdb_tpu/tools/tpu_sanity.py:28", hbm["add1_launches"],

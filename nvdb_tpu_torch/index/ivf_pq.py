@@ -8,11 +8,14 @@ rotated space; queries are rotated once at search time. Codes encode the
 rotated residual against the list each row is packed in.
 
 Search is coarse probe -> ADC candidate top-kk in the id mode the JAX
-package picks (the key and gather modes: the fused key scan of
-``adc_topk``; dma: its fused dma scan; both build the bf16 ADC tables in
-shared memory and read the probed lists in place) -> exact refine
-against the flat store or a residual-int8 store (the ``rerank_topk``
-kernel), all on one device. ``.npz`` files are plain numpy
+package picks, one candidate generator a mode (the key and gather modes:
+the fused key scan of ``adc_topk``; dma: its fused dma scan; both build
+the bf16 ADC tables in shared memory and read the probed lists in place)
+-> exact refine against the flat store or a residual-int8 store (the
+``rerank_topk`` kernel), all on one device. The staged ADC kernels (the
+table kernel, then a scan of the tables) take tables as the JAX
+package's ``pallas_adc_topk`` does; they stay in ``kernels/adc_scan.py``
+for the A/B tools and run on no search path. ``.npz`` files are plain numpy
 and byte-compatible with the JAX package's, so an index built by either
 package loads in the other.
 
@@ -38,12 +41,6 @@ from nvdb_tpu_torch.index.ivf_flat import (_coarse_probes, _host_chunked, _pack_
 from nvdb_tpu_torch.kernels import adc_scan, dispatch, kmeans, ops, pq
 from nvdb_tpu_torch.utils import round_up
 
-# The candidate generators of every id mode on the kernel path: the fused scan
-# (the default; the key scan in the key and gather modes, the dma scan in the
-# dma mode) and the table kernel followed by the scan of the tables (the
-# key scan, the scan of the gathered code slab or the staged dma scan: the A/B).
-KEY_SCANS = ("fused", "tables")
-
 
 def _ivfpq_search_block(
     q_rot: torch.Tensor,       # [B, Dp] rotated queries
@@ -59,68 +56,43 @@ def _ivfpq_search_block(
     fills: Optional[torch.Tensor] = None,  # [nlist] int32 (kernel path)
     terms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cached coarse_terms
     ids_mode: str = "dma",     # "key" / "gather": prefix-packed, replicas == 1 only
-    key_scan: str = "fused",   # "fused", or "tables" (the two-kernel A/B)
     leads: Optional[torch.Tensor] = None,  # dma, dedup > 1: cached adc_scan.tile_leads
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Coarse probes, ADC tables and the ADC candidate top-k of one batch.
-    The kernel path runs the fused scans, which build each pair's bf16
-    tables in shared memory (none in device memory; each query's share of
-    every entry comes from one query-term pass) and read each probed
-    list's codes in place from ``codes``, once for a chunk of queries: the
-    key and gather modes the fused key scan (``adc_fused_keys_cuda``; the
-    gather mode's result is the key mode's bit for bit, so no code slab is
-    made), the dma mode the fused dma scan (``adc_fused_topk_cuda``, which
-    keeps a replicated row once). With ``key_scan="tables"`` each mode
-    writes the bf16 tables in one pass (``adc_tables_cuda``) and scans them
-    (``adc_topk_cuda``, or ``adc_topk_keys_cuda``, over ``gather_codes``'
-    slab in the gather mode): the A/B, the same candidates; no f32 table
-    exists on it. A shape the fused scans cannot plan raises
-    (``adc_scan.fused_plan``). The ``torch`` path runs the same routes'
-    plain versions; the oracle path, the JAX package's jnp block, ignores
-    ``ids_mode`` as that block does."""
-    if key_scan not in KEY_SCANS:
-        raise ValueError(f"key_scan must be one of {KEY_SCANS}, got {key_scan!r}")
+    """Coarse probes and the ADC candidate top-k of one batch, one candidate
+    generator an id mode. The kernel path runs the fused scans, which build
+    each pair's bf16 tables in shared memory (none in device memory; each
+    query's share of every entry comes from one query-term pass) and read
+    each probed list's codes in place from ``codes``, once for a chunk of
+    queries: the key and gather modes the fused key scan
+    (``adc_fused_keys_cuda``; the gather mode's result is the key mode's bit
+    for bit, so no code slab is made), the dma mode the fused dma scan
+    (``adc_fused_topk_cuda``, which keeps a replicated row once). A shape
+    the fused scans cannot plan raises (``adc_scan.fused_plan``). The
+    ``torch`` path runs their plain versions; the oracle path, the JAX
+    package's jnp block, ignores ``ids_mode`` as that block does. The
+    staged kernels, which take tables as ``pallas_adc_topk`` does, stay in
+    ``kernels/adc_scan.py`` for the A/B tools."""
     B = q_rot.shape[0]
     probes = _coarse_probes(q_rot, centroids, slot_ids, nprobe, terms=terms)  # [B, P]
     with trace.span("adc"):
         path = dispatch.refine_backend(backend, codes)
         keyed = ids_mode in ("key", "gather")
-        fused = key_scan == "fused"
         if path == "cuda":
             probes = probes.to(torch.int32)       # once, for every kernel
             if fills is None:
                 fills = adc_scan.list_fills(slot_ids)
-            if fused and keyed:
+            if keyed:
                 return adc_scan.adc_fused_keys_cuda(q_rot.contiguous(), probes, centroids,
                                                     codebooks, codes, slot_ids, k, fills=fills)
-            if fused:
-                return adc_scan.adc_fused_topk_cuda(q_rot.contiguous(), probes, centroids,
-                                                    codebooks, codes, slot_ids, k, fills=fills,
-                                                    dedup=dedup > 1, leads=leads)
-            lut = adc_scan.adc_tables_cuda(q_rot.contiguous(), probes, centroids, codebooks,
-                                           fills)
-            if keyed:
-                return adc_scan.adc_topk_keys_cuda(lut, probes, codes, slot_ids, k, fills=fills,
-                                                   gathered=ids_mode == "gather")
-            return adc_scan.adc_topk_cuda(lut, probes, codes, slot_ids, k, fills=fills)
-        if path == "torch" and fused and keyed:
+            return adc_scan.adc_fused_topk_cuda(q_rot.contiguous(), probes, centroids,
+                                                codebooks, codes, slot_ids, k, fills=fills,
+                                                dedup=dedup > 1, leads=leads)
+        if path == "torch" and keyed:
             return adc_scan.adc_fused_keys_reference(q_rot, probes, centroids, codebooks, codes,
                                                      slot_ids, k, fills=fills)
-        if path == "torch" and fused:
+        if path == "torch":
             return adc_scan.adc_fused_topk_reference(q_rot, probes, centroids, codebooks, codes,
                                                      slot_ids, k, fills=fills, dedup=dedup > 1)
-        if path == "torch":
-            if fills is None:
-                fills = adc_scan.list_fills(slot_ids)
-            lut = adc_scan.adc_tables_reference(q_rot, probes, centroids, codebooks, fills)
-            if ids_mode == "gather":
-                return adc_scan.adc_topk_keys_reference(
-                    lut, probes, adc_scan.gather_codes(codes, probes), slot_ids, k,
-                    fills=fills, gathered=True)
-            if keyed:
-                return adc_scan.adc_topk_keys_reference(lut, probes, codes, slot_ids, k,
-                                                        fills=fills)
-            return adc_scan.adc_topk_reference(lut, probes, codes, slot_ids, k)
         # the JAX package's jnp path: f32 tables, gathered code slabs
         residuals = q_rot[:, None, :] - centroids[probes]                # [B, P, Dp]
         lut = pq.adc_lut(residuals.reshape(B * nprobe, -1), codebooks, m)
@@ -394,8 +366,7 @@ class IVFPQIndex:
     def search_device(self, queries: torch.Tensor, k: int, nprobe: int,
                       refine_k: int = 0, refine_store=None, backend: str = "auto",
                       for_refine: bool = False, refine_metric: str = "l2",
-                      ids_mode: Optional[str] = None, key_scan: str = "fused",
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      ids_mode: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Padded on-device queries [B, Dp] in, device tensors out: coarse ->
         ADC -> optional exact refine against ``refine_store`` (a
         ``VectorStore`` of the original rows, or a residual-int8 store of
@@ -413,16 +384,13 @@ class IVFPQIndex:
         'dma', whose ranking is exact f32). 'key' and 'gather' rank at bf16
         granularity and need a prefix-packed index with replicas == 1. The
         cuda and torch paths run the mode; the oracle path keeps the jnp
-        semantics, as the JAX package's jnp backend does. ``key_scan``: the
-        candidate generator of every mode, ``fused`` (one fused kernel that
-        builds the tables in shared memory and reads each probed list in
-        place: the fused key scan, the gather mode then being the key mode,
-        or the fused dma scan) or ``tables`` (the table kernel, then the key
-        kernel, in the gather mode the kernel over the gathered code slab, in
-        the dma mode the staged dma scan: the A/B arm, bit for bit the same
-        candidates).
+        semantics, as the JAX package's jnp backend does. Each mode has one
+        candidate generator on the kernel path, a fused kernel that builds
+        the tables in shared memory and reads each probed list in place: the
+        fused key scan in the key and gather modes (the gather mode then
+        being the key mode), the fused dma scan in the dma mode.
 
-        On the card, with the fused scan and every stage on its kernel, the
+        On the card, with every stage on its kernel, the
         chain is captured once a shape in a CUDA graph and replayed, bit for
         bit the eager call (``index/graphs.py``); every other call runs
         eagerly. A replayed index serves one CUDA stream at a time."""
@@ -445,18 +413,18 @@ class IVFPQIndex:
                 refine_k = max(refine_k, k)
             mode = ids_mode or (self.ids_mode() if (refine_k > 0 or for_refine) else "dma")
             chain = lambda q: self._search_chain(q, k, nprobe, refine_k, refine_store, backend,
-                                                 refine_metric, mode, key_scan)
+                                                 refine_metric, mode)
             paths = [dispatch.refine_backend(backend, self.codes)]
             if refine_k > 0:
                 paths.append(dispatch.refine_path(backend, refine_store.vectors))
-            if key_scan == "fused" and graphs.engages(queries, paths):
+            if graphs.engages(queries, paths):
                 return self._graphs.run(
                     root, self._graph_parts(k, nprobe, refine_k, refine_store, refine_metric,
-                                            mode, key_scan), queries, chain)
+                                            mode), queries, chain)
             return graphs.eager(root, chain, queries)
 
     def _graph_parts(self, k: int, nprobe: int, refine_k: int, refine_store,
-                     refine_metric: str, mode: str, key_scan: str) -> tuple:
+                     refine_metric: str, mode: str) -> tuple:
         """What a served call's chain depends on besides its batch and the
         index's own tensors, as ``search_device`` resolved it (``nprobe`` at
         most nlist, ``refine_k`` at least k, ``mode`` the id mode taken):
@@ -465,11 +433,11 @@ class IVFPQIndex:
         if refine_k > 0:
             st = refine_store
             store = (st, st.vectors, st.scales, st.res_cents, st.res_ids)
-        return (k, nprobe, refine_k, refine_metric, mode, key_scan) + store
+        return (k, nprobe, refine_k, refine_metric, mode) + store
 
     def _search_chain(self, queries: torch.Tensor, k: int, nprobe: int, refine_k: int,
-                      refine_store, backend: str, refine_metric: str, mode: str,
-                      key_scan: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                      refine_store, backend: str, refine_metric: str,
+                      mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """The device work of ``search_device`` on its resolved arguments:
         rotation, coarse ranking and ADC candidates, then the refine."""
         kk = max(k, refine_k)
@@ -485,10 +453,8 @@ class IVFPQIndex:
                                    dedup=self.replicas,
                                    fills=self.fills() if cuda else None,
                                    terms=self.coarse_terms(), ids_mode=mode,
-                                   key_scan=key_scan,
                                    leads=(self.tile_leads() if cuda and mode == "dma"
-                                          and self.replicas > 1 and key_scan == "fused"
-                                          else None))
+                                          and self.replicas > 1 else None))
         dispatch.check_finite("IVF-PQ ADC candidate scores", v, i)
         if refine_k > 0:
             # a residual-int8 store dequantizes against the index's rotated

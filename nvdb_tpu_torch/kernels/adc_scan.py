@@ -26,9 +26,9 @@ summed in f32 over m in order, and return the top kk (kk <= 1024) with
   for each per-list DMA it issued; on the card each probed list's codes are
   one contiguous block of ``codes`` that a CTA copies itself, so the IVF-PQ
   path's gather mode is the fused key scan below, which reads the lists in
-  place. The slab route stays as its A/B: ``adc_topk_keys_cuda(...,
-  gathered=True)``, the key mode over ``gather_codes(codes, probes)`` [B *
-  P, M, Lcap].
+  place. The slab route, ``adc_topk_keys_cuda(..., gathered=True)``, the
+  key mode over ``gather_codes(codes, probes)`` [B * P, M, Lcap], runs in
+  the A/B tools only.
 - fused key scan (``adc_fused_keys_cuda``, ``adc_fused_keys_reference``):
   the key mode from the rotated queries, probes, centroids and codebooks,
   bit for bit ``adc_topk_keys_cuda`` on ``adc_tables_cuda``'s tables, with
@@ -43,8 +43,12 @@ summed in f32 over m in order, and return the top kk (kk <= 1024) with
 - fused dma scan (``adc_fused_topk_cuda``, ``adc_fused_topk_reference``):
   the dma mode the same way, bit for bit ``adc_topk_cuda`` on
   ``adc_tables_cuda``'s tables; the dma mode of the IVF-PQ path (ADC-only
-  searches, replicated indexes, lists with holes). The staged route (the
-  table kernel, then ``adc_topk_cuda``) is its A/B.
+  searches, replicated indexes, lists with holes).
+
+The staged kernels (the table kernel, then ``adc_topk_cuda`` or
+``adc_topk_keys_cuda``) take tables, as ``pallas_adc_topk`` does, and run
+on no search path: ``tools.adc_ab``, ``tools.adc_rank_probe`` and
+``tools.adc_breakdown`` run them, and the fused scans are held to them.
 
 The TPU kernel's nibble one-hot matmul works around the TPU's lack of a
 fast gather and is not carried over. The ``*_cuda`` wrappers launch their
@@ -75,8 +79,8 @@ LAUNCHES = 0
 # Launches of the table kernel; only adc_tables_cuda's launch adds to it.
 TABLE_LAUNCHES = 0
 # Launches of the key kernel and of its gather instance over the code slab
-# (the gather mode's A/B); only adc_topk_keys_cuda's launch adds to them, to
-# the one of its mode.
+# (the slab route); only adc_topk_keys_cuda's launch adds to them, to the one
+# of its mode.
 KEY_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 # Key modes: a probe group's coordinates fit 16 bits of a candidate key.

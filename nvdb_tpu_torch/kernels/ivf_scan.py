@@ -10,12 +10,10 @@ desc) with (-inf, -1) fill. A probe id outside [0, nlist) is an empty list;
 a list probed twice by one query scores twice.
 
 ``ivf_probe_topk_cuda`` launches the kernel on a CUDA tensor and raises on
-any other. Its default layout is list-major: the batch's (query, probe)
-pairs are grouped by list on the device (``group_pairs_reference`` is the
-plain version of that pass) and each probed list is read once for every
-chunk of up to 8 queries that probe it. ``layout="query"`` runs the query-major kernel of the first port
-(each list read once a pair), the A/B arm; the wrapper never picks it by
-itself.
+any other. The kernel is list-major: the batch's (query, probe) pairs are
+grouped by list on the device (``group_pairs_reference`` is the plain
+version of that pass) and each probed list is read once for every chunk of
+up to 8 queries that probe it.
 
 ``probe_bytes`` counts a batch's bytes both ways: as probed (a list once
 for each pair that probes it) and distinct (each probed list once), the
@@ -37,8 +35,6 @@ from nvdb_tpu_torch.kernels.flat_scan import check_tensor, require_cuda
 from nvdb_tpu_torch.utils import cdiv, round_up
 
 MAX_K = 128
-LAYOUTS = ("list", "query")
-_CTAS_PER_SM = 4     # query-major pass-1 CTAs per SM the probe split aims for
 _LIST_CTAS_PER_SM = 2  # list-major: below this many pairs a SM, lists split into row ranges
 _LIST_RANGE_ROWS = 64  # list-major: the least rows a range holds (one tile)
 _LIST_MAX_PARTIALS = 64  # list-major: row ranges stop where a query's P x R partials pass this
@@ -53,19 +49,15 @@ _LIST_MAX_STAGES = 16
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-# Launches of the kernel since the last reset, either layout. Only
-# ivf_probe_topk_cuda's launch adds to it, and to its layout's count;
-# ``index/graphs.py`` keeps them to the kernels that ran: a served chain's
-# capture adds nothing, each replay adds its launches.
+# Launches of the kernel since the last reset. Only ivf_probe_topk_cuda's
+# launch adds to it; ``index/graphs.py`` keeps it to the kernels that ran: a
+# served chain's capture adds nothing, each replay adds its launches.
 LAUNCHES = 0
-LAUNCHES_BY_LAYOUT = {"list": 0, "query": 0}
 
 
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
-    for name in LAUNCHES_BY_LAYOUT:
-        LAUNCHES_BY_LAYOUT[name] = 0
 
 
 def ivf_probe_topk_reference(
@@ -183,9 +175,6 @@ def _lib():
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C entries' arguments on a build of the kernel library
     (the port's, or a measurement build of the same source)."""
-    # query-major: 10 pointers, B, P, nlist, Lcap, Dp, k, S, mode, stream
-    lib.nvdb_ivf_probe_topk.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
-        [ctypes.c_void_p]
     # list-major: 11 pointers, B, P, nlist, Lcap, Dp, k, R, nq, n_stages, U, mode, stream
     lib.nvdb_ivf_probe_topk_list.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + \
         [ctypes.c_void_p]
@@ -194,7 +183,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         [ctypes.c_void_p]
     lib.nvdb_ivf_probe_list_plan.argtypes = [ctypes.c_int] * 6 + \
         [ctypes.POINTER(ctypes.c_int)] * 2
-    for fn in (lib.nvdb_ivf_probe_topk, lib.nvdb_ivf_probe_topk_list, lib.nvdb_ivf_group_pairs,
+    for fn in (lib.nvdb_ivf_probe_topk_list, lib.nvdb_ivf_group_pairs,
                lib.nvdb_ivf_probe_list_plan):
         fn.restype = ctypes.c_int
     return lib
@@ -203,13 +192,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def _probe_groups(batch: int, P: int, device_index: int) -> int:
-    """Probe groups S of the query-major pass 1: about ``_CTAS_PER_SM``
-    CTAs per SM at any batch, no group without a probe."""
-    s = max(1, min(P, cdiv(_CTAS_PER_SM * _sm_count(device_index), batch)))
-    return cdiv(P, cdiv(P, s))
 
 
 @functools.cache
@@ -289,18 +271,14 @@ def ivf_probe_topk_cuda(
     slot_scales: Optional[torch.Tensor],  # [nlist, Lcap] f32 (int8 slabs)
     k: int,
     fills: Optional[torch.Tensor] = None,  # [nlist] int32 (list_fills), cached by callers
-    layout: str = "list",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over each query's probed list slabs; the contract of
-    ``ivf_probe_topk_reference``. ``layout``: ``"list"`` (the default: pairs
-    grouped by list, each list read once a chunk of queries) or ``"query"``
-    (the query-major A/B arm). Returns (vals [B, k] f32, ids [B, k] int32).
-    No host sync: the launches can be captured in a CUDA graph."""
+    ``ivf_probe_topk_reference``: pairs grouped by list, each list read once
+    a chunk of queries. Returns (vals [B, k] f32, ids [B, k] int32). No host
+    sync: the launches can be captured in a CUDA graph."""
     global LAUNCHES
     with trace.span("ivf_probe_topk_cuda") as sp:
         require_cuda(packed, "ivf_probe_topk")
-        if layout not in LAYOUTS:
-            raise ValueError(f"unknown layout {layout!r}; expected one of {LAYOUTS}")
         if not 1 <= k <= MAX_K:
             raise ValueError(f"k={k} outside [1, {MAX_K}]")
         if packed.dim() != 3 or queries.dim() != 2 or probes.dim() != 2:
@@ -339,38 +317,23 @@ def ivf_probe_topk_cuda(
         index = dev.index if dev.index is not None else torch.cuda.current_device()
         with torch.cuda.device(index):
             stream = torch.cuda.current_stream(index).cuda_stream
-            if layout == "query":
-                S = _probe_groups(B, P, index)
-                part_vals = torch.empty((B, S, k), dtype=torch.float32, device=dev)
-                part_ids = torch.empty((B, S, k), dtype=torch.int32, device=dev)
-                if sp:
-                    sp.count_alloc(part_vals, part_ids)
-                with trace.span("launch"):
-                    rc = lib.nvdb_ivf_probe_topk(
-                        queries.data_ptr(), probes.data_ptr(), packed.data_ptr(),
-                        slot_ids.data_ptr(), scales_ptr, fills.data_ptr(), part_vals.data_ptr(),
-                        part_ids.data_ptr(), vals.data_ptr(), ids.data_ptr(), B, P, nlist, L,
-                        Dp, k, S, mode, stream)
-            else:
-                nq, n_stages = _list_plan(mode, Dp, k, index, _LIST_NQ_MAX, _LIST_PLAN_CTAS,
-                                          _LIST_MAX_STAGES)
-                R = list_ranges(B, P, L, _sm_count(index))
-                U = max_items(B * P, nlist, nq)
-                # one int32 allocation: pass 0's scratch, then the partial lists' ids
-                head = group_scratch_ints(nlist, B * P, U)
-                scratch = torch.empty(head + B * P * R * k, dtype=torch.int32, device=dev)
-                part_vals = torch.empty((B, P * R, k), dtype=torch.float32, device=dev)
-                if sp:
-                    sp.count_alloc(scratch, part_vals)
-                with trace.span("launch"):
-                    rc = lib.nvdb_ivf_probe_topk_list(
-                        queries.data_ptr(), probes.data_ptr(), packed.data_ptr(),
-                        slot_ids.data_ptr(), scales_ptr, fills.data_ptr(), scratch.data_ptr(),
-                        part_vals.data_ptr(), scratch.data_ptr() + 4 * head, vals.data_ptr(),
-                        ids.data_ptr(), B, P, nlist, L, Dp, k, R, nq, n_stages, U, mode, stream)
+            nq, n_stages = _list_plan(mode, Dp, k, index, _LIST_NQ_MAX, _LIST_PLAN_CTAS,
+                                      _LIST_MAX_STAGES)
+            R = list_ranges(B, P, L, _sm_count(index))
+            U = max_items(B * P, nlist, nq)
+            # one int32 allocation: pass 0's scratch, then the partial lists' ids
+            head = group_scratch_ints(nlist, B * P, U)
+            scratch = torch.empty(head + B * P * R * k, dtype=torch.int32, device=dev)
+            part_vals = torch.empty((B, P * R, k), dtype=torch.float32, device=dev)
+            if sp:
+                sp.count_alloc(scratch, part_vals)
+            with trace.span("launch"):
+                rc = lib.nvdb_ivf_probe_topk_list(
+                    queries.data_ptr(), probes.data_ptr(), packed.data_ptr(),
+                    slot_ids.data_ptr(), scales_ptr, fills.data_ptr(), scratch.data_ptr(),
+                    part_vals.data_ptr(), scratch.data_ptr() + 4 * head, vals.data_ptr(),
+                    ids.data_ptr(), B, P, nlist, L, Dp, k, R, nq, n_stages, U, mode, stream)
         if rc != 0:
-            raise RuntimeError(f"ivf_probe_topk ({layout}-major) kernel launch failed: "
-                               f"cudaError_t {rc}")
+            raise RuntimeError(f"ivf_probe_topk kernel launch failed: cudaError_t {rc}")
         LAUNCHES += 1
-        LAUNCHES_BY_LAYOUT[layout] += 1
         return vals, ids

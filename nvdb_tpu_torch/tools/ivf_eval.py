@@ -4,7 +4,7 @@ port of ``nvdb_tpu.tools.ivf_eval``).
     python -m nvdb_tpu_torch.tools.ivf_eval index.npz base.vecbin q.vecbin \\
         --gt gt.gtbin --nprobe 64 --refine-k 100 --k 10 --batch-q 256 \\
         [--chained [--wave W]] [--ivf-backend auto|cuda|torch] [--device cuda|cpu] \\
-        [--ids-mode dma|key|gather] [--key-scan fused|tables] [--residual-refine]
+        [--ids-mode dma|key|gather] [--residual-refine]
 
 Two ways to run each (nprobe, refine_k) grid point, as in the JAX package:
 
@@ -31,10 +31,7 @@ are skipped, as in the JAX package.
 index's ``ids_mode()``, ``key`` on every index ``ivf_build`` makes, for refine
 candidates, and ``dma`` for ADC-only results). The key and gather modes run the
 fused key scan, the dma mode the fused dma scan; both read each probed list in
-place and build the tables in shared memory. ``--key-scan tables`` runs each
-mode as the table kernel and the key kernel, in the gather mode the kernel
-over the gathered code slab, in the dma mode the staged dma scan (the A/B of
-the fused scans, the same candidates; RESULT lines then carry ``key_scan``). ``--residual-refine``: the
+place and build the tables in shared memory. ``--residual-refine``: the
 base vecbin holds residual int8 codes of this index
 (``tools.quantize_i8 --residual``); the refine dequantizes them against the
 index's centroids and scores rotated queries.
@@ -101,12 +98,6 @@ def main(argv=None):
                    help="override the IVF-PQ candidate generator: 'key' and 'gather' "
                         "rank candidates at bf16 granularity, 'dma' at exact f32; "
                         "default: auto")
-    p.add_argument("--key-scan", default=None, choices=["fused", "tables"],
-                   help="the IVF-PQ candidate generator on the kernel path: 'fused' "
-                        "(the default: one kernel, no tables or code slab in device "
-                        "memory) or 'tables' (the table kernel, then the key kernel, "
-                        "over the gathered code slab in the gather mode, the staged "
-                        "dma scan in the dma mode: the A/B, the same candidates)")
     p.add_argument("--exact-metric", default=eval_env.exact_metric,
                    choices=["l2", "dot"], help="refine ranking metric (EXACT_METRIC)")
     p.add_argument("--residual-refine", action="store_true",
@@ -182,14 +173,11 @@ def main(argv=None):
             refine_store.attach_residual(r_cents, r_list_of)
     refine_path = dispatch.refine_path(args.ivf_backend, torch.empty(0, device=device))
     # --ids-mode reaches the single-device IVF-PQ candidate generator only
-    # (and --key-scan)
     im_kw = {"ids_mode": args.ids_mode} if args.ids_mode and is_pq and not sharded else {}
     if args.ids_mode and not im_kw:
         print(f"WARNING: --ids-mode {args.ids_mode} ignored "
               f"({'sharded' if sharded else 'non-PQ'} path resolves ids_mode itself); "
               f"RESULT lines will not carry it")
-    if args.key_scan and is_pq and not sharded:
-        im_kw["key_scan"] = args.key_scan
 
     print(f"kind={kind} nlist={idx.nlist} lcap={idx.lcap} N={idx.n} d={idx.d} Q={Q} "
           f"k={args.k} index_MB={idx.index_bytes / 1e6:.1f} device={dev_name}")

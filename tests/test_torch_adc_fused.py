@@ -13,7 +13,8 @@ runs in tests/test_torch_gpu.py and chip_smoke.py):
   truncated score may sit one bf16 step off: sorted values within one bf16
   step, ids shared at >= 0.95 k per row;
 - ``IVFPQIndex.search_device`` on the CPU: the key mode's plain fused path
-  and its two-step A/B give the same candidates bit for bit, and the
+  gives the candidates of the two-step plain route (the plain tables, then
+  the key mode's plain scan) on the same probes bit for bit, and the
   refined result is the JAX ``search_device``'s;
 - the fused dma scan's plain version, ``adc_fused_topk_reference`` (the
   pairs grouped by list, each (pair, tile)'s k best keys of distinct ids,
@@ -36,6 +37,8 @@ from nvdb_tpu.index import ivf_flat as jivf_flat
 from nvdb_tpu.index.ivf_pq import IVFPQIndex as JIVFPQIndex
 from nvdb_tpu.kernels import adc_scan as jadc
 from nvdb_tpu.kernels import pq as jpq
+from nvdb_tpu_torch.index import ivf_pq
+from nvdb_tpu_torch.index.ivf_flat import _coarse_probes
 from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
 from nvdb_tpu_torch.kernels import adc_scan
 from nvdb_tpu_torch.store import VectorStore
@@ -201,16 +204,27 @@ def small_world():
     return dict(base=base, j=j, t=t, qp=qp)
 
 
-def test_search_device_key_scan_fused_is_the_tables_a_b(small_world):
-    """The torch path's key mode through the fused plain version and
-    through its two-step A/B: the same candidates bit for bit."""
+def _two_step_tables(t, qp, nprobe):
+    """What the two-step plain route scans for ``t.search_device(qp, ...,
+    nprobe, backend="torch")``: the same probes (the rotated queries'
+    coarse ranking), the list fills and the plain bf16 tables."""
+    q_rot = qp if t.rotation is None else ivf_pq._matmul(qp, t.rotation)
+    probes = _coarse_probes(q_rot, t.centroids, t.slot_ids, nprobe, terms=t.coarse_terms())
+    fills = adc_scan.list_fills(t.slot_ids)
+    return adc_scan.adc_tables_reference(q_rot, probes, t.centroids, t.codebooks, fills), \
+        probes, fills
+
+
+def test_search_device_key_mode_is_the_two_step_plain_route(small_world):
+    """The torch path's key mode through the fused plain version and the
+    two-step plain route (the plain tables, then the key mode's plain scan)
+    on the same probes: the same candidates bit for bit."""
     t, qp = small_world["t"], torch.from_numpy(small_world["qp"])
     assert t.ids_mode() == "key"
     a = t.search_device(qp, 30, 4, backend="torch", for_refine=True)
-    b = t.search_device(qp, 30, 4, backend="torch", for_refine=True, key_scan="tables")
+    lut, probes, fills = _two_step_tables(t, qp, 4)
+    b = adc_scan.adc_topk_keys_reference(lut, probes, t.codes, t.slot_ids, 30, fills=fills)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    with pytest.raises(ValueError, match="key_scan"):
-        t.search_device(qp, 30, 4, backend="torch", for_refine=True, key_scan="lut")
 
 
 def test_search_device_on_the_cpu_matches_jax(small_world):
@@ -365,9 +379,10 @@ def test_fused_dma_cuda_wrapper_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("replicas", [1, 2])
 def test_search_device_dma_fused_is_the_tables_a_b(small_world, replicas):
-    """The torch path's dma mode through the fused plain version and through
-    the staged route's plain versions (``key_scan="tables"``): the same
-    candidates bit for bit, on the index and on a replicated copy of it."""
+    """The torch path's dma mode through the fused plain version and the
+    staged route's plain versions (the plain tables, then the dma mode's
+    plain scan) on the same probes: the same candidates bit for bit, on the
+    index and on a replicated copy of it."""
     t, qp = small_world["t"], torch.from_numpy(small_world["qp"])
     if replicas > 1:
         j = JIVFPQIndex.repack(small_world["j"], small_world["base"], pad_factor=2.0,
@@ -377,7 +392,8 @@ def test_search_device_dma_fused_is_the_tables_a_b(small_world, replicas):
             np.asarray(j.codes), np.asarray(j.slot_ids), j.n, j.d, j.m, replicas=2,
             device="cpu")
     a = t.search_device(qp, 30, 4, backend="torch", ids_mode="dma")
-    b = t.search_device(qp, 30, 4, backend="torch", ids_mode="dma", key_scan="tables")
+    lut, probes, _ = _two_step_tables(t, qp, 4)
+    b = adc_scan.adc_topk_reference(lut, probes, t.codes, t.slot_ids, 30)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     _assert_dma_result(*a, 30)
 

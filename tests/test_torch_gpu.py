@@ -681,7 +681,7 @@ def _fused_check(q_rot, probes, cents, cb, codes, slot_ids, kk, nq_max=None):
 @pytest.mark.parametrize("b,p", [(1, 1), (8, 7), (64, 32)])
 @pytest.mark.parametrize("kk", [10, 100, 1024])
 @pytest.mark.parametrize("nq_max", [1, 8, 32])
-def test_fused_key_scan_matches_the_key_path(cuda_device, b, p, kk, nq_max):
+def test_fused_keys_matches_the_key_path(cuda_device, b, p, kk, nq_max):
     _fused_check(*_fused_case(b, p, 64, 16, 8, 640, seed=b + p + kk, device=cuda_device,
                               hot=True, bad=True), kk, nq_max=nq_max)
 
@@ -689,7 +689,7 @@ def test_fused_key_scan_matches_the_key_path(cuda_device, b, p, kk, nq_max):
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,dsub,lcap", [(32, 4, 256), (24, 12, 320), (8, 16, 1024),
                                          (12, 3, 256), (10, 8, 2048), (340, 8, 128)])
-def test_fused_key_scan_dsub_instances_and_widths(cuda_device, m, dsub, lcap):
+def test_fused_keys_dsub_instances_and_widths(cuda_device, m, dsub, lcap):
     """Register codewords (dsub 4, 12, 16), the any-dsub instance (3), an M
     off a multiple of 8 with lists of two tiles (Lcap 2048), and an M as
     wide as the key kernel takes."""
@@ -698,7 +698,7 @@ def test_fused_key_scan_dsub_instances_and_widths(cuda_device, m, dsub, lcap):
 
 
 @pytest.mark.gpu
-def test_fused_key_scan_scarce_lists_and_ties(cuda_device):
+def test_fused_keys_scarce_lists_and_ties(cuda_device):
     """Fewer live lanes than kk (at most 12 rows a list), and a hot list
     every query probes, split into items of the plan's chunk."""
     fv, fi = _fused_check(*_fused_case(64, 16, 40, 16, 8, 256, seed=3, device=cuda_device,
@@ -709,7 +709,7 @@ def test_fused_key_scan_scarce_lists_and_ties(cuda_device):
 
 
 @pytest.mark.gpu
-def test_fused_key_scan_in_a_cuda_graph(cuda_device):
+def test_fused_keys_in_a_cuda_graph(cuda_device):
     """No host sync: a captured call replays to the eager call's result."""
     from nvdb_tpu_torch.kernels import adc_scan
 
@@ -729,7 +729,7 @@ def test_fused_key_scan_in_a_cuda_graph(cuda_device):
 
 
 @pytest.mark.gpu
-def test_fused_key_scan_rejects_bad_input(cuda_device):
+def test_fused_keys_rejects_bad_input(cuda_device):
     from nvdb_tpu_torch.kernels import adc_scan
 
     q, probes, cents, cb, codes, slot_ids = _fused_case(4, 3, 20, 16, 8, 256, seed=6,
@@ -936,8 +936,10 @@ def test_ivfpq_dma_route_is_the_fused_scan(cuda_device, kind):
     """The dma mode's default route on the card (an ADC-only search of a
     prefix-packed index, a replicated index's and a holed index's refine
     candidates): the fused dma scan (its warm-up and replay) and none of
-    the table kernel or the staged scan; bit for bit the staged A/B
-    (``key_scan="tables"``), each id once a row."""
+    the table kernel or the staged scan; bit for bit the staged kernels
+    called on the same probes (the table kernel, then the staged dma
+    scan), each id once a row."""
+    from nvdb_tpu_torch.index.ivf_flat import _coarse_probes
     from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
     from nvdb_tpu_torch.kernels import adc_scan
 
@@ -954,7 +956,11 @@ def test_ivfpq_dma_route_is_the_fused_scan(cuda_device, kind):
     fv, fi = idx.search_device(q, 50, 8, **kw)
     torch.cuda.synchronize()
     assert tuple(a - c for a, c in zip(counts(), before)) == (FIRST_CALL_LAUNCHES, 0, 0)
-    sv, si = idx.search_device(q, 50, 8, key_scan="tables", **kw)
+    probes = _coarse_probes(q, idx.centroids, idx.slot_ids, 8,
+                            terms=idx.coarse_terms()).to(torch.int32)
+    fills = idx.fills()
+    lut = adc_scan.adc_tables_cuda(q, probes, idx.centroids, idx.codebooks, fills)
+    sv, si = adc_scan.adc_topk_cuda(lut, probes, idx.codes, idx.slot_ids, 50, fills=fills)
     assert tuple(a - c for a, c in zip(counts(), before)) == (FIRST_CALL_LAUNCHES, 1, 1)
     assert torch.equal(fv, sv) and torch.equal(fi, si)
     for row in fi.cpu().numpy():
@@ -967,9 +973,8 @@ def test_ivfpq_key_mode_on_a_replicated_index_raises(cuda_device):
     idx, q = _ivfpq_on_card(cuda_device, replicas=2)
     assert idx.ids_mode() == "dma"
     for mode in ("key", "gather"):
-        for key_scan in ("fused", "tables"):
-            with pytest.raises(ValueError, match="replicas == 1"):
-                idx.search_device(q, 10, 8, ids_mode=mode, key_scan=key_scan)
+        with pytest.raises(ValueError, match="replicas == 1"):
+            idx.search_device(q, 10, 8, ids_mode=mode)
 
 
 def _adc_launches():
@@ -987,7 +992,8 @@ def test_ivfpq_gather_mode_reads_lists_in_place(cuda_device, b, kk):
     multiple of the TPU kernel's 4 lists a step): the fused key scan (its
     warm-up and replay), and no table, dma, key or gather kernel, no ``index_select``
     and no tensor the size of the tables or of the code slab. Its values and
-    ids are bit for bit the slab arm's (``key_scan="tables"``), the key
+    ids are bit for bit the slab route's (the table kernel, then the key
+    kernel over ``gather_codes``' slab, called on the same probes), the key
     mode's, and the plain scans' (the key mode's and the slab's) on the
     table kernel's tables; the torch path's within a bf16 step of a rare
     table entry."""
@@ -1006,15 +1012,16 @@ def test_ivfpq_gather_mode_reads_lists_in_place(cuda_device, b, kk):
     big = [(name, shape) for name, outs in ops_seen for shape, _ in outs
            if int(np.prod(shape)) >= b * p * idx.m * min(256, idx.lcap)]
     assert big == []
-    before = _adc_launches()
-    tv, ti = idx.search_device(q, kk, p, ids_mode="gather", key_scan="tables")
-    torch.cuda.synchronize()
-    assert tuple(a - c for a, c in zip(_adc_launches(), before)) == (1, 0, 0, 1, 0)
-    kv, ki = idx.search_device(q, kk, p, ids_mode="key")
     probes = _coarse_probes(q, idx.centroids, idx.slot_ids, p,
                             terms=idx.coarse_terms()).to(torch.int32)
     fills = idx.fills()
+    before = _adc_launches()
     lut = adc_scan.adc_tables_cuda(q, probes, idx.centroids, idx.codebooks, fills)
+    tv, ti = adc_scan.adc_topk_keys_cuda(lut, probes, idx.codes, idx.slot_ids, kk, fills=fills,
+                                         gathered=True)
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(_adc_launches(), before)) == (1, 0, 0, 1, 0)
+    kv, ki = idx.search_device(q, kk, p, ids_mode="key")
     pv, pi = adc_scan.adc_topk_keys_reference(lut, probes, idx.codes, idx.slot_ids, kk,
                                               fills=fills)
     sv, si = adc_scan.adc_topk_keys_reference(lut, probes,
@@ -1184,8 +1191,7 @@ def test_probe_kernel_rejects_bad_input(cuda_device):
         ivf_scan.ivf_probe_topk_cuda(q.double(), probes, packed, sids, sc, 10)
 
 
-# the list-major layout (the default) and the query-major A/B, at the shapes
-# of chip_smoke.py's phase 10
+# the probe kernel at the shapes of chip_smoke.py's phase 10
 PROBE_SHAPES = [(1, 1, 1), (1, 32, 128), (8, 7, 10), (8, 64, 50), (64, 32, 50), (64, 7, 128),
                 (256, 64, 10), (256, 1, 128)]     # (B, P, k)
 
@@ -1224,42 +1230,38 @@ def _probe_table(rng, b, p, nlist=80):
                                              replace=False)] for _ in range(b)]).astype(np.int32)
 
 
-def _check_probe_layouts(cuda_device, q, probes, packed, sids, sc, k):
-    """Both layouts against the plain version; each other's values to the
-    same tolerance. Returns the list-major result."""
+def _check_probe_kernel(cuda_device, q, probes, packed, sids, sc, k):
+    """The list-major kernel against the plain version, one launch. Returns
+    its result."""
     from nvdb_tpu_torch.kernels import ivf_scan
 
     args = [x.to(cuda_device) if x is not None else None for x in (q, probes, packed, sids, sc)]
     pv, pi = (x.cpu().numpy() for x in ivf_scan.ivf_probe_topk_reference(*args, k))
-    got = {}
-    for layout in ivf_scan.LAYOUTS:
-        before = dict(ivf_scan.LAUNCHES_BY_LAYOUT)
-        kv, ki = ivf_scan.ivf_probe_topk_cuda(*args, k, layout=layout)
-        torch.cuda.synchronize()
-        assert ivf_scan.LAUNCHES_BY_LAYOUT[layout] == before[layout] + 1
-        kv, ki = kv.cpu().numpy(), ki.cpu().numpy()
-        assert ((ki >= 0) == (pi >= 0)).all()
-        np.testing.assert_allclose(kv, pv, atol=1e-5, rtol=1e-5)
-        assert np.mean(ki == pi) >= 0.99
-        for row, vals in zip(ki, kv):
-            assert np.all(np.diff(vals[np.isfinite(vals)]) <= 0)
-            assert np.isneginf(vals[row < 0]).all()
-        got[layout] = (kv, ki)
-    np.testing.assert_allclose(got["list"][0], got["query"][0], atol=1e-5, rtol=1e-5)
-    return got["list"]
+    before = ivf_scan.LAUNCHES
+    kv, ki = ivf_scan.ivf_probe_topk_cuda(*args, k)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES == before + 1
+    kv, ki = kv.cpu().numpy(), ki.cpu().numpy()
+    assert ((ki >= 0) == (pi >= 0)).all()
+    np.testing.assert_allclose(kv, pv, atol=1e-5, rtol=1e-5)
+    assert np.mean(ki == pi) >= 0.99
+    for row, vals in zip(ki, kv):
+        assert np.all(np.diff(vals[np.isfinite(vals)]) <= 0)
+        assert np.isneginf(vals[row < 0]).all()
+    return kv, ki
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "i8"])
 @pytest.mark.parametrize("lcap", [384, 992])
 def test_probe_list_major_matches_plain(cuda_device, dtype, lcap):
-    """The list-major kernel and the query-major A/B against the plain
-    version at every shape of chip_smoke's phase 10."""
+    """The list-major kernel against the plain version at every shape of
+    chip_smoke's phase 10."""
     packed, sids, sc = _probe_index(dtype, lcap, seed=lcap + len(dtype))
     rng = np.random.default_rng(lcap)
     for b, p, k in PROBE_SHAPES:
         q = torch.from_numpy(rng.standard_normal((b, 768)).astype(np.float32))
-        _, ki = _check_probe_layouts(cuda_device, q, torch.from_numpy(_probe_table(rng, b, p)),
+        _, ki = _check_probe_kernel(cuda_device, q, torch.from_numpy(_probe_table(rng, b, p)),
                                      packed, sids, sc, k)
         for row in ki:
             live = row[row >= 0]
@@ -1276,17 +1278,17 @@ def test_probe_list_major_edge_cases(cuda_device, dtype):
     packed, sids, sc = _probe_index(dtype, 384, seed=7)
     rng = np.random.default_rng(8)
     q = torch.from_numpy(rng.standard_normal((256, 768)).astype(np.float32))
-    _check_probe_layouts(cuda_device, q, torch.full((256, 1), 3, dtype=torch.int32), packed,
+    _check_probe_kernel(cuda_device, q, torch.full((256, 1), 3, dtype=torch.int32), packed,
                          sids, sc, 10)
     twice = _probe_table(rng, 256, 8)
     twice[:, 3] = twice[:, 2]
-    _, ki = _check_probe_layouts(cuda_device, q, torch.from_numpy(twice), packed, sids, sc, 50)
+    _, ki = _check_probe_kernel(cuda_device, q, torch.from_numpy(twice), packed, sids, sc, 50)
     assert any(len(set(r[r >= 0].tolist())) < (r >= 0).sum() for r in ki)   # ids twice
-    _check_probe_layouts(cuda_device, q[:1], torch.tensor([[5]], dtype=torch.int32), packed,
+    _check_probe_kernel(cuda_device, q[:1], torch.tensor([[5]], dtype=torch.int32), packed,
                          sids, sc, 1)
     holes = _probe_table(rng, 64, 6)
     holes[:, 0], holes[:, 2], holes[:, 3] = 2, -1, 10 ** 6
-    _check_probe_layouts(cuda_device, q[:64], torch.from_numpy(holes), packed, sids, sc, 128)
+    _check_probe_kernel(cuda_device, q[:64], torch.from_numpy(holes), packed, sids, sc, 128)
 
 
 @pytest.mark.gpu
@@ -1339,17 +1341,6 @@ def test_probe_list_major_in_a_cuda_graph(cuda_device):
     ev, ei = fn()
     torch.cuda.synchronize()
     assert torch.equal(gv, ev) and torch.equal(gi, ei)
-
-
-@pytest.mark.gpu
-def test_probe_layout_is_checked(cuda_device):
-    from nvdb_tpu_torch.kernels import ivf_scan
-
-    q, probes, packed, sids, _ = _probe_case("f32", 4, 3, seed=9)
-    with pytest.raises(ValueError, match="layout"):
-        ivf_scan.ivf_probe_topk_cuda(q.to(cuda_device), probes.to(cuda_device),
-                                     packed.to(cuda_device), sids.to(cuda_device), None, 5,
-                                     layout="rows")
 
 
 @pytest.mark.gpu
@@ -1872,7 +1863,7 @@ def _served_on_card(cuda_device, n_queries=64):
     }
     eager = {
         "ivfpq": lambda x, backend="auto": pq_idx._search_chain(
-            x, 10, 8, 50, store, backend, "l2", pq_idx.ids_mode(), "fused"),
+            x, 10, 8, 50, store, backend, "l2", pq_idx.ids_mode()),
         "partition": lambda x, backend="auto": part._search_chain(
             x, 10, 8, 50, part.refine_store, backend),
     }
@@ -1937,18 +1928,17 @@ def test_served_search_captures_a_graph_a_batch_size(cuda_device, kind):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind,route", [
     (kind, route) for kind in ("ivfpq", "partition")
-    for route in ("debug_nans", "torch", "force_torch", "refine_jnp")] + [("ivfpq", "tables")])
+    for route in ("debug_nans", "torch", "force_torch", "refine_jnp")])
 def test_served_search_eager_routes_capture_nothing(cuda_device, monkeypatch, kind, route):
-    """``DEBUG_NANS``, ``backend="torch"``, ``NVDB_FORCE_TORCH=1``,
-    ``NVDB_REFINE_BACKEND=jnp`` and the IVF-PQ ``key_scan="tables"`` arm run
-    eagerly on the card: the root span's ``graph`` is ``"eager"``, no graph
-    is captured, and the answers are bit for bit the chain's run directly on
-    the same route."""
+    """``DEBUG_NANS``, ``backend="torch"``, ``NVDB_FORCE_TORCH=1`` and
+    ``NVDB_REFINE_BACKEND=jnp`` run eagerly on the card: the root span's
+    ``graph`` is ``"eager"``, no graph is captured, and the answers are bit
+    for bit the chain's run directly on the same route."""
     from nvdb_tpu_torch.eval import trace
     from nvdb_tpu_torch.index import graphs
 
     idxs, served, eager, q = _served_on_card(cuda_device)
-    kw = {"torch": {"backend": "torch"}, "tables": {"key_scan": "tables"}}.get(route, {})
+    kw = {"torch": {"backend": "torch"}}.get(route, {})
     if route == "debug_nans":
         monkeypatch.setattr(dispatch, "DEBUG_NANS", True)
     if route == "force_torch":

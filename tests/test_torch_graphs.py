@@ -59,7 +59,7 @@ def _chain(built, kind, backend):
     if kind == "ivfpq":
         pq = built["pq"]
         return pq._search_chain(q, K, NPROBE, REFINE, built["store"], backend, "l2",
-                                pq.ids_mode(), "fused")
+                                pq.ids_mode())
     part = built["part"]
     return part._search_chain(q, K, NPROBE, REFINE, part.refine_store, backend)
 
@@ -99,7 +99,7 @@ def _pq_parts(built, **over):
     """``IVFPQIndex._graph_parts`` at the served call's resolved arguments,
     ``over`` changing some."""
     a = dict(k=K, nprobe=NPROBE, refine_k=REFINE, refine_store=built["store"],
-             refine_metric="l2", mode="key", key_scan="fused")
+             refine_metric="l2", mode="key")
     a.update(over)
     return built["pq"]._graph_parts(**a)
 
@@ -111,7 +111,6 @@ PQ_CHANGES = {
     "refine_k": {"refine_k": REFINE + 1},
     "no_refine": {"refine_k": 0},
     "ids_mode": {"mode": "dma"},
-    "key_scan": {"key_scan": "tables"},
     "refine_metric": {"refine_metric": "dot"},
     "refine_store": "store",
 }
@@ -200,9 +199,9 @@ COUNTERS = [(adc_scan, "FUSED_LAUNCHES", None), (adc_scan, "FUSED_DMA_LAUNCHES",
             (adc_scan, "QTERM_LAUNCHES", None),
             (adc_scan, "TABLE_LAUNCHES", None), (adc_scan, "LAUNCHES", None),
             (adc_scan, "KEY_LAUNCHES", None), (adc_scan, "GATHER_LAUNCHES", None),
-            (ivf_scan, "LAUNCHES", None), (ivf_scan, "LAUNCHES_BY_LAYOUT", "list"),
-            (rerank, "LAUNCHES", None), (flat_scan, "LAUNCHES", None),
-            (flat_scan, "LAUNCHES_BY_KERNEL", "bf16")]
+            (ivf_scan, "LAUNCHES", None), (rerank, "LAUNCHES", None),
+            (flat_scan, "LAUNCHES", None), (flat_scan, "LAUNCHES_BY_KERNEL", "bf16"),
+            (flat_scan, "LAUNCHES_BY_KERNEL", "int8")]
 
 
 def _value(counter):

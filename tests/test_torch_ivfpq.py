@@ -334,7 +334,7 @@ def test_scan_plan_fits_shared_memory():
 
 
 def _record_adc_routes(monkeypatch):
-    """Record each plain ADC route ``search_device`` reaches: "fused"
+    """Record each plain ADC route called: "fused"
     (``adc_fused_keys_reference``), "key", "gather" (the key mode's plain
     scan over ``codes``, or over the gathered slab), "fused_dma"
     (``adc_fused_topk_reference``) and "dma" (the staged route's plain scan)."""
@@ -370,9 +370,8 @@ GATHER_NPROBE = 6      # not a multiple of the Pallas kernel's 4 lists a grid st
 @pytest.mark.parametrize("b", [1, 5, 16])
 def test_gather_mode_reads_lists_in_place(world, monkeypatch, b, kk):
     """The torch path's gather mode is the fused plain version (no code
-    slab), bit for bit the key mode's values and ids; with
-    ``key_scan="tables"`` it is the plain scan over the gathered slab, with
-    the same result."""
+    slab), bit for bit the key mode's values and ids and the plain scan
+    over the gathered slab on the same probes."""
     t = _port_of(world["j"])
     qp = torch.from_numpy(_queries(world, b, seed=b * 7 + kk))
     calls = _record_adc_routes(monkeypatch)
@@ -382,9 +381,13 @@ def test_gather_mode_reads_lists_in_place(world, monkeypatch, b, kk):
     kv, ki = t.search_device(qp, kk, GATHER_NPROBE, backend="torch", ids_mode="key")
     assert calls == ["fused", "key"]
     calls.clear()
-    sv, si = t.search_device(qp, kk, GATHER_NPROBE, backend="torch", ids_mode="gather",
-                             key_scan="tables")
-    assert calls == ["gather"]
+    q_rot = ivf_pq._matmul(qp, t.rotation) if t.rotation is not None else qp
+    probes = ivf_flat._coarse_probes(q_rot, t.centroids, t.slot_ids, GATHER_NPROBE,
+                                     terms=t.coarse_terms())
+    fills = adc_scan.list_fills(t.slot_ids)
+    lut = adc_scan.adc_tables_reference(q_rot, probes, t.centroids, t.codebooks, fills)
+    sv, si = adc_scan.adc_topk_keys_reference(lut, probes, adc_scan.gather_codes(t.codes, probes),
+                                              t.slot_ids, kk, fills=fills, gathered=True)
     assert tuple(gv.shape) == tuple(gi.shape) == (b, kk)
     for v, i in ((kv, ki), (sv, si)):
         assert torch.equal(gv, v) and torch.equal(gi, i)
@@ -456,14 +459,10 @@ def test_ids_mode_resolution_and_guard(world, monkeypatch):
     t.search_device(qp, 10, 4, refine_k=20, refine_store=store, backend="torch",
                     ids_mode="dma")
     t.search_device(qp, 10, 4, backend="torch", ids_mode="gather")
-    t.search_device(qp, 10, 4, backend="torch", ids_mode="gather", key_scan="tables")
-    t.search_device(qp, 10, 4, backend="torch", ids_mode="dma", key_scan="tables")
     # the fused key plain version runs the key mode's plain scan on its
-    # tables; the gather mode reads the lists in place unless the slab A/B is
-    # asked for; the dma mode is the fused dma plain version unless the
-    # staged A/B is asked for
-    assert calls == ["fused_dma", "fused", "key", "fused", "key", "fused_dma", "fused", "key",
-                     "gather", "dma"]
+    # tables; the gather mode reads the lists in place; the dma mode is the
+    # fused dma plain version
+    assert calls == ["fused_dma", "fused", "key", "fused", "key", "fused_dma", "fused", "key"]
     calls.clear()
     t.search_device(qp, 10, 4, refine_k=20, refine_store=store, ids_mode="key")
     assert calls == []                                   # auto on the CPU: the jnp path

@@ -213,20 +213,6 @@ def test_ivf_eval_torch_backend_on_cpu(ivf_files, capsys):
     assert got[0]["recall"] > 0.5
 
 
-def test_ivf_eval_key_scan_tables_gives_the_fused_recall(ivf_files, capsys):
-    """``--key-scan tables`` (the two-step A/B of the fused key scan) gives
-    the default's recall on the plain path, and its RESULT carries
-    ``key_scan``."""
-    argv = [ivf_files["idx"], ivf_files["base"], ivf_files["q"], "--gt", ivf_files["gt"],
-            "--nprobe", "4", "--refine-k", "40", "--batch-q", "4", "--chained", "--device",
-            "cpu", "--ivf-backend", "torch"]
-    fused = ivf_eval.main(argv)
-    tables = ivf_eval.main(argv + ["--key-scan", "tables"])
-    assert tables[0]["recall"] == fused[0]["recall"] > 0.5
-    assert tables[0]["key_scan"] == "tables" and "key_scan" not in fused[0]
-    capsys.readouterr()
-
-
 @pytest.mark.parametrize("argv", [["--shards", "2"], ["--force-sharded"]])
 def test_ivf_eval_unported_flags_exit(ivf_files, capsys, argv):
     """The flags once exited by name; since dist is ported they run the
@@ -554,7 +540,7 @@ _TOOLS = ("ab_compare", "bench", "convert_bf16", "dump", "embed", "gt_build", "i
           "sanity", "search", "slice", "synth")
 # the port's own flags: its device choice, and a few options the JAX tools lack
 _PORT_ONLY = {"--device", "-h", "--help"}
-_PORT_EXTRAS = {"ivf_eval": {"--one-device", "--key-scan"}, "pr_eval": {"--seed"}}
+_PORT_EXTRAS = {"ivf_eval": {"--one-device"}, "pr_eval": {"--seed"}}
 
 
 def _all_flags(main, monkeypatch):
