@@ -28,12 +28,16 @@
 // replaces for bf16 and int8 stores was bound by the SIMT rate (30.6 ms at
 // that shape). Measured on an NVIDIA H100 80GB HBM3, 700.00 W (1M x 768,
 // k = 10; chip_smoke.py phase 5 and tools.flat_breakdown; more in PERF.md):
-// bf16 1.56 ms at B = 512 and 0.71 ms at B = 8; int8 x int8 1.22 ms; int8
-// store with f32 queries 2.24 ms. With the filter compiled out the same
-// ring runs bf16 B = 512 in 1.00 ms: what remains above that is the
-// handling of candidates at each tile's end, while the tensor cores wait.
-// f32 on the tensor cores: 9.01 ms at B = 512 (the SIMT kernel 29.84, its
-// ring alone 8.22) and 1.98 ms at B = 8.
+// bf16 B = 512 about 1.45 ms against 1.02-1.05 for the same ring with the
+// filter compiled out, and 0.62 ms at B = 8. What remains above the ring is
+// the handling of candidates at each tile's end, while the tensor cores
+// wait: a warp that issues wgmma has only some 300 cycles of slack a chunk
+// (the issue of a chunk's four products takes most of its time), so work
+// put between them lengthens the chunk, and two warpgroups run out of phase
+// spend the ring's prefetch depth. The handling is therefore made smaller,
+// not moved: candidates come down from 14 to under 5 a warp and tile at
+// bf16 B = 512. f32 on the tensor cores: 9.0-9.5 ms at B = 512 (the SIMT
+// kernel 29.84, its ring alone 8.22) and 1.98 ms at B = 8.
 //
 // Design of the tensor-core path (scan_wgmma_kernel; every store type):
 //   * Orientation: queries are M, store rows are N. A CTA holds TQ = 128
@@ -49,19 +53,33 @@
 //   * The filter. Sixteen scores at a time are held against the thread's
 //     two thresholds, and a warp vote skips a group with no candidate. In
 //     a group with one, the lanes mark which of their sixteen pass, the
-//     warp walks the few marked in any lane, and a lane with a candidate
-//     pushes (score, row, query) into its warp's queue in shared memory
-//     (one atomic add for the slot); at the end of the tile the warp drains
+//     warp walks the few marked in any lane, and the lanes with a candidate
+//     there push (score, row, query) into the warp's queue in shared memory
+//     at slots counted by a ballot; at the end of the tile the warp drains
 //     the queue into the sorted lists of its own sixteen queries (a warp
 //     owns exactly the queries whose scores it holds, so the lists need no
 //     barrier) and reloads the thresholds. For
 //     k <= 32 the lanes insert side by side, one lane per query with a
 //     serial shift; longer lists take the warp-wide insert of
-//     topk_common.cuh. A queue that overflows (the first tiles of a slice,
-//     while the thresholds are low) is dropped and the tile scanned again in
+//     topk_common.cuh. A queue that overflows (a slice's first tile, while
+//     the thresholds are low) is dropped and the tile scanned again in
 //     order, in rounds of at most 128 candidates with a drain after each.
 //     Every insert compares (score, id) pairs with the list, so the result
 //     does not depend on the order in which candidates arrive.
+//   * Bounds shared by the slices. A threshold only has to be a (score, id)
+//     pair that at least k rows reach, whichever slice holds them, so the
+//     slices tell each other theirs through global memory (`bounds`, zeroed
+//     by the prologue): after a drain each list publishes its k-th pair
+//     (64-bit atomic max on a key in better()'s order) and its top-1 score
+//     into bucket s % k of its query (k <= 16 and at least k slices); the
+//     least of a query's k buckets is reached by k rows of k distinct
+//     slices, close to the k-th best of all the rows scanned so far. A
+//     thread reads its two queries' bounds when a tile begins and raises its
+//     thresholds to them at the tile's end. A slice's first tile, before any
+//     bound exists, takes for k <= 16 the k-th largest of the c = ceil(k /
+//     4) best scores that each of the four threads sharing a query holds,
+//     so its queue holds about k candidates a query and not all 256. The
+//     result is the same top-k: a row below a bound has k better rows.
 //   * A ring of up to four stages fed by TMA. One producer thread starts,
 //     per 128-byte-wide chunk of the dims, a [128 queries x 128 B] and a
 //     [256 rows x 128 B] box (SWIZZLE_128B, the layout the wgmma descriptor
@@ -175,9 +193,37 @@ constexpr int MAX_K = nvdb::WARP_LIST_MAX_K;
 // design; the library that the port loads is built without the definition.
 //   1  no filter: the ring and the products alone;
 //   2  compares only: every score is held against thresholds that never
-//      rise, and the candidates are dropped.
+//      rise, and the candidates are dropped;
+//   3  counters: the kernel's results, with clock reads around each part of
+//      a tile's handling and counts of tiles and candidates, summed over the
+//      consumer warps into g_counters (nvdb_flat_counters reads them).
 #ifndef NVDB_FLAT_ABLATE
 #define NVDB_FLAT_ABLATE 0
+#endif
+
+#if NVDB_FLAT_ABLATE == 3
+// The counters, each summed over the consumer warps of a call: warp-tiles,
+// warp-tiles whose thresholds another slice's published bound raised,
+// warp-tiles that took the overflow rescan, candidates drained, groups of
+// sixteen walked; then SM clock cycles of the warp-tiles in all, and at the
+// tiles' ends waiting for the last products, in the compares and votes, in
+// the marks, walk and pushes, in the drains, threshold reloads and bounds'
+// publication, and in the overflow rescans.
+enum Counter {
+  kTiles, kTightened, kOverflowTiles, kDrained, kWalkedGroups, kCycTile, kCycWait,
+  kCycCompare, kCycWalk, kCycDrain, kCycRescan, kCounters
+};
+__device__ unsigned long long g_counters[kCounters];
+__device__ __forceinline__ unsigned clock32() {
+  unsigned c;
+  asm volatile("mov.u32 %0, %%clock;" : "=r"(c)::"memory");
+  return c;
+}
+#define NVDB_TICK(x) const unsigned x = clock32()
+#define NVDB_COUNT(i, v) (ctr[i] += (unsigned)(v))
+#else
+#define NVDB_TICK(x)
+#define NVDB_COUNT(i, v)
 #endif
 
 // The C entry's modes: kF32Simt is the SIMT kernel of f32 stores (the A/B);
@@ -320,6 +366,7 @@ constexpr int MAX_STAGES = 4;
 constexpr int NT_TC = 384;         // two consumer warpgroups and the producer's
 constexpr int QCAP = 128;          // candidates a warp queues before it drains
 constexpr int QUEUES_BYTES = 8 * QCAP * 8;   // eight warps' queues
+constexpr int MAX_BUCKETS = 16;    // a query's published top-1 buckets (k <= 16)
 constexpr int SPLIT_DIMS = 32;     // f32 stores: dims per chunk (128 bytes of f32 a row)
 constexpr int SPLIT_ROW = 2 * SPLIT_DIMS;    // bytes of a row in one bf16 plane
 
@@ -525,9 +572,103 @@ __device__ __forceinline__ bool group_scores(const Acc (&acc)[N], int g, int col
   return any;
 }
 
+// sc[x] for an x known only at run time (a chain of selects: the scores
+// stay in registers).
+__device__ __forceinline__ float pick(const float (&sc)[16], int x) {
+  float v = sc[0];
+#pragma unroll
+  for (int i = 1; i < 16; ++i) v = x == i ? sc[i] : v;
+  return v;
+}
+
 // A queued candidate: (score, row of the tile | the warp's query << 8).
 __device__ __forceinline__ uint2 queue_entry(float v, int col, int ql) {
   return make_uint2(__float_as_uint(v), (unsigned)(col | (ql << 8)));
+}
+
+// A (score, id) pair as one 64-bit key whose unsigned order is better()'s
+// order: the score's bits mapped to an unsigned order (-0 taken as +0, as
+// better() compares it), then id + 1 (ids from -1). Slices publish their
+// k-th pair as such a key, and an atomic max keeps the best of them.
+__device__ __forceinline__ unsigned long long bound_key(float v, int id) {
+  const unsigned f = __float_as_uint(v + 0.f);
+  const unsigned o = (f & 0x80000000u) ? ~f : (f | 0x80000000u);
+  return ((unsigned long long)o << 32) | (unsigned)(id + 1);
+}
+
+// The score part of bound_key alone: a bound with id -1 admits every row
+// of that score, so a bucket's key need not carry its row.
+__device__ __forceinline__ unsigned score_key(float v) {
+  return (unsigned)(bound_key(v, -1) >> 32);
+}
+
+// Raises the threshold (thv, thi) to the pair of key where that is better.
+__device__ __forceinline__ bool raise_to(unsigned long long key, float& thv, int& thi) {
+  if (key <= bound_key(thv, thi)) return false;
+  const unsigned o = (unsigned)(key >> 32);
+  thv = __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+  thi = (int)((unsigned)key - 1u);
+  return true;
+}
+
+// The k-th largest of the 4 c values that the four threads of a quad hold
+// c each (own[0..c-1]; k <= 4 c <= 16): the largest value that at least k
+// of them reach. Run once a slice, so kept short rather than unrolled.
+__device__ __forceinline__ float quad_kth(const float (&own)[4], int c, int k) {
+  float all[16];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float v = q == 0 ? own[i] : __shfl_xor_sync(FULL_MASK, own[i], q);
+      all[q * 4 + i] = i < c ? v : -INFINITY;
+    }
+  float best = -INFINITY;
+  for (int i = 0; i < 16; ++i) {
+    const float v = pick(all, i);
+    int n = 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) n += all[j] >= v && (j & 3) < c;
+    if ((i & 3) < c && n >= k) best = fmaxf(best, v);
+  }
+  return best;
+}
+
+// A slice's first tile, k <= 16: each thread keeps the c best (c = ceil(k /
+// 4) <= 4) of its valid scores of each of its two queries, and the k-th
+// largest of the 4 c that the four threads sharing a query hold is a bound
+// with at least k rows of the tile at or above it: the tile's queue then
+// takes about k candidates a query, not every score, and the overflow rescan
+// most often is not needed. Returns the two bounds' keys (zero where the
+// tile has fewer than k valid rows).
+template <int MODE, int N, typename Acc>
+__device__ __forceinline__ void first_tile_bounds(const Acc (&acc)[N], int col0, int tile_row,
+                                                  int n_eff, int k, const float* wg_scales,
+                                                  float qs0, float qs1, unsigned long long& key0,
+                                                  unsigned long long& key1) {
+  float t0[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  float t1[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+  for (int g = 0; g < N / 16; ++g) {
+    float sc[16];
+    group_scores<MODE, N>(acc, g, col0, wg_scales, qs0, qs1, 0.f, 0.f, sc);
+    for (int x = 0; x < 16; x += 4) {   // once a slice: short, not unrolled
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = (g * 4 + (x >> 2)) * 8 + col0 + (e & 1);
+        const float v = tile_row + col < n_eff ? pick(sc, x + e) : -INFINITY;
+        float(&t)[4] = (e & 2) ? t1 : t0;
+        t[3] = fmaxf(t[3], fminf(t[2], v));
+        t[2] = fmaxf(t[2], fminf(t[1], v));
+        t[1] = fmaxf(t[1], fminf(t[0], v));
+        t[0] = fmaxf(t[0], v);
+      }
+    }
+  }
+  const int c = (k + 3) / 4;
+  const float m0 = quad_kth(t0, c, k), m1 = quad_kth(t1, c, k);
+  key0 = m0 == -INFINITY ? 0ull : bound_key(m0, -1);
+  key1 = m1 == -INFINITY ? 0ull : bound_key(m1, -1);
 }
 
 // Inserts up to 32 candidates, one per lane (ok: the lane has one, for the
@@ -594,10 +735,17 @@ __device__ __forceinline__ void drain_queue(const uint2* queue, int cnt, int til
 
 // The queries' prologue: the bf16-rounded query (planes = 1: bf16 and int8
 // stores), or its three-way split (planes = 3: f32 stores) as planes
-// [3][B][Dp] of n = B * Dp values each.
+// [3][B][Dp] of n = B * Dp values each (planes = 0, int8 queries: none);
+// and the B queries' published bounds (8 + 4 MAX_BUCKETS bytes a query)
+// set to zero, below every pair.
 __global__ void round_queries_kernel(const float* __restrict__ q,
-                                     __nv_bfloat16* __restrict__ out, size_t n, int planes) {
+                                     __nv_bfloat16* __restrict__ out, size_t n, int planes,
+                                     unsigned* __restrict__ bounds, int B) {
   const size_t step = (size_t)gridDim.x * blockDim.x;
+  const size_t words = (size_t)B * (2 + MAX_BUCKETS);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < words; i += step)
+    bounds[i] = 0;
+  if (planes == 0) return;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
     const float x = q[i];
     const __nv_bfloat16 h = __float2bfloat16_rn(x);
@@ -624,9 +772,10 @@ __global__ void __launch_bounds__(NT_TC, 1)
 scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap vmap,
                   const float* __restrict__ scales, const float* __restrict__ qscales,
-                  float* __restrict__ part_vals, int* __restrict__ part_ids, int B,
-                  int n_eff, int k, int S, int n_qblocks, int tiles_per_slice,
-                  int n_tiles, int n_chunks, int n_stages, int n_cvt) {
+                  float* __restrict__ part_vals, int* __restrict__ part_ids,
+                  unsigned long long* __restrict__ bounds, int B, int n_eff, int k, int S,
+                  int n_qblocks, int tiles_per_slice, int n_tiles, int n_chunks,
+                  int n_stages, int n_cvt) {
   using C = Cfg<MODE>;
   using Acc = typename std::conditional<MODE == kI8Q8, int, float>::type;
   constexpr int STAGE = stage_bytes<MODE>();
@@ -649,7 +798,6 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   float* tile_scales = reinterpret_cast<float*>(filter_room + QUEUES_BYTES);   // [2][TN]
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       reinterpret_cast<unsigned char*>(li + TQ * k) + C::FILTER_BYTES);
-  int* qcounts = reinterpret_cast<int*>(bars + 2 * MAX_STAGES);   // one per warp
   const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + MAX_STAGES);
   const uint32_t stage0 = smem_u32(sm);
 
@@ -706,7 +854,6 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       float* wlv = lv + wq0 * k;
       int* wli = li + wq0 * k;
       uint2* queue = queues + (wg * 4 + w) * QCAP;
-      int* qcount = qcounts + wg * 4 + w;
       float* wg_scales = tile_scales + wg * TN;
       const int wt = threadIdx.x & 127;   // thread of the warpgroup
       for (int i = lane; i < 16 * k; i += 32) {
@@ -717,12 +864,40 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       __syncwarp();
       float thv0 = wlv[quad * k + k - 1], thv1 = wlv[(quad + 8) * k + k - 1];
       int thi0 = wli[quad * k + k - 1], thi1 = wli[(quad + 8) * k + k - 1];
+      // The thread's two queries (b0, b1) and the best bounds of them that
+      // the slices had published when this tile began; read then, used at its
+      // end, after the products, so the reads' latency stays off the path.
+      // Two kinds: the best k-th pair of any slice (pub), and the least of
+      // the query's n_buckets buckets, bucket j the best top-1 score of the
+      // slices s with s % n_buckets == j (k distinct rows at or above it once
+      // every bucket holds one). Lanes 2 i and 2 i + 1 read the buckets of
+      // the warp's query i, every other bucket each (bw).
+      const int b0 = q0 + wq0 + quad, b1 = b0 + 8;
+      unsigned long long pub0 = 0, pub1 = 0;
+      const int n_buckets = k <= MAX_BUCKETS && S >= k ? k : 0;
+      const int bq = q0 + wq0 + (lane >> 1);
+      const unsigned* buckets = reinterpret_cast<const unsigned*>(bounds + B);
+      unsigned bw[MAX_BUCKETS / 2];
+      // the thresholds: the k-th (score, id) of the thread's two lists, or
+      // the published bound where that is better
+      auto reload = [&]() {
+        __syncwarp();
+        thv0 = wlv[quad * k + k - 1];
+        thi0 = wli[quad * k + k - 1];
+        thv1 = wlv[(quad + 8) * k + k - 1];
+        thi1 = wli[(quad + 8) * k + k - 1];
+        raise_to(pub0, thv0, thi0);
+        raise_to(pub1, thv1, thi1);
+      };
       float qs0 = 1.f, qs1 = 1.f;
       if constexpr (MODE == kI8Q8) {
         if (q0 + wq0 + quad < B) qs0 = qscales[q0 + wq0 + quad];
         if (q0 + wq0 + quad + 8 < B) qs1 = qscales[q0 + wq0 + quad + 8];
       }
       const int n_cons = 128 * n_wg;   // threads that convert the rows' chunk
+#if NVDB_FLAT_ABLATE == 3
+      unsigned ctr[kCounters] = {};
+#endif
 
       Acc acc[ACC];
       // f32 stores: the tile's running sums; acc holds one chunk's
@@ -730,6 +905,15 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       int stage = 0, prev = -1, cb = 0;
       uint32_t phase = 0;
       for (int t = t_begin; t < t_end; ++t) {
+        NVDB_TICK(ck_tile);
+        if (b0 < B) pub0 = __ldcg(bounds + b0);
+        if (b1 < B) pub1 = __ldcg(bounds + b1);
+#pragma unroll
+        for (int j = 0; j < MAX_BUCKETS / 2; ++j) {
+          const int bj = 2 * j + (lane & 1);
+          bw[j] = bj < n_buckets && bq < B ? __ldcg(buckets + (size_t)bq * MAX_BUCKETS + bj)
+                                           : ~0u;
+        }
         // the tile's row scales, asked for now and needed after its products
         float rs_lo = 0.f, rs_hi = 0.f;
         if constexpr (MODE == kF32) {
@@ -822,6 +1006,7 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             phase ^= 1;
           }
         }
+        NVDB_TICK(ck_wait);
         wgmma_wait<0>();
         if (prev >= 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
         prev = -1;
@@ -841,18 +1026,52 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           bar_sync(3 + wg, 128);
         }
 
-        // The filter (see group_scores for the accumulator's layout).
-        // Sixteen scores at a time are held against the two thresholds in
-        // registers; a group with no candidate costs the compares and one
-        // vote. In a group with one, the lanes mark which of their sixteen
-        // reach the threshold, the warp walks the few marked in any lane,
-        // and each lane pushes its own candidates into the warp's queue;
-        // the queue is drained into the lists at the end of the tile. If the queue overflows (the first tiles of a
+        // The filter (see group_scores for the accumulator's layout). The
+        // thresholds first take the best bounds that the slices had
+        // published when the tile began, and in a slice's first tile the
+        // bound from the tile's own scores (first_tile_bounds). Sixteen scores at a time are held
+        // against the two thresholds in registers; a group with no candidate
+        // costs the compares and one vote. In a group with one, the lanes
+        // mark which of their sixteen reach the threshold, the warp walks the
+        // few marked in any lane, and the lanes with a candidate there push
+        // it into the warp's queue at slots counted by a ballot; the queue is
+        // drained into the lists at the end of the tile, and each list's new
+        // k-th pair published. If the queue overflows (the first tile of a
         // slice, while the thresholds are low), the tile is scanned again in
         // order, in rounds of at most QCAP candidates.
         const int tile_row = t * TN, col0 = (lane & 3) * 2;
-        if (lane == 0) *qcount = 0;
-        __syncwarp();
+        NVDB_TICK(ck_filter);
+        NVDB_COUNT(kCycWait, ck_filter - ck_wait);
+        if (n_buckets > 0) {
+          // the least bucket of each query, then the thread's two queries'
+          unsigned m = bw[0];
+#pragma unroll
+          for (int j = 1; j < MAX_BUCKETS / 2; ++j) m = min(m, bw[j]);
+          m = min(m, __shfl_xor_sync(FULL_MASK, m, 1));
+          const unsigned m0 = __shfl_sync(FULL_MASK, m, 2 * quad);
+          const unsigned m1 = __shfl_sync(FULL_MASK, m, 2 * quad + 16);
+          // zero: a bucket no slice has filled yet
+          if (m0 != 0 && b0 < B) pub0 = max(pub0, (unsigned long long)m0 << 32);
+          if (m1 != 0 && b1 < B) pub1 = max(pub1, (unsigned long long)m1 << 32);
+        }
+        if (t == t_begin && k <= 16) {
+          // kept with the published bounds, so that the rescan's reloads
+          // keep it while the lists fill
+          unsigned long long s0, s1;
+          first_tile_bounds<MODE, ACC>(acc, col0, tile_row, n_eff, k, wg_scales, qs0, qs1, s0,
+                                       s1);
+          pub0 = max(pub0, s0);
+          pub1 = max(pub1, s1);
+        }
+        {
+          const bool raised = raise_to(pub0, thv0, thi0) | raise_to(pub1, thv1, thi1);
+          NVDB_COUNT(kTightened, __any_sync(FULL_MASK, raised) ? 1 : 0);
+          (void)raised;
+        }
+        int qn = 0;
+#if NVDB_FLAT_ABLATE == 3
+        unsigned walk_cyc = 0;
+#endif
 #if NVDB_FLAT_ABLATE == 1
         if (n_eff < 0)   // never
 #endif
@@ -862,6 +1081,7 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           const bool any = group_scores<MODE, ACC>(acc, g, col0, wg_scales, qs0, qs1, thv0, thv1,
                                               sc);
           if (!__any_sync(FULL_MASK, any)) continue;
+          NVDB_TICK(ck_walk);
           // which of the sixteen reach their threshold, in this lane and in
           // any lane: the warp then walks only those few, together
           unsigned mask = 0;
@@ -876,22 +1096,34 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           while (todo) {
             const int x = __ffs(todo) - 1;
             todo &= todo - 1;
-            float v = sc[0];
-#pragma unroll
-            for (int i = 1; i < 16; ++i) v = x == i ? sc[i] : v;
+            const float v = pick(sc, x);
             const int col = (g * 4 + (x >> 2)) * 8 + col0 + (x & 1);
-            if (((mask >> x) & 1u) && tile_row + col < n_eff &&
-                better(v, tile_row + col, (x & 2) ? thv1 : thv0, (x & 2) ? thi1 : thi0)) {
-              const int pos = atomicAdd(qcount, 1);
-              if (pos < QCAP) queue[pos] = queue_entry(v, col, quad + ((x & 2) ? 8 : 0));
-            }
+            const bool ok = ((mask >> x) & 1u) && tile_row + col < n_eff &&
+                            better(v, tile_row + col, (x & 2) ? thv1 : thv0,
+                                   (x & 2) ? thi1 : thi0);
+            const unsigned m = __ballot_sync(FULL_MASK, ok);
+            const int pos = qn + __popc(m & ((1u << lane) - 1u));
+            if (ok && pos < QCAP) queue[pos] = queue_entry(v, col, quad + ((x & 2) ? 8 : 0));
+            qn += __popc(m);
           }
+#if NVDB_FLAT_ABLATE == 3
+          walk_cyc += clock32() - ck_walk;
+          NVDB_COUNT(kWalkedGroups, 1);
+#endif
         }
         __syncwarp();
-        const int pushed = *qcount;
-        if (pushed <= QCAP) {
-          drain_queue(queue, pushed, tile_row, wlv, wli, k, lane);
+        NVDB_TICK(ck_drain);
+        NVDB_COUNT(kCycWalk, walk_cyc);
+        NVDB_COUNT(kCycCompare, ck_drain - ck_filter - walk_cyc);
+        NVDB_COUNT(kTiles, 1);
+        if (qn <= QCAP) {
+          if (qn > 0) {   // with nothing queued the thresholds stand
+            drain_queue(queue, qn, tile_row, wlv, wli, k, lane);
+            NVDB_COUNT(kDrained, qn);
+            reload();
+          }
         } else {
+          NVDB_COUNT(kOverflowTiles, 1);
           int start = 0;
           while (true) {
             int cnt = 0;
@@ -903,13 +1135,14 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
               const bool any = group_scores<MODE, ACC>(acc, g, col0, wg_scales, qs0, qs1, thv0,
                                                   thv1, sc);
               if (!__any_sync(FULL_MASK, any)) continue;
-#pragma unroll
-              for (int x = 0; x < 16; ++x) {
-                if (over || g * 16 + x < start) continue;
+              // a loop, not unrolled: the rescan runs in few tiles, and its
+              // code is then fetched cold
+              for (int x = max(start - g * 16, 0); x < 16 && !over; ++x) {
                 const int e = x & 3;
                 const int col = (g * 4 + (x >> 2)) * 8 + col0 + (e & 1);
+                const float v = pick(sc, x);
                 const bool ok = tile_row + col < n_eff &&
-                                better(sc[x], tile_row + col, (e & 2) ? thv1 : thv0,
+                                better(v, tile_row + col, (e & 2) ? thv1 : thv0,
                                        (e & 2) ? thi1 : thi0);
                 const unsigned m = __ballot_sync(FULL_MASK, ok);
                 if (m == 0) continue;
@@ -920,26 +1153,45 @@ scan_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                 } else {
                   if (ok)
                     queue[cnt + __popc(m & ((1u << lane) - 1u))] =
-                        queue_entry(sc[x], col, quad + ((e & 2) ? 8 : 0));
+                        queue_entry(v, col, quad + ((e & 2) ? 8 : 0));
                   cnt += n;
                 }
               }
             }
             __syncwarp();
             drain_queue(queue, cnt, tile_row, wlv, wli, k, lane);
-            thv0 = wlv[quad * k + k - 1];
-            thi0 = wli[quad * k + k - 1];
-            thv1 = wlv[(quad + 8) * k + k - 1];
-            thi1 = wli[(quad + 8) * k + k - 1];
+            NVDB_COUNT(kDrained, cnt);
+            reload();
             if (!over) break;
           }
+#if NVDB_FLAT_ABLATE == 3
+          NVDB_COUNT(kCycRescan, clock32() - ck_drain);
+#endif
         }
-        __syncwarp();
-        thv0 = wlv[quad * k + k - 1];
-        thi0 = wli[quad * k + k - 1];
-        thv1 = wlv[(quad + 8) * k + k - 1];
-        thi1 = wli[(quad + 8) * k + k - 1];
+        if (qn > 0 && lane < 16) {
+          // each list's k-th pair, once the list is full, bounds its query
+          // for every slice; its top-1 score joins the slice's bucket
+          const int b = q0 + wq0 + lane;
+          const float v = wlv[lane * k + k - 1];
+          const int id = wli[lane * k + k - 1];
+          if (b < B && id >= 0) atomicMax(bounds + b, bound_key(v, id));
+          if (b < B && n_buckets > 0 && wli[lane * k] >= 0)
+            atomicMax(const_cast<unsigned*>(buckets) + (size_t)b * MAX_BUCKETS + s % n_buckets,
+                      score_key(wlv[lane * k]));
+        }
+#if NVDB_FLAT_ABLATE == 3
+        {
+          const unsigned ck_end = clock32();
+          if (qn <= QCAP) NVDB_COUNT(kCycDrain, ck_end - ck_drain);
+          NVDB_COUNT(kCycTile, ck_end - ck_tile);
+        }
+#endif
       }
+#if NVDB_FLAT_ABLATE == 3
+      if (lane == 0)
+#pragma unroll
+        for (int i = 0; i < kCounters; ++i) atomicAdd(&g_counters[i], (unsigned long long)ctr[i]);
+#endif
 
       __syncwarp();
       for (int i = lane; i < 16 * k; i += 32) {
@@ -1007,8 +1259,9 @@ cudaError_t plan_smem(int k, int* n_stages, int* n_cvt, size_t* smem) {
 
 template <int MODE>
 cudaError_t launch_wgmma(const void* q, const void* v, const float* scales,
-                         const float* qscales, float* part_vals, int* part_ids, int B,
-                         int Dp, int Np, int n_eff, int k, int S, cudaStream_t stream) {
+                         const float* qscales, float* part_vals, int* part_ids,
+                         unsigned long long* bounds, int B, int Dp, int Np, int n_eff, int k,
+                         int S, cudaStream_t stream) {
   using C = Cfg<MODE>;
   const int n_qblocks = (B + TQ - 1) / TQ;
   CUtensorMap qmap, vmap;
@@ -1034,7 +1287,7 @@ cudaError_t launch_wgmma(const void* q, const void* v, const float* scales,
   const int tiles_per_slice = (n_tiles + S - 1) / S;
   const int n_chunks = (Dp + C::V_DIMS - 1) / C::V_DIMS;
   scan_wgmma_kernel<MODE><<<n_qblocks * S, NT_TC, smem, stream>>>(
-      qmap, vmap, scales, qscales, part_vals, part_ids, B, n_eff, k, S, n_qblocks,
+      qmap, vmap, scales, qscales, part_vals, part_ids, bounds, B, n_eff, k, S, n_qblocks,
       tiles_per_slice, n_tiles, n_chunks, n_stages, n_cvt);
   return cudaGetLastError();
 }
@@ -1047,33 +1300,37 @@ cudaError_t launch_wgmma(const void* q, const void* v, const float* scales,
 // three-way bf16 split); 1-4 run on the tensor cores. q16 is scratch for the
 // queries' prologue: the bf16-rounded queries [B, Dp] of modes 1 and 2, the
 // three split planes [3, B, Dp] of mode 4. Scratch part_vals / part_ids hold
-// [B, S, k]; outputs are [B, k]. Every pointer starts on a 16-byte boundary.
-// Returns a cudaError_t (0 on success); the launches are asynchronous on
-// `stream`.
+// [B, S, k], and bounds (modes 1-4) B x (8 + 4 MAX_BUCKETS) bytes: each
+// query's best k-th pair published by a slice, then its top-1 buckets (the
+// prologue zeroes them); outputs are [B, k]. Every pointer starts on a
+// 16-byte boundary. Returns a cudaError_t (0 on success); the launches are
+// asynchronous on `stream`.
 extern "C" int nvdb_flat_topk(const void* q, const void* v, const void* scales,
                               const void* qscales, void* q16, void* part_vals,
-                              void* part_ids, void* out_vals, void* out_ids, int B,
-                              int Dp, int Np, int n_eff, int k, int S, int mode,
+                              void* part_ids, void* bounds, void* out_vals, void* out_ids,
+                              int B, int Dp, int Np, int n_eff, int k, int S, int mode,
                               void* stream) {
   if (B < 1 || k < 1 || k > MAX_K || S < 1 || Dp < 64 || Dp % 64 != 0 || n_eff < 0 ||
       n_eff > Np)
     return (int)cudaErrorInvalidValue;
   if ((mode == kI8 || mode == kI8Q8) && scales == nullptr) return (int)cudaErrorInvalidValue;
   if (mode == kI8Q8 && qscales == nullptr) return (int)cudaErrorInvalidValue;
-  const bool prologue = mode == kBF16 || mode == kI8 || mode == kF32;
-  if (prologue && q16 == nullptr) return (int)cudaErrorInvalidValue;
+  const int planes = mode == kF32 ? 3 : mode == kBF16 || mode == kI8 ? 1 : 0;
+  if (planes > 0 && q16 == nullptr) return (int)cudaErrorInvalidValue;
+  if (mode != kF32Simt && bounds == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scales);
   const float* qs = static_cast<const float*>(qscales);
   float* pv = static_cast<float*>(part_vals);
   int* pi = static_cast<int*>(part_ids);
+  unsigned long long* bd = static_cast<unsigned long long*>(bounds);
   cudaError_t e;
-  if (prologue) {
-    const size_t n = (size_t)B * Dp;
+  if (mode != kF32Simt) {
+    const size_t n = planes > 0 ? (size_t)B * Dp : (size_t)B * (2 + MAX_BUCKETS);
     const int blocks = n < 256 * 1024 ? (int)((n + 255) / 256) : 1024;
     round_queries_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(q),
-                                                 static_cast<__nv_bfloat16*>(q16), n,
-                                                 mode == kF32 ? 3 : 1);
+                                                 static_cast<__nv_bfloat16*>(q16), n, planes,
+                                                 static_cast<unsigned*>(bounds), B);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -1083,16 +1340,16 @@ extern "C" int nvdb_flat_topk(const void* q, const void* v, const void* scales,
                      Dp, n_eff, k, S, st);
       break;
     case kBF16:
-      e = launch_wgmma<kBF16>(q16, v, sc, qs, pv, pi, B, Dp, Np, n_eff, k, S, st);
+      e = launch_wgmma<kBF16>(q16, v, sc, qs, pv, pi, bd, B, Dp, Np, n_eff, k, S, st);
       break;
     case kI8:
-      e = launch_wgmma<kI8>(q16, v, sc, qs, pv, pi, B, Dp, Np, n_eff, k, S, st);
+      e = launch_wgmma<kI8>(q16, v, sc, qs, pv, pi, bd, B, Dp, Np, n_eff, k, S, st);
       break;
     case kI8Q8:
-      e = launch_wgmma<kI8Q8>(q, v, sc, qs, pv, pi, B, Dp, Np, n_eff, k, S, st);
+      e = launch_wgmma<kI8Q8>(q, v, sc, qs, pv, pi, bd, B, Dp, Np, n_eff, k, S, st);
       break;
     case kF32:
-      e = launch_wgmma<kF32>(q16, v, sc, qs, pv, pi, B, Dp, Np, n_eff, k, S, st);
+      e = launch_wgmma<kF32>(q16, v, sc, qs, pv, pi, bd, B, Dp, Np, n_eff, k, S, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -1101,3 +1358,18 @@ extern "C" int nvdb_flat_topk(const void* q, const void* v, const void* scales,
   return (int)nvdb::launch_merge(pv, pi, static_cast<float*>(out_vals),
                                  static_cast<int*>(out_ids), B, S, k, st);
 }
+
+#if NVDB_FLAT_ABLATE == 3
+// The counter build's sums (kCounters values of 64 bits, in the order of
+// enum Counter) copied to out; reset != 0 zeroes them afterwards.
+extern "C" int nvdb_flat_counters(void* out, int reset) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, g_counters, sizeof(g_counters));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zeros[kCounters] = {};
+    e = cudaMemcpyToSymbol(g_counters, zeros, sizeof(zeros));
+  }
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  return (int)e;
+}
+#endif

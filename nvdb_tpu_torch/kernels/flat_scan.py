@@ -34,6 +34,10 @@ TENSOR_CORE = "tensor_core"
 _TILING = {SIMT: (64, 64, 2), TENSOR_CORE: (128, 256, 1)}
 _DIM_STEP = 64   # padded dims come in multiples of this
 
+# Top-1 buckets a query of the tensor-core kernel has (MAX_BUCKETS in
+# csrc/flat_topk.cu).
+BOUND_BUCKETS = 16
+
 # The C entry's mode of each kernel instance.
 _MODES = {"f32_simt": 0, "bf16": 1, "int8": 2, "int8_int8": 3, "f32_tensor_core": 4}
 
@@ -104,14 +108,18 @@ def flat_topk_reference(
                          query_scales=query_scales)
 
 
+# The C entry's argument types: q, v, scales, qscales, q16, part_vals,
+# part_ids, bounds, out_vals, out_ids; B, Dp, Np, n_eff, k, S, mode; stream.
+ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
 @functools.cache
 def _lib():
     """The kernel's C entry point, built with nvcc at first call."""
     from nvdb_tpu_torch.kernels import _build
 
     fn = _build.load("flat_topk").nvdb_flat_topk
-    # 9 pointers, B, Dp, Np, n_eff, k, S, mode, stream
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -235,8 +243,13 @@ def flat_topk_cuda(
                if planes else None)
         part_vals = torch.empty((B, S, k), dtype=torch.float32, device=dev)
         part_ids = torch.empty((B, S, k), dtype=torch.int32, device=dev)
+        # the tensor-core kernel's slices share bounds of each query here: the
+        # best k-th pair of a slice (8 bytes) and the top-1 buckets (4 bytes
+        # each); the prologue zeroes them
+        bounds = (torch.empty((B * (2 + BOUND_BUCKETS),), dtype=torch.int32, device=dev)
+                  if kernel == TENSOR_CORE else None)
         if sp:
-            sp.count_alloc(q16, part_vals, part_ids)
+            sp.count_alloc(q16, part_vals, part_ids, bounds)
 
         fn = _lib()
         with torch.cuda.device(dev):
@@ -247,6 +260,7 @@ def flat_topk_cuda(
                         query_scales.data_ptr() if query_scales is not None else None,
                         q16.data_ptr() if q16 is not None else None,
                         part_vals.data_ptr(), part_ids.data_ptr(),
+                        bounds.data_ptr() if bounds is not None else None,
                         vals.data_ptr(), ids.data_ptr(),
                         B, Dp, Np, n_eff, k, S, _MODES[instance], stream)
         if rc != 0:

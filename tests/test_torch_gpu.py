@@ -259,6 +259,103 @@ def test_tensor_core_kernel_zero_fill_does_not_win(cuda_device, dtype, n_rows):
     assert np.mean(ids.cpu().numpy() == pi.cpu().numpy()) >= 0.95
 
 
+# -- the tensor-core kernel's queue, drained under the next tile's products ----
+#
+# Exact data: entries on a grid of eighths (queries: first dim 1), a "level"
+# on the first dim of the rows, all exact in bf16, int8 and the f32 split,
+# so every instance's scores equal the plain version's in any order of
+# summation and the ids must match it bit for bit, ties by the larger id.
+
+DRAIN_KS = [1, 10, 32, 33, 128]
+DRAIN_BATCHES = [1, 64, 65, 512, 513]
+DRAIN_ROWS, DRAIN_VALID, DRAIN_DP = 150_000, 149_963, 128
+
+
+def _tile_rows(dtype):
+    return 128 if dtype == "f32" else 256
+
+
+def _exact_store(dtype, level, b, seed, device):
+    """(queries, store, scales, query scales) of an exact case: rows of
+    noise in {-2..2} / 8 with ``level`` on their first dim, queries of the
+    same noise with 1 on theirs."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = level.shape[0]
+    x = torch.randint(-2, 3, (n, DRAIN_DP), generator=g, device=device).float() / 8
+    x[:, 0] = level
+    q = torch.randint(-2, 3, (b, DRAIN_DP), generator=g, device=device).float() / 8
+    q[:, 0] = 1.0
+    sc = qs = None
+    if dtype == "f32":
+        v = x
+    elif dtype == "bf16":
+        v = x.to(torch.bfloat16)
+    else:
+        amax = x.abs().amax(dim=1)
+        sc = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        v = torch.clamp(torch.round(x / sc[:, None]), -127, 127).to(torch.int8)
+        if dtype == "i8xi8":
+            qa = q.abs().amax(dim=1)
+            qs = qa / 127.0
+            q = torch.clamp(torch.round(q / qs[:, None]), -127, 127).to(torch.int8)
+    return q, v.contiguous(), sc, qs
+
+
+def _same_as_plain(q, v, sc, qs, n_valid, k):
+    kv, ki = flat_scan.flat_topk_cuda(q, v, sc, n_valid, k, query_scales=qs)
+    pv, pi = flat_scan.flat_topk_reference(q, v, sc, n_valid, k, query_scales=qs)
+    assert torch.equal(ki, pi)
+    np.testing.assert_allclose(kv.cpu().numpy(), pv.cpu().numpy(), atol=1e-5, rtol=1e-5)
+    return ki
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", TC_DTYPES)
+@pytest.mark.parametrize("k", DRAIN_KS)
+@pytest.mark.parametrize("b", DRAIN_BATCHES)
+def test_tensor_core_kernel_rising_scores_refill_every_list(cuda_device, dtype, k, b):
+    """Scores that rise tile after tile: the first ``hot`` rows of each row
+    tile carry the tile's level (8 and 9 a tile: a warp's sixteen queries
+    push 128 candidates, a full queue that drains under the next tile's
+    products, or 144, an overflow and a rescan every tile), or every row
+    does (every list refilled by every tile). n_valid is no multiple of 256."""
+    tn = _tile_rows(dtype)
+    rows = torch.arange(DRAIN_ROWS, device=cuda_device)
+    rise = ((rows // tn) % 256).float() * 32.0
+    for hot in (8, 9, tn):
+        level = torch.where(rows % tn < hot, rise, torch.zeros_like(rise))
+        q, v, sc, qs = _exact_store(dtype, level, b, seed=hot + k + b, device=cuda_device)
+        ki = _same_as_plain(q, v, sc, qs, DRAIN_VALID, k)
+        # the noise is below a level's step: each best row has the top level
+        assert bool((level[ki[:, 0].long()] == level[:DRAIN_VALID].max()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", TC_DTYPES)
+@pytest.mark.parametrize("k", DRAIN_KS)
+@pytest.mark.parametrize("b", DRAIN_BATCHES)
+def test_tensor_core_kernel_ties_across_tile_and_slice_edges(cuda_device, dtype, k, b):
+    """Four rows of one top score on both sides of the first row tile's end
+    and of the first slice's end (the slice count of the wrapper at this B):
+    each query's list starts with them by descending id, whichever tile's
+    queue held them and whichever slice found them."""
+    tn = _tile_rows(dtype)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    tiles = -(-DRAIN_VALID // tn)
+    S = flat_scan.slice_count(b, DRAIN_VALID, n_sm, flat_scan.TENSOR_CORE)
+    edge = -(-tiles // S) * tn   # the first row of the second slice
+    assert tn < edge < DRAIN_VALID
+    tied = [tn - 1, tn, edge - 1, edge]
+    level = torch.zeros(DRAIN_ROWS, device=cuda_device)
+    level[tied] = 64.0
+    q, v, sc, qs = _exact_store(dtype, level, b, seed=k + b, device=cuda_device)
+    for r in tied:   # the four tied rows are one vector
+        v[r] = v[tied[0]]
+    ki = _same_as_plain(q, v, sc, qs, DRAIN_VALID, k)
+    want = torch.tensor(sorted(tied, reverse=True)[:k], dtype=ki.dtype, device=cuda_device)
+    assert bool((ki[:, :len(want)] == want).all())
+
+
 @pytest.mark.gpu
 def test_f32_tensor_core_every_k(cuda_device):
     """The f32 instance's shared-memory plan holds for every k in [1, 128]

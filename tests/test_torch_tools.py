@@ -507,6 +507,44 @@ def test_pr_eval_shards_not_ported(ivf_files, capsys):
     assert "single-device serving loop" in capsys.readouterr().err
 
 
+def _flat_counts(**kw):
+    counts = dict.fromkeys(flat_breakdown.COUNTERS, 0)
+    counts.update(kw)
+    return counts
+
+
+def test_flat_breakdown_split_puts_the_time_above_the_ring_into_parts():
+    """``split`` divides the kernel's time above the ring in proportion to
+    the warps' cycles in each part, cumulatively: ring, + compares, + walk;
+    the drains and rescans make up the rest, and the rescans' share is of
+    the whole kernel."""
+    counts = _flat_counts(cyc_compare=100, cyc_walk=300, cyc_drain=400, cyc_rescan=200,
+                          cyc_wait=999, cyc_tile=10_000)
+    got = flat_breakdown.split(1.0, 2.0, counts)
+    assert got["ring_ms"] == 1.0 and got["kernel_ms"] == 2.0
+    assert got["compares_ms"] == pytest.approx(1.1)
+    assert got["walk_ms"] == pytest.approx(1.4)
+    assert got["rescan_ms"] == pytest.approx(0.2)
+    assert got["rescan_share"] == pytest.approx(0.1)
+    # no cycles in any part: nothing above the ring is placed
+    empty = flat_breakdown.split(1.0, 2.0, _flat_counts())
+    assert empty["compares_ms"] == empty["walk_ms"] == 1.0 and empty["rescan_ms"] == 0.0
+
+
+def test_flat_breakdown_counter_fields_are_shares_of_warp_tiles_and_cycles():
+    counts = _flat_counts(tiles=200, tightened=150, overflow_tiles=2, drained=900,
+                          walked_groups=100, cyc_tile=1000, cyc_wait=50, cyc_compare=100,
+                          cyc_walk=30, cyc_drain=20, cyc_rescan=10)
+    got = flat_breakdown.counter_fields(counts)
+    assert got["tiles"] == 200
+    assert got["tightened_share"] == 0.75 and got["overflow_share"] == 0.01
+    assert got["drained_per_tile"] == 4.5 and got["walked_groups_per_tile"] == 0.5
+    assert [got[f"{p}_cyc_share"] for p in ("wait", "compare", "walk", "drain", "rescan")] == [
+        0.05, 0.1, 0.03, 0.02, 0.01]
+    # the tool reads the kernel's counters in the order of its enum
+    assert len(flat_breakdown.COUNTERS) == len(set(flat_breakdown.COUNTERS)) == 11
+
+
 @pytest.mark.parametrize("tool", [hbm_probe, gpu_sanity, flat_breakdown, adc_breakdown])
 def test_card_only_tools_fail_without_card(tool, capsys):
     if torch.cuda.is_available():
