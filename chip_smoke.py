@@ -209,7 +209,14 @@ one phase per line group:
    sharded probe set at nprobe 64; ``multiproc_bench`` at its
    defaults (one process of two shards of cuda:0 against two gloo ranks),
    rank 0's recall equal to the one process's. A failed check in a tool
-   exits the run.
+   exits the run;
+17. the OpenAI width (cell ``ivfpq1536.b256``'s kernel shapes,
+   ``phase_wide_ivfpq``): the fused key scan at B = 256, P = 64, M = 128,
+   dsub = 12, Lcap 1536 over 8,192 lists filled around 610 rows, bit for
+   bit its plain version and the two-kernel key path, its query terms bit
+   for bit theirs, and the rerank at B = 256, R = 50 from a
+   5M x 1536 f32 store (ids past 2^31 elements) against its plain version,
+   each as device time (calls in a CUDA graph) beside its bound.
 
 Files go to ``build/chip_smoke``, which is removed at the end. Each phase
 prints its wall time. Every check raises on failure, so the exit code is
@@ -2508,6 +2515,90 @@ def tools_on_card(torch, dev, work, p8):
     return out
 
 
+def phase_wide_ivfpq(torch, dev, n_store=5_000_000, nlist=8192, lcap=1536):
+    """Cell ``ivfpq1536.b256``'s kernel shapes (the OpenAI width, 1536 dims):
+    the fused key scan at B = 256, P = 64, M = 128, dsub = 12, kk = 50 over
+    an index of ``nlist`` lists of ``lcap`` lanes (fills drawn around the
+    cell's 610, so most lists span two 768-lane tiles), bit for bit its
+    plain version (``adc_fused_keys_reference``) and the two-kernel key
+    path, its query-term pass bit for bit its plain version, its device
+    time beside its bound; the rerank at
+    B = 256, R = 50, k = 10 from an ``n_store`` x 1536 f32 store (rows past
+    2^31 elements among the candidates), against its plain version, its
+    device time beside its bound. Returns both rows' times."""
+    from nvdb_tpu_torch.kernels import adc_scan, ivf_scan, rerank
+
+    b, p, m, dsub, kk, dp = 256, 64, 128, 12, 50, 1536
+    g = torch.Generator(device=dev).manual_seed(1536)
+    fills = torch.clamp(torch.randn((nlist,), generator=g, device=dev) * 200 + 610,
+                        16, lcap).to(torch.int32)
+    lane = torch.arange(lcap, device=dev, dtype=torch.int32)
+    slot_ids = torch.where(lane[None, :] < fills[:, None],
+                           torch.arange(nlist, device=dev, dtype=torch.int32)[:, None] * lcap
+                           + lane[None, :], -1)
+    codes = torch.randint(0, 256, (nlist, m, lcap), generator=g, device=dev,
+                          dtype=torch.uint8)
+    cents = torch.randn((nlist, dp), generator=g, device=dev) / dp ** 0.5
+    cb = 0.3 * torch.randn((m, 256, dsub), generator=g, device=dev) / dp ** 0.5
+    probes = torch.stack([torch.randperm(nlist, generator=g, device=dev)[:p]
+                          for _ in range(b)]).to(torch.int32)
+    q_rot = (cents[probes[:, 0].long()]
+             + 0.3 * torch.randn((b, dp), generator=g, device=dev) / dp ** 0.5).contiguous()
+    fused = lambda: adc_scan.adc_fused_keys_cuda(q_rot, probes, cents, cb, codes, slot_ids,
+                                                 kk, fills=fills)
+    two = lambda: adc_scan.adc_topk_keys_cuda(
+        adc_scan.adc_tables_cuda(q_rot, probes, cents, cb, fills), probes, codes, slot_ids,
+        kk, fills=fills)
+    check(torch.equal(adc_scan.adc_query_terms_cuda(q_rot, cb),
+                      adc_scan.adc_query_terms_reference(q_rot, cb)),
+          "query terms at M 128: differ from the plain version")
+    fv, fi = fused()
+    tv, ti = two()
+    check(torch.equal(fv, tv) and torch.equal(fi, ti),
+          "fused key scan at M 128 / Lcap 1536: differs from the two-kernel key path")
+    pv, pi = adc_scan.adc_fused_keys_reference(q_rot, probes, cents, cb, codes, slot_ids, kk,
+                                               fills=fills)
+    check(torch.equal(fv, pv) and torch.equal(fi, pi),
+          "fused key scan at M 128 / Lcap 1536: differs from its plain version")
+    del fv, fi, tv, ti, pv, pi
+    f_ms = graph_ms(torch, fused, launches=10, replays=5)
+    pb = ivf_scan.probe_bytes(probes, fills, m, nlist)
+    nbytes = (pb["rows"] * m + b * dp * 4 + pb["lists"] * dp * 4 + cb.numel() * 4
+              + probes.numel() * 4 + b * kk * 8)
+    fbnd, fby = bound_ms(nbytes, float(pb["pairs"]) * m * 256 * (2 * dsub + 4)
+                         + pb["as_probed"], "f32")
+    tiles = int((fills > adc_scan.FUSED_TILE).sum())
+    say(f"  fused key scan B={b} P={p} M={m} dsub={dsub} Lcap={lcap} kk={kk} ({tiles} of "
+        f"{nlist} lists past one tile, {pb['lists']} lists probed): device {f_ms:.4f} ms "
+        f"(10 calls in a CUDA graph) | bound {fbnd:.4f} ms ({fby}) time / bound "
+        f"{f_ms / fbnd:.2f}; bit for bit its plain version and the two-kernel key path, the "
+        f"query terms bit for bit theirs")
+    del codes, slot_ids
+
+    r, k = 50, 10
+    store = torch.randn((n_store, dp), generator=g, device=dev)
+    store /= torch.linalg.vector_norm(store, dim=1, keepdim=True)
+    q = torch.randn((b, dp), generator=g, device=dev)
+    q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    cand = torch.randint(0, n_store, (b, r), generator=g, device=dev).to(torch.int32)
+    far = (1 << 31) // dp + 1
+    check(int((cand >= far).sum()) > 0, "no rerank candidate past 2^31 elements")
+    n2 = rerank.store_norms2(store)
+    call = lambda: rerank.rerank_topk_cuda(q, cand, store, None, k, norms2=n2, metric="l2")
+    kv, ki = call()
+    pv, pi = rerank.rerank_topk_reference(q, cand, store, None, k, norms2=n2, metric="l2")
+    err = float((kv - pv).abs().max())
+    check(err <= VALUE_ATOL and float((ki == pi).float().mean()) >= ID_AGREE_MIN,
+          f"rerank from {n_store} x {dp}: {err} from the plain version")
+    r_ms = graph_ms(torch, call, launches=100, replays=5)
+    rbnd, rby = bound_ms(b * r * (dp * 4 + 8) + b * dp * 4 + b * k * 8, 2.0 * b * r * dp, "f32")
+    say(f"  rerank B={b} R={r} k={k} from {n_store} x {dp} f32 ({store.numel() / 2**31:.2f} x "
+        f"2^31 elements): device {r_ms:.4f} ms (100 calls in a CUDA graph) | bound "
+        f"{rbnd:.4f} ms ({rby}) time / bound {r_ms / rbnd:.2f}; |kernel - plain| {err:.2e}")
+    return {"adc_fused_key": dict(ms=f_ms, bound_ms=fbnd, bound_by=fby),
+            "rerank_topk": dict(ms=r_ms, bound_ms=rbnd, bound_by=rby, err=err)}
+
+
 def phase_build_side(torch, dev, work, p8, spilled8, part):
     out = {"launches": {}}
     for sub, fn, args in (("a", build_side_ivfpq, (p8, spilled8)),
@@ -3126,6 +3217,10 @@ def main() -> int:
                    "at the flagship shape and the JAX defaults; coverage_probe and "
                    "adc_rank_probe on phase 8's index; multiproc_bench, two gloo ranks"):
             t16 = phase_tools_ab(torch, dev, ivf_paths, ivf)
+
+        with phase("[17 the OpenAI width] fused key scan B = 256, P = 64, M = 128, dsub = 12, "
+                   "Lcap 1536, nlist 8192; rerank B = 256, R = 50 from a 5M x 1536 f32 store"):
+            phase_wide_ivfpq(torch, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -45,59 +45,15 @@ def _pack_lists(
     lcap: int,
     d_padded: int,
 ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray], int]:
-    """Pack rows into fixed-capacity lists, spilling overflow to the row's
-    next-nearest centroid with free space (lists with free slots as a last
-    resort). Fully vectorized (one pass per spill candidate), so packing 100M
-    rows is numpy-speed, not a Python loop.
-    Returns (packed [nlist, lcap, Dp], slot_ids [nlist, lcap], slot_scales, n_spilled)."""
+    """Pack rows into fixed-capacity lists at the slots ``place_rows`` gives
+    them. Returns (packed [nlist, lcap, Dp], slot_ids [nlist, lcap],
+    slot_scales, n_spilled)."""
     n, d = rows_enc.shape
-    fill = np.zeros(nlist, dtype=np.int64)
-    slot_of = np.full(n, -1, dtype=np.int64)
-    list_of = np.full(n, -1, dtype=np.int64)
-    spilled = 0
-
     if alts is None:
         alts = assign[:, None]
-
-    def group_ranks(keys: np.ndarray) -> np.ndarray:
-        """Rank of each element within its key group (stable order)."""
-        m = keys.shape[0]
-        order_ = np.argsort(keys, kind="stable")
-        sk = keys[order_]
-        is_start = np.r_[True, sk[1:] != sk[:-1]]
-        start_pos = np.maximum.accumulate(np.where(is_start, np.arange(m), 0))
-        ranks_sorted = np.arange(m) - start_pos
-        ranks = np.empty(m, dtype=np.int64)
-        ranks[order_] = ranks_sorted
-        return ranks
-
-    unplaced = np.arange(n)
-    for s in range(alts.shape[1]):
-        if unplaced.size == 0:
-            break
-        cand = alts[unplaced, s].astype(np.int64)
-        ranks = group_ranks(cand)
-        slots = fill[cand] + ranks
-        ok = slots < lcap
-        rows_ok = unplaced[ok]
-        list_of[rows_ok] = cand[ok]
-        slot_of[rows_ok] = slots[ok]
-        np.add.at(fill, cand[ok], 1)
-        if s > 0:
-            spilled += int(rows_ok.size)
-        unplaced = unplaced[~ok]
-
-    if unplaced.size:
-        # last resort: pour leftovers into whatever lists still have space
-        free = lcap - fill
-        dest = np.repeat(np.arange(nlist), free)[: unplaced.size]
-        if dest.size < unplaced.size:
-            raise ValueError("total list capacity too small for all rows")
-        ranks = group_ranks(dest)
-        list_of[unplaced] = dest
-        slot_of[unplaced] = fill[dest] + ranks
-        np.add.at(fill, dest, 1)
-        spilled += int(unplaced.size)
+    list_of, slot_of, spilled = place_rows(torch.from_numpy(np.asarray(alts, np.int64)),
+                                           nlist, lcap)
+    list_of, slot_of = list_of.numpy(), slot_of.numpy()
 
     packed = np.zeros((nlist, lcap, d_padded), dtype=rows_enc.dtype)
     slot_ids = np.full((nlist, lcap), -1, dtype=np.int32)
@@ -108,6 +64,59 @@ def _pack_lists(
         slot_scales = np.ones((nlist, lcap), dtype=np.float32)
         slot_scales[list_of, slot_of] = scales
     return packed, slot_ids, slot_scales, spilled
+
+
+def _group_ranks(keys: torch.Tensor) -> torch.Tensor:
+    """Rank of each element within its key group, in stable order."""
+    m = keys.shape[0]
+    order = torch.sort(keys, stable=True).indices
+    sk = keys[order]
+    is_start = torch.ones(m, dtype=torch.bool, device=keys.device)
+    is_start[1:] = sk[1:] != sk[:-1]
+    pos = torch.arange(m, device=keys.device)
+    start = torch.cummax(torch.where(is_start, pos, 0), dim=0).values
+    ranks = torch.empty(m, dtype=torch.int64, device=keys.device)
+    ranks[order] = pos - start
+    return ranks
+
+
+def place_rows(alts: torch.Tensor, nlist: int, lcap: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The list and slot of every row, on the device of ``alts`` [N, S]
+    (each row's S nearest lists, nearest first): each row goes to its
+    nearest list with a free slot, in row order among the rows that want
+    one list, one vectorized pass per candidate; rows left over pour into
+    whatever lists still have room (the last resort). Returns (list_of [N],
+    slot_of [N] int64, rows placed past their first candidate)."""
+    dev = alts.device
+    n = alts.shape[0]
+    fill = torch.zeros(nlist, dtype=torch.int64, device=dev)
+    list_of = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    slot_of = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    spilled = 0
+    unplaced = torch.arange(n, device=dev)
+    for s in range(alts.shape[1]):
+        if unplaced.numel() == 0:
+            break
+        cand = alts[unplaced, s].long()
+        slots = fill[cand] + _group_ranks(cand)
+        ok = slots < lcap
+        rows_ok = unplaced[ok]
+        list_of[rows_ok] = cand[ok]
+        slot_of[rows_ok] = slots[ok]
+        fill += torch.bincount(cand[ok], minlength=nlist)
+        if s > 0:
+            spilled += int(rows_ok.numel())
+        unplaced = unplaced[~ok]
+    if unplaced.numel():
+        dest = torch.repeat_interleave(torch.arange(nlist, device=dev),
+                                       lcap - fill)[:unplaced.numel()]
+        if dest.numel() < unplaced.numel():
+            raise ValueError("total list capacity too small for all rows")
+        list_of[unplaced] = dest
+        slot_of[unplaced] = fill[dest] + _group_ranks(dest)
+        spilled += int(unplaced.numel())
+    return list_of, slot_of, spilled
 
 
 def coarse_terms(centroids: torch.Tensor, slot_ids: torch.Tensor

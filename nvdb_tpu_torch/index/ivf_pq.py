@@ -36,8 +36,8 @@ import torch
 
 from nvdb_tpu_torch.eval import trace
 from nvdb_tpu_torch.index import graphs
-from nvdb_tpu_torch.index.ivf_flat import (_coarse_probes, _host_chunked, _pack_lists,
-                                           _stage_logger, _topS_centroids, coarse_terms)
+from nvdb_tpu_torch.index.ivf_flat import (_coarse_probes, _stage_logger, _topS_centroids,
+                                           coarse_terms, place_rows)
 from nvdb_tpu_torch.kernels import adc_scan, dispatch, kmeans, ops, pq
 from nvdb_tpu_torch.utils import round_up
 
@@ -205,80 +205,58 @@ class IVFPQIndex:
         ``torch.Generator``s seeded from ``seed`` (not the JAX package's
         numbers). ``corpus_refine_iters`` > 0 refines the coarse quantizer
         with that many corpus passes (``kmeans.corpus_refine``, seeded
-        ``seed + 1``)."""
+        ``seed + 1``). The padded corpus stays on ``device`` where it fits
+        (``_Stages``), and every stage runs there; each stage is a
+        ``build.*`` span."""
         device = torch.device(device)
         n, d = rows_f32.shape
         dp = round_up(d, 128)
         if dp % m != 0:
             raise ValueError(f"m={m} must divide the padded dim {dp}")
         gen = torch.Generator(device=device).manual_seed(seed)
-        stage = _stage_logger(n)
-
-        stage("pad corpus")
-        data_p = np.zeros((n, dp), np.float32)
-        data_p[:, :d] = rows_f32
+        st = _Stages(n, dp, device)
         t = min(train_size, n)
 
+        work = st.upload(rows_f32, dp)
         rot = None
         if use_opq:
             # rotation quality saturates far below coarse-quantizer train sizes
             t_opq = min(t, 131072)
-            stage(f"train OPQ rotation (t={t_opq})")
-            rot_np, _ = pq.train_opq(gen, data_p[:t_opq], m, n_opq_iters=opq_iters,
-                                     device=device)
-            rot = torch.from_numpy(rot_np).to(device)
-            stage("apply rotation")
-            data_rot = _rotate(data_p, rot)
-            del data_p
-        else:
-            data_rot = data_p
+            with st("build.opq", t_opq, h2d=st.moved(t_opq * dp * 4)):
+                rot_np, _ = pq.train_opq(gen, work[:t_opq], m, n_opq_iters=opq_iters,
+                                         device=device)
+                rot = torch.from_numpy(rot_np).to(device)
+            with st("build.rotate", n, h2d=st.moved(n * dp * 4), d2h=st.moved(n * dp * 4)):
+                _rotate_rows(work, rot, device)
 
-        stage(f"k-means coarse quantizer (t={t}, nlist={nlist})")
-        cents, _ = kmeans.kmeans_fit(gen, torch.from_numpy(data_rot[:t]).to(device),
-                                     nlist, n_iters=n_iters)
-        if corpus_refine_iters > 0:
-            stage(f"corpus-scale Lloyd refinement ({corpus_refine_iters} passes)")
-            cents = kmeans.corpus_refine(data_rot, cents, n_iters=corpus_refine_iters,
-                                         seed=seed + 1, log=stage)
+        with st("build.kmeans", t, h2d=st.moved(t * dp * 4)):
+            cents, _ = kmeans.kmeans_fit(gen, work[:t].to(device), nlist, n_iters=n_iters)
+            if corpus_refine_iters > 0:
+                cents = kmeans.corpus_refine(work, cents, n_iters=corpus_refine_iters,
+                                             seed=seed + 1, log=st.log)
 
-        stage("coarse assignment (top-S centroids, device-chunked)")
         S = min(spill_candidates, nlist)
-        alts = _host_chunked(lambda x: _topS_centroids(x, cents, S), data_rot, device)
+        with st("build.assign", n, h2d=st.moved(n * dp * 4)):
+            alts = torch.cat([_topS_centroids(x, cents, S) for x in _chunks(work, device)])
         # Lcap is the lane dim of the transposed code layout
         lcap = round_up(int(np.ceil(n / nlist * pad_factor)), 128)
-
-        # pack row ids first (codes depend on the packed list's centroid)
-        stage(f"pack lists (lcap={lcap})")
-        dummy = np.zeros((n, 1), np.float32)
-        _, slot_ids, _, spilled = _pack_lists(dummy, None, alts[:, 0], None, alts,
-                                              nlist, lcap, 1)
-
-        # residuals against the packed list's centroid, in place
-        cents_np = cents.cpu().numpy()
-        list_of = np.zeros(n, np.int64)  # spilled rows: centroid 0, unused
-        li, si = np.nonzero(slot_ids >= 0)
-        list_of[slot_ids[li, si]] = li
-        stage("residual subtraction")
-        for s in range(0, n, 1_000_000):
-            data_rot[s:s + 1_000_000] -= cents_np[list_of[s:s + 1_000_000]]
-        residuals = data_rot
+        with st("build.pack", n):
+            list_of, slot_of, spilled = place_rows(alts, nlist, lcap)
+            del alts
+            slot_ids = _slot_ids(list_of, slot_of, nlist, lcap)
 
         tcb = min(n, cb_train_size or 262144)
-        stage(f"train PQ codebooks (t={tcb})")
-        cb = pq.train_codebooks(gen, torch.from_numpy(residuals[:tcb]).to(device), m,
-                                n_iters=cb_iters)
-
-        stage("PQ encode")
-        codes_rows = _encode(residuals, cb, m, host=n >= _HOST_BUILD_ROWS)
-        stage("scatter codes into list slabs")
-        codes = np.zeros((nlist, m, lcap), np.uint8)
-        codes[li, :, si] = codes_rows[slot_ids[li, si]]
-
-        stage("upload index arrays")
-        return cls(rotation=rot, centroids=cents, codebooks=cb,
-                   codes=torch.from_numpy(codes).to(device),
-                   slot_ids=torch.from_numpy(slot_ids).to(device),
-                   n=n, d=d, m=m, n_spilled=spilled)
+        with st("build.codebooks", tcb, h2d=st.moved(tcb * dp * 4)):
+            res = work[:tcb].to(device) - cents[list_of[:tcb]]
+            cb = pq.train_codebooks(gen, res, m, n_iters=cb_iters)
+            del res
+        with st("build.encode", n, h2d=st.moved(n * dp * 4)):
+            codes = _encode_lists(work, torch.arange(n, device=device), list_of, slot_of,
+                                  cents, cb, nlist, lcap)
+        del work
+        st.release()
+        return cls(rotation=rot, centroids=cents, codebooks=cb, codes=codes,
+                   slot_ids=slot_ids.to(torch.int32), n=n, d=d, m=m, n_spilled=spilled)
 
     @classmethod
     def repack(cls, idx: "IVFPQIndex", rows_f32: np.ndarray, pad_factor: float = 4.0,
@@ -290,63 +268,42 @@ class IVFPQIndex:
         top-R lists: copy r of a row (virtual row ``r * n + i``) prefers its
         (r+1)-th nearest list, ``S = min(max(S, R), nlist)``, and slot ids
         are ``vid % n``, so search returns each id once (the ``dma`` mode
-        with its duplicate pass). Runs on the index's device; the stages
-        whose output is corpus-sized run on the host from ``_HOST_BUILD_ROWS``
-        corpus rows, as in ``build``."""
+        with its duplicate pass). Runs on the index's device, with the
+        padded corpus there where it fits, as in ``build``."""
         device = idx.device
         n, d = rows_f32.shape
         nlist, dp = idx.centroids.shape
-        m = idx.m
-        stage = _stage_logger(n)
-        stage("pad corpus")
-        data_rot = np.zeros((n, dp), np.float32)
-        data_rot[:, :d] = rows_f32
+        st = _Stages(n, dp, device)
+        work = st.upload(rows_f32, dp)
         if idx.rotation is not None:
-            stage("apply rotation")
-            data_rot = _rotate(data_rot, idx.rotation)
+            with st("build.rotate", n, h2d=st.moved(n * dp * 4), d2h=st.moved(n * dp * 4)):
+                _rotate_rows(work, idx.rotation, device)
 
         R = max(1, min(replicas, nlist))
         S = min(max(spill_candidates, R), nlist)
-        stage("coarse assignment (top-S centroids, device-chunked)")
-        alts = _host_chunked(lambda x: _topS_centroids(x, idx.centroids, S), data_rot,
-                             device)
+        with st("build.assign", n, h2d=st.moved(n * dp * 4)):
+            alts = torch.cat([_topS_centroids(x, idx.centroids, S)
+                              for x in _chunks(work, device)])
         if R > 1:
             # virtual rows: copy r of row i prefers the (r+1)-th nearest list
-            alts = np.concatenate(
-                [np.concatenate([alts[:, r:], np.repeat(alts[:, -1:], r, axis=1)], axis=1)
-                 for r in range(R)], axis=0)
+            alts = torch.cat([torch.cat([alts[:, r:], alts[:, -1:].repeat(1, r)], dim=1)
+                              for r in range(R)])
         n_v = n * R
         lcap = round_up(int(np.ceil(n_v / nlist * pad_factor)), 128)
-
-        stage(f"pack lists (lcap={lcap}, replicas={R})")
-        _, slot_vids, _, spilled = _pack_lists(np.zeros((n_v, 1), np.float32), None,
-                                               alts[:, 0], None, alts, nlist, lcap, 1)
-
-        # the residual of each placed virtual row against its list's
-        # centroid, encoded in virtual-id order
-        cents_np = idx.centroids.cpu().numpy()
-        li, si = np.nonzero(slot_vids >= 0)
-        vids = slot_vids[li, si]
-        order = np.argsort(vids)
-        ro, lo = vids[order] % n, li[order]
-        stage("residual gather/subtract")
-        residuals = np.empty((ro.shape[0], dp), np.float32)
-        for s in range(0, ro.shape[0], 1_000_000):
-            residuals[s:s + 1_000_000] = (data_rot[ro[s:s + 1_000_000]]
-                                          - cents_np[lo[s:s + 1_000_000]])
-        del data_rot
-
-        stage("PQ encode")
-        codes_rows = _encode(residuals, idx.codebooks, m, host=n >= _HOST_BUILD_ROWS)
-        stage("scatter codes into list slabs")
-        codes = np.zeros((nlist, m, lcap), np.uint8)
-        codes[li[order], :, si[order]] = codes_rows
-        slot_ids = np.where(slot_vids >= 0, slot_vids % n, -1).astype(np.int32)
-        stage("upload index arrays")
+        with st("build.pack", n_v):
+            list_of, slot_of, spilled = place_rows(alts, nlist, lcap)
+            del alts
+            slot_vids = _slot_ids(list_of, slot_of, nlist, lcap)
+            slot_ids = torch.where(slot_vids >= 0, slot_vids % n, -1).to(torch.int32)
+        # the residual of each virtual row against its list's centroid
+        with st("build.encode", n_v, h2d=st.moved(n_v * dp * 4)):
+            codes = _encode_lists(work, torch.arange(n_v, device=device) % n, list_of,
+                                  slot_of, idx.centroids, idx.codebooks, nlist, lcap)
+        del work
+        st.release()
         return cls(rotation=idx.rotation, centroids=idx.centroids, codebooks=idx.codebooks,
-                   codes=torch.from_numpy(codes).to(device),
-                   slot_ids=torch.from_numpy(slot_ids).to(device),
-                   n=n, d=d, m=m, n_spilled=spilled, replicas=R)
+                   codes=codes, slot_ids=slot_ids, n=n, d=d, m=idx.m, n_spilled=spilled,
+                   replicas=R)
 
     @classmethod
     def from_reference(cls, rotation, centroids, codebooks, codes, slot_ids, n: int,
@@ -531,48 +488,108 @@ def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
-# Above this row count the build stages whose output is corpus-sized (the
-# rotation, the encoding) run on the host, as in the JAX package.
-_HOST_BUILD_ROWS = 2_000_000
+# Rows a build stage moves or computes at a time.
+_BUILD_CHUNK = 262_144
+# Device memory the build leaves beside the padded corpus: the k-means and
+# codebook workspaces and the encode's score slabs (under 8 GB at 1536 dims
+# and nlist 8192).
+_BUILD_WORKSPACE_BYTES = 12 << 30
+# The device memory the padded corpus may take; None: the device's free
+# memory (with what torch's allocator holds unused) less the workspace, and
+# no limit on a CPU device. Tests set it to 0 to take the host-streamed path.
+_DEVICE_BUILD_BYTES: Optional[int] = None
 
 
-def _rotate_inplace_host(data_p: np.ndarray, rot_np: np.ndarray,
-                         chunk: int = 1_000_000) -> np.ndarray:
-    """data_p @ rot, chunked in place on the host (BLAS)."""
-    rot_np = np.asarray(rot_np, np.float32)
-    for s in range(0, data_p.shape[0], chunk):
-        data_p[s:s + chunk] = data_p[s:s + chunk] @ rot_np
-    return data_p
+class _Stages:
+    """The stages of a build: a line each on stderr (corpus-scale builds)
+    and a ``build.*`` span each (``eval/trace.py``; it syncs the device
+    before it ends) with the attrs ``rows`` (the rows the stage took),
+    ``where`` (``device`` or ``host``: where the padded corpus lives) and
+    ``h2d_bytes`` / ``d2h_bytes`` (what the stage copied between the two).
+    The padded corpus (``home``) lives on the device where its bytes fit
+    ``_DEVICE_BUILD_BYTES``; else on the host, from which each stage streams
+    it through the device in chunks."""
+
+    def __init__(self, n: int, dp: int, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self.release()
+        budget = _DEVICE_BUILD_BYTES
+        if budget is None and self._cuda:
+            free, _ = torch.cuda.mem_get_info(device)
+            unused = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+            budget = free + unused - _BUILD_WORKSPACE_BYTES
+        self.on_device = budget is None or n * dp * 4 <= budget
+        self.home = device if self.on_device else torch.device("cpu")
+        self.where = "device" if self.on_device else "host"
+        self.log = _stage_logger(n)
+        self._crosses = self.home.type != device.type
+        self._sync = torch.cuda.synchronize if self._cuda else None
+
+    def moved(self, nbytes: int) -> int:
+        """``nbytes`` where the corpus crosses between host and device, else 0."""
+        return nbytes if self._crosses else 0
+
+    def __call__(self, name: str, rows: int, h2d: int = 0, d2h: int = 0):
+        self.log(f"{name} ({rows} rows, corpus on the {self.where})")
+        return trace.span(name, sync=self._sync, rows=rows, where=self.where,
+                          h2d_bytes=h2d, d2h_bytes=d2h)
+
+    def release(self) -> None:
+        """Gives the device memory torch's allocator holds unused back to
+        the device, at a build's start and end: left cached, a corpus-sized
+        block (a caller's corpus, the build's padded copy) is carved up by
+        later small tensors, and one of them still alive pins the whole
+        block when a later corpus-sized tensor needs the memory."""
+        if self._cuda:
+            torch.cuda.empty_cache()
+
+    def upload(self, rows_f32: np.ndarray, dp: int) -> torch.Tensor:
+        """The stage ``build.upload``: [N, dp] f32 on ``home``, the rows
+        zero-padded, copied in chunks (no padded host copy)."""
+        n, d = rows_f32.shape
+        with self("build.upload", n, h2d=n * d * 4 if self.home.type == "cuda" else 0):
+            out = torch.empty((n, dp), dtype=torch.float32, device=self.home)
+            if dp > d:
+                out[:, d:].zero_()
+            for s in range(0, n, _BUILD_CHUNK):
+                out[s:s + _BUILD_CHUNK, :d].copy_(torch.from_numpy(
+                    np.ascontiguousarray(rows_f32[s:s + _BUILD_CHUNK], dtype=np.float32)))
+        return out
 
 
-def _rotate(data_p: np.ndarray, rot: torch.Tensor) -> np.ndarray:
-    """Host rows times the rotation: in place on the host from
-    ``_HOST_BUILD_ROWS`` rows, else in row chunks on the rotation's device."""
-    if data_p.shape[0] >= _HOST_BUILD_ROWS:
-        return _rotate_inplace_host(data_p, rot.cpu().numpy())
-    return _host_chunked(lambda x: _matmul(x, rot), data_p, rot.device)
+def _chunks(work: torch.Tensor, device: torch.device):
+    """Row chunks of ``work`` on ``device`` (views where it lives there)."""
+    for s in range(0, work.shape[0], _BUILD_CHUNK):
+        yield work[s:s + _BUILD_CHUNK].to(device)
 
 
-def _encode(residuals: np.ndarray, cb: torch.Tensor, m: int, host: bool) -> np.ndarray:
-    """PQ codes [N, M] uint8 of host residual rows: on the host
-    (``_encode_host``) or in row chunks on the codebooks' device."""
-    if host:
-        return _encode_host(residuals, cb.cpu().numpy(), m)
-    return _host_chunked(lambda x: pq.encode(x, cb, m), residuals, cb.device)
+def _rotate_rows(work: torch.Tensor, rot: torch.Tensor, device: torch.device) -> None:
+    """``work`` times the rotation, in place, a chunk at a time on ``device``."""
+    for s, x in zip(range(0, work.shape[0], _BUILD_CHUNK), _chunks(work, device)):
+        work[s:s + _BUILD_CHUNK].copy_(_matmul(x, rot))
 
 
-def _encode_host(residuals: np.ndarray, cb_np: np.ndarray, m: int,
-                 chunk: int = 262_144) -> np.ndarray:
-    """Host PQ encode: per-subspace argmax of x.c - ||c||^2 / 2 (argmin L2,
-    first index on ties), as ``pq.encode``; [N, M] uint8 on the host."""
-    cb_np = np.asarray(cb_np, np.float32)          # [M, 256, dsub]
-    dsub = cb_np.shape[2]
-    half_norms = 0.5 * np.sum(cb_np * cb_np, axis=2)
-    out = np.empty((residuals.shape[0], m), np.uint8)
-    for s in range(0, residuals.shape[0], chunk):
-        x = residuals[s:s + chunk]
-        for j in range(m):
-            xj = x[:, j * dsub:(j + 1) * dsub]
-            out[s:s + chunk, j] = np.argmax(xj @ cb_np[j].T - half_norms[j],
-                                            axis=1).astype(np.uint8)
+def _slot_ids(list_of: torch.Tensor, slot_of: torch.Tensor, nlist: int, lcap: int
+              ) -> torch.Tensor:
+    """[nlist, lcap] int64: each slot's row (its position in ``list_of``), -1 empty."""
+    out = torch.full((nlist, lcap), -1, dtype=torch.int64, device=list_of.device)
+    out[list_of, slot_of] = torch.arange(list_of.shape[0], device=list_of.device)
     return out
+
+
+def _encode_lists(work: torch.Tensor, rows: torch.Tensor, list_of: torch.Tensor,
+                  slot_of: torch.Tensor, cents: torch.Tensor, cb: torch.Tensor, nlist: int,
+                  lcap: int) -> torch.Tensor:
+    """[nlist, M, lcap] uint8 codes: entry j (row ``rows[j]`` of ``work``,
+    placed at ``list_of[j]``, ``slot_of[j]``) encoded as its residual
+    against its list's centroid, a chunk of entries at a time on the
+    codebooks' device."""
+    device = cb.device
+    m = cb.shape[0]
+    codes = torch.zeros((nlist, m, lcap), dtype=torch.uint8, device=device)
+    for s in range(0, rows.shape[0], _BUILD_CHUNK):
+        e = min(s + _BUILD_CHUNK, rows.shape[0])
+        lst = list_of[s:e]
+        x = work[rows[s:e].to(work.device)].to(device)
+        codes[lst, :, slot_of[s:e]] = pq.encode(x - cents[lst], cb, m)
+    return codes

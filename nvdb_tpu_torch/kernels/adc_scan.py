@@ -789,6 +789,7 @@ def adc_fused_keys_cuda(
                                 device=dev)
         if sp:
             sp.count_alloc(scratch, qterms, part_keys)
+            sp.attrs["nq"] = nq
         fn = _fused_lib().nvdb_adc_fused_keys
         with torch.cuda.device(index):
             stream = torch.cuda.current_stream(index).cuda_stream

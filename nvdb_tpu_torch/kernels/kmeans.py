@@ -73,21 +73,43 @@ def _lloyd_step(data: torch.Tensor, cents: torch.Tensor, chunk: int = _CHUNK
     return sums.reshape(G, K, D), counts.reshape(G, K), obj
 
 
+def _sq_dist(sub: torch.Tensor, x2: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """[G, m] squared distances of the rows [G, m, D] (squared norms ``x2``
+    [G, m]) to one point a group ``c`` [G, D], as ||x||^2 - 2 x.c + ||c||^2:
+    one matrix-vector product, no [G, m, D] temporary."""
+    ops.no_tf32()
+    xc = torch.bmm(sub, c[:, :, None])[:, :, 0]
+    return x2 - 2.0 * xc + torch.sum(c * c, dim=1)[:, None]
+
+
+def _draw(gen: torch.Generator, weights: torch.Tensor) -> torch.Tensor:
+    """[G] one index a row of ``weights`` [G, m] (positive), drawn with
+    probability proportional to its weight: a uniform draw against the
+    float64 running sum."""
+    cdf = torch.cumsum(weights.to(torch.float64), dim=1)
+    u = torch.rand((weights.shape[0], 1), generator=gen, dtype=torch.float64,
+                   device=weights.device) * cdf[:, -1:]
+    return torch.clamp(torch.searchsorted(cdf, u, right=True)[:, 0], max=weights.shape[1] - 1)
+
+
 def _kmeanspp_init(gen: torch.Generator, sub: torch.Tensor, k: int) -> torch.Tensor:
     """k-means++ seeding over [G, m, D]: each next seed is drawn with
-    probability proportional to its squared distance from the chosen set."""
+    probability proportional to its squared distance from the chosen set
+    (``_sq_dist``; the f32 cancellation leaves a chosen row a weight near
+    0, clamped to 1e-30 where it falls below)."""
     G, m, D = sub.shape
     rows = torch.arange(G, device=sub.device)
     first = torch.randint(0, m, (G,), generator=gen, device=sub.device)
     cents = torch.zeros((G, k, D), dtype=torch.float32, device=sub.device)
+    x2 = torch.sum(sub * sub, dim=2)                                 # [G, m]
     c = sub[rows, first]                                             # [G, D]
     cents[:, 0] = c
-    d2 = torch.sum((sub - c[:, None, :]) ** 2, dim=2)                # [G, m]
+    d2 = _sq_dist(sub, x2, c)
     for i in range(1, k):
-        idx = torch.multinomial(torch.clamp(d2, min=1e-30), 1, generator=gen)[:, 0]
+        idx = _draw(gen, torch.clamp(d2, min=1e-30))
         c = sub[rows, idx]
         cents[:, i] = c
-        d2 = torch.minimum(d2, torch.sum((sub - c[:, None, :]) ** 2, dim=2))
+        d2 = torch.minimum(d2, _sq_dist(sub, x2, c))
     return cents
 
 

@@ -9,7 +9,7 @@ residuals; L2 throughout. Every f32 product runs with TF32 off.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,9 +35,11 @@ def train_codebooks(gen: torch.Generator, train: torch.Tensor, m: int,
 
 
 def encode(x: torch.Tensor, codebooks: torch.Tensor, m: int,
-           chunk: int = 65536) -> torch.Tensor:
+           chunk: Optional[int] = None) -> torch.Tensor:
     """[N, D] rotated residuals -> [N, M] uint8 codes (argmin L2, first
-    index on ties)."""
+    index on ties), ``chunk`` rows at a time (None: the rows whose [M,
+    rows, 256] f32 score slab holds 2^28 values, 1 GiB)."""
+    chunk = chunk or max(1, (1 << 28) // (m * KSUB))
     out = [kmeans.assign_batched(split_subspaces(x[s:s + chunk], m), codebooks).T
            for s in range(0, x.shape[0], chunk)]
     return torch.cat(out, dim=0).to(torch.uint8)
@@ -52,7 +54,7 @@ def decode(codes: torch.Tensor, codebooks: torch.Tensor, m: int) -> torch.Tensor
 
 def train_opq(
     gen: torch.Generator,
-    train: np.ndarray,        # [T, D] rows, f32
+    train,                    # [T, D] rows, f32: numpy or a tensor on any device
     m: int,
     n_opq_iters: int = 5,     # OPQ_NITER analogue
     n_kmeans_iters: int = 6,
@@ -62,7 +64,8 @@ def train_opq(
     """Alternating OPQ (Ge et al.): fix R, train PQ on X R; fix the
     codebooks, R = U V^T from the SVD of X^T X_hat (orthogonal Procrustes).
     Returns (R [D, D] on the host, codebooks [M, 256, dsub])."""
-    x = torch.as_tensor(np.asarray(train, np.float32), device=device)
+    x = (train.to(device, torch.float32) if torch.is_tensor(train)
+         else torch.as_tensor(np.asarray(train, np.float32), device=device))
     d = x.shape[1]
     r = torch.eye(d, dtype=torch.float32, device=device)
     cb = None

@@ -39,14 +39,20 @@ _MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # adds to it, and ``index/graphs.py`` keeps it to the kernels that ran: a
 # served chain's capture adds nothing, each replay adds its launches.
 LAUNCHES = 0
+# rows a block of store_norms2 takes
+_NORM_ROWS = 1 << 18
 
 
 def store_norms2(vectors: torch.Tensor) -> torch.Tensor:
     """[Np] f32 squared row norms of the raw store payload (int8: norms of
     the integer codes; the row scale enters at score time as s^2 ||r||^2).
-    Cache it per store (``VectorStore.norms2``)."""
-    v = vectors.to(torch.float32)
-    return torch.sum(v * v, dim=1)
+    Cache it per store (``VectorStore.norms2``). A block of rows at a time,
+    so no store-sized temporary is made."""
+    out = torch.empty(vectors.shape[0], dtype=torch.float32, device=vectors.device)
+    for s in range(0, vectors.shape[0], _NORM_ROWS):
+        v = vectors[s:s + _NORM_ROWS].to(torch.float32)
+        out[s:s + _NORM_ROWS] = torch.sum(v * v, dim=1)
+    return out
 
 
 def residual_qcent(

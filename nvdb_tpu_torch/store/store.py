@@ -153,11 +153,11 @@ class VectorStore:
 
         np_pad = round_up(max(n, 1), row_block * max(n_shards, 1))
         dp = round_up(d, 128)
-        host_dt = (np.int8 if code == vecbin.DTYPE_I8
-                   else np.uint16 if x.dtype == np.uint16 else np.float32)
-        host = np.zeros((np_pad, dp), dtype=host_dt)
-        host[:n, :d] = x
-        vecs = _encode_host(host, store_code).to(device)
+        # filled block by block: no padded copy of the rows on the host
+        vecs = torch.zeros((np_pad, dp), dtype=_TORCH_BY_CODE[store_code], device=device)
+        for b0 in range(0, n, _UPLOAD_ROWS):
+            b1 = min(b0 + _UPLOAD_ROWS, n)
+            vecs[b0:b1, :d].copy_(_encode_host(x[b0:b1], store_code))
 
         sc = None
         if code == vecbin.DTYPE_I8:

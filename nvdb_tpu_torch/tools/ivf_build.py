@@ -23,6 +23,7 @@ from __future__ import annotations
 import time
 
 from nvdb_tpu_torch import config
+from nvdb_tpu_torch.eval import trace
 from nvdb_tpu_torch.formats import vecbin
 from nvdb_tpu_torch.tools._common import make_parser, setup_device
 
@@ -71,34 +72,11 @@ def main(argv=None):
             args.pad_factor = 1.5 if args.kind == "ivfflat" else 2.5
     device = setup_device(args)
 
-    from nvdb_tpu_torch.index.ivf_flat import IVFFlatIndex
-    from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
-
     f = vecbin.VecbinFile(args.base)
     rows = f.rows_f32()
     t0 = time.perf_counter()
-    if args.repack_from:
-        if args.kind == "ivfpq":
-            idx = IVFPQIndex.repack(IVFPQIndex.load(args.repack_from, device=device), rows,
-                                    pad_factor=args.pad_factor,
-                                    spill_candidates=args.spill_candidates,
-                                    replicas=args.replicas)
-        else:
-            idx = IVFFlatIndex.repack(IVFFlatIndex.load(args.repack_from, device=device),
-                                      rows, pad_factor=args.pad_factor,
-                                      spill_candidates=args.spill_candidates)
-    elif args.kind == "ivfflat":
-        idx = IVFFlatIndex.build(
-            rows, nlist=args.nlist, dtype=args.dtype, train_size=args.train,
-            n_iters=args.iters, pad_factor=args.pad_factor,
-            spill_candidates=args.spill_candidates, seed=args.seed,
-            corpus_refine_iters=args.corpus_refine, device=device)
-    else:
-        idx = IVFPQIndex.build(
-            rows, nlist=args.nlist, m=args.pq_m, use_opq=args.opq, train_size=args.train,
-            n_iters=args.iters, opq_iters=args.opq_iters, pad_factor=args.pad_factor,
-            spill_candidates=args.spill_candidates, seed=args.seed,
-            corpus_refine_iters=args.corpus_refine, device=device)
+    with trace.recording() as rec:
+        idx = _build(args, rows, device)
     if args.kind == "ivfflat":
         shape = f"dtype={vecbin.dtype_name(idx.dtype_code)}"
     else:
@@ -112,8 +90,38 @@ def main(argv=None):
     print(f"built {args.kind} nlist={idx.nlist} lcap={idx.lcap} {shape} over N={f.count} "
           f"in {dt:.2f}s on {device}; index_bytes={idx.index_bytes} "
           f"({idx.index_bytes / 1e6:.1f} MB) spilled={idx.n_spilled} -> {args.out}")
+    for r in rec.records:
+        if r.name.startswith("build."):
+            a = r.attrs
+            print(f"  {r.name}: {(r.end_ns - r.start_ns) / 1e9:.3f} s, rows={a['rows']} "
+                  f"where={a['where']} h2d_bytes={a['h2d_bytes']} d2h_bytes={a['d2h_bytes']}")
     return idx
 
+
+def _build(args, rows, device):
+    """The index ``args`` ask for, built (or repacked) from ``rows``."""
+    from nvdb_tpu_torch.index.ivf_flat import IVFFlatIndex
+    from nvdb_tpu_torch.index.ivf_pq import IVFPQIndex
+
+    if args.repack_from and args.kind == "ivfpq":
+        return IVFPQIndex.repack(IVFPQIndex.load(args.repack_from, device=device), rows,
+                                 pad_factor=args.pad_factor,
+                                 spill_candidates=args.spill_candidates, replicas=args.replicas)
+    if args.repack_from:
+        return IVFFlatIndex.repack(IVFFlatIndex.load(args.repack_from, device=device), rows,
+                                   pad_factor=args.pad_factor,
+                                   spill_candidates=args.spill_candidates)
+    if args.kind == "ivfflat":
+        return IVFFlatIndex.build(
+            rows, nlist=args.nlist, dtype=args.dtype, train_size=args.train,
+            n_iters=args.iters, pad_factor=args.pad_factor,
+            spill_candidates=args.spill_candidates, seed=args.seed,
+            corpus_refine_iters=args.corpus_refine, device=device)
+    return IVFPQIndex.build(
+        rows, nlist=args.nlist, m=args.pq_m, use_opq=args.opq, train_size=args.train,
+        n_iters=args.iters, opq_iters=args.opq_iters, pad_factor=args.pad_factor,
+        spill_candidates=args.spill_candidates, seed=args.seed,
+        corpus_refine_iters=args.corpus_refine, device=device)
 
 if __name__ == "__main__":
     main()

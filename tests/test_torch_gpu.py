@@ -1918,8 +1918,8 @@ def _wrapper_call(name, device):
 def test_wrapper_span_has_one_launch_and_counts_its_allocations(cuda_device, name):
     """Recorded, a wrapper is one span of its own name with exactly one
     ``launch`` child; its ``alloc_bytes`` is what the caching allocator was
-    asked for during the call; the answers are bit for bit the unrecorded
-    call's."""
+    asked for during the call (the fused key scan's span also carries its
+    plan's ``nq``); the answers are bit for bit the unrecorded call's."""
     from nvdb_tpu_torch.eval import trace
 
     call = _wrapper_call(name, cuda_device)
@@ -1933,7 +1933,9 @@ def test_wrapper_span_has_one_launch_and_counts_its_allocations(cuda_device, nam
     assert [(r.name, r.parent) for r in tr.records] == [(name, -1), ("launch", 0)]
     root, launch = tr.records
     assert root.start_ns <= launch.start_ns <= launch.end_ns <= root.end_ns
-    assert root.attrs == {"alloc_bytes": asked} and asked > 0
+    nq = {"nq": root.attrs.get("nq")} if name == "adc_fused_keys_cuda" else {}
+    assert root.attrs == {"alloc_bytes": asked, **nq} and asked > 0
+    assert nq.get("nq", 1) in (1, 4, 8, 16, 32)
     assert launch.attrs == {}
     assert torch.equal(i0, i1) and torch.equal(v0.view(torch.int32), v1.view(torch.int32))
 
@@ -2206,3 +2208,86 @@ def test_served_flat_search_eager_routes_capture_nothing(cuda_device, monkeypatc
     assert (graphs.GRAPH_CAPTURES, graphs.GRAPH_REPLAYS, graphs.GRAPH_EAGER) == (0, 0, 1)
     assert len(idx._graphs) == 0 and tr.records[0].attrs["graph"] == "eager"
     assert _same(out, idx._search_chain(q, 10))
+
+
+# -- the OpenAI width: cell ivfpq1536.b256's shapes ------------------------------
+
+@pytest.mark.gpu
+def test_fused_keys_at_m128_lcap1536(cuda_device):
+    """The fused key scan at the cell's batch and widths (B 256, P 64,
+    M 128, dsub 12, Lcap 1536): most lists filled past one 768-lane tile,
+    so a pair's list spans two tile CTAs; bit for bit its plain version
+    and the two-kernel key path, and the span carries the plan's width."""
+    from nvdb_tpu_torch.eval import trace
+    from nvdb_tpu_torch.kernels import adc_scan
+
+    args = _fused_case(256, 64, 256, 128, 12, 1536, seed=1536, device=cuda_device, hot=True)
+    assert int((adc_scan.list_fills(args[5]) > adc_scan.FUSED_TILE).sum()) > 128
+    _fused_check(*args, 50)
+    with trace.recording() as tr:
+        adc_scan.adc_fused_keys_cuda(*args, 50)
+    span = next(r for r in tr.records if r.name == "adc_fused_keys_cuda")
+    assert span.attrs["nq"] == adc_scan.fused_plan(128, adc_scan.FUSED_NQ_MAX,
+                                                    torch.cuda.current_device())
+
+
+@pytest.mark.gpu
+def test_rerank_reads_rows_past_2_31_elements(cuda_device):
+    """A 1.5M x 1536 f32 store holds 2.3e9 elements: candidates whose row
+    starts past 2^31 are read whole, as the plain version reads them (values
+    within 1e-5, the same ids), and the last row wins where it is best."""
+    from nvdb_tpu_torch.kernels import rerank
+
+    n, dp, b, r, k = 1_500_000, 1536, 8, 50, 10
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    store = torch.randn((n, dp), generator=g, device=cuda_device)
+    store /= torch.linalg.vector_norm(store, dim=1, keepdim=True)
+    q = torch.randn((b, dp), generator=g, device=cuda_device)
+    q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    far = (1 << 31) // dp + 1                            # the first row past 2^31 elements
+    cand = torch.randint(far, n, (b, r), generator=g, device=cuda_device).to(torch.int32)
+    cand[:, :5] = torch.randint(0, far, (b, 5), generator=g, device=cuda_device).to(torch.int32)
+    cand[0, 0] = n - 1
+    store[n - 1] = q[0]                                  # the best row of query 0, at the end
+    n2 = rerank.store_norms2(store)
+    for metric in ("l2", "dot"):
+        kv, ki = rerank.rerank_topk_cuda(q, cand, store, None, k, norms2=n2, metric=metric)
+        pv, pi = rerank.rerank_topk_reference(q, cand, store, None, k, norms2=n2, metric=metric)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(kv, pv, atol=1e-5, rtol=1e-5)
+        assert torch.equal(ki, pi)
+        assert int(ki[0, 0]) == n - 1
+
+
+@pytest.mark.gpu
+def test_ivfpq_build_on_the_card_and_the_host_path(cuda_device, monkeypatch):
+    """The build with its padded corpus on the card (every span says
+    ``device``, nothing crosses after the upload), and a repack of its
+    rows with the corpus on the card or, with no memory to spare for it,
+    on the host and streamed in chunks: the same slots and codes bit for
+    bit (a build's k-means sums by atomics, so two builds differ), every
+    row placed once, the spans saying where the corpus lived."""
+    from nvdb_tpu_torch.eval import trace
+    from nvdb_tpu_torch.index import ivf_pq
+
+    rows = synth.normalized_gaussian(40_000, 1536, seed=15)
+    with trace.recording() as tr:
+        idx = ivf_pq.IVFPQIndex.build(rows, nlist=64, m=128, train_size=20_000, n_iters=4,
+                                      opq_iters=2, seed=3, device=cuda_device)
+    spans = [r for r in tr.records if r.name.startswith("build.")]
+    assert len(spans) == 8 and {r.attrs["where"] for r in spans} == {"device"}
+    assert sum(r.attrs["h2d_bytes"] + r.attrs["d2h_bytes"] for r in spans[1:]) == 0
+    built = {}
+    for where, budget in (("device", None), ("host", 0)):
+        monkeypatch.setattr(ivf_pq, "_DEVICE_BUILD_BYTES", budget)
+        with trace.recording() as tr:
+            built[where] = ivf_pq.IVFPQIndex.repack(idx, rows, pad_factor=3.0)
+        spans = [r for r in tr.records if r.name.startswith("build.")]
+        assert {r.attrs["where"] for r in spans} == {where} and len(spans) == 5
+        moved = sum(r.attrs["h2d_bytes"] + r.attrs["d2h_bytes"] for r in spans[1:])
+        assert (moved > 0) == (where == "host")
+    dev, host = built["device"], built["host"]
+    assert torch.equal(dev.slot_ids, host.slot_ids) and torch.equal(dev.codes, host.codes)
+    live = dev.slot_ids[dev.slot_ids >= 0]
+    assert torch.equal(torch.sort(live).values,
+                       torch.arange(40_000, device=cuda_device, dtype=torch.int32))
